@@ -1,0 +1,17 @@
+"""PyTorch/CUDA port of :mod:`svoc_tpu`, built for an NVIDIA H100.
+
+The port mirrors the JAX package module by module; each module's
+docstring names the ``svoc_tpu`` module it mirrors.  It imports
+``torch`` and numpy only, never ``jax``, ``flax`` or anything of
+``svoc_tpu`` (``tests/test_torch_guard.py`` holds it to that).
+
+Entry points take ``device=None``, which means CUDA and raises when no
+CUDA device is present (:func:`svoc_torch.device.resolve_device`).  The
+plain PyTorch version of each kernel runs only for tensors that lie on
+the CPU, as the tests pass them; on a CUDA tensor a wrapper launches its
+hand-written kernel (``svoc_torch/csrc``) or raises.
+"""
+
+from svoc_torch.device import resolve_device
+
+__all__ = ["resolve_device"]
