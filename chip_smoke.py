@@ -14,6 +14,13 @@ Phases:
    flagship shape [256, 128, 12, 64] in bf16 with segment ids from a real
    packed batch (3e-2), the per-key mask mode, float32 at every head width
    (2e-5), dead rows (exactly 0 and lse -inf) and the lse.
+2b. The flash backward kernels (dq, and dk with dv) against the plain
+   backward's fp32 result on the same inputs: the flagship shape in
+   bf16 with segment ids from a real packed batch (3e-2, plus one bf16
+   rounding of the kernel's output), the per-key mask mode with a fully
+   masked row, float32 at every head width with T = 77 (1e-4), and exact
+   zeros for padding queries and dead keys; then their times beside the
+   plain backward's and SDPA's backward under the same boolean mask.
 3. The fused-consensus kernel against its plain version: N = 1024, M = 6,
    n_failing = 128, constrained and unconstrained, a tie-heavy fleet,
    N = 7 and N = 1000. The reliable mask exact; essence, risk and
@@ -24,9 +31,21 @@ Phases:
    with bf16 weights, 256 packed rows of 128 tokens with up to 8 comments,
    a 50-comment window, 1024 oracles, subsets of 10: one warm-up step and
    five timed steps on distinct batches. Every kernel's launch count is
-   set to 0 just before the main path and read just after it. One more
-   step then runs under ``torch.profiler`` for a breakdown of device time
+   set to 0 just before the main path and read just after it; the
+   backward kernels must launch 0 times there. One more step then runs
+   under ``torch.profiler`` for a breakdown of device time
    (informational: it cannot fail the run).
+5. The fine-tune step: first a small float32 step on the card against
+   the same step on the CPU (one SGD(0.1) and one AdamW step, TINY_TEST,
+   the same packed batch); then the training path at full width,
+   ROBERTA_GO_EMOTIONS with float32 master parameters and bf16
+   compute, AdamW(1e-4), 256 packed rows of 128 tokens with up to 8
+   comments and seeded multi-hot labels: one warm-up step, five timed
+   steps on distinct batches, ten steps on one fixed batch, with the
+   launch counts set to 0 before and read after; every parameter must
+   move, including the 36 query, key and value projections, the loss on
+   the fixed batch must fall, and a saved and restored state must equal
+   the original. One profiled step follows (informational).
 
 It then prints one JSON line of per-kernel numbers, the card's
 ``nvidia-smi`` name and power limit, and last
@@ -49,8 +68,19 @@ from pathlib import Path
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
 FP32_FLOPS = 67e12
-KERNELS = ("flash_attention", "fused_consensus")
+KERNELS = ("flash_attention", "flash_attention_bwd", "fused_consensus")  # sources
 MAIN_STEPS = 5  # timed steps after one warm-up step
+FIXED_STEPS = 10  # training steps on one fixed batch
+#: The fixed batch's last loss must be below this × its first (0.963
+#: measured on an NVIDIA H100 80GB HBM3).
+FIXED_LOSS_RATIO = 0.98
+#: The kernels of the JSON line: name → (source, the TPU kernel it replaces).
+KERNEL_ROWS = {
+    "flash_attention": ("svoc_torch/csrc/flash_attention.cu", "svoc_tpu/ops/pallas_attention.py:71"),
+    "flash_dq": ("svoc_torch/csrc/flash_attention_bwd.cu", "svoc_tpu/ops/pallas_attention.py:157"),
+    "flash_dkv": ("svoc_torch/csrc/flash_attention_bwd.cu", "svoc_tpu/ops/pallas_attention.py:201"),
+    "fused_consensus": ("svoc_torch/csrc/fused_consensus.cu", "svoc_tpu/ops/pallas_consensus.py:209"),
+}
 
 failures: list = []
 
@@ -139,7 +169,7 @@ def flash_phase(torch, results):
     import torch.nn.functional as F
 
     from svoc_torch.ops.flash_attention import (
-        attention_tags, flash_attention_cuda, flash_attention_plain,
+        attention_tags, flash_attention_cuda, flash_attention_plain, tag_mask,
     )
 
     dev = torch.device("cuda")
@@ -191,7 +221,7 @@ def flash_phase(torch, results):
     ms = cuda_ms(torch, lambda: flash_attention_cuda(q, k, v, qtag, ktag))
     plain_ms = cuda_ms(torch, lambda: flash_attention_plain(q, k, v, qtag, ktag), iters=5)
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-    live = (qtag[:, :, None] == ktag[:, None, :]) & (ktag[:, None, :] > 0)
+    live = tag_mask(qtag, ktag)
     mask = live[:, None]
     library_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask))
     live_pairs = int(live.sum())
@@ -204,6 +234,103 @@ def flash_phase(torch, results):
         max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
         bound_by=bound_by, library_ms=library_ms,
     )
+
+
+@phase("2b. flash backward: kernels vs plain")
+def flash_bwd_phase(torch, results):
+    import torch.nn.functional as F
+
+    from svoc_torch.ops.flash_attention import (
+        attention_delta, attention_tags, flash_attention_bwd_plain, flash_attention_cuda,
+        flash_dkv_cuda, flash_dq_cuda, tag_mask,
+    )
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(2)
+
+    def normal(b, t, h, d, dtype):
+        return torch.randn(b, t, h, d, generator=gen, device=dev).to(dtype)
+
+    def run(q, k, v, qtag, ktag, dout, atol, rtol):
+        """Both kernels and the plain backward's fp32 result (the plain
+        arithmetic before its cast to q's dtype) on one input: the
+        kernels' outputs, each one's max |kernel - plain|, whether every
+        element is within atol + rtol * |plain|, and the largest |plain|."""
+        out, lse = flash_attention_cuda(q, k, v, qtag, ktag, return_lse=True)
+        delta = attention_delta(out, dout)
+        got = (flash_dq_cuda(q, k, v, qtag, ktag, dout, lse, delta),
+               *flash_dkv_cuda(q, k, v, qtag, ktag, dout, lse, delta))
+        ref = flash_attention_bwd_plain(
+            q.float(), k.float(), v.float(), qtag, ktag, out.float(), lse, dout.float())
+        torch.cuda.synchronize()
+        errs, ok = [], True
+        for g, r in zip(got, ref):
+            diff = (g.float() - r).abs()
+            errs.append(diff.max().item())
+            ok &= bool(torch.all(diff <= atol + rtol * r.abs()))
+        return got, errs, ok, max(r.abs().max().item() for r in ref)
+
+    # Flagship shape, segment ids of a real packed batch.
+    b, t, h, d = 256, 128, 12, 64
+    seg = torch.from_numpy(packed_batch(seed=1).seg).to(dev)
+    q, k, v, dout = (normal(b, t, h, d, torch.bfloat16) for _ in range(4))
+    qtag, ktag = attention_tags(q, segment_ids=seg)
+    bf16_rtol = 2.0 ** -8  # one bf16 rounding of the kernel's output
+    (dq, dk, dv), errs, ok, peak = run(q, k, v, qtag, ktag, dout, 3e-2, bf16_rtol)
+    check(ok, "flagship bf16 segments: max |kernel - plain| dq {:.3e}, dk {:.3e}, dv {:.3e} "
+              "<= 3e-2 + 2^-8 |plain| (max |plain| {:.3f})".format(*errs, peak))
+    pad = seg == 0
+    check(bool(torch.all(dq[pad] == 0) and torch.all(dk[pad] == 0) and torch.all(dv[pad] == 0)),
+          f"flagship: dq, dk and dv of all {int(pad.sum())} padding tokens exactly 0")
+
+    kmask = seg > 0
+    kmask[3] = False  # a row whose every key is masked
+    kq, kk = attention_tags(q, kmask=kmask)
+    (kdq, kdk, kdv), kerrs, kok, kpeak = run(q, k, v, kq, kk, dout, 3e-2, bf16_rtol)
+    check(kok and bool(torch.all(kdq[3] == 0))
+          and bool(torch.all(kdk[~kmask] == 0) and torch.all(kdv[~kmask] == 0)),
+          "flagship bf16 kmask: max err dq {:.3e}, dk {:.3e}, dv {:.3e} (max |plain| {:.3f}); "
+          "fully masked row's dq and masked keys' dk, dv exactly 0".format(*kerrs, kpeak))
+
+    for hd in (16, 32, 64, 128):
+        sq, sk, sv, sdo = (normal(2, 77, 3, hd, torch.float32) for _ in range(4))
+        sseg = torch.randint(0, 4, (2, 77), generator=gen, device=dev, dtype=torch.int32).sort(dim=1).values
+        a, b_ = attention_tags(sq, segment_ids=sseg)
+        (gq, gk, gv), ferrs, fok, _ = run(sq, sk, sv, a, b_, sdo, 1e-4, 0.0)
+        dead = sseg == 0
+        check(fok and bool(torch.all(gq[dead] == 0) and torch.all(gk[dead] == 0)
+                           and torch.all(gv[dead] == 0)),
+              "f32 [2, 77, 3, {}] segments: dq {:.3e}, dk {:.3e}, dv {:.3e} <= 1e-4; "
+              "padding exactly 0".format(hd, *ferrs))
+
+    # Times at the flagship shape, main-path calls.
+    out, lse = flash_attention_cuda(q, k, v, qtag, ktag, return_lse=True)
+    delta = attention_delta(out, dout)
+    dq_ms = cuda_ms(torch, lambda: flash_dq_cuda(q, k, v, qtag, ktag, dout, lse, delta))
+    dkv_ms = cuda_ms(torch, lambda: flash_dkv_cuda(q, k, v, qtag, ktag, dout, lse, delta))
+    plain_ms = cuda_ms(
+        torch, lambda: flash_attention_bwd_plain(q, k, v, qtag, ktag, out, lse, dout), iters=5)
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v))
+    live = tag_mask(qtag, ktag)
+    sdpa_out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=live[:, None])
+    dout_t = dout.transpose(1, 2).contiguous()
+    library_ms = cuda_ms(
+        torch, lambda: torch.autograd.grad(sdpa_out, (qt, kt, vt), dout_t, retain_graph=True))
+    live_pairs = int(live.sum())
+    tensor_bytes = q.numel() * q.element_size()
+    reads = 4 * tensor_bytes + 2 * lse.numel() * 4 + 2 * qtag.numel() * 4  # q, k, v, dO, lse, delta, tags
+    for name, ms, writes, flops in (
+        ("flash_dq", dq_ms, 1, 6), ("flash_dkv", dkv_ms, 2, 8),
+    ):
+        bytes_moved = reads + writes * tensor_bytes
+        bound_ms, bound_by = bound(bytes_moved, flops * d * h * live_pairs, BF16_FLOPS)
+        print(f"  flagship {name}: kernel {ms:.4f} ms, plain backward {plain_ms:.4f} ms, "
+              f"SDPA backward {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}; "
+              f"{bytes_moved} bytes, {live_pairs} live pairs)")
+        results[name] = dict(
+            max_abs_err=errs[0] if name == "flash_dq" else max(errs[1:]), ms=ms,
+            plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
+        )
 
 
 @phase("3. fused consensus: kernel vs plain")
@@ -281,7 +408,7 @@ def small_step_phase(torch):
 def main_path_phase(torch, launches):
     from svoc_torch.flagship import FlagshipStep
     from svoc_torch.io.scraper import SyntheticSource
-    from svoc_torch.ops.flash_attention import flash_attention_cuda
+    from svoc_torch.ops.flash_attention import flash_attention_cuda, flash_dkv_cuda, flash_dq_cuda
     from svoc_torch.ops.fused_consensus import fused_consensus_cuda, fused_consensus_plain
     from svoc_torch.sim.oracle import assemble_fleet
 
@@ -291,8 +418,8 @@ def main_path_phase(torch, launches):
     gen = torch.Generator(device="cuda").manual_seed(0)
     torch.cuda.synchronize()
 
-    flash_attention_cuda.launches = 0
-    fused_consensus_cuda.launches = 0
+    for wrapper in (flash_attention_cuda, fused_consensus_cuda, flash_dq_cuda, flash_dkv_cuda):
+        wrapper.launches = 0
     essences, rows = [], []
     for i in range(1 + MAIN_STEPS):
         t0 = time.perf_counter()
@@ -312,12 +439,14 @@ def main_path_phase(torch, launches):
                          consensus_ms=ev[1].elapsed_time(ev[2]), comments=n_comments))
     launches["flash_attention"] = flash_attention_cuda.launches
     launches["fused_consensus"] = fused_consensus_cuda.launches
+    backward = (flash_dq_cuda.launches, flash_dkv_cuda.launches)
 
     steps = 1 + MAIN_STEPS
     check(launches["flash_attention"] == n_layers * steps,
           f"flash kernel launches {launches['flash_attention']} == {n_layers} x {steps} steps")
     check(launches["fused_consensus"] == steps,
           f"consensus kernel launches {launches['fused_consensus']} == {steps} steps")
+    check(backward == (0, 0), f"backward kernel launches while serving (dq, dk/dv) {backward} == (0, 0)")
     check(len(set(essences)) == steps, f"{steps} distinct essences on distinct batches")
     e = torch.tensor(essences)
     check(bool(torch.isfinite(e).all()) and e.shape == (steps, 6),
@@ -344,25 +473,29 @@ def main_path_phase(torch, launches):
           f"{n_comments / device_s:.1f} comments/s over the step, "
           f"{n_comments / wall_s:.1f} comments/s with the serial host feed")
     print("  per step: " + json.dumps(rows))
-    profile_one_step(torch, step, feed, gen)
+    batch, _ = next(feed)
+    profile_one_step(torch, lambda: step(batch, gen)[0].essence.cpu())
 
 
-def profile_one_step(torch, step, feed, gen):
-    """One more step under ``torch.profiler``: device busy time, idle
-    share within the step, and the kernels by device time. Informational:
-    it runs after the launch counts are read and never fails the run."""
+def profile_one_step(torch, run):
+    """One more step, ``run()`` (which ends by fetching its result to the
+    host), under ``torch.profiler``: device busy time, idle share within
+    the step, and the kernels by device time. Informational: it runs
+    after the launch counts are read and never fails the run."""
     try:
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
 
-        batch, _ = next(feed)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            out, _ = step(batch, gen)
-            out.essence.cpu()
+            run()
             wall_ms = (time.perf_counter() - t0) * 1e3
-        kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        # A user annotation (the optimizer's "Optimizer.step#..." range)
+        # also shows on the device timeline; it spans kernels counted
+        # on their own.
+        kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False)]
 
         def device_us(e):
             return getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
@@ -375,6 +508,184 @@ def profile_one_step(torch, step, feed, gen):
     except Exception:  # the profiler is an observation, not a check
         traceback.print_exc()
         print("  profile unavailable (informational, not a check)")
+
+
+def train_batch(torch, batch, n_comments, rng, n_labels, device):
+    """A packed batch with multi-hot labels (density 0.05, about one
+    label in 28 per comment, as go_emotions has) on ``device``."""
+    from svoc_torch.models.packing import pack_labels
+    from svoc_torch.train.trainer import PackedTrainBatch
+
+    labels = (rng.random((n_comments, n_labels)) < 0.05).astype("float32")
+    arrays = (batch.ids, batch.pos, batch.seg, batch.cls_pos, batch.seg_valid,
+              pack_labels(batch, labels))
+    return PackedTrainBatch(*(torch.from_numpy(a).to(device) for a in arrays))
+
+
+def packed_state(torch, cfg, params, tx, device):
+    """A fresh train state of the packed encoder holding float32 copies
+    of ``params``."""
+    from svoc_torch.models.packing import PackedSentimentEncoder
+    from svoc_torch.train.trainer import init_state
+
+    with torch.device("meta"):
+        model = PackedSentimentEncoder(cfg)
+    return init_state(model, params, tx, device=device)
+
+
+@phase("5a. small train step: card vs CPU")
+def small_train_phase(torch):
+    import numpy as np
+
+    from svoc_torch.flagship import packed_comment_stream
+    from svoc_torch.io.scraper import SyntheticSource
+    from svoc_torch.models.configs import TINY_TEST as cfg
+    from svoc_torch.models.encoder import init_params
+    from svoc_torch.models.tokenizer import HashingTokenizer
+    from svoc_torch.train.trainer import adamw, make_packed_train_step, sgd
+
+    tok = HashingTokenizer(cfg.vocab_size, pad_id=cfg.pad_id, max_len=32)
+    batch, n = next(packed_comment_stream(tok, SyntheticSource(batch=16, seed=5), 16, 32, 4))
+    params = init_params(cfg, seed=3, device="cpu")
+    step = make_packed_train_step()
+    # Bars from the card's own runs (NVIDIA H100 80GB HBM3): SGD's
+    # parameters agree within 1.2e-7. AdamW's first step moves a weight
+    # by about ±lr whatever the gradient's size, so a near-zero gradient
+    # whose sign differs between card and CPU puts it up to 2 lr apart
+    # (1.0e-5 measured at lr 1e-5).
+    for name, tx, bar in (("SGD(0.1)", sgd(0.1), 1e-6), ("AdamW(1e-5)", adamw(1e-5), 2.5e-5)):
+        ends = []
+        for dev in ("cuda", "cpu"):
+            state = packed_state(torch, cfg, params, tx, dev)
+            tb = train_batch(torch, batch, n, np.random.default_rng(0), cfg.n_labels, dev)
+            state, metrics = step(state, tb)
+            ends.append((metrics["loss"].item(),
+                         {k: p.detach().cpu() for k, p in state.model.named_parameters()}))
+        (loss_card, p_card), (loss_cpu, p_cpu) = ends
+        p_err = max((p_card[k] - p_cpu[k]).abs().max().item() for k in p_cpu)
+        loss_err = abs(loss_card - loss_cpu)
+        check(loss_err <= 1e-6 and p_err <= bar,
+              f"TINY_TEST f32 {name} step: loss {loss_card:.7f} vs {loss_cpu:.7f} "
+              f"(err {loss_err:.3e} <= 1e-6), max parameter err {p_err:.3e} <= {bar:g}")
+
+
+@phase("5b. main path: full-width packed fine-tune steps")
+def train_path_phase(torch, launches):
+    import tempfile
+
+    import numpy as np
+
+    from svoc_torch.flagship import packed_comment_stream
+    from svoc_torch.io.scraper import SyntheticSource
+    from svoc_torch.models.configs import ROBERTA_GO_EMOTIONS as cfg
+    from svoc_torch.models.encoder import init_params
+    from svoc_torch.models.tokenizer import HashingTokenizer
+    from svoc_torch.ops.flash_attention import flash_attention_cuda, flash_dkv_cuda, flash_dq_cuda
+    from svoc_torch.train.trainer import adamw, make_packed_train_step
+    from svoc_torch.utils.checkpoint import restore_train_state, save_train_state
+
+    dev = torch.device("cuda")
+    tok = HashingTokenizer(cfg.vocab_size, pad_id=cfg.pad_id, max_len=128)
+    feed = packed_comment_stream(tok, SyntheticSource(batch=256, seed=7), 256, 128, 8)
+    rng = np.random.default_rng(0)
+
+    def next_batch():
+        batch, n = next(feed)
+        return train_batch(torch, batch, n, rng, cfg.n_labels, dev), n, int((batch.seg > 0).sum())
+
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(cfg, seed=0, device=dev)  # float32 master parameters
+    state = packed_state(torch, cfg, params, adamw(1e-4), dev)
+    step = make_packed_train_step()
+
+    # CUDA events at the model's forward and the optimizer's step split a
+    # step into forward, backward (loss, backward, grad norm) and update.
+    events = {}
+
+    def mark(name):
+        events[name] = torch.cuda.Event(enable_timing=True)
+        events[name].record()
+
+    state.model.register_forward_pre_hook(lambda *_: mark("forward"))
+    state.model.register_forward_hook(lambda *_: mark("backward"))
+    state.optimizer.register_step_pre_hook(lambda *_: mark("update"))
+    state.optimizer.register_step_post_hook(lambda *_: mark("end"))
+
+    counted = (flash_attention_cuda, flash_dq_cuda, flash_dkv_cuda)
+    qkv = [f"block_{i}.attention.{w}.weight" for i in range(cfg.n_layers)
+           for w in ("query", "key", "value")]
+    fixed, _, _ = next_batch()
+    torch.cuda.synchronize()
+    for wrapper in counted:
+        wrapper.launches = 0
+    rows, per_step = [], []
+    for i in range(1 + MAIN_STEPS + FIXED_STEPS):
+        tb, n_comments, n_tokens = next_batch() if i <= MAIN_STEPS else (fixed, 0, 0)
+        before = [w.launches for w in counted]
+        if i == 0:
+            start = {k: p.detach().clone() for k, p in state.model.named_parameters()}
+        t0 = time.perf_counter()
+        state, metrics = step(state, tb)
+        loss, grad_norm = metrics["loss"].item(), metrics["grad_norm"].item()  # on the host: done
+        t1 = time.perf_counter()
+        per_step.append(tuple(w.launches - b for w, b in zip(counted, before)))
+        rows.append(dict(step_ms=(t1 - t0) * 1e3, loss=loss, grad_norm=grad_norm,
+                         forward_ms=events["forward"].elapsed_time(events["backward"]),
+                         backward_ms=events["backward"].elapsed_time(events["update"]),
+                         update_ms=events["update"].elapsed_time(events["end"]),
+                         comments=n_comments, tokens=n_tokens))
+        if i == 0:
+            moved = [k for k, p in state.model.named_parameters() if not torch.equal(p, start[k])]
+            params_of = dict(state.model.named_parameters())
+            check(len(moved) == len(start),
+                  f"first step moved {len(moved)} of {len(start)} parameter tensors")
+            check(all(bool(params_of[k].grad.abs().sum() > 0) and k in moved for k in qkv),
+                  f"all {len(qkv)} query/key/value projections got a gradient and moved")
+            del start
+    steps = len(rows)
+    for wrapper, name in zip(counted, ("flash_attention", "flash_dq", "flash_dkv")):
+        launches[name] = launches.get(name, 0) + wrapper.launches
+    check(all(c == (cfg.n_layers,) * 3 for c in per_step),
+          f"every step launched flash forward, dq and dk/dv {cfg.n_layers} times each "
+          f"({steps} steps; totals {[w.launches for w in counted]})")
+
+    distinct = rows[: 1 + MAIN_STEPS]
+    losses = [r["loss"] for r in rows]
+    check(all(math.isfinite(x) for x in losses)
+          and len({r["loss"] for r in distinct}) == len(distinct),
+          f"finite losses, distinct on {len(distinct)} distinct batches")
+    check(all(math.isfinite(r["grad_norm"]) and r["grad_norm"] > 0 for r in rows),
+          "finite, positive grad norms")
+    on_fixed = losses[1 + MAIN_STEPS:]
+    check(on_fixed[-1] < FIXED_LOSS_RATIO * on_fixed[0],
+          f"loss on one fixed batch over {FIXED_STEPS} steps: {on_fixed[0]:.5f} -> "
+          f"{on_fixed[-1]:.5f} (< {FIXED_LOSS_RATIO} x the first)")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "state.pt")
+        save_train_state(path, state)
+        restored = restore_train_state(path, packed_state(torch, cfg, params, adamw(1e-4), dev))
+    saved_opt, restored_opt = state.optimizer.state_dict(), restored.optimizer.state_dict()
+    same = (restored.step == state.step
+            and all(torch.equal(p, q) for p, q in zip(state.model.parameters(), restored.model.parameters()))
+            and all(torch.equal(saved_opt["state"][i][key], restored_opt["state"][i][key])
+                    for i in saved_opt["state"] for key in saved_opt["state"][i]))
+    check(same, f"save -> restore at step {state.step}: parameters and optimizer state exact")
+    del restored, saved_opt, restored_opt
+
+    timed = rows[1: 1 + MAIN_STEPS]
+    mean = lambda key: sum(r[key] for r in timed) / len(timed)  # noqa: E731
+    step_s = sum(r["step_ms"] for r in timed) / 1e3
+    card = nvidia_smi()
+    print(f"  [{card}] {len(timed)} timed steps: step {mean('step_ms'):.3f} ms (forward "
+          f"{mean('forward_ms'):.3f} ms, backward {mean('backward_ms'):.3f} ms, AdamW update "
+          f"{mean('update_ms'):.3f} ms)")
+    print(f"  [{card}] trained {sum(r['comments'] for r in timed) / step_s:.1f} comments/s, "
+          f"{sum(r['tokens'] for r in timed) / step_s:.1f} live tokens/s over the step; "
+          f"max memory allocated {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    print("  per step: " + json.dumps(rows))
+    tb, _, _ = next_batch()
+    profile_one_step(torch, lambda: step(state, tb)[1]["loss"].item())
 
 
 def main() -> int:
@@ -396,21 +707,22 @@ def main() -> int:
     results, launches = {}, {}
     if environment(torch):
         flash_phase(torch, results)
+        flash_bwd_phase(torch, results)
         consensus_phase(torch, results)
         small_step_phase(torch)
         main_path_phase(torch, launches)
+        serving = dict(launches)
+        small_train_phase(torch)
+        train_path_phase(torch, launches)
+        print(f"  launches: serving path {serving}; both paths {launches}")
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "svoc_tpu"))
     check(not leaked, f"no JAX or svoc_tpu module loaded ({leaked})")
 
-    sources = {
-        "flash_attention": ("svoc_torch/csrc/flash_attention.cu", "svoc_tpu/ops/pallas_attention.py:71"),
-        "fused_consensus": ("svoc_torch/csrc/fused_consensus.cu", "svoc_tpu/ops/pallas_consensus.py:209"),
-    }
-    if len(results) == len(KERNELS):
+    if len(results) == len(KERNEL_ROWS):
         print(json.dumps({"kernels": [
-            dict(name=name, route="cuda", source=sources[name][0], replaces=sources[name][1],
+            dict(name=name, route="cuda", source=source, replaces=replaces,
                  launches=launches.get(name, 0), **results[name])
-            for name in KERNELS
+            for name, (source, replaces) in KERNEL_ROWS.items()
         ]}))
     if failures:
         print(f"FAILED: {len(failures)} check(s): {failures}", file=sys.stderr)

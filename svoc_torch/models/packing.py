@@ -1,10 +1,11 @@
 """Sequence packing: several comments per fixed-length row.
 
 Mirrors :mod:`svoc_tpu.models.packing` (``PackedBatch``,
-``strip_padding``, ``pack_tokens``, ``PackedSentimentEncoder``;
-``packing.py:55-147, 228-285``).  :func:`pack_tokens` is the Python
-greedy next-fit packer and gives arrays identical to the reference's for
-the same token lists.  The native C++ packer comes in a later slice.
+``strip_padding``, ``pack_tokens``, ``pack_labels``,
+``PackedSentimentEncoder``; ``packing.py:55-147, 183-194, 228-285``).
+:func:`pack_tokens` is the Python greedy next-fit packer and gives
+arrays identical to the reference's for the same token lists.  The
+native C++ packer comes in a later slice.
 
 Positions restart per segment at ``pad_id + 1``; a packed segment sees
 exactly the keys of its own comment, so its logits are those of the
@@ -104,6 +105,20 @@ def pack_tokens(
             seg_valid[i, j] = 1
             owner[i, j] = owner_idx
     return PackedBatch(ids, pos, seg, cls_pos, seg_valid, owner), n_consumed
+
+
+def pack_labels(batch: PackedBatch, labels: np.ndarray) -> np.ndarray:
+    """Scatter per-comment ``labels [N, ...]`` into the packed layout
+    ``[R, S, ...]`` through the owner map (zeros where no segment): the
+    label side of a packed fine-tuning batch
+    (:func:`svoc_torch.train.trainer.make_packed_train_step`)."""
+    labels = np.asarray(labels)
+    if len(labels) == 0:  # all-padding batch (empty streaming tail)
+        return np.zeros(batch.owner.shape + labels.shape[1:], labels.dtype)
+    safe = np.where(batch.owner >= 0, batch.owner, 0)
+    out = labels[safe]
+    out[batch.seg_valid == 0] = 0
+    return out
 
 
 class PackedSentimentEncoder(SentimentEncoder):

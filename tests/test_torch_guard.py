@@ -17,7 +17,12 @@ from svoc_torch.consensus.kernel import ConsensusConfig
 from svoc_torch.device import resolve_device
 from svoc_torch.flagship import FlagshipStep
 from svoc_torch.ops import _build
-from svoc_torch.ops.flash_attention import flash_attention, flash_attention_cuda
+from svoc_torch.ops.flash_attention import (
+    flash_attention,
+    flash_attention_cuda,
+    flash_dkv_cuda,
+    flash_dq_cuda,
+)
 from svoc_torch.ops.fused_consensus import fused_consensus, fused_consensus_cuda
 
 REPO = Path(__file__).resolve().parent.parent
@@ -31,7 +36,9 @@ def _modules():
 
 def test_every_module_imports_without_jax_or_svoc_tpu():
     names = _modules()
-    assert "svoc_torch.flagship" in names and "svoc_torch.ops.fused_consensus" in names
+    for name in ("svoc_torch.flagship", "svoc_torch.ops.fused_consensus",
+                 "svoc_torch.train.trainer", "svoc_torch.utils.checkpoint"):
+        assert name in names
     code = (
         "import importlib, sys\n"
         f"for name in {names!r}: importlib.import_module(name)\n"
@@ -88,6 +95,31 @@ def test_flash_kernel_wrapper_refuses(make, match):
     assert flash_attention_cuda.launches == before
 
 
+def _bwd_args(d=16, dtype=torch.float32, lse_dtype=torch.float32, dout=None):
+    q, k, v = _qkv(d=d, dtype=dtype)
+    stats = torch.zeros(1, 8, 2, dtype=lse_dtype)
+    return (q, k, v, *_tags(), q.clone() if dout is None else dout, stats, stats.clone())
+
+
+@pytest.mark.parametrize("wrapper", [flash_dq_cuda, flash_dkv_cuda], ids=["dq", "dkv"])
+@pytest.mark.parametrize(
+    "make,match",
+    [
+        (lambda: _bwd_args(d=24), "head dim"),
+        (lambda: _bwd_args(dtype=torch.float16), "bfloat16 or float32"),
+        (lambda: _bwd_args(dout=torch.zeros(1, 8, 2, 16, dtype=torch.bfloat16)), "dout"),
+        (lambda: _bwd_args(lse_dtype=torch.float64), "lse"),
+        (lambda: _bwd_args(dout=torch.zeros(1, 8, 2, 32)[..., ::2]), "contiguous"),
+        (lambda: _bwd_args(), "CUDA"),
+    ],
+)
+def test_flash_backward_wrappers_refuse(wrapper, make, match):
+    before = wrapper.launches
+    with pytest.raises(ValueError, match=match):
+        wrapper(*make())
+    assert wrapper.launches == before
+
+
 @pytest.mark.parametrize(
     "values,cfg,match",
     [
@@ -130,8 +162,29 @@ def test_flash_encoder_on_cpu_never_counts_a_launch():
     assert (flash_attention_cuda.launches, fused_consensus_cuda.launches) == before
 
 
+def test_cpu_train_step_never_counts_a_launch():
+    from svoc_torch.models.configs import TINY_TEST
+    from svoc_torch.models.encoder import init_params
+    from svoc_torch.models.packing import PackedSentimentEncoder, pack_labels, pack_tokens
+    from svoc_torch.train.trainer import PackedTrainBatch, init_state, make_packed_train_step, sgd
+
+    with torch.device("meta"):
+        model = PackedSentimentEncoder(TINY_TEST)
+    state = init_state(model, init_params(TINY_TEST, seed=0, device="cpu"), sgd(0.1), device="cpu")
+    batch, _ = pack_tokens([[2, 5, 6, 3], [2, 7, 3], [2, 9, 9, 3]], 16, 2, 1, rows=2)
+    labels = pack_labels(batch, (torch.rand(3, TINY_TEST.n_labels) < 0.3).float().numpy())
+    arrays = (batch.ids, batch.pos, batch.seg, batch.cls_pos, batch.seg_valid, labels)
+    counts = (flash_attention_cuda, flash_dq_cuda, flash_dkv_cuda)
+    before = [c.launches for c in counts]
+    state, metrics = make_packed_train_step()(
+        state, PackedTrainBatch(*(torch.from_numpy(a) for a in arrays))
+    )
+    assert state.step == 1 and bool(torch.isfinite(metrics["loss"]))
+    assert [c.launches for c in counts] == before
+
+
 def test_build_paths_stay_in_the_package():
     assert _build.BUILD_DIR == REPO / "svoc_torch" / "_build"
-    for name in ("flash_attention", "fused_consensus"):
+    for name in ("flash_attention", "flash_attention_bwd", "fused_consensus"):
         assert (_build.CSRC / f"{name}.cu").exists()
         assert _build.library_path(name).parent == _build.BUILD_DIR

@@ -11,9 +11,14 @@ import torch
 
 from svoc_torch.consensus.kernel import ConsensusConfig
 from svoc_torch.ops.flash_attention import (
+    attention_delta,
     attention_tags,
+    flash_attention,
+    flash_attention_bwd_plain,
     flash_attention_cuda,
     flash_attention_plain,
+    flash_dkv_cuda,
+    flash_dq_cuda,
 )
 from svoc_torch.ops.fused_consensus import fused_consensus_cuda, fused_consensus_plain
 
@@ -68,6 +73,116 @@ def test_flash_kernel_matches_plain(cuda, dtype, d, tol, mode):
     assert torch.equal(live, torch.isfinite(lse))
     torch.testing.assert_close(lse[live], ref_lse[live], atol=2e-5 if dtype == torch.float32 else 1e-3, rtol=0)
     assert torch.all(out[0] == 0)
+
+
+def _bwd_case(cuda, b, t, h, d, dtype, mode, seed):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    q, k, v, dout = (torch.randn(b, t, h, d, generator=gen, device=cuda).to(dtype) for _ in range(4))
+    if mode == "segments":
+        qtag, ktag = attention_tags(q, segment_ids=_segments(b, t, gen, cuda))
+    else:
+        kmask = torch.rand(b, t, generator=gen, device=cuda) > 0.3
+        kmask[0] = False
+        qtag, ktag = attention_tags(q, kmask=kmask)
+    out, lse = flash_attention_cuda(q, k, v, qtag, ktag, return_lse=True)
+    return q, k, v, qtag, ktag, out, lse, dout
+
+
+@pytest.mark.parametrize(
+    "dtype,d,b,t,h",
+    [
+        (torch.float32, 16, 3, 77, 2),
+        (torch.float32, 32, 3, 77, 2),
+        (torch.float32, 64, 3, 77, 2),
+        (torch.float32, 128, 3, 77, 2),
+        (torch.bfloat16, 64, 8, 128, 12),
+    ],
+)
+@pytest.mark.parametrize("mode", ["segments", "kmask"])
+def test_flash_backward_kernels_match_plain(cuda, dtype, d, b, t, h, mode):
+    """dq and dk/dv against the plain backward's fp32 result on the same
+    inputs: float32 within 1e-4 (``tests/test_pallas_attention.py``);
+    bf16 within 3e-2 plus one bf16 rounding (2^-8 relative) of the
+    kernel's output.  Dead queries and keys no query sees: exactly 0."""
+    q, k, v, qtag, ktag, out, lse, dout = _bwd_case(cuda, b, t, h, d, dtype, mode, seed=d)
+    delta = attention_delta(out, dout)
+    dq = flash_dq_cuda(q, k, v, qtag, ktag, dout, lse, delta)
+    dk, dv = flash_dkv_cuda(q, k, v, qtag, ktag, dout, lse, delta)
+    ref = flash_attention_bwd_plain(
+        q.float(), k.float(), v.float(), qtag, ktag, out.float(), lse, dout.float()
+    )
+    torch.cuda.synchronize()
+    atol, rtol = (1e-4, 0.0) if dtype == torch.float32 else (3e-2, 2.0**-8)
+    for name, got, r in zip(("dq", "dk", "dv"), (dq, dk, dv), ref):
+        assert got.dtype == dtype
+        torch.testing.assert_close(got.float(), r, atol=atol, rtol=rtol, msg=name)
+    dead_q = ~torch.isfinite(lse).all(dim=-1)
+    dead_k = ktag == 0
+    assert dead_q.any() and dead_k.any()
+    assert torch.all(dq[dead_q] == 0)
+    assert torch.all(dk[dead_k] == 0) and torch.all(dv[dead_k] == 0)
+
+
+def test_gradients_reach_q_k_and_v_on_cuda(cuda):
+    """The repaired fault: through the kernels, q, k and v all get
+    gradients, equal to autograd through the plain forward."""
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    b, t, h, d = 4, 50, 3, 32
+    seg = _segments(b, t, gen, cuda)
+    leaves = [torch.randn(b, t, h, d, generator=gen, device=cuda).requires_grad_() for _ in range(3)]
+    cot = torch.randn(b, t, h, d, generator=gen, device=cuda)
+    before = (flash_dq_cuda.launches, flash_dkv_cuda.launches)
+    got = torch.autograd.grad((flash_attention(*leaves, segment_ids=seg) * cot).sum(), leaves)
+    assert (flash_dq_cuda.launches, flash_dkv_cuda.launches) == (before[0] + 1, before[1] + 1)
+    qtag, ktag = attention_tags(leaves[0], segment_ids=seg)
+    ref = torch.autograd.grad((flash_attention_plain(*leaves, qtag, ktag) * cot).sum(), leaves)
+    for name, a, r in zip("qkv", got, ref):
+        assert bool(a.abs().sum() > 0), name
+        torch.testing.assert_close(a, r, atol=1e-4, rtol=0, msg=f"d{name}")
+
+
+def test_encoder_projections_get_gradients_on_cuda(cuda):
+    """``loss.backward()`` through the packed TINY_TEST encoder on CUDA
+    gives every query, key and value projection the CPU's gradient."""
+    from svoc_torch.models.configs import TINY_TEST
+    from svoc_torch.models.encoder import init_params
+    from svoc_torch.models.packing import PackedSentimentEncoder, pack_tokens
+    from svoc_torch.train.trainer import init_state, sgd
+
+    batch, _ = pack_tokens([[2, 5, 6, 3], [2, 7, 3], [2, 9, 9, 8, 3]], 16, 2, 1, rows=2)
+    params = init_params(TINY_TEST, seed=0, device="cpu")
+    grads = []
+    for dev in ("cpu", "cuda"):
+        with torch.device("meta"):
+            model = PackedSentimentEncoder(TINY_TEST)
+        state = init_state(model, params, sgd(0.1), device=dev)
+        arrays = [torch.from_numpy(a).to(dev) for a in (batch.ids, batch.pos, batch.seg, batch.cls_pos)]
+        state.model(*arrays).square().sum().backward()
+        grads.append({n: p.grad.cpu() for n, p in state.model.named_parameters()})
+    for i in range(TINY_TEST.n_layers):
+        for w in ("query", "key", "value"):
+            name = f"block_{i}.attention.{w}.weight"
+            assert bool(grads[1][name].abs().sum() > 0), name
+            torch.testing.assert_close(grads[1][name], grads[0][name], atol=1e-4, rtol=1e-4, msg=name)
+
+
+@pytest.mark.parametrize("wrapper", [flash_dq_cuda, flash_dkv_cuda], ids=["dq", "dkv"])
+@pytest.mark.parametrize("fault", ["dtype", "head_dim", "device", "contiguity"])
+def test_flash_backward_wrappers_refuse_on_cuda(cuda, wrapper, fault):
+    d = 24 if fault == "head_dim" else 16
+    dtype = torch.float16 if fault == "dtype" else torch.float32
+    q = torch.zeros(1, 8, 2, d, device=cuda, dtype=dtype)
+    tags = torch.ones(1, 8, dtype=torch.int32, device=cuda)
+    stats = torch.zeros(1, 8, 2, device=cuda)
+    dout = q.clone()
+    if fault == "device":
+        stats = stats.cpu()
+    if fault == "contiguity":
+        dout = torch.zeros(1, 8, 2, 2 * d, device=cuda)[..., ::2]
+    before = wrapper.launches
+    with pytest.raises(ValueError):
+        wrapper(q, q.clone(), q.clone(), tags, tags, dout, stats, stats.clone())
+    assert wrapper.launches == before
 
 
 @pytest.mark.parametrize("n,f,constrained", [(7, 2, True), (100, 12, False), (1024, 128, True)])
