@@ -25,6 +25,18 @@ Phases:
    n_failing = 128, constrained and unconstrained, a tie-heavy fleet,
    N = 7 and N = 1000. The reliable mask exact; essence, risk and
    reliabilities within 1e-5; skewness within 1e-4; kurtosis within 1e-3.
+3b. The gated claim-cube kernel against its plain version: the
+   ``bench.py --claims 64 --claims-oracles 1024`` cube ([64, 1024, 6],
+   n_failing 256, every eighth claim's last oracle quarantined), the
+   degenerate spectrum (a clean claim, a partly quarantined claim with a
+   NaN row, an all-quarantined claim, a single survivor, padding claims
+   from 3 -> 4) at N = 1024 and N = 7, a cube quantised to 1e-2 (ties) and
+   an unconstrained cube. The reliable mask and interval_valid exact;
+   essences, reliabilities and finite risks within 1e-5, infinite risks
+   equal; skewness within 1e-4; kurtosis within 1e-3. Two refusals (a
+   smooth_mode "true" config, a fleet beyond shared memory). Times at
+   [64, 1024, 6]: the kernel, the plain version, the bound, and 64
+   sequential one-claim launches against one batched launch (claims/s).
 4. The serving step: first a small float32 step on the card against the
    same step on the CPU (the plain versions the CPU tests hold against the
    JAX package); then the main path at full width, ROBERTA_GO_EMOTIONS
@@ -46,6 +58,22 @@ Phases:
    move, including the 36 query, key and value projections, the loss on
    the fixed batch must fall, and a saved and restored state must equal
    the original. One profiled step follows (informational).
+6. The multi-claim serving step at full width: 64 claims of 1024
+   oracles (128 failing, constrained), ROBERTA_GO_EMOTIONS with bf16
+   weights; each step takes 8 new comments per claim (512), assembled
+   round-robin into one packed forward of 256 rows of 128 tokens with up
+   to 8 comments, then per-claim windows (8 -> 50 rows) and fleets, the
+   in-graph quarantine gate and one gated claim-cube launch. The last
+   claim's oracle 1023 is tampered in rotation (a NaN component, an inf
+   row, a 7.5 row; the first step clean). Eight steps, the last five
+   timed, with every kernel's launch count set to 0 before and read
+   after: 12 flash and 1 claim-cube launch a step, no other. The
+   offender's slot is quarantined (the host gate agrees, with its
+   reason) and it still reports a finite consensus over 1023 oracles;
+   a second run without the tamper gives the 63 other claims' outputs
+   bit for bit; one step's cube through the plain path meets the 3b
+   bars; essences differ across claims and steps. One more step runs
+   under ``torch.profiler`` (informational).
 
 It then prints one JSON line of per-kernel numbers, the card's
 ``nvidia-smi`` name and power limit, and last
@@ -68,8 +96,11 @@ from pathlib import Path
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
 FP32_FLOPS = 67e12
-KERNELS = ("flash_attention", "flash_attention_bwd", "fused_consensus")  # sources
+KERNELS = ("flash_attention", "flash_attention_bwd", "fused_consensus",
+           "gated_claims_consensus")  # sources
 MAIN_STEPS = 5  # timed steps after one warm-up step
+CLAIMS, ORACLES, REQUESTS_PER_CLAIM = 64, 1024, 8  # the multi-claim path
+CLAIM_STEPS, CLAIM_TIMED = 8, 5  # its steps, of which the last are timed
 FIXED_STEPS = 10  # training steps on one fixed batch
 #: The fixed batch's last loss must be below this × its first (0.963
 #: measured on an NVIDIA H100 80GB HBM3).
@@ -80,6 +111,8 @@ KERNEL_ROWS = {
     "flash_dq": ("svoc_torch/csrc/flash_attention_bwd.cu", "svoc_tpu/ops/pallas_attention.py:157"),
     "flash_dkv": ("svoc_torch/csrc/flash_attention_bwd.cu", "svoc_tpu/ops/pallas_attention.py:201"),
     "fused_consensus": ("svoc_torch/csrc/fused_consensus.cu", "svoc_tpu/ops/pallas_consensus.py:209"),
+    "gated_claims_consensus": ("svoc_torch/csrc/gated_claims_consensus.cu",
+                               "svoc_tpu/ops/pallas_consensus.py:411"),
 }
 
 failures: list = []
@@ -376,6 +409,147 @@ def consensus_phase(torch, results):
     print(f"  N=1024 times: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
           f"bound {bound_ms:.6f} ms ({bound_by})")
     results["fused_consensus"] = dict(
+        max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+        bound_by=bound_by, library_ms=None,
+    )
+
+
+GATED_FLOATS = ("essence", "essence_first_pass", "reliability_first_pass",
+                "reliability_second_pass")
+
+
+def gated_errors(torch, out, ref):
+    """Whether a claim-cube output meets the reference's bars against
+    ``ref``, and its errors: reliable and interval_valid exact; the
+    floats and the finite risks within 1e-5, infinite risks equal;
+    skewness within 1e-4; kurtosis within 1e-3."""
+    errs = {f: (getattr(out, f) - getattr(ref, f)).abs().max().item() for f in GATED_FLOATS}
+    inf = torch.isinf(ref.quadratic_risk)
+    errs["finite risk"] = ((out.quadratic_risk[~inf] - ref.quadratic_risk[~inf]).abs().max().item()
+                           if bool((~inf).any()) else 0.0)
+    errs["skewness"] = (out.skewness - ref.skewness).abs().max().item()
+    errs["kurtosis"] = (out.kurtosis - ref.kurtosis).abs().max().item()
+    ok = (torch.equal(out.reliable, ref.reliable)
+          and torch.equal(out.interval_valid, ref.interval_valid)
+          and torch.equal(torch.isinf(out.quadratic_risk), inf)
+          and torch.equal(out.quadratic_risk[inf], ref.quadratic_risk[inf])
+          and all(errs[f] <= 1e-5 for f in (*GATED_FLOATS, "finite risk"))
+          and errs["skewness"] <= 1e-4 and errs["kurtosis"] <= 1e-3)
+    return ok, errs, int(inf.sum())
+
+
+def host_s(torch, fn, iters: int = 20) -> float:
+    """Mean host time of ``fn`` (which ends in a fetch to the host) over
+    ``iters`` calls after one warm-up call."""
+    fn()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    return (time.perf_counter() - t0) / iters
+
+
+@phase("3b. gated claim-cube consensus: kernel vs plain")
+def gated_claims_phase(torch, results):
+    import numpy as np
+
+    from svoc_torch.consensus.batch import pad_claim_cube
+    from svoc_torch.consensus.kernel import ConsensusConfig
+    from svoc_torch.ops.fused_consensus import (
+        fused_consensus_gated_claims_cuda, fused_consensus_gated_claims_plain,
+    )
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    worst = 0.0
+
+    def compare(name, values, ok, cfg):
+        nonlocal worst
+        values, ok, mask = (t.to(dev) for t in pad_claim_cube(values, ok))
+        out = fused_consensus_gated_claims_cuda(values, ok, mask, cfg)
+        ref = fused_consensus_gated_claims_plain(values, ok, mask, cfg)
+        torch.cuda.synchronize()
+        good, errs, n_inf = gated_errors(torch, out, ref)
+        worst = max(worst, *(errs[f] for f in ("essence", "essence_first_pass", "finite risk")))
+        check(good, f"{name}: reliable and interval_valid exact, {n_inf} infinite risks equal, "
+                    + ", ".join(f"{f} {e:.2e}" for f, e in errs.items()))
+        return out, mask
+
+    # bench.py --claims 64 --claims-oracles 1024 (bench.py:2587-2629).
+    rng = np.random.default_rng(0)
+    bench = rng.uniform(0.0, 1.0, size=(CLAIMS, ORACLES, 6)).astype(np.float32)
+    bench_ok = np.ones((CLAIMS, ORACLES), dtype=bool)
+    bench_ok[:: max(1, CLAIMS // 8), -1] = False
+    bench_cfg = ConsensusConfig(n_failing=256, constrained=True)
+    compare("bench_claims cube [64, 1024, 6], n_failing 256", bench, bench_ok, bench_cfg)
+
+    for n in (1024, 7):
+        values = torch.rand(4, n, 6, generator=gen, device=dev)
+        ok = torch.ones(4, n, dtype=torch.bool, device=dev)
+        ok[1, : max(1, n // 4)] = False
+        values[1, 0] = float("nan")
+        ok[2] = False
+        ok[3, : n - 1] = False
+        cfg = ConsensusConfig(n_failing=max(2, n // 8))
+        out, _ = compare(f"degenerate spectrum N={n}", values, ok, cfg)
+        check(not bool(out.interval_valid[2:].any()) and bool(torch.isinf(out.quadratic_risk[2]).all())
+              and bool((out.essence[2:] == 0).all()) and bool((out.essence_first_pass[2] == 0).all()),
+              f"N={n}: all-quarantined and single-survivor claims invalid, "
+              f"risks +inf with n_ok = 0, essences zeroed")
+        out, mask = compare(f"degenerate spectrum N={n}, 3 claims padded to 4", values[:3], ok[:3], cfg)
+        check(not bool(mask[3]) and not bool(out.interval_valid[3]) and not bool(out.reliable[3].any())
+              and bool((out.essence[3] == 0).all()) and bool((out.quadratic_risk[3] == 0).all()),
+              f"N={n}: the padding claim comes back inactive")
+
+    ties = torch.round(torch.rand(CLAIMS, ORACLES, 6, generator=gen, device=dev) * 100) / 100
+    tie_ok = torch.rand(CLAIMS, ORACLES, generator=gen, device=dev) > 0.02
+    compare("[64, 1024, 6] quantised to 1e-2 (ties)", ties, tie_ok, ConsensusConfig(n_failing=128))
+    unc = 20.0 + 3.0 * torch.randn(16, ORACLES, 6, generator=gen, device=dev)
+    compare("[16, 1024, 6] unconstrained", unc, tie_ok[:16],
+            ConsensusConfig(n_failing=128, constrained=False))
+
+    values, ok, mask = (t.to(dev) for t in pad_claim_cube(bench, bench_ok))
+    for name, args in (
+        ("smooth_mode 'true'", (values, ok, mask, ConsensusConfig(smooth_mode="true"))),
+        ("a [2, 8192, 6] cube beyond shared memory",
+         (torch.zeros(2, 8192, 6, device=dev), torch.ones(2, 8192, dtype=torch.bool, device=dev),
+          mask[:2], bench_cfg)),
+    ):
+        before = fused_consensus_gated_claims_cuda.launches
+        try:
+            fused_consensus_gated_claims_cuda(*args)
+            refused = False
+        except ValueError:
+            refused = True
+        check(refused and fused_consensus_gated_claims_cuda.launches == before,
+              f"refuses {name} with ValueError before any launch")
+
+    ms = cuda_ms(torch, lambda: fused_consensus_gated_claims_cuda(values, ok, mask, bench_cfg), iters=50)
+    plain_ms = cuda_ms(
+        torch, lambda: fused_consensus_gated_claims_plain(values, ok, mask, bench_cfg), iters=10)
+    c, n, m = values.shape
+    out = fused_consensus_gated_claims_cuda(values, ok, mask, bench_cfg)
+    bytes_moved = sum(t.numel() * t.element_size() for t in (values, ok, mask, *out))
+    sorts = 2 * m + 1  # constrained: the first pass, the ranking, the second pass
+    ops = c * (sorts * n * math.ceil(math.log2(n)) + 12 * n * m)
+    bound_ms, bound_by = bound(bytes_moved, ops, FP32_FLOPS)
+
+    # bench_claims's batched-against-sequential comparison (bench.py:2666-2700):
+    # one launch over the cube, or one launch per claim, each ending in
+    # a fetch of the essences' sum to the host.
+    per_claim = [(values[i: i + 1], ok[i: i + 1], mask[i: i + 1]) for i in range(c)]
+    batched_s = host_s(
+        torch, lambda: fused_consensus_gated_claims_cuda(values, ok, mask, bench_cfg).essence.sum().item())
+    sequential_s = host_s(torch, lambda: sum(
+        fused_consensus_gated_claims_cuda(*a, bench_cfg).essence.sum() for a in per_claim).item())
+    seq_ms = cuda_ms(torch, lambda: [fused_consensus_gated_claims_cuda(*a, bench_cfg) for a in per_claim],
+                     iters=10)
+    print(f"  [{nvidia_smi()}] [64, 1024, 6] times: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"bound {bound_ms:.6f} ms ({bound_by}; {bytes_moved} bytes, {ops} operations); "
+          f"64 one-claim launches {seq_ms:.4f} ms (CUDA events)")
+    print(f"  claims/s with a host fetch: batched {c / batched_s:.1f} ({batched_s * 1e3:.4f} ms), "
+          f"sequential {c / sequential_s:.1f} ({sequential_s * 1e3:.4f} ms), "
+          f"ratio {sequential_s / batched_s:.2f}")
+    results["gated_claims_consensus"] = dict(
         max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
         bound_by=bound_by, library_ms=None,
     )
@@ -688,6 +862,167 @@ def train_path_phase(torch, launches):
     profile_one_step(torch, lambda: step(state, tb)[1]["loss"].item())
 
 
+def claim_names(n: int):
+    """The fabric scenario's claim ids (``svoc_tpu/fabric/scenario.py``)."""
+    first = ("alpha", "beta", "gamma", "delta", "epsilon", "zeta")
+    return list(first[:n]) + [f"claim{i}" for i in range(len(first), n)]
+
+
+@phase("6. main path: full-width multi-claim serving step")
+def claims_path_phase(torch, launches):
+    from svoc_torch.consensus.batch import pad_claim_cube
+    from svoc_torch.fabric.registry import ClaimSpec
+    from svoc_torch.io.scraper import SyntheticSource
+    from svoc_torch.ops.flash_attention import flash_attention_cuda, flash_dkv_cuda, flash_dq_cuda
+    from svoc_torch.ops.fused_consensus import (
+        fused_consensus_cuda, fused_consensus_gated_claims_cuda, fused_consensus_gated_claims_plain,
+    )
+    from svoc_torch.robustness.sanitize import QuarantineGate, SanitizeConfig, quarantine_mask_claims
+    from svoc_torch.serving.batcher import ClaimQueues
+    from svoc_torch.serving.tier import ClaimServingStep
+    from svoc_torch.sim.generators import claim_seed
+
+    names = claim_names(CLAIMS)
+    offender, slot = names[-1], ORACLES - 1
+    rotation = ("nan", "inf", "range")
+
+    def kind_of(cycle):  # the first step clean, then the rotation
+        return None if cycle == 0 else rotation[(cycle - 1) % len(rotation)]
+
+    def tamper(cycle, block):  # fabric/scenario.py:140-152, on slot N-1
+        kind = kind_of(cycle)
+        if kind is None:
+            return block
+        block = block.clone()
+        if kind == "nan":
+            block[slot, 0] = float("nan")
+        elif kind == "inf":
+            block[slot, :] = float("inf")
+        else:
+            block[slot, :] = 7.5  # out of the constrained [0, 1] domain
+        return block
+
+    def specs(tampered):
+        return [ClaimSpec(cid, seed=claim_seed(0, cid), n_oracles=ORACLES, n_failing=ORACLES // 8,
+                          tamper=tamper if tampered and cid == offender else None)
+                for cid in names]
+
+    counted = {"flash_attention": flash_attention_cuda, "gated_claims_consensus":
+               fused_consensus_gated_claims_cuda, "fused_consensus": fused_consensus_cuda,
+               "flash_dq": flash_dq_cuda, "flash_dkv": flash_dkv_cuda}
+
+    def run(step, timed):
+        """CLAIM_STEPS steps on fresh per-claim comment sources; the
+        results of each, and (when timed) one row of times per step."""
+        sources = {cid: SyntheticSource(batch=REQUESTS_PER_CLAIM, seed=claim_seed(0, cid))
+                   for cid in names}
+        queues = ClaimQueues(names)
+        results, rows, per_step = [], [], []
+        for _ in range(CLAIM_STEPS):
+            for cid in names:
+                for text in sources[cid]():
+                    queues.submit(cid, text)
+            requests = queues.assemble(CLAIMS * REQUESTS_PER_CLAIM)
+            before = {k: w.launches for k, w in counted.items()}
+            t0 = time.perf_counter()
+            batch = step.pack(requests)
+            t1 = time.perf_counter()
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+            ev[0].record()
+            vectors = step.forward(batch)
+            ev[1].record()
+            groups = step.fleets(requests, vectors)
+            ev[2].record()
+            (res,) = step.consensus(groups)
+            ev[3].record()
+            essence = res.out.essence.cpu()  # fetched to the host: the step is done
+            t2 = time.perf_counter()
+            per_step.append({k: w.launches - before[k] for k, w in counted.items()})
+            results.append((res, essence))
+            if timed:
+                rows.append(dict(feed_ms=(t1 - t0) * 1e3, step_ms=(t2 - t1) * 1e3,
+                                 forward_ms=ev[0].elapsed_time(ev[1]),
+                                 fleets_ms=ev[1].elapsed_time(ev[2]),
+                                 consensus_ms=ev[2].elapsed_time(ev[3]),
+                                 requests=len(requests), claims=len(res.claims)))
+        return results, rows, per_step
+
+    step = ClaimServingStep(specs(True), device="cuda")  # ROBERTA_GO_EMOTIONS, bf16 weights
+    n_layers = step.pipe.cfg.n_layers
+    torch.cuda.synchronize()
+    for wrapper in counted.values():
+        wrapper.launches = 0
+    results, rows, per_step = run(step, timed=True)
+    for name in ("flash_attention", "gated_claims_consensus"):
+        launches[name] = launches.get(name, 0) + counted[name].launches
+    want = dict(flash_attention=n_layers, gated_claims_consensus=1, fused_consensus=0,
+                flash_dq=0, flash_dkv=0)
+    check(all(c == want for c in per_step),
+          f"every step launched {want} ({CLAIM_STEPS} steps; totals "
+          f"{ {k: w.launches for k, w in counted.items()} })")
+
+    gate = QuarantineGate(SanitizeConfig.for_consensus(True))
+    cfg = specs(False)[0].consensus_config()
+    for i, (res, essence) in enumerate(results):
+        kind = kind_of(i)
+        report = gate.inspect(res.blocks[-1])
+        check(res.claims == tuple(names) and bool(res.ok[:-1].all()),
+              f"step {i + 1}: {len(res.claims)} claims in registration order, "
+              f"every sibling oracle admitted")
+        if kind is None:
+            check(bool(res.ok[-1].all()) and report.clean, f"step {i + 1} (clean): offender all admitted")
+            continue
+        admitted = int(res.ok[-1].sum())
+        check(not bool(res.ok[-1, slot]) and not bool(res.out.reliable[-1, slot])
+              and admitted == ORACLES - 1 and report.reasons == {slot: kind}
+              and bool(torch.isfinite(res.out.essence[-1]).all())
+              and bool(torch.isfinite(res.out.essence_first_pass[-1]).all())
+              and bool(res.out.interval_valid[-1]),
+              f"step {i + 1} ({kind}): slot {slot} quarantined and unreliable, host gate "
+              f"{report.reasons}, {admitted} admitted, finite essences, valid")
+
+    res = results[-1][0]
+    values, ok, mask = pad_claim_cube(torch.stack(res.blocks))
+    plain_ok = quarantine_mask_claims(values, 0.0, 1.0)
+    plain = fused_consensus_gated_claims_plain(values, plain_ok, mask, cfg)
+    good, errs, _ = gated_errors(torch, res.out, type(plain)(*(f[:CLAIMS] for f in plain)))
+    check(good and torch.equal(plain_ok[:CLAIMS], res.ok),
+          "last step's cube through the plain gate and consensus: "
+          + ", ".join(f"{f} {e:.2e}" for f, e in errs.items()))
+    essences = torch.stack([e for _, e in results])  # [steps, claims, 6]
+    distinct = len({tuple(r) for r in essences.reshape(-1, 6).tolist()})
+    check(distinct == CLAIM_STEPS * CLAIMS and bool(torch.isfinite(essences).all()),
+          f"{distinct} distinct finite essences over {CLAIM_STEPS} steps x {CLAIMS} claims")
+
+    clean = ClaimServingStep(specs(False), pipe=step.pipe)
+    clean_results, _, _ = run(clean, timed=False)
+    same = all(torch.equal(getattr(a[0].out, f)[:-1], getattr(b[0].out, f)[:-1])
+               for a, b in zip(results, clean_results) for f in a[0].out._fields)
+    check(same, f"{CLAIMS - 1} sibling claims bit for bit the same with and without the tamper, "
+                f"{CLAIM_STEPS} steps, every output field")
+
+    timed = rows[-CLAIM_TIMED:]
+    mean = lambda key: sum(r[key] for r in timed) / len(timed)  # noqa: E731
+    step_s = sum(r["step_ms"] for r in timed) / 1e3
+    b3_ms = cuda_ms(torch, lambda: fused_consensus_gated_claims_cuda(values, plain_ok, mask, cfg),
+                    iters=50)
+    card = nvidia_smi()
+    print(f"  [{card}] steps {CLAIM_STEPS - CLAIM_TIMED + 1}-{CLAIM_STEPS}: step {mean('step_ms'):.3f} ms "
+          f"(forward {mean('forward_ms'):.3f} ms, fleets {mean('fleets_ms'):.3f} ms, gate + "
+          f"consensus {mean('consensus_ms'):.3f} ms), host feed {mean('feed_ms'):.3f} ms")
+    print(f"  [{card}] {sum(r['requests'] for r in timed) / step_s:.1f} requests/s, "
+          f"{sum(r['claims'] for r in timed) / step_s:.1f} claims/s over the step; the claim-cube "
+          f"kernel {b3_ms:.4f} ms on the last cube, {100 * b3_ms / mean('step_ms'):.2f} % of the step")
+    print("  per step: " + json.dumps(rows))
+    sources = {cid: SyntheticSource(batch=REQUESTS_PER_CLAIM, seed=1) for cid in names}
+    queues = ClaimQueues(names)
+    for cid in names:
+        for text in sources[cid]():
+            queues.submit(cid, text)
+    requests = queues.assemble(CLAIMS * REQUESTS_PER_CLAIM)
+    profile_one_step(torch, lambda: clean(requests)[0].out.essence.cpu())
+
+
 def main() -> int:
     try:
         import torch
@@ -709,12 +1044,16 @@ def main() -> int:
         flash_phase(torch, results)
         flash_bwd_phase(torch, results)
         consensus_phase(torch, results)
+        gated_claims_phase(torch, results)
         small_step_phase(torch)
         main_path_phase(torch, launches)
         serving = dict(launches)
         small_train_phase(torch)
         train_path_phase(torch, launches)
-        print(f"  launches: serving path {serving}; both paths {launches}")
+        trained = dict(launches)
+        claims_path_phase(torch, launches)
+        print(f"  launches: serving path {serving}; with the train path {trained}; "
+              f"with the multi-claim path {launches}")
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "svoc_tpu"))
     check(not leaked, f"no JAX or svoc_tpu module loaded ({leaked})")
 

@@ -1,21 +1,29 @@
-"""Single-claim fused two-pass consensus: the plain PyTorch version and
-the wrapper of its CUDA kernel.
+"""Fused two-pass consensus kernels: the plain PyTorch versions and the
+wrappers of their CUDA kernels.
 
-Mirrors the single-claim part of :mod:`svoc_tpu.ops.pallas_consensus`
-(``FusedConsensusOutput``, ``fused_consensus`` and the kernel body
-``_consensus_kernel``, ``pallas_consensus.py:104-372``).  The kernel is
-``svoc_torch/csrc/fused_consensus.cu``.
+Mirrors :mod:`svoc_tpu.ops.pallas_consensus`: the single-claim
+``FusedConsensusOutput``, ``fused_consensus`` and its kernel body
+``_consensus_kernel`` (``pallas_consensus.py:104-372``; kernel
+``svoc_torch/csrc/fused_consensus.cu``), and the gated claim cube,
+``fused_consensus_gated_claims`` and its kernel body
+``_gated_claims_kernel`` (``pallas_consensus.py:381-640``; kernel
+``svoc_torch/csrc/gated_claims_consensus.cu``).
 
-:func:`fused_consensus` takes the plain version for a tensor on the CPU
-and launches the kernel for a CUDA tensor; on CUDA it raises rather than
-fall back (a ``smooth_mode`` other than ``"cairo"``, a fleet whose
-working set exceeds one block's shared memory).  The TPU-only limits on
-the fleet size (a multiple of 128, at most 1024) do not apply.
+:func:`fused_consensus` and :func:`fused_consensus_gated_claims` take
+the plain version for a tensor on the CPU and launch the kernel for a
+CUDA tensor; on CUDA they raise rather than fall back (a ``smooth_mode``
+other than ``"cairo"``, a wrong dtype or shape, a fleet whose working
+set exceeds one block's shared memory).  There is no fallback counter:
+nothing falls back.  The TPU-only limits on the fleet size
+(``fused_fallback_reason``: a multiple of 128, at most 1024) do not
+apply.
 
-Semantics are those of the TPU kernel, which differ from
-:func:`svoc_torch.consensus.kernel.consensus_step` in two details:
+The single-claim semantics are those of the TPU kernel, which differ
+from :func:`svoc_torch.consensus.kernel.consensus_step` in two details:
 ``m = N - n_failing`` is a constant of the call (no clamp at 1), and a
-smooth-median rank outside ``[0, N)`` reads 0.
+smooth-median rank outside ``[0, N)`` reads 0.  The gated claim cube
+computes :func:`svoc_torch.consensus.kernel.consensus_step_gated_claims`
+op for op, with counts read at run time.
 """
 
 from __future__ import annotations
@@ -26,8 +34,13 @@ from typing import NamedTuple
 
 import torch
 
-from svoc_torch.consensus.kernel import ConsensusConfig, reliability
-from svoc_torch.ops import _build
+from svoc_torch.consensus.kernel import (
+    ConsensusConfig,
+    ConsensusOutput,
+    _mask_padded_claims,
+    reliability,
+)
+from svoc_torch.ops import _build, stats
 from svoc_torch.ops.sort import cairo_rank
 
 #: Shared memory one block may use on sm_90 (227 KB).
@@ -65,16 +78,6 @@ def _smooth_median(v: torch.Tensor, keep, m: int) -> torch.Tensor:
     return (_value_at_rank(v, rank, lo) + _value_at_rank(v, rank, hi)) * 0.5
 
 
-def row_risk(v: torch.Tensor, center: torch.Tensor) -> torch.Tensor:
-    """``Σ_c (v - center)²`` per row, summed in column order with each
-    product and sum rounded on its own, as the kernel does."""
-    d = v - center
-    qr = d[:, 0] * d[:, 0]
-    for c in range(1, v.shape[1]):
-        qr = qr + d[:, c] * d[:, c]
-    return qr
-
-
 def fused_consensus_plain(
     values: torch.Tensor, cfg: ConsensusConfig
 ) -> FusedConsensusOutput:
@@ -85,7 +88,7 @@ def fused_consensus_plain(
     mf = torch.tensor(float(m), device=v.device)
 
     essence1 = _smooth_median(v, None, n)
-    qr = row_risk(v, essence1)
+    qr = stats.quadratic_risk(v, essence1)
     rel1 = reliability(cfg, qr.sum() / n, dim)
     reliable = cairo_rank(qr) < m
     w = reliable.float()[:, None]
@@ -196,3 +199,211 @@ def fused_consensus(values: torch.Tensor, cfg: ConsensusConfig) -> FusedConsensu
     if values.device.type == "cpu":
         return fused_consensus_plain(values, cfg)
     return fused_consensus_cuda(values, cfg)
+
+
+# ---------------------------------------------------------------------------
+# Gated claim cube (B3): one claim per block, quarantine admission folded
+# into both passes (docs/FABRIC.md).
+# ---------------------------------------------------------------------------
+
+
+def _gated_smooth_median(safe: torch.Tensor, keep: torch.Tensor, count: torch.Tensor):
+    """``[C, M]``: per claim and column, the mean of the keys at ranks
+    ``clip(count//2 - 1)`` and ``clip(count//2)`` with the rows outside
+    ``keep`` keyed +inf, so a rank on a dropped row reads +inf
+    (``_masked_value_at_rank``, ``pallas_consensus.py:381-408``)."""
+    c, n, _ = safe.shape
+    s = torch.sort(torch.where(keep[..., None], safe, torch.inf), dim=1).values
+    mid = torch.div(count, 2, rounding_mode="floor")
+    claims = torch.arange(c, device=safe.device)
+    a = s[claims, (mid - 1).clamp(0, n - 1)]
+    b = s[claims, mid.clamp(0, n - 1)]
+    return (a + b) * 0.5
+
+
+def _interval_ok(x: torch.Tensor) -> torch.Tensor:
+    return torch.logical_and(x >= 0.0, x <= 1.0)
+
+
+def fused_consensus_gated_claims_plain(
+    values: torch.Tensor,
+    ok: torch.Tensor,
+    claim_mask: torch.Tensor,
+    cfg: ConsensusConfig,
+) -> ConsensusOutput:
+    """The kernel's computation as batched PyTorch ops, on any device:
+    ``values [C, N, M]``, admission masks ``ok [C, N]`` (True =
+    admitted), active claims ``claim_mask [C]``; every output field has
+    a leading claim axis."""
+    if cfg.smooth_mode != "cairo":
+        raise ValueError(
+            f"the gated claim-cube consensus implements smooth_mode 'cairo' only, "
+            f"got {cfg.smooth_mode!r}"
+        )
+    dim = values.shape[2]
+    okb = ok.bool()
+    # Neutral fill before any arithmetic: 0 * NaN is NaN.
+    safe = torch.where(okb[..., None], values.float(), 0.0)
+    safe = torch.where(torch.isfinite(safe), safe, 0.0)
+    n_ok = okb.sum(dim=1)
+
+    # ---- FIRST PASS over the admitted rows ----
+    essence1 = _gated_smooth_median(safe, okb, n_ok)
+    qr = stats.quadratic_risk(safe, essence1[:, None, :])
+    qr_ok = torch.where(okb, qr, 0.0)
+    rel1 = reliability(cfg, qr_ok.sum(dim=1) / n_ok.clamp(min=1), dim)
+
+    # Gated ranking: quarantined rows key +inf; the cut counts from n_ok.
+    rank = cairo_rank(torch.where(okb, qr, torch.inf).T).T
+    reliable = torch.logical_and(rank < (n_ok - cfg.n_failing)[:, None], okb)
+    w = reliable[..., None]
+    n_rel = reliable.sum(dim=1)
+    denom = n_rel.clamp(min=1)[:, None].float()
+
+    # ---- SECOND PASS (risk still centred on essence1); masks select ----
+    mean_rel = torch.where(w, safe, 0.0).sum(dim=1) / denom
+    essence2 = _gated_smooth_median(safe, reliable, n_rel) if cfg.constrained else mean_rel
+    rel2 = reliability(cfg, torch.where(reliable, qr_ok, 0.0).sum(dim=1) / denom[:, 0], dim)
+
+    # ---- MOMENTS over the reliable rows, count-clamped denominators ----
+    nr = n_rel.float()[:, None]
+    centered = torch.where(w, safe - mean_rel[:, None, :], 0.0)
+    std = torch.sqrt((centered * centered).sum(dim=1) / denom)
+    z = torch.where(
+        reliable[..., None], (safe - mean_rel[:, None, :]) / std.clamp(min=1e-30)[:, None, :], 0.0
+    )
+    skew = (z**3).sum(dim=1) * nr / ((nr - 1.0) * (nr - 2.0)).clamp(min=1.0)
+    t1 = (z**4).sum(dim=1) * nr * (nr + 1.0) / (nr - 1.0).clamp(min=1.0)
+    kurt = (t1 - 3.0 * (nr - 1.0) ** 2) / ((nr - 2.0) * (nr - 3.0)).clamp(min=1.0)
+
+    valid = _interval_ok(rel1) & _interval_ok(rel2) & (n_ok >= 2) & (n_rel >= 2)
+    out = ConsensusOutput(
+        essence=torch.where(torch.isfinite(essence2), essence2, 0.0),
+        essence_first_pass=torch.where(torch.isfinite(essence1), essence1, 0.0),
+        reliability_first_pass=rel1,
+        reliability_second_pass=rel2,
+        reliable=reliable,
+        quadratic_risk=qr,
+        skewness=skew,
+        kurtosis=kurt,
+        interval_valid=valid,
+    )
+    return _mask_padded_claims(out, claim_mask)
+
+
+def _check_gated_inputs(values, ok, claim_mask, cfg: ConsensusConfig) -> None:
+    """Raise on what the gated kernel does not take; the shared-memory
+    check asks the built kernel for its layout, so it comes last."""
+    if values.dim() != 3 or min(values.shape) < 1:
+        raise ValueError(f"values must be [C, N, M] with C, N, M >= 1, got {tuple(values.shape)}")
+    c, n, dim = values.shape
+    if values.dtype != torch.float32:
+        raise ValueError(f"values must be float32, got {values.dtype}")
+    if tuple(ok.shape) != (c, n) or ok.dtype != torch.bool:
+        raise ValueError(f"ok must be bool [C, N] = [{c}, {n}], got {ok.dtype} {tuple(ok.shape)}")
+    if tuple(claim_mask.shape) != (c,) or claim_mask.dtype != torch.bool:
+        raise ValueError(
+            f"claim_mask must be bool [C] = [{c}], got {claim_mask.dtype} {tuple(claim_mask.shape)}"
+        )
+    if not (values.is_contiguous() and ok.is_contiguous() and claim_mask.is_contiguous()):
+        raise ValueError("values, ok and claim_mask must be contiguous")
+    if cfg.smooth_mode != "cairo":
+        raise ValueError(
+            f"the gated claim-cube kernel implements smooth_mode 'cairo' only, "
+            f"got {cfg.smooth_mode!r}"
+        )
+    if any(t.device.type != "cuda" for t in (values, ok, claim_mask)) or not (
+        values.device == ok.device == claim_mask.device
+    ):
+        raise ValueError(
+            f"the CUDA kernel needs values, ok and claim_mask on one CUDA device, got "
+            f"{values.device}, {ok.device}, {claim_mask.device}"
+        )
+    need = _gated_smem_bytes(n, dim)
+    if need > MAX_SMEM_BYTES:
+        raise ValueError(
+            f"a [{n}, {dim}] fleet needs {need} bytes of shared memory, "
+            f"more than one block's {MAX_SMEM_BYTES}"
+        )
+
+
+@functools.cache
+def _gated_lib():
+    lib = _build.load("gated_claims_consensus")
+    lib.svoc_gated_claims_consensus.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 5 + [
+        ctypes.c_float, ctypes.c_void_p,
+    ]
+    lib.svoc_gated_claims_consensus.restype = ctypes.c_int
+    lib.svoc_gated_claims_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.svoc_gated_claims_smem_bytes.restype = ctypes.c_size_t
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _gated_smem_bytes(n: int, dim: int) -> int:
+    return _gated_lib().svoc_gated_claims_smem_bytes(n, dim)
+
+
+def fused_consensus_gated_claims_cuda(
+    values: torch.Tensor,
+    ok: torch.Tensor,
+    claim_mask: torch.Tensor,
+    cfg: ConsensusConfig,
+) -> ConsensusOutput:
+    """Launch ``csrc/gated_claims_consensus.cu`` on the current stream:
+    one block per claim; padding claims come back inactive."""
+    _check_gated_inputs(values, ok, claim_mask, cfg)
+    c, n, dim = values.shape
+    dev = values.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    essence = torch.empty(c, dim, **f32)
+    essence1 = torch.empty(c, dim, **f32)
+    rel1 = torch.empty(c, **f32)
+    rel2 = torch.empty(c, **f32)
+    reliable = torch.empty(c, n, dtype=torch.bool, device=dev)
+    qr = torch.empty(c, n, **f32)
+    skew = torch.empty(c, dim, **f32)
+    kurt = torch.empty(c, dim, **f32)
+    valid = torch.empty(c, dtype=torch.bool, device=dev)
+    err = _gated_lib().svoc_gated_claims_consensus(
+        values.data_ptr(), ok.data_ptr(), claim_mask.data_ptr(), essence.data_ptr(),
+        essence1.data_ptr(), rel1.data_ptr(), rel2.data_ptr(), reliable.data_ptr(),
+        qr.data_ptr(), skew.data_ptr(), kurt.data_ptr(), valid.data_ptr(),
+        c, n, dim, cfg.n_failing, int(cfg.constrained), float(cfg.max_spread),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"gated_claims_consensus kernel launch failed: CUDA error {err}")
+    fused_consensus_gated_claims_cuda.launches += 1
+    return ConsensusOutput(
+        essence=essence,
+        essence_first_pass=essence1,
+        reliability_first_pass=rel1,
+        reliability_second_pass=rel2,
+        reliable=reliable,
+        quadratic_risk=qr,
+        skewness=skew,
+        kurtosis=kurt,
+        interval_valid=valid,
+    )
+
+
+#: Kernel launches since the count was last set to 0.
+fused_consensus_gated_claims_cuda.launches = 0
+
+
+def fused_consensus_gated_claims(
+    values: torch.Tensor,
+    ok: torch.Tensor,
+    claim_mask: "torch.Tensor | None" = None,
+    cfg: ConsensusConfig = ConsensusConfig(),
+) -> ConsensusOutput:
+    """Gated two-pass consensus over a padded claim cube ``values [C, N,
+    M]`` float32 with admission masks ``ok [C, N]`` and active claims
+    ``claim_mask [C]`` (all active when None): the plain version for CPU
+    tensors, one kernel launch for CUDA tensors."""
+    if claim_mask is None:
+        claim_mask = torch.ones(values.shape[0], dtype=torch.bool, device=values.device)
+    if values.device.type == "cpu":
+        return fused_consensus_gated_claims_plain(values, ok, claim_mask, cfg)
+    return fused_consensus_gated_claims_cuda(values, ok, claim_mask, cfg)

@@ -1,15 +1,22 @@
 """Masked statistics of the two-pass consensus.
 
 Mirrors the parts of :mod:`svoc_tpu.ops.stats` that
-:func:`svoc_torch.consensus.kernel.consensus_step` calls.  The second
-pass works on the full ``[N, M]`` block with a boolean mask, and
-masked rows sort as ``+inf`` so they can never enter a median.
+:func:`svoc_torch.consensus.kernel.consensus_step` and its gated forms
+call.  The second pass works on the full ``[N, M]`` block with a boolean
+mask, and masked rows sort as ``+inf`` so they can never enter a median.
+Every count is the mask's sum, a value known only at run time (the
+gated forms pass their ``ok`` and ``reliable`` masks); a smooth-median
+rank clipped into ``[0, N)`` that lands on a masked row reads the
+``+inf`` sentinel, as the reference does.
 
 - Cairo's ``smooth_median`` (``math.cairo:113-126``) always averages
   ``sorted[m/2-1]`` and ``sorted[m/2]``, also for odd ``m``:
   ``mode="cairo"`` keeps that; ``mode="true"`` is the proper median.
 - Skewness and kurtosis are the bias-corrected sample versions
   (``math.cairo:320-363``); variance is the biased mean of squares.
+- A mask selects: a masked row adds an exact 0 even where its value is
+  not finite, as the reference's product with a boolean mask (a select
+  in XLA) does.
 """
 
 from __future__ import annotations
@@ -44,9 +51,17 @@ def masked_smooth_median(
 
 
 def quadratic_risk(values: torch.Tensor, center: torch.Tensor) -> torch.Tensor:
-    """Per-oracle squared distance to ``center [M]`` (``math.cairo:225-238``)."""
-    d = values - center[None, :]
-    return torch.sum(d * d, dim=-1)
+    """Per-oracle squared distance to ``center`` over the last axis
+    (``math.cairo:225-238``), ``center`` broadcasting against
+    ``values``.  Summed in column order with each product and sum
+    rounded on its own: the order the reference takes op by op, and the
+    one the consensus kernels take, so a near-tie in the risk ranking
+    falls the same way in all of them."""
+    d = values - center
+    qr = d[..., 0] * d[..., 0]
+    for c in range(1, values.shape[-1]):
+        qr = qr + d[..., c] * d[..., c]
+    return qr
 
 
 def _count(mask: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -56,20 +71,20 @@ def _count(mask: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
 def masked_mean(values: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """Component-wise mean over unmasked rows (``math.cairo:240-269``)."""
     m = _count(mask, values.dtype)
-    return torch.sum(values * mask[:, None], dim=0) / torch.clamp(m, min=1.0)
+    return torch.where(mask[:, None], values, 0.0).sum(dim=0) / torch.clamp(m, min=1.0)
 
 
 def masked_scalar_mean(values: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """Mean of a masked 1-D array (``average``, ``math.cairo:240-254``)."""
     m = _count(mask, values.dtype)
-    return torch.sum(values * mask) / torch.clamp(m, min=1.0)
+    return torch.where(mask, values, 0.0).sum() / torch.clamp(m, min=1.0)
 
 
 def masked_component_variance(
     values: torch.Tensor, mask: torch.Tensor, center: torch.Tensor
 ) -> torch.Tensor:
     """Biased per-component variance about ``center`` (``math.cairo:208-222``)."""
-    d = (values - center[None, :]) * mask[:, None]
+    d = torch.where(mask[:, None], values - center[None, :], 0.0)
     m = _count(mask, values.dtype)
     return torch.sum(d * d, dim=0) / torch.clamp(m, min=1.0)
 

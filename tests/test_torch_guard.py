@@ -23,7 +23,12 @@ from svoc_torch.ops.flash_attention import (
     flash_dkv_cuda,
     flash_dq_cuda,
 )
-from svoc_torch.ops.fused_consensus import fused_consensus, fused_consensus_cuda
+from svoc_torch.ops.fused_consensus import (
+    fused_consensus,
+    fused_consensus_cuda,
+    fused_consensus_gated_claims,
+    fused_consensus_gated_claims_cuda,
+)
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -37,7 +42,11 @@ def _modules():
 def test_every_module_imports_without_jax_or_svoc_tpu():
     names = _modules()
     for name in ("svoc_torch.flagship", "svoc_torch.ops.fused_consensus",
-                 "svoc_torch.train.trainer", "svoc_torch.utils.checkpoint"):
+                 "svoc_torch.train.trainer", "svoc_torch.utils.checkpoint",
+                 "svoc_torch.robustness.sanitize", "svoc_torch.consensus.batch",
+                 "svoc_torch.sim.generators", "svoc_torch.fabric.registry",
+                 "svoc_torch.fabric.router", "svoc_torch.apps.session",
+                 "svoc_torch.serving.batcher", "svoc_torch.serving.tier"):
         assert name in names
     code = (
         "import importlib, sys\n"
@@ -138,14 +147,50 @@ def test_consensus_kernel_wrapper_refuses(values, cfg, match):
     assert fused_consensus_cuda.launches == before
 
 
+def _cube(c=2, n=8, m=3, dtype=torch.float32, device="cpu"):
+    return (torch.zeros(c, n, m, dtype=dtype, device=device),
+            torch.ones(c, n, dtype=torch.bool, device=device),
+            torch.ones(c, dtype=torch.bool, device=device))
+
+
+@pytest.mark.parametrize(
+    "make,cfg,match",
+    [
+        (lambda: _cube(), ConsensusConfig(smooth_mode="true"), "smooth_mode"),
+        (lambda: _cube(dtype=torch.float64), ConsensusConfig(), "float32"),
+        (lambda: (_cube()[0], _cube()[1].to(torch.uint8), _cube()[2]), ConsensusConfig(), "ok must be"),
+        (lambda: (_cube()[0], _cube(n=7)[1], _cube()[2]), ConsensusConfig(), "ok must be"),
+        (lambda: (*_cube()[:2], _cube(c=3)[2]), ConsensusConfig(), "claim_mask must be"),
+        (lambda: (torch.zeros(2, 3, 8).transpose(1, 2), *_cube()[1:]), ConsensusConfig(), "contiguous"),
+        (lambda: _cube(n=0), ConsensusConfig(), r"\[C, N, M\]"),
+        (lambda: (torch.zeros(8, 3), *_cube()[1:]), ConsensusConfig(), r"\[C, N, M\]"),
+        (lambda: _cube(), ConsensusConfig(), "CUDA"),
+    ],
+)
+def test_gated_claims_kernel_wrapper_refuses(make, cfg, match):
+    before = fused_consensus_gated_claims_cuda.launches
+    with pytest.raises(ValueError, match=match):
+        fused_consensus_gated_claims_cuda(*make(), cfg)
+    assert fused_consensus_gated_claims_cuda.launches == before
+
+
 def test_only_cpu_tensors_take_the_plain_versions():
     """A tensor on any other device goes to the kernel wrapper, which
     refuses it: there is no silent fallback."""
+    from svoc_torch.consensus.batch import claims_consensus, claims_consensus_sanitized
+
     q = torch.zeros(1, 8, 2, 16, device="meta")
     with pytest.raises(ValueError, match="CUDA"):
         flash_attention(q, q, q)
     with pytest.raises(ValueError, match="CUDA"):
         fused_consensus(torch.zeros(8, 3, device="meta"), ConsensusConfig())
+    values, ok, mask = _cube(device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        fused_consensus_gated_claims(values, ok, mask, ConsensusConfig())
+    with pytest.raises(ValueError, match="CUDA"):
+        claims_consensus(values, mask, ConsensusConfig())
+    with pytest.raises(ValueError, match="CUDA"):
+        claims_consensus_sanitized(values, mask, ConsensusConfig(), 0.0, 1.0)
 
 
 def test_flash_encoder_on_cpu_never_counts_a_launch():
@@ -183,8 +228,28 @@ def test_cpu_train_step_never_counts_a_launch():
     assert [c.launches for c in counts] == before
 
 
+def test_cpu_claim_step_never_counts_a_launch():
+    from svoc_torch.fabric.registry import ClaimSpec
+    from svoc_torch.models.configs import TINY_TEST
+    from svoc_torch.serving.batcher import Request
+    from svoc_torch.serving.tier import ClaimServingStep
+
+    specs = [ClaimSpec(cid, n_oracles=16, n_failing=4) for cid in ("alpha", "beta", "gamma")]
+    step = ClaimServingStep(specs, TINY_TEST, rows=8, seq=32, max_seg=4, params_dtype=None,
+                            device="cpu")
+    counts = (flash_attention_cuda, fused_consensus_cuda, fused_consensus_gated_claims_cuda)
+    before = [c.launches for c in counts]
+    requests = [Request(cid, f"{cid} comment number {i}") for i in range(2) for cid in ("alpha", "gamma")]
+    (result,) = step(requests)
+    assert result.claims == ("alpha", "gamma") and result.out.essence.shape == (2, 6)
+    assert result.ok.shape == (2, 16) and bool(result.ok.all())
+    assert step.cycles == {"alpha": 1, "beta": 0, "gamma": 1}
+    assert [c.launches for c in counts] == before
+
+
 def test_build_paths_stay_in_the_package():
     assert _build.BUILD_DIR == REPO / "svoc_torch" / "_build"
-    for name in ("flash_attention", "flash_attention_bwd", "fused_consensus"):
+    for name in ("flash_attention", "flash_attention_bwd", "fused_consensus",
+                 "gated_claims_consensus"):
         assert (_build.CSRC / f"{name}.cu").exists()
         assert _build.library_path(name).parent == _build.BUILD_DIR

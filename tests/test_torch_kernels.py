@@ -9,6 +9,7 @@ run this file alone::
 import pytest
 import torch
 
+from svoc_torch.consensus.batch import pad_claim_cube
 from svoc_torch.consensus.kernel import ConsensusConfig
 from svoc_torch.ops.flash_attention import (
     attention_delta,
@@ -20,7 +21,12 @@ from svoc_torch.ops.flash_attention import (
     flash_dkv_cuda,
     flash_dq_cuda,
 )
-from svoc_torch.ops.fused_consensus import fused_consensus_cuda, fused_consensus_plain
+from svoc_torch.ops.fused_consensus import (
+    fused_consensus_cuda,
+    fused_consensus_gated_claims_cuda,
+    fused_consensus_gated_claims_plain,
+    fused_consensus_plain,
+)
 
 pytestmark = pytest.mark.requires_cuda
 
@@ -215,3 +221,93 @@ def test_consensus_kernel_refuses_a_fleet_beyond_shared_memory(cuda):
     out = fused_consensus_cuda(values, cfg)
     assert fused_consensus_cuda.launches == before + 1
     assert torch.equal(out.reliable, fused_consensus_plain(values, cfg).reliable)
+
+
+def _spectrum_cube(c, n, dim, constrained, gen, device):
+    """Claim i is, by i % 4: clean; partly quarantined with a NaN row;
+    all quarantined (n_ok = 0); a single survivor (n_ok = 1)
+    (``tests/test_pallas_consensus.py:181-211``), padded to the claim
+    bucket by ``pad_claim_cube``."""
+    values = torch.rand(c, n, dim, generator=gen, device=device)
+    if not constrained:
+        values = 20.0 + 3.0 * values
+    ok = torch.ones(c, n, dtype=torch.bool, device=device)
+    for i in range(c):
+        if i % 4 == 1:
+            ok[i, : max(1, n // 4)] = False
+            values[i, 0] = float("nan")
+        elif i % 4 == 2:
+            ok[i] = False
+        elif i % 4 == 3:
+            ok[i, : n - 1] = False
+    return pad_claim_cube(values, ok)
+
+
+def assert_gated_match(out, ref):
+    """The reference's bars: reliable and interval_valid exact; floats
+    within 1e-5 with infinite risks equal; skewness 1e-4; kurtosis 1e-3."""
+    assert torch.equal(out.reliable, ref.reliable)
+    assert torch.equal(out.interval_valid, ref.interval_valid)
+    for field in ("essence", "essence_first_pass", "reliability_first_pass",
+                  "reliability_second_pass"):
+        torch.testing.assert_close(getattr(out, field), getattr(ref, field), atol=1e-5, rtol=0)
+    inf = torch.isinf(ref.quadratic_risk)
+    assert torch.equal(inf, torch.isinf(out.quadratic_risk))
+    assert torch.equal(out.quadratic_risk[inf], ref.quadratic_risk[inf])
+    torch.testing.assert_close(out.quadratic_risk[~inf], ref.quadratic_risk[~inf], atol=1e-5, rtol=0)
+    torch.testing.assert_close(out.skewness, ref.skewness, atol=1e-4, rtol=0)
+    torch.testing.assert_close(out.kurtosis, ref.kurtosis, atol=1e-3, rtol=0)
+
+
+@pytest.mark.parametrize("constrained", [True, False])
+@pytest.mark.parametrize("c", [1, 3, 64])
+@pytest.mark.parametrize("n", [7, 16, 256, 1024])
+def test_gated_claims_kernel_matches_plain(cuda, n, c, constrained):
+    gen = torch.Generator(device=cuda).manual_seed(n * 100 + c)
+    values, ok, claim_mask = _spectrum_cube(c, n, 6, constrained, gen, cuda)
+    cfg = ConsensusConfig(n_failing=max(2, n // 8), constrained=constrained)
+    before = fused_consensus_gated_claims_cuda.launches
+    out = fused_consensus_gated_claims_cuda(values, ok, claim_mask, cfg)
+    ref = fused_consensus_gated_claims_plain(values, ok, claim_mask, cfg)
+    torch.cuda.synchronize()
+    assert fused_consensus_gated_claims_cuda.launches == before + 1
+    assert_gated_match(out, ref)
+    assert not out.interval_valid[~claim_mask].any() and not out.reliable[~claim_mask].any()
+    if c > 2:
+        assert torch.isinf(out.quadratic_risk[2]).all() and not out.interval_valid[2]
+        assert torch.all(out.essence[2] == 0) and torch.all(out.essence_first_pass[2] == 0)
+
+
+def test_gated_claims_kernel_tie_order(cuda):
+    """Values quantised to 1e-2: exact ties in the columns and the risks."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    values = torch.round(torch.rand(8, 1024, 6, generator=gen, device=cuda) * 100) / 100
+    ok = torch.rand(8, 1024, generator=gen, device=cuda) > 0.05
+    mask = torch.ones(8, dtype=torch.bool, device=cuda)
+    cfg = ConsensusConfig(n_failing=128)
+    out = fused_consensus_gated_claims_cuda(values.contiguous(), ok, mask, cfg)
+    assert_gated_match(out, fused_consensus_gated_claims_plain(values, ok, mask, cfg))
+
+
+@pytest.mark.parametrize("fault", ["smooth_mode", "dtype", "ok_dtype", "ok_shape", "contiguity",
+                                   "device", "shared_memory"])
+def test_gated_claims_kernel_refuses_on_cuda(cuda, fault):
+    n = 8192 if fault == "shared_memory" else 16
+    values = torch.rand(2, n, 6, device=cuda)
+    ok = torch.ones(2, n, dtype=torch.bool, device=cuda)
+    mask = torch.ones(2, dtype=torch.bool, device=cuda)
+    cfg = ConsensusConfig(smooth_mode="true" if fault == "smooth_mode" else "cairo")
+    if fault == "dtype":
+        values = values.double()
+    if fault == "ok_dtype":
+        ok = ok.to(torch.uint8)
+    if fault == "ok_shape":
+        ok = ok[:, :-1]
+    if fault == "contiguity":
+        values = torch.rand(2, 6, n, device=cuda).transpose(1, 2)
+    if fault == "device":
+        mask = mask.cpu()
+    before = fused_consensus_gated_claims_cuda.launches
+    with pytest.raises(ValueError):
+        fused_consensus_gated_claims_cuda(values, ok, mask, cfg)
+    assert fused_consensus_gated_claims_cuda.launches == before
