@@ -10,6 +10,12 @@ Phases:
 1. Environment: the card's name and power limit, the torch and CUDA
    versions, and the build of every CUDA kernel from ``svoc_torch/csrc``
    (one ``nvcc`` per source, all at once, into ``svoc_torch/_build``).
+1b. The gridded block-copy kernel against its plain version and its
+   input, bit for bit: the probe's shape ([4, 256, 128] float32, blocks
+   (1, 128, 128), grid (4, 2, 1)), [64, 8192, 128] float32 (256 MiB each
+   way), a (1, 64, 128) block (grid (4, 4, 1)), bf16, a narrow block on
+   the scalar path, two refusals; times beside ``x.clone()`` and the
+   bound ``2 * bytes / 3.35 TB/s``.
 2. The flash-attention kernel against its plain PyTorch version: the
    flagship shape [256, 128, 12, 64] in bf16 with segment ids from a real
    packed batch (3e-2), the per-key mask mode, float32 at every head width
@@ -21,6 +27,14 @@ Phases:
    masked row, float32 at every head width with T = 77 (1e-4), and exact
    zeros for padding queries and dead keys; then their times beside the
    plain backward's and SDPA's backward under the same boolean mask.
+2c. Flash against dense attention, in-process through
+   ``svoc_torch.tools.flash_probe``: the numerics adjudication
+   (``parity_only``: both bf16 results against a float32-truth dense
+   attention; the verdict must be ``rounding-equivalent``) and the timed
+   runs (``main``) at (B, T) = (256, 128), (8, 512), (8, 2048), (2, 8192)
+   with 12 heads of 64 in bf16, forward and backward, with each side's
+   peak device memory; SDPA under the same all-ones key mask is timed
+   beside them by the same protocol (yardstick only).
 3. The fused-consensus kernel against its plain version: N = 1024, M = 6,
    n_failing = 128, constrained and unconstrained, a tie-heavy fleet,
    N = 7 and N = 1000. The reliable mask exact; essence, risk and
@@ -39,14 +53,21 @@ Phases:
    sequential one-claim launches against one batched launch (claims/s).
 4. The serving step: first a small float32 step on the card against the
    same step on the CPU (the plain versions the CPU tests hold against the
-   JAX package); then the main path at full width, ROBERTA_GO_EMOTIONS
+   JAX package), for each of the three flagship variants; then the main
+   path at full width, ROBERTA_GO_EMOTIONS
    with bf16 weights, 256 packed rows of 128 tokens with up to 8 comments,
    a 50-comment window, 1024 oracles, subsets of 10: one warm-up step and
    five timed steps on distinct batches. Every kernel's launch count is
    set to 0 just before the main path and read just after it; the
    backward kernels must launch 0 times there. One more step then runs
    under ``torch.profiler`` for a breakdown of device time
-   (informational: it cannot fail the run).
+   (informational: it cannot fail the run). Then (4c) the other two
+   flagship variants at the same full width, ``packed`` (packed rows,
+   dense attention) and ``dense`` (256 unpacked comments, dense
+   attention): one warm-up and five timed steps each on distinct batches,
+   0 flash launches and 1 fused-consensus launch a step; and on one
+   shared set of 256 comments the per-comment vectors of the three
+   variants agree (5e-3 in bf16).
 5. The fine-tune step: first a small float32 step on the card against
    the same step on the CPU (one SGD(0.1) and one AdamW step, TINY_TEST,
    the same packed batch); then the training path at full width,
@@ -74,6 +95,16 @@ Phases:
    bit for bit; one step's cube through the plain path meets the 3b
    bars; essences differ across claims and steps. One more step runs
    under ``torch.profiler`` (informational).
+7. The probe path: ``svoc_torch.tools.probe.main`` through its normal
+   entry, each probe in its own interpreter under a timeout: nine records
+   (``backend``, ``grid_copy``, ``consensus128/256/512/1024``,
+   ``flash512``, ``encoder512_dense``, ``encoder512_flash``), every one
+   ok, with ``correct``, ``essence_match`` and ``match_dense`` true and
+   ``GPU_PROBE.json`` readable. Each record carries the launch counts of
+   its own interpreter (set to 0 by its start, read at its end): the
+   grid-copy kernel must have launched in ``grid_copy``, the flash kernel
+   12 times a forward in ``encoder512_flash`` and never in
+   ``encoder512_dense``. A probe that fails or times out fails the run.
 
 It then prints one JSON line of per-kernel numbers, the card's
 ``nvidia-smi`` name and power limit, and last
@@ -85,6 +116,7 @@ sheet: 3.35 TB/s, 989 TFLOP/s bf16 and 67 TFLOP/s fp32.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import subprocess
@@ -97,7 +129,7 @@ HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
 FP32_FLOPS = 67e12
 KERNELS = ("flash_attention", "flash_attention_bwd", "fused_consensus",
-           "gated_claims_consensus")  # sources
+           "gated_claims_consensus", "grid_copy")  # sources
 MAIN_STEPS = 5  # timed steps after one warm-up step
 CLAIMS, ORACLES, REQUESTS_PER_CLAIM = 64, 1024, 8  # the multi-claim path
 CLAIM_STEPS, CLAIM_TIMED = 8, 5  # its steps, of which the last are timed
@@ -105,6 +137,10 @@ FIXED_STEPS = 10  # training steps on one fixed batch
 #: The fixed batch's last loss must be below this × its first (0.963
 #: measured on an NVIDIA H100 80GB HBM3).
 FIXED_LOSS_RATIO = 0.98
+#: Largest difference between the three flagship variants' per-comment
+#: bf16 vectors on shared comments (1.8e-3 measured on an NVIDIA H100
+#: 80GB HBM3).
+VARIANT_BAR = 5e-3
 #: The kernels of the JSON line: name → (source, the TPU kernel it replaces).
 KERNEL_ROWS = {
     "flash_attention": ("svoc_torch/csrc/flash_attention.cu", "svoc_tpu/ops/pallas_attention.py:71"),
@@ -113,7 +149,11 @@ KERNEL_ROWS = {
     "fused_consensus": ("svoc_torch/csrc/fused_consensus.cu", "svoc_tpu/ops/pallas_consensus.py:209"),
     "gated_claims_consensus": ("svoc_torch/csrc/gated_claims_consensus.cu",
                                "svoc_tpu/ops/pallas_consensus.py:411"),
+    "grid_copy": ("svoc_torch/csrc/grid_copy.cu", "tools/tpu_probe.py:99"),
 }
+PROBE_TIMEOUT_S = 120  # each probe of phase 7 (about 10 s each on an H100)
+PROBE_RECORDS = ("backend", "grid_copy", "consensus128", "consensus256", "consensus512",
+                 "consensus1024", "flash512", "encoder512_dense", "encoder512_flash")
 
 failures: list = []
 
@@ -184,6 +224,66 @@ def environment(torch):
             if "registers" in line or "spill" in line:
                 print(f"  [{name}] {line.strip()}")
     return True
+
+
+@phase("1b. grid copy: kernel vs plain")
+def grid_copy_phase(torch, results):
+    from svoc_torch.ops.grid_copy import grid_copy_cuda, grid_copy_plain
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(4)
+    worst = 0.0
+
+    def compare(name, x, block):
+        nonlocal worst
+        out = grid_copy_cuda(x, block)
+        ref = grid_copy_plain(x, block)
+        torch.cuda.synchronize()
+        bits = {4: torch.int32, 2: torch.int16}[x.element_size()]
+        worst = max(worst, (out.float() - x.float()).abs().max().item())
+        grid = (x.shape[0], x.shape[1] // block[1], x.shape[2] // block[2])
+        check(out.data_ptr() != x.data_ptr() and torch.equal(out.view(bits), x.view(bits))
+              and torch.equal(out.view(bits), ref.view(bits)),
+              f"{name}: {list(x.shape)} {str(x.dtype)[6:]}, block {block}, grid {grid}: "
+              f"kernel == input == plain, bit for bit")
+
+    probe_x = torch.arange(4 * 256 * 128, dtype=torch.float32, device=dev).reshape(4, 256, 128)
+    block = (1, 128, 128)
+    big = torch.randn(64, 8192, 128, generator=gen, device=dev)
+    compare("the probe's shape", probe_x, block)
+    compare("256 MiB", big, block)
+    compare("an odd block", probe_x, (1, 64, 128))
+    compare("bf16", torch.randn(8, 512, 256, generator=gen, device=dev).bfloat16(), (1, 128, 64))
+    compare("a narrow block (scalar path)", torch.randn(3, 10, 6, generator=gen, device=dev), (1, 5, 3))
+
+    for name, x, blk in (
+        ("a block that does not divide the shape", probe_x, (1, 100, 128)),
+        ("a non-contiguous tensor", torch.zeros(4, 128, 256, device=dev).transpose(1, 2), block),
+    ):
+        before = grid_copy_cuda.launches
+        try:
+            grid_copy_cuda(x, blk)
+            refused = False
+        except ValueError:
+            refused = True
+        check(refused and grid_copy_cuda.launches == before,
+              f"refuses {name} with ValueError before any launch")
+
+    card = nvidia_smi()
+    for name, x, plain_iters in (("[4, 256, 128]", probe_x, 10), ("[64, 8192, 128]", big, 2)):
+        ms = cuda_ms(torch, lambda: grid_copy_cuda(x, block), iters=50)
+        plain_ms = cuda_ms(torch, lambda: grid_copy_plain(x, block), iters=plain_iters, warmup=1)
+        library_ms = cuda_ms(torch, lambda: x.clone(), iters=50)
+        bytes_moved = 2 * x.numel() * x.element_size()
+        bound_ms, bound_by = bound(bytes_moved, 0, FP32_FLOPS)
+        print(f"  [{card}] {name} f32 times: kernel {ms:.4f} ms ({bytes_moved / ms / 1e9:.3f} TB/s), "
+              f"plain {plain_ms:.4f} ms, x.clone() {library_ms:.4f} ms, bound {bound_ms:.6f} ms "
+              f"({bound_by}; {bytes_moved} bytes)")
+        if x is probe_x:  # the shape the probe path gives the kernel
+            results["grid_copy"] = dict(
+                max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=library_ms,
+            )
 
 
 def packed_batch(seed: int):
@@ -364,6 +464,65 @@ def flash_bwd_phase(torch, results):
             max_abs_err=errs[0] if name == "flash_dq" else max(errs[1:]), ms=ms,
             plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
         )
+
+
+@phase("2c. flash against dense attention (flash_probe)")
+def flash_dense_phase(torch):
+    import torch.nn.functional as F
+
+    from svoc_torch.tools import flash_probe
+
+    dev = torch.device("cuda")
+    verdict = flash_probe.parity_only()
+    check(verdict["verdict"] == "rounding-equivalent" and len(verdict["entries"]) == 2,
+          "parity_only: " + "; ".join(
+              f"[{e['b']}, {e['t']}] flash err {e['err_flash_vs_f32_truth']:.4f}, dense err "
+              f"{e['err_dense_vs_f32_truth']:.4f}, bound {e['bound']:.4f}" for e in verdict["entries"])
+          + f": verdict {verdict['verdict']}")
+    entries = flash_probe.main()
+    check([(e["b"], e["t"]) for e in entries] == list(flash_probe.SHAPES),
+          f"flash_probe.main: {len(entries)} shapes, forward and backward")
+    on_disk = [json.loads(Path(name).read_text()) for name in
+               ("FLASH_PROBE_GPU.json", "FLASH_PARITY_GPU.json")]
+    check(on_disk[0] == entries and on_disk[1]["verdict"] == verdict["verdict"],
+          "FLASH_PROBE_GPU.json and FLASH_PARITY_GPU.json readable and current")
+    card = nvidia_smi()
+    for e in entries:
+        b, t = e["b"], e["t"]
+        # Two bf16 results of magnitude up to 8 (ulp 2^-5) may differ by
+        # two ulps forward (one measured); the backward sums three such
+        # gradients (0.094 measured at T = 8192 on an NVIDIA H100 80GB HBM3).
+        check(e["max_abs_diff"] <= 2 * 2.0 ** -5 and e["bwd_max_abs_diff"] <= 0.125
+              and all(math.isfinite(e[k]) and e[k] > 0 for k in
+                      ("dense_ms", "flash_ms", "dense_bwd_ms", "flash_bwd_ms")),
+              f"[{b}, {t}, 12, 64] bf16: flash vs dense max diff forward {e['max_abs_diff']:.5f} "
+              f"<= 0.0625, backward {e['bwd_max_abs_diff']:.5f} <= 0.125")
+        # The library yardstick by the same protocol, on inputs of the
+        # same shape, under the same all-ones key mask.
+        qs = [torch.randn(b, flash_probe.HEADS, t, flash_probe.HEAD_DIM, device=dev,
+                          generator=torch.Generator(device=dev).manual_seed(i)).bfloat16()
+              for i in range(4)]
+        mask = torch.ones(b, 1, 1, t, dtype=torch.bool, device=dev)
+
+        def sdpa(q):
+            return F.scaled_dot_product_attention(q, q, q, attn_mask=mask)
+
+        def sdpa_grad(q):
+            q = q.detach().requires_grad_()
+            return torch.autograd.grad(sdpa(q).float().sum(), q)[0]
+
+        with torch.inference_mode():
+            sdpa_ms = flash_probe.amortized_ms(lambda i: sdpa(qs[i % 4]), n=12)
+        sdpa_bwd_ms = flash_probe.amortized_ms(lambda i: sdpa_grad(qs[i % 4]), n=12)
+        print(f"  [{card}] [{b}, {t}, 12, 64] bf16 forward: flash {e['flash_ms']:.3f} ms "
+              f"(peak {e['flash_peak_gib']} GiB), dense {e['dense_ms']:.3f} ms (peak "
+              f"{e['dense_peak_gib']} GiB), SDPA {sdpa_ms:.3f} ms; forward + backward: flash "
+              f"{e['flash_bwd_ms']:.3f} ms (peak {e['flash_bwd_peak_gib']} GiB), dense "
+              f"{e['dense_bwd_ms']:.3f} ms (peak {e['dense_bwd_peak_gib']} GiB), SDPA "
+              f"{sdpa_bwd_ms:.3f} ms; first calls {e['flash_first_call_s']} s, "
+              f"{e['flash_bwd_first_call_s']} s")
+        del qs, mask
+        torch.cuda.empty_cache()
 
 
 @phase("3. fused consensus: kernel vs plain")
@@ -564,18 +723,20 @@ def small_step_phase(torch):
 
     params = init_params(TINY_TEST, seed=3, device="cpu")
     kw = dict(rows=16, seq=32, max_seg=4, n_oracles=64, params_dtype=None, params=params)
-    card = FlagshipStep(TINY_TEST, device="cuda", **kw)
-    cpu = FlagshipStep(TINY_TEST, device="cpu", **kw)
-    batch, _ = next(card.comments(SyntheticSource(batch=16, seed=5)))
-    draws = card.draws(torch.Generator(device="cuda").manual_seed(1))
-    w_card, w_cpu = card.window(batch), cpu.window(batch)
-    out_card, _ = card.consensus(w_card, draws)
-    out_cpu, _ = cpu.consensus(w_cpu, type(draws)(*(x.cpu() for x in draws)))
-    w_err = (w_card.cpu() - w_cpu).abs().max().item()
-    e_err = (out_card.essence.cpu() - out_cpu.essence).abs().max().item()
-    check(w_err <= 1e-4, f"TINY_TEST f32 window: card vs CPU max err {w_err:.3e} <= 1e-4")
-    check(torch.equal(out_card.reliable.cpu(), out_cpu.reliable) and e_err <= 1e-5,
-          f"TINY_TEST consensus: mask exact, essence err {e_err:.3e} <= 1e-5")
+    for variant in ("packed_flash", "packed", "dense"):
+        card = FlagshipStep(TINY_TEST, variant=variant, device="cuda", **kw)
+        cpu = FlagshipStep(TINY_TEST, variant=variant, device="cpu", **kw)
+        batch, _ = next(card.comments(SyntheticSource(batch=16, seed=5)))
+        draws = card.draws(torch.Generator(device="cuda").manual_seed(1))
+        w_card, w_cpu = card.window(batch), cpu.window(batch)
+        out_card, _ = card.consensus(w_card, draws)
+        out_cpu, _ = cpu.consensus(w_cpu, type(draws)(*(x.cpu() for x in draws)))
+        w_err = (w_card.cpu() - w_cpu).abs().max().item()
+        e_err = (out_card.essence.cpu() - out_cpu.essence).abs().max().item()
+        check(w_err <= 1e-4,
+              f"TINY_TEST f32 {variant} window: card vs CPU max err {w_err:.3e} <= 1e-4")
+        check(torch.equal(out_card.reliable.cpu(), out_cpu.reliable) and e_err <= 1e-5,
+              f"TINY_TEST {variant} consensus: mask exact, essence err {e_err:.3e} <= 1e-5")
 
 
 @phase("4b. main path: full-width packed-flash serving step")
@@ -651,6 +812,89 @@ def main_path_phase(torch, launches):
     profile_one_step(torch, lambda: step(batch, gen)[0].essence.cpu())
 
 
+@phase("4c. the packed and dense flagship variants at full width")
+def variants_phase(torch, launches):
+    import numpy as np
+
+    from svoc_torch.flagship import FlagshipStep, TokenBatch
+    from svoc_torch.io.scraper import SyntheticSource
+    from svoc_torch.models.configs import ROBERTA_GO_EMOTIONS
+    from svoc_torch.models.encoder import init_params
+    from svoc_torch.models.packing import pack_tokens, strip_padding
+    from svoc_torch.ops.flash_attention import flash_attention_cuda, flash_dkv_cuda, flash_dq_cuda
+    from svoc_torch.ops.fused_consensus import fused_consensus_cuda
+
+    # One set of bf16 weights (seed 0, as phase 4b draws them) under all
+    # three variants.
+    params = {k: v.bfloat16() for k, v in
+              init_params(ROBERTA_GO_EMOTIONS, seed=0, device="cuda").items()}
+    steps = {v: FlagshipStep(variant=v, params=params, device="cuda")
+             for v in ("packed_flash", "packed", "dense")}
+    counted = (flash_attention_cuda, fused_consensus_cuda, flash_dq_cuda, flash_dkv_cuda)
+    card = nvidia_smi()
+    for variant in ("packed", "dense"):
+        step = steps[variant]
+        feed = step.comments(SyntheticSource(batch=256, seed=0))
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        torch.cuda.synchronize()
+        for wrapper in counted:
+            wrapper.launches = 0
+        essences, rows = [], []
+        for _ in range(1 + MAIN_STEPS):
+            t0 = time.perf_counter()
+            batch, n_comments = next(feed)
+            t1 = time.perf_counter()
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+            ev[0].record()
+            window = step.window(batch)
+            ev[1].record()
+            out, _ = step.consensus(window, step.draws(gen))
+            ev[2].record()
+            essences.append(tuple(out.essence.cpu().tolist()))  # on the host: the step is done
+            t2 = time.perf_counter()
+            rows.append(dict(feed_ms=(t1 - t0) * 1e3, step_ms=(t2 - t1) * 1e3,
+                             forward_ms=ev[0].elapsed_time(ev[1]),
+                             consensus_ms=ev[1].elapsed_time(ev[2]), comments=n_comments))
+        counts = [w.launches for w in counted]
+        launches["fused_consensus"] = launches.get("fused_consensus", 0) + counts[1]
+        steps_run = 1 + MAIN_STEPS
+        check(counts == [0, steps_run, 0, 0],
+              f"{variant}: launches (flash, consensus, dq, dk/dv) {counts} == [0, {steps_run}, 0, 0]")
+        e = torch.tensor(essences)
+        check(len(set(essences)) == steps_run and bool(torch.isfinite(e).all())
+              and int(out.reliable.sum()) == 1024 - step.ccfg.n_failing,
+              f"{variant}: {steps_run} distinct finite essences on distinct batches, "
+              f"{int(out.reliable.sum())} reliable of 1024")
+        timed = rows[1:]
+        mean = lambda key: sum(r[key] for r in timed) / len(timed)  # noqa: E731
+        n_comments = sum(r["comments"] for r in timed)
+        print(f"  [{card}] {variant}: {len(timed)} timed steps: step {mean('step_ms'):.3f} ms "
+              f"(forward {mean('forward_ms'):.3f} ms, consensus {mean('consensus_ms'):.3f} ms), "
+              f"host feed {mean('feed_ms'):.3f} ms; {n_comments / len(timed):.1f} comments/step, "
+              f"{n_comments / (sum(r['step_ms'] for r in timed) / 1e3):.1f} comments/s over the step")
+        print(f"  {variant} per step: " + json.dumps(rows))
+
+    # One shared set of comments through all three forwards.
+    pipe = steps["dense"].pipe
+    texts = SyntheticSource(batch=256, seed=42)()
+    ids, mask = pipe.tokenizer(texts, 128)
+    batch, n = pack_tokens(strip_padding(ids, mask), 128, 8, pipe.tokenizer.pad_id, rows=256)
+    valid = batch.seg_valid > 0
+    owner = torch.from_numpy(batch.owner[valid].astype(np.int64)).to("cuda")
+    arrays = [torch.from_numpy(a).to("cuda") for a in (batch.ids, batch.pos, batch.seg, batch.cls_pos)]
+    vectors = {"dense": pipe.forward(*(torch.from_numpy(a).to("cuda") for a in TokenBatch(ids, mask)))}
+    for variant in ("packed", "packed_flash"):
+        vecs = steps[variant].pipe.packed_forward(*arrays)
+        by_comment = torch.empty_like(vectors["dense"])
+        by_comment[owner] = vecs[torch.from_numpy(valid).to("cuda")]
+        vectors[variant] = by_comment
+    diffs = {f"{a} vs {b}": (vectors[a].float() - vectors[b].float()).abs().max().item()
+             for a, b in (("packed", "dense"), ("packed_flash", "dense"), ("packed_flash", "packed"))}
+    check(n == 256 and all(bool(torch.isfinite(v).all()) for v in vectors.values())
+          and max(diffs.values()) <= VARIANT_BAR,
+          f"256 shared comments, per-comment vectors in bf16: max differences {diffs} <= {VARIANT_BAR}")
+
+
 def profile_one_step(torch, run):
     """One more step, ``run()`` (which ends by fetching its result to the
     host), under ``torch.profiler``: device busy time, idle share within
@@ -713,11 +957,12 @@ def small_train_phase(torch):
 
     from svoc_torch.flagship import packed_comment_stream
     from svoc_torch.io.scraper import SyntheticSource
-    from svoc_torch.models.configs import TINY_TEST as cfg
+    from svoc_torch.models.configs import TINY_TEST
     from svoc_torch.models.encoder import init_params
     from svoc_torch.models.tokenizer import HashingTokenizer
     from svoc_torch.train.trainer import adamw, make_packed_train_step, sgd
 
+    cfg = dataclasses.replace(TINY_TEST, attention="flash")
     tok = HashingTokenizer(cfg.vocab_size, pad_id=cfg.pad_id, max_len=32)
     batch, n = next(packed_comment_stream(tok, SyntheticSource(batch=16, seed=5), 16, 32, 4))
     params = init_params(cfg, seed=3, device="cpu")
@@ -751,13 +996,14 @@ def train_path_phase(torch, launches):
 
     from svoc_torch.flagship import packed_comment_stream
     from svoc_torch.io.scraper import SyntheticSource
-    from svoc_torch.models.configs import ROBERTA_GO_EMOTIONS as cfg
+    from svoc_torch.models.configs import ROBERTA_GO_EMOTIONS
     from svoc_torch.models.encoder import init_params
     from svoc_torch.models.tokenizer import HashingTokenizer
     from svoc_torch.ops.flash_attention import flash_attention_cuda, flash_dkv_cuda, flash_dq_cuda
     from svoc_torch.train.trainer import adamw, make_packed_train_step
     from svoc_torch.utils.checkpoint import restore_train_state, save_train_state
 
+    cfg = dataclasses.replace(ROBERTA_GO_EMOTIONS, attention="flash")
     dev = torch.device("cuda")
     tok = HashingTokenizer(cfg.vocab_size, pad_id=cfg.pad_id, max_len=128)
     feed = packed_comment_stream(tok, SyntheticSource(batch=256, seed=7), 256, 128, 8)
@@ -1023,6 +1269,58 @@ def claims_path_phase(torch, launches):
     profile_one_step(torch, lambda: clean(requests)[0].out.essence.cpu())
 
 
+@phase("7. the probe path (svoc_torch.tools.probe)")
+def probe_phase(torch, launches):
+    from svoc_torch.ops.grid_copy import grid_copy_cuda
+    from svoc_torch.tools import probe
+
+    before = grid_copy_cuda.launches
+    t0 = time.perf_counter()
+    rc = probe.main(["--timeout", str(PROBE_TIMEOUT_S)])  # prints each record as it lands
+    elapsed = time.perf_counter() - t0
+    records = json.loads((Path(probe.REPO) / "GPU_PROBE.json").read_text())
+    by_name = {r["probe"]: r for r in records}
+    check(rc == 0 and tuple(r["probe"] for r in records) == PROBE_RECORDS,
+          f"probe.main returned {rc}; GPU_PROBE.json holds {[r['probe'] for r in records]} "
+          f"({elapsed:.1f} s)")
+    for r in records:
+        check(r.get("ok") is True and not r.get("timeout"),
+              f"{r['probe']}: ok ({r.get('elapsed_s')} s)"
+              + ("" if r.get("ok") else f" {r.get('stderr_tail') or r.get('stdout_tail')}"))
+    if len(by_name) != len(PROBE_RECORDS) or not all(r.get("ok") for r in records):
+        return
+    counts = {name: r["launches"] for name, r in by_name.items()}
+    check(by_name["backend"]["platform"] == "gpu"
+          and by_name["backend"]["device_kind"] == torch.cuda.get_device_name(0),
+          f"backend: {by_name['backend']['device_kind']}, {by_name['backend']['nvidia_smi']}")
+    check(by_name["grid_copy"]["correct"] is True and counts["grid_copy"]["grid_copy"] >= 1,
+          f"grid_copy: correct, {counts['grid_copy']['grid_copy']} launches in its interpreter, "
+          f"build {by_name['grid_copy']['build_s']} s, copy {by_name['grid_copy']['copy_ms']} ms")
+    for n in (128, 256, 512, 1024):
+        r = by_name[f"consensus{n}"]
+        check(r["essence_match"] is True and r["n_oracles"] == n
+              and counts[f"consensus{n}"]["fused_consensus"] >= 1,
+              f"consensus{n}: essence_match, kernel {r['kernel_ms']} ms, plain {r['plain_ms']} ms")
+    r = by_name["flash512"]
+    check(r["match_dense"] is True and counts["flash512"]["flash_attention"] >= 1,
+          f"flash512: match_dense (max diff {r['max_abs_diff']:.3e}, dtype bound {r['dtype_bound']}, "
+          f"within the 2e-5 float32 bar: {r['within_f32_bar']}), flash {r['flash_ms']} ms, "
+          f"dense {r['dense_ms']} ms")
+    forwards = 18  # the first call, one warm call and 16 timed calls
+    check(counts["encoder512_dense"]["flash_attention"] == 0
+          and counts["encoder512_flash"]["flash_attention"] == 12 * forwards,
+          f"encoder512: flash launches dense {counts['encoder512_dense']['flash_attention']} == 0, "
+          f"flash {counts['encoder512_flash']['flash_attention']} == 12 x {forwards}; forward "
+          f"dense {by_name['encoder512_dense']['forward_ms']} ms, "
+          f"flash {by_name['encoder512_flash']['forward_ms']} ms")
+    check(grid_copy_cuda.launches == before,
+          "the probes ran in their own interpreters (no launch counted in this one)")
+    for kernel in KERNEL_ROWS:
+        launches[kernel] = launches.get(kernel, 0) + sum(c[kernel] for c in counts.values())
+    print(f"  [{nvidia_smi()}] launches inside the probes: "
+          + json.dumps({k: v for k, v in ((k, sum(c[k] for c in counts.values())) for k in KERNEL_ROWS) if v}))
+
+
 def main() -> int:
     try:
         import torch
@@ -1041,19 +1339,26 @@ def main() -> int:
 
     results, launches = {}, {}
     if environment(torch):
+        grid_copy_phase(torch, results)
         flash_phase(torch, results)
         flash_bwd_phase(torch, results)
+        flash_dense_phase(torch)
         consensus_phase(torch, results)
         gated_claims_phase(torch, results)
         small_step_phase(torch)
         main_path_phase(torch, launches)
+        variants_phase(torch, launches)
         serving = dict(launches)
         small_train_phase(torch)
         train_path_phase(torch, launches)
         trained = dict(launches)
         claims_path_phase(torch, launches)
-        print(f"  launches: serving path {serving}; with the train path {trained}; "
-              f"with the multi-claim path {launches}")
+        claimed = dict(launches)
+        probe_phase(torch, launches)
+        print(f"  launches: serving paths {serving}; with the train path {trained}; "
+              f"with the multi-claim path {claimed}; with the probe path {launches}")
+    check(all(launches.get(name, 0) > 0 for name in KERNEL_ROWS),
+          f"every kernel launched on its path: { {k: launches.get(k, 0) for k in KERNEL_ROWS} }")
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "svoc_tpu"))
     check(not leaked, f"no JAX or svoc_tpu module loaded ({leaked})")
 

@@ -4,7 +4,8 @@ Mirrors :mod:`svoc_tpu.models.configs` with torch dtypes.
 ``ROBERTA_GO_EMOTIONS`` is the architecture of the reference classifier
 ``SamLowe/roberta-base-go_emotions`` (RoBERTa-base, 28 labels, sigmoid
 head); ``DISTILBERT_SST2`` the single-oracle DistilBERT-SST2 shape;
-``TINY_TEST`` the small config of the tests.
+``TINY_TEST`` the small config of the tests.  ``attention`` and ``remat``
+carry the reference's meanings and defaults (``configs.py:34-51``).
 """
 
 from __future__ import annotations
@@ -28,8 +29,21 @@ class EncoderConfig:
     #: computation dtype of the matmuls; layernorms and the last head
     #: projection run in float32.
     dtype: torch.dtype = torch.bfloat16
+    #: rematerialize each encoder block (``torch.utils.checkpoint``) to
+    #: trade FLOPs for device memory during fine-tuning.
+    remat: bool = False
     #: "sigmoid" (multi-label, go_emotions) or "softmax" (SST-2).
     head: str = "sigmoid"
+    #: "dense" (plain einsum → float32 softmax → einsum, the scores in
+    #: device memory) or "flash" (the online-softmax CUDA kernel,
+    #: :mod:`svoc_torch.ops.flash_attention`).  Dense is the default, as
+    #: in the reference; a path that means flash says so with
+    #: ``dataclasses.replace(cfg, attention="flash")``.  Flash trains too
+    #: (FlashAttention-2 backward kernels) and composes with packed
+    #: batches through segment tags, with no [R, 1, T, T] bias in device
+    #: memory.  The parameters do not depend on the choice: train and
+    #: serve with either.
+    attention: str = "dense"
 
     @property
     def head_dim(self) -> int:

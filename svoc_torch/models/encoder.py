@@ -13,12 +13,16 @@ onto them one to one.  What must match the reference:
 - the head is dense → tanh on the first token, then a float32
   projection to the labels.
 
-Attention always goes through
-:func:`svoc_torch.ops.flash_attention.flash_attention`: its CUDA kernel
-for CUDA tensors, its plain version for CPU tensors.  The unpacked
-encoder masks padding keys (``kmask``), the packed one keeps to segments
-(``segment_ids``).  The projections and the FFN stay ``F.linear``, as
-the JAX package leaves them to XLA.
+``cfg.attention`` picks the attention, as in the reference: ``"dense"``
+(the default) is :func:`svoc_torch.ops.dense_attention.dense_attention`
+under an additive float32 bias, plain PyTorch as the JAX package leaves
+it to XLA; ``"flash"`` is
+:func:`svoc_torch.ops.flash_attention.flash_attention`, its CUDA kernel
+for CUDA tensors and its plain version for CPU tensors, masked by the
+padding keys (``kmask``) or, in the packed encoder, by segments.  Any
+other value raises.  ``cfg.remat`` reruns each block's forward inside
+the backward (``torch.utils.checkpoint``) when grad is on.  The
+projections and the FFN stay ``F.linear``.
 """
 
 from __future__ import annotations
@@ -29,10 +33,21 @@ from typing import Dict
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from svoc_torch.device import resolve_device
 from svoc_torch.models.configs import EncoderConfig
+from svoc_torch.ops.dense_attention import dense_attention, key_padding_bias
 from svoc_torch.ops.flash_attention import flash_attention
+
+ATTENTIONS = ("dense", "flash")
+
+
+def check_attention(cfg: EncoderConfig) -> None:
+    if cfg.attention not in ATTENTIONS:
+        raise ValueError(
+            f"cfg.attention must be 'dense' or 'flash' (got {cfg.attention!r})"
+        )
 
 
 def dense(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -56,14 +71,20 @@ class SelfAttention(nn.Module):
         self.value = nn.Linear(cfg.hidden, cfg.hidden)
         self.out = nn.Linear(cfg.hidden, cfg.hidden)
 
-    def forward(self, x, kmask=None, segments=None):
+    def forward(self, x, bias=None, kmask=None, segments=None):
+        """``bias`` (additive float32, broadcast to ``[B, H, T, T]``)
+        masks the dense branch; ``kmask`` or ``segments`` the flash one."""
         cfg = self.cfg
+        check_attention(cfg)
         b, t, _ = x.shape
         h, d = cfg.n_heads, cfg.head_dim
         q = dense(self.query, x, cfg.dtype).view(b, t, h, d)
         k = dense(self.key, x, cfg.dtype).view(b, t, h, d)
         v = dense(self.value, x, cfg.dtype).view(b, t, h, d)
-        ctx = flash_attention(q, k, v, kmask=kmask, segment_ids=segments)
+        if cfg.attention == "flash":
+            ctx = flash_attention(q, k, v, kmask=kmask, segment_ids=segments)
+        else:
+            ctx = dense_attention(q, k, v, bias, cfg.dtype)
         return dense(self.out, ctx.reshape(b, t, cfg.hidden), cfg.dtype)
 
 
@@ -77,9 +98,9 @@ class EncoderBlock(nn.Module):
         self.ffn_out = nn.Linear(cfg.intermediate, cfg.hidden)
         self.ln_ffn = nn.LayerNorm(cfg.hidden, eps=cfg.ln_eps)
 
-    def forward(self, x, kmask=None, segments=None):
+    def forward(self, x, bias=None, kmask=None, segments=None):
         cfg = self.cfg
-        a = self.attention(x, kmask, segments)
+        a = self.attention(x, bias, kmask, segments)
         x = layer_norm(self.ln_attn, x + a, cfg.ln_eps, cfg.dtype)
         f = F.gelu(dense(self.ffn_in, x, cfg.dtype), approximate="none")
         f = dense(self.ffn_out, f, cfg.dtype)
@@ -112,13 +133,26 @@ class SentimentEncoder(nn.Module):
         cls = torch.tanh(dense(self.head_dense, cls, self.cfg.dtype))
         return dense(self.head_out, cls, torch.float32)
 
+    def encode(self, x, bias=None, kmask=None, segments=None):
+        """The blocks in order, each rematerialized when ``cfg.remat``
+        and grad is on."""
+        remat = self.cfg.remat and torch.is_grad_enabled()
+        for block in self.blocks():
+            if remat:
+                x = checkpoint(block, x, bias, kmask, segments, use_reentrant=False)
+            else:
+                x = block(x, bias, kmask, segments)
+        return x
+
     def forward(self, ids: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
+        check_attention(cfg)
         pos_ids = torch.cumsum(mask, dim=-1) * mask + cfg.pad_id
         x = self.embed(ids, pos_ids)
-        kmask = mask > 0
-        for block in self.blocks():
-            x = block(x, kmask)
+        if cfg.attention == "flash":
+            x = self.encode(x, kmask=mask > 0)
+        else:
+            x = self.encode(x, bias=key_padding_bias(mask))
         return self.head(x[:, 0, :])
 
 

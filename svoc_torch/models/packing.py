@@ -2,10 +2,11 @@
 
 Mirrors :mod:`svoc_tpu.models.packing` (``PackedBatch``,
 ``strip_padding``, ``pack_tokens``, ``pack_labels``,
-``PackedSentimentEncoder``; ``packing.py:55-147, 183-194, 228-285``).
-:func:`pack_tokens` is the Python greedy next-fit packer and gives
-arrays identical to the reference's for the same token lists.  The
-native C++ packer comes in a later slice.
+``pack_tokens_auto``, ``PackedSentimentEncoder``; ``packing.py:55-147,
+183-285``).  :func:`pack_tokens` is the Python greedy next-fit packer and
+gives arrays identical to the reference's for the same token lists.  The
+native C++ packer is not ported yet (ROADMAP A item 2), so
+:func:`pack_tokens_auto` is the Python packer and nothing else.
 
 Positions restart per segment at ``pad_id + 1``; a packed segment sees
 exactly the keys of its own comment, so its logits are those of the
@@ -19,7 +20,8 @@ from typing import List, NamedTuple, Sequence, Tuple
 import numpy as np
 import torch
 
-from svoc_torch.models.encoder import SentimentEncoder
+from svoc_torch.models.encoder import SentimentEncoder, check_attention
+from svoc_torch.ops.dense_attention import block_diagonal_bias
 
 
 class PackedBatch(NamedTuple):
@@ -107,6 +109,20 @@ def pack_tokens(
     return PackedBatch(ids, pos, seg, cls_pos, seg_valid, owner), n_consumed
 
 
+def pack_tokens_auto(
+    token_lists: Sequence[Sequence[int]],
+    seq_len: int,
+    max_segments: int,
+    pad_id: int,
+    rows: int | None = None,
+) -> Tuple[PackedBatch, int]:
+    """The packer the pipeline calls.  The reference tries its native C++
+    packer here and falls back to :func:`pack_tokens`, to which it is
+    bit-identical; the port has no native packer yet, so this is
+    :func:`pack_tokens`."""
+    return pack_tokens(token_lists, seq_len, max_segments, pad_id, rows)
+
+
 def pack_labels(batch: PackedBatch, labels: np.ndarray) -> np.ndarray:
     """Scatter per-comment ``labels [N, ...]`` into the packed layout
     ``[R, S, ...]`` through the owner map (zeros where no segment): the
@@ -125,13 +141,19 @@ class PackedSentimentEncoder(SentimentEncoder):
     """Packed-batch twin of :class:`SentimentEncoder` with the same
     parameters: ``(ids, pos_ids, seg [R, T], cls_pos [R, S])`` → logits
     ``[R, S, n_labels]``.  Attention keeps to the block diagonal of
-    ``seg``; padding attends nothing and is never gathered."""
+    ``seg``; padding is never gathered (under ``"flash"`` it attends
+    nothing; under ``"dense"`` its additive bias is -1e9 on every key,
+    so it averages the row uniformly)."""
 
     def forward(self, ids, pos_ids, seg, cls_pos):  # type: ignore[override]
         cfg = self.cfg
+        check_attention(cfg)
         x = self.embed(ids, pos_ids)
-        for block in self.blocks():
-            # The kernel rebuilds the mask per tile from the [R, T] ids.
-            x = block(x, segments=seg)
+        if cfg.attention == "flash":
+            # The kernel rebuilds the mask per tile from the [R, T] ids:
+            # no [R, 1, T, T] bias in device memory.
+            x = self.encode(x, segments=seg)
+        else:
+            x = self.encode(x, bias=block_diagonal_bias(seg))
         index = cls_pos.long()[:, :, None].expand(-1, -1, cfg.hidden)
         return self.head(torch.gather(x, 1, index))

@@ -6,8 +6,10 @@ Mirrors the device path of
 assembled requests → one cross-claim packed forward → per-claim vector
 groups → each claim's rolling request window and bootstrap fleet → one
 gate-and-consensus dispatch per shape/config group over the padded claim
-cube.  On CUDA that is 12 flash-attention launches (ROBERTA_GO_EMOTIONS)
-and one launch of the gated claim-cube kernel per group.
+cube.  The forward is the packed-flash one (the step sets
+``cfg.attention = "flash"`` itself), so on CUDA that is 12
+flash-attention launches (ROBERTA_GO_EMOTIONS) and one launch of the
+gated claim-cube kernel per group.
 
 Admission and shedding, the result cache, latency accounting, SLOs, the
 chain commit and the journal are not ported yet (ROADMAP A10).
@@ -15,6 +17,7 @@ chain commit and the journal are not ported yet (ROADMAP A10).
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -77,7 +80,7 @@ class ClaimServingStep:
     ):
         if pipe is None:
             pipe = SentimentPipeline(
-                cfg, seq_len=seq, seed=seed, params=params,
+                dataclasses.replace(cfg, attention="flash"), seq_len=seq, seed=seed, params=params,
                 params_dtype=params_dtype, device=device,
             )
         self.pipe = pipe

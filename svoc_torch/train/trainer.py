@@ -14,9 +14,12 @@ Mirrors the single-device part of :mod:`svoc_tpu.train.trainer`
   returns new trees);
 - the matmuls run in ``cfg.dtype``: :func:`svoc_torch.models.encoder.dense`
   casts each parameter per call, as flax's ``Dense(dtype=...)`` does;
-- attention trains through
-  :class:`svoc_torch.ops.flash_attention.FlashAttentionFunction`: the dq
-  and dk/dv kernels on CUDA, the plain backward on the CPU;
+- the model's ``cfg.attention`` picks the attention, so the caller who
+  builds the model picks it: ``"flash"`` trains through
+  :class:`svoc_torch.ops.flash_attention.FlashAttentionFunction` (the dq
+  and dk/dv kernels on CUDA, the plain backward on the CPU), ``"dense"``
+  through autograd of the plain einsum chain; ``cfg.remat`` reruns each
+  block's forward inside the backward;
 - the optimizer is the caller's, as ``tx`` is in JAX: a :data:`Tx` maps
   the parameters to an optimizer, and :func:`adamw`, :func:`adam` and
   :func:`sgd` give optax's defaults.  The step factories take neither
@@ -24,7 +27,7 @@ Mirrors the single-device part of :mod:`svoc_tpu.train.trainer`
 - the metrics stay on the device: a step never waits for the host.
 
 Not ported yet: the sharded, ZeRO-1 and sequence-parallel factories
-(``trainer.py:130-156, 168-344``) and ``cfg.remat``.
+(``trainer.py:130-156, 168-344``).
 """
 
 from __future__ import annotations

@@ -578,6 +578,7 @@ def test_small_multi_claim_step_matches_jax(monkeypatch):
     draws = collections.deque()
     monkeypatch.setattr(torch_session, "draw_fleet", lambda *args: draws.popleft())
 
+    assert step.pipe.cfg.attention == "flash"  # the step sets it; so does the JAX side
     jcfg = dataclasses.replace(jax_configs.TINY_TEST, attention="flash")
     jtok = JaxTokenizer(jcfg.vocab_size, pad_id=jcfg.pad_id, max_len=seq)
     sources = {cid: SyntheticSource(batch=3, seed=claim_seed(0, cid)) for cid in names}

@@ -2,12 +2,13 @@
 
 TINY_TEST weights come from the flax init and are carried across by
 ``svoc_torch.models.from_jax.params_from_flax``.  Packed logits and
-tracked vectors of ``PackedSentimentEncoder`` (against flax's flash
-route, the Pallas kernel in interpret mode) and the unpacked
-``SentimentEncoder`` (against flax's dense attention) are compared in
-float32 within 1e-4 absolute (two post-LN layers of float32 matmuls
-summed in another order).  On the CPU the port's attention is the flash
-kernel's plain version, in both encoders.  The
+tracked vectors of ``PackedSentimentEncoder`` with ``attention="flash"``
+on both sides (flax's Pallas kernel in interpret mode, the port's flash
+kernel's plain version) and the unpacked ``SentimentEncoder`` under its
+per-key-mask flash route (against flax's dense attention) are compared
+in float32 within 1e-4 absolute (two post-LN layers of float32 matmuls
+summed in another order).  The dense configuration has its own file,
+``test_torch_dense.py``.  The
 hashing tokenizer, the packer and the synthetic source must give
 identical arrays and texts for the same seed.
 """
@@ -34,6 +35,8 @@ from svoc_tpu.models.tokenizer import HashingTokenizer as JaxTokenizer
 
 from svoc_torch.io.scraper import SyntheticSource
 from svoc_torch.models.configs import TINY_TEST
+
+FLASH = dataclasses.replace(TINY_TEST, attention="flash")
 from svoc_torch.models.encoder import SentimentEncoder, init_params, load_encoder
 from svoc_torch.models.from_jax import params_from_flax
 from svoc_torch.models.packing import PackedSentimentEncoder, pack_tokens, strip_padding
@@ -85,10 +88,10 @@ def test_packed_flash_logits_and_vectors_match_flax(flax_params, packed):
     ref = np.asarray(JaxPacked(jcfg).apply(flax_params, *map(jnp.asarray, arrays)))
 
     pipe = SentimentPipeline(
-        TINY_TEST, seq_len=SEQ, params=params_from_flax(flax_params), device="cpu",
+        FLASH, seq_len=SEQ, params=params_from_flax(flax_params), device="cpu",
     )
     with torch.inference_mode():
-        logits = pipe.model(*(torch.from_numpy(a) for a in arrays)).numpy()
+        logits = pipe.packed_model(*(torch.from_numpy(a) for a in arrays)).numpy()
     valid = packed.seg_valid > 0
     np.testing.assert_allclose(logits[valid], ref[valid], atol=TOL)
 
@@ -108,7 +111,7 @@ def test_unpacked_dense_logits_match_flax(flax_params):
     ref = np.asarray(
         JaxEncoder(jax_configs.TINY_TEST).apply(flax_params, jnp.asarray(ids), jnp.asarray(mask))
     )
-    model = load_encoder(SentimentEncoder, TINY_TEST, params_from_flax(flax_params))
+    model = load_encoder(SentimentEncoder, FLASH, params_from_flax(flax_params))
     with torch.inference_mode():
         out = model(torch.from_numpy(ids), torch.from_numpy(mask)).numpy()
     np.testing.assert_allclose(out, ref, atol=TOL)

@@ -2,6 +2,7 @@
 CPU fallback, and its CUDA wrappers refuse what their kernels do not
 take before anything is built or launched."""
 
+import dataclasses
 import pkgutil
 import subprocess
 import sys
@@ -46,7 +47,10 @@ def test_every_module_imports_without_jax_or_svoc_tpu():
                  "svoc_torch.robustness.sanitize", "svoc_torch.consensus.batch",
                  "svoc_torch.sim.generators", "svoc_torch.fabric.registry",
                  "svoc_torch.fabric.router", "svoc_torch.apps.session",
-                 "svoc_torch.serving.batcher", "svoc_torch.serving.tier"):
+                 "svoc_torch.serving.batcher", "svoc_torch.serving.tier",
+                 "svoc_torch.ops.dense_attention", "svoc_torch.ops.grid_copy",
+                 "svoc_torch.models.forward", "svoc_torch.utils.artifacts",
+                 "svoc_torch.tools.probe", "svoc_torch.tools.flash_probe"):
         assert name in names
     code = (
         "import importlib, sys\n"
@@ -207,6 +211,41 @@ def test_flash_encoder_on_cpu_never_counts_a_launch():
     assert (flash_attention_cuda.launches, fused_consensus_cuda.launches) == before
 
 
+def test_dense_config_never_reaches_flash_attention(monkeypatch):
+    """With ``cfg.attention == "dense"`` (the default) no encoder,
+    pipeline or flagship variant calls the flash wrapper at all."""
+    import svoc_torch.models.encoder as encoder_module
+    from svoc_torch.models.configs import TINY_TEST
+    from svoc_torch.models.packing import pack_tokens
+    from svoc_torch.models.sentiment import SentimentPipeline
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("flash_attention reached under attention='dense'")
+
+    monkeypatch.setattr(encoder_module, "flash_attention", refuse)
+    assert TINY_TEST.attention == "dense" and not TINY_TEST.remat
+    counts = (flash_attention_cuda, flash_dq_cuda, flash_dkv_cuda, fused_consensus_cuda)
+    before = [c.launches for c in counts]
+    texts = ["a first comment", "another one", "and a third"]
+    pipe = SentimentPipeline(TINY_TEST, seq_len=16, batch_size=2, device="cpu")
+    assert pipe(texts).shape == pipe.call_packed(texts, 2).shape == (3, 6)
+    state = pipe.model.train()
+    ids, mask = (torch.from_numpy(a) for a in pipe.tokenizer(texts, 16))
+    state(ids, mask).sum().backward()  # training through autograd of the dense chain
+    batch, _ = pack_tokens([[2, 5, 6, 3], [2, 7, 3], [2, 9, 9, 3]], 16, 2, 1, rows=2)
+    kw = dict(rows=2, seq=16, max_seg=2, n_oracles=16, window_size=2, subset_size=2,
+              params_dtype=None, device="cpu")
+    gen = torch.Generator().manual_seed(0)
+    out, _ = FlagshipStep(TINY_TEST, variant="packed", **kw)(batch, gen)
+    assert out.essence.shape == (6,)
+    dense = FlagshipStep(TINY_TEST, variant="dense", **kw)
+    out, _ = dense(next(dense.comments(lambda: texts))[0], gen)
+    assert out.essence.shape == (6,)
+    with pytest.raises(AssertionError, match="flash_attention reached"):
+        FlagshipStep(TINY_TEST, variant="packed_flash", **kw)(batch, gen)
+    assert [c.launches for c in counts] == before
+
+
 def test_cpu_train_step_never_counts_a_launch():
     from svoc_torch.models.configs import TINY_TEST
     from svoc_torch.models.encoder import init_params
@@ -214,7 +253,7 @@ def test_cpu_train_step_never_counts_a_launch():
     from svoc_torch.train.trainer import PackedTrainBatch, init_state, make_packed_train_step, sgd
 
     with torch.device("meta"):
-        model = PackedSentimentEncoder(TINY_TEST)
+        model = PackedSentimentEncoder(dataclasses.replace(TINY_TEST, attention="flash"))
     state = init_state(model, init_params(TINY_TEST, seed=0, device="cpu"), sgd(0.1), device="cpu")
     batch, _ = pack_tokens([[2, 5, 6, 3], [2, 7, 3], [2, 9, 9, 3]], 16, 2, 1, rows=2)
     labels = pack_labels(batch, (torch.rand(3, TINY_TEST.n_labels) < 0.3).float().numpy())
@@ -250,6 +289,6 @@ def test_cpu_claim_step_never_counts_a_launch():
 def test_build_paths_stay_in_the_package():
     assert _build.BUILD_DIR == REPO / "svoc_torch" / "_build"
     for name in ("flash_attention", "flash_attention_bwd", "fused_consensus",
-                 "gated_claims_consensus"):
+                 "gated_claims_consensus", "grid_copy"):
         assert (_build.CSRC / f"{name}.cu").exists()
         assert _build.library_path(name).parent == _build.BUILD_DIR

@@ -6,6 +6,8 @@ run this file alone::
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels.py
 """
 
+import dataclasses
+
 import pytest
 import torch
 
@@ -160,7 +162,7 @@ def test_encoder_projections_get_gradients_on_cuda(cuda):
     grads = []
     for dev in ("cpu", "cuda"):
         with torch.device("meta"):
-            model = PackedSentimentEncoder(TINY_TEST)
+            model = PackedSentimentEncoder(dataclasses.replace(TINY_TEST, attention="flash"))
         state = init_state(model, params, sgd(0.1), device=dev)
         arrays = [torch.from_numpy(a).to(dev) for a in (batch.ids, batch.pos, batch.seg, batch.cls_pos)]
         state.model(*arrays).square().sum().backward()
@@ -311,3 +313,63 @@ def test_gated_claims_kernel_refuses_on_cuda(cuda, fault):
     with pytest.raises(ValueError):
         fused_consensus_gated_claims_cuda(values, ok, mask, cfg)
     assert fused_consensus_gated_claims_cuda.launches == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize(
+    "shape,block",
+    [
+        ((4, 256, 128), (1, 128, 128)),  # the probe's: grid (4, 2, 1)
+        ((4, 256, 128), (1, 64, 128)),
+        ((3, 24, 40), (1, 8, 20)),  # column tiles; f32 rows of 80 bytes take the 16-byte path
+        ((2, 10, 6), (1, 5, 3)),  # nothing 16-byte aligned: the scalar path
+        ((5, 7, 9), (1, 1, 1)),  # one element per block
+        ((2, 512, 1024), (1, 512, 1024)),  # one large tile per block
+    ],
+)
+def test_grid_copy_kernel_is_bit_exact(cuda, dtype, shape, block):
+    from svoc_torch.ops.grid_copy import grid_copy, grid_copy_cuda, grid_copy_plain
+
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn(shape, generator=gen, device=cuda).to(dtype)
+    x.view(-1)[0] = float("nan")
+    before = grid_copy_cuda.launches
+    out = grid_copy(x, block)
+    torch.cuda.synchronize()
+    assert grid_copy_cuda.launches == before + 1
+    bits = torch.int32 if dtype == torch.float32 else torch.int16
+    assert out.dtype == dtype and out.data_ptr() != x.data_ptr()
+    assert torch.equal(out.view(bits), x.view(bits))
+    assert torch.equal(out.view(bits), grid_copy_plain(x, block).view(bits))
+
+
+def test_grid_copy_kernel_on_an_unaligned_view(cuda):
+    """A contiguous view that starts 4 bytes into an allocation: the
+    wrapper sees the pointer and the kernel takes the scalar path."""
+    from svoc_torch.ops.grid_copy import grid_copy_cuda
+
+    base = torch.arange(1 + 4 * 256 * 128, dtype=torch.float32, device=cuda)
+    x = base[1:].view(4, 256, 128)
+    assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    out = grid_copy_cuda(x, (1, 128, 128))
+    torch.cuda.synchronize()
+    assert torch.equal(out, x)
+
+
+@pytest.mark.parametrize("fault", ["divide", "contiguity", "dtype", "grid"])
+def test_grid_copy_kernel_refuses_on_cuda(cuda, fault):
+    from svoc_torch.ops.grid_copy import grid_copy_cuda
+
+    x, block = torch.zeros(4, 256, 128, device=cuda), (1, 128, 128)
+    if fault == "divide":
+        block = (1, 100, 128)
+    if fault == "contiguity":
+        x = torch.zeros(4, 128, 256, device=cuda).transpose(1, 2)
+    if fault == "dtype":
+        x = x.double()
+    if fault == "grid":
+        x, block = torch.zeros(1, 65536, 4, device=cuda), (1, 1, 4)
+    before = grid_copy_cuda.launches
+    with pytest.raises(ValueError):
+        grid_copy_cuda(x, block)
+    assert grid_copy_cuda.launches == before

@@ -96,7 +96,9 @@ def test_tiny_slice_end_to_end_matches_jax():
     batch, n = next(step.comments(SyntheticSource(batch=rows, seed=0)))
     assert n == int(batch.seg_valid.sum()) and step.window_size == rows
 
-    # JAX: packed flash forward -> vectors -> window -> fleet -> fused consensus.
+    # JAX: packed flash forward -> vectors -> window -> fleet -> fused consensus
+    # (the port's default variant, "packed_flash", sets flash itself).
+    assert step.pipe.cfg.attention == "flash"
     jcfg = dataclasses.replace(jax_configs.TINY_TEST, attention="flash")
     logits = JaxPacked(jcfg).apply(
         flax_params, *map(jnp.asarray, (batch.ids, batch.pos, batch.seg, batch.cls_pos))

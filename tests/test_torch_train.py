@@ -50,6 +50,7 @@ from svoc_torch.train.trainer import (
 from svoc_torch.utils.checkpoint import restore_train_state, save_train_state
 
 JCFG = dataclasses.replace(jax_configs.TINY_TEST, attention="flash")
+FLASH = dataclasses.replace(TINY_TEST, attention="flash")  # the same choice in the port
 
 
 @pytest.fixture(scope="module")
@@ -79,7 +80,7 @@ def batches():
 
 def _state(flax_params, cls, tx):
     with torch.device("meta"):
-        model = cls(TINY_TEST)
+        model = cls(FLASH)
     return init_state(model, params_from_flax(flax_params), tx, device="cpu")
 
 
