@@ -19,14 +19,24 @@ Phases:
 2. The flash-attention kernel against its plain PyTorch version: the
    flagship shape [256, 128, 12, 64] in bf16 with segment ids from a real
    packed batch (3e-2), the per-key mask mode, float32 at every head width
-   (2e-5), dead rows (exactly 0 and lse -inf) and the lse.
+   (2e-5, the CUDA-core body), bf16 at every head width with T = 1, 77 and
+   1000 in both mask modes (the tensor-core body: 3e-2, lse 1e-3, two
+   launches bit for bit equal), dead rows (exactly 0 and lse -inf), the
+   lse, and T = 1000 as one segment and in runs of 50 tokens; the share
+   of 64 x 64 tile pairs that a tag-range skip would save at the flagship
+   (the kernels visit every tile). Times by CUDA events at the flagship
+   shape and at flash_probe's four shapes beside SDPA and the bound.
 2b. The flash backward kernels (dq, and dk with dv) against the plain
    backward's fp32 result on the same inputs: the flagship shape in
    bf16 with segment ids from a real packed batch (3e-2, plus one bf16
    rounding of the kernel's output), the per-key mask mode with a fully
-   masked row, float32 at every head width with T = 77 (1e-4), and exact
-   zeros for padding queries and dead keys; then their times beside the
-   plain backward's and SDPA's backward under the same boolean mask.
+   masked row, float32 at every head width with T = 77 (1e-4), bf16 at
+   every head width with T = 1, 77 and 1000 in both mask modes (dk/dv
+   of two launches bit for bit equal), T = 1000 as one segment and in
+   runs of 50 tokens, and exact zeros for padding queries and dead keys;
+   then their times beside the plain backward's and SDPA's backward under
+   the same boolean mask, and dk/dv's at flash_probe's four shapes beside
+   SDPA's backward and the bound.
 2c. Flash against dense attention, in-process through
    ``svoc_torch.tools.flash_probe``: the numerics adjudication
    (``parity_only``: both bf16 results against a float32-truth dense
@@ -297,6 +307,44 @@ def packed_batch(seed: int):
     return batch
 
 
+def small_tags(torch, q, mode, gen):
+    """Tags for [B, T] in one of the two mask modes, row 0 dead: sorted
+    segment ids 0..3 (0 is padding), or a random key mask."""
+    from svoc_torch.ops.flash_attention import attention_tags
+
+    b, t = q.shape[:2]
+    if mode == "segments":
+        seg = torch.randint(0, 4, (b, t), generator=gen, device=q.device, dtype=torch.int32)
+        seg = seg.sort(dim=1).values
+        seg[0] = 0
+        return attention_tags(q, segment_ids=seg.contiguous())
+    kmask = torch.rand(b, t, generator=gen, device=q.device) > 0.3
+    kmask[0] = False
+    return attention_tags(q, kmask=kmask)
+
+
+def run_segments(torch, b, t, length, device):
+    """Segment ids 1, 2, ... in runs of ``length`` tokens, the last 7
+    tokens padding."""
+    seg = (torch.arange(t, device=device) // length + 1).expand(b, t).clone()
+    seg[:, -7:] = 0
+    return seg.to(torch.int32).contiguous()
+
+
+def range_rule_share(torch, qtag, ktag, tile=64):
+    """The share of (query tile, key tile) pairs, ``tile`` rows each, in
+    which no key tag lies within the live (> 0) tag range of the query
+    tile's rows: what a tile skip by tag range would save."""
+    import torch.nn.functional as F
+
+    b, t = qtag.shape
+    o = F.pad(qtag, (0, (-t) % tile)).view(b, -1, tile)
+    lo = torch.where(o > 0, o, torch.iinfo(torch.int32).max).amin(-1)[:, :, None, None]
+    hi = torch.where(o > 0, o, 0).amax(-1)[:, :, None, None]
+    st = F.pad(ktag, (0, (-t) % tile)).view(b, 1, -1, tile)
+    return 1.0 - ((st >= lo) & (st <= hi)).any(-1).float().mean().item()
+
+
 @phase("2. flash attention: kernel vs plain")
 def flash_phase(torch, results):
     import torch.nn.functional as F
@@ -304,6 +352,7 @@ def flash_phase(torch, results):
     from svoc_torch.ops.flash_attention import (
         attention_tags, flash_attention_cuda, flash_attention_plain, tag_mask,
     )
+    from svoc_torch.tools import flash_probe
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -350,6 +399,45 @@ def flash_phase(torch, results):
         check(e_out <= 2e-5 and e_lse <= 2e-5 and torch.equal(live, torch.isfinite(sl)),
               f"f32 [2, 77, 3, {hd}] segments: out err {e_out:.3e}, lse err {e_lse:.3e} <= 2e-5")
 
+    # bf16 (the tensor-core body) at every head width, T from one token to
+    # 16 key tiles, both mask modes: 3e-2, lse 1e-3, dead rows exactly 0
+    # with lse -inf, two launches bit for bit the same.
+    for hd in (16, 32, 64, 128):
+        for t_ in (1, 77, 1000):
+            errs, ok = [], True
+            for mode in ("segments", "kmask"):
+                sq, sk, sv = qkv(3, t_, 2, hd, torch.bfloat16)
+                a, b_ = small_tags(torch, sq, mode, gen)
+                so, sl = flash_attention_cuda(sq, sk, sv, a, b_, return_lse=True)
+                so2, sl2 = flash_attention_cuda(sq, sk, sv, a, b_, return_lse=True)
+                ro, rl = flash_attention_plain(sq, sk, sv, a, b_, return_lse=True)
+                torch.cuda.synchronize()
+                live = torch.isfinite(rl)
+                errs += [(so.float() - ro.float()).abs().max().item(),
+                         (sl[live] - rl[live]).abs().max().item() if bool(live.any()) else 0.0]
+                ok &= (errs[-2] <= 3e-2 and errs[-1] <= 1e-3 and torch.equal(live, torch.isfinite(sl))
+                       and bool(torch.all(so[~live] == 0)) and bool(torch.all(so[0] == 0))
+                       and torch.equal(so, so2) and torch.equal(sl, sl2))
+            check(ok, "bf16 [3, {}, 2, {}]: segments out err {:.3e}, lse err {:.3e}; kmask out err "
+                      "{:.3e}, lse err {:.3e}; dead rows 0 and -inf; two launches equal".format(t_, hd, *errs))
+
+    # T = 1000 as one segment (every pair live) and in runs of 50 tokens
+    # (most pairs masked).
+    for kind in ("one segment", "runs of 50"):
+        sq, sk, sv = qkv(2, 1000, 3, 64, torch.bfloat16)
+        seg_ = run_segments(torch, 2, 1000, 1000 if kind == "one segment" else 50, dev)
+        a, b_ = attention_tags(sq, segment_ids=seg_)
+        so, sl = flash_attention_cuda(sq, sk, sv, a, b_, return_lse=True)
+        ro, rl = flash_attention_plain(sq, sk, sv, a, b_, return_lse=True)
+        torch.cuda.synchronize()
+        live = torch.isfinite(rl)
+        e_out = (so.float() - ro.float()).abs().max().item()
+        e_lse = (sl[live] - rl[live]).abs().max().item()
+        check(e_out <= 3e-2 and e_lse <= 1e-3 and torch.equal(live, torch.isfinite(sl)),
+              f"bf16 [2, 1000, 3, 64], {kind}: out err {e_out:.3e}, lse err {e_lse:.3e}")
+    print(f"  flagship: a tag-range skip would save {100 * range_rule_share(torch, qtag, ktag):.1f} % "
+          f"of the 64 x 64 (query tile, key tile) pairs; the kernels visit every tile")
+
     # Times at the flagship shape, main-path call (no lse).
     ms = cuda_ms(torch, lambda: flash_attention_cuda(q, k, v, qtag, ktag))
     plain_ms = cuda_ms(torch, lambda: flash_attention_plain(q, k, v, qtag, ktag), iters=5)
@@ -368,6 +456,26 @@ def flash_phase(torch, results):
         bound_by=bound_by, library_ms=library_ms,
     )
 
+    # Times at flash_probe's four shapes, every key live, by CUDA events;
+    # SDPA without a mask (the same function here) and under an all-ones
+    # boolean mask (as at the flagship shape).
+    card = nvidia_smi()
+    for b, t in flash_probe.SHAPES:
+        q, k, v = qkv(b, t, h, d, torch.bfloat16)
+        ones = torch.ones(b, t, dtype=torch.int32, device=dev)
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        mask = torch.ones(b, 1, 1, t, dtype=torch.bool, device=dev)
+        iters = 20 if t <= 2048 else 10
+        ms = cuda_ms(torch, lambda: flash_attention_cuda(q, k, v, ones, ones), iters=iters)
+        sdpa_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt), iters=iters)
+        masked_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask),
+                            iters=iters)
+        bytes_moved = 4 * q.numel() * q.element_size() + 2 * ones.numel() * 4
+        bound_ms, bound_by = bound(bytes_moved, 4 * d * h * b * t * t, BF16_FLOPS)
+        print(f"  [{card}] B1 [{b}, {t}, 12, 64] bf16, all live: kernel {ms:.4f} ms, SDPA {sdpa_ms:.4f} ms "
+              f"(all-ones mask {masked_ms:.4f} ms), bound {bound_ms:.4f} ms ({bound_by})")
+        del qt, kt, vt
+
 
 @phase("2b. flash backward: kernels vs plain")
 def flash_bwd_phase(torch, results):
@@ -377,6 +485,7 @@ def flash_bwd_phase(torch, results):
         attention_delta, attention_tags, flash_attention_bwd_plain, flash_attention_cuda,
         flash_dkv_cuda, flash_dq_cuda, tag_mask,
     )
+    from svoc_torch.tools import flash_probe
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(2)
@@ -436,6 +545,35 @@ def flash_bwd_phase(torch, results):
               "f32 [2, 77, 3, {}] segments: dq {:.3e}, dk {:.3e}, dv {:.3e} <= 1e-4; "
               "padding exactly 0".format(hd, *ferrs))
 
+    # bf16 (dk/dv through the tensor-core body) at every head width, T
+    # from one token to 16 tiles, both mask modes; dead keys exactly 0,
+    # two launches bit for bit the same; then T = 1000 as one segment and
+    # in runs of 50 tokens.
+    for hd in (16, 32, 64, 128):
+        for t_ in (1, 77, 1000):
+            case_errs, ok = [], True
+            for mode in ("segments", "kmask"):
+                sq, sk, sv, sdo = (normal(3, t_, 2, hd, torch.bfloat16) for _ in range(4))
+                a, b_ = small_tags(torch, sq, mode, gen)
+                (gq, gk, gv), berrs, bok, _ = run(sq, sk, sv, a, b_, sdo, 3e-2, bf16_rtol)
+                out_, lse_ = flash_attention_cuda(sq, sk, sv, a, b_, return_lse=True)
+                again = flash_dkv_cuda(sq, sk, sv, a, b_, sdo, lse_, attention_delta(out_, sdo))
+                torch.cuda.synchronize()
+                dead_k, dead_q = b_ == 0, ~torch.isfinite(lse_).all(dim=-1)
+                case_errs += berrs
+                ok &= (bok and torch.equal(again[0], gk) and torch.equal(again[1], gv)
+                       and bool(torch.all(gk[dead_k] == 0) and torch.all(gv[dead_k] == 0)
+                                and torch.all(gq[dead_q] == 0)))
+            check(ok, "bf16 [3, {}, 2, {}]: segments dq {:.3e}, dk {:.3e}, dv {:.3e}; kmask dq {:.3e}, "
+                      "dk {:.3e}, dv {:.3e} <= 3e-2 + 2^-8 |plain|; dead keys' dk, dv and dead rows' dq "
+                      "exactly 0; dk/dv of two launches equal".format(t_, hd, *case_errs))
+    for kind in ("one segment", "runs of 50"):
+        sq, sk, sv, sdo = (normal(2, 1000, 3, 64, torch.bfloat16) for _ in range(4))
+        seg_ = run_segments(torch, 2, 1000, 1000 if kind == "one segment" else 50, dev)
+        a, b_ = attention_tags(sq, segment_ids=seg_)
+        _, berrs, bok, _ = run(sq, sk, sv, a, b_, sdo, 3e-2, bf16_rtol)
+        check(bok, "bf16 [2, 1000, 3, 64], {}: dq {:.3e}, dk {:.3e}, dv {:.3e}".format(kind, *berrs))
+
     # Times at the flagship shape, main-path calls.
     out, lse = flash_attention_cuda(q, k, v, qtag, ktag, return_lse=True)
     delta = attention_delta(out, dout)
@@ -464,6 +602,29 @@ def flash_bwd_phase(torch, results):
             max_abs_err=errs[0] if name == "flash_dq" else max(errs[1:]), ms=ms,
             plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
         )
+
+    # B5 at flash_probe's four shapes, every key live, by CUDA events,
+    # beside SDPA's whole backward (no mask: the same function here).
+    card = nvidia_smi()
+    for b, t in flash_probe.SHAPES:
+        q, k, v, dout = (normal(b, t, h, d, torch.bfloat16) for _ in range(4))
+        ones = torch.ones(b, t, dtype=torch.int32, device=dev)
+        out, lse = flash_attention_cuda(q, k, v, ones, ones, return_lse=True)
+        delta = attention_delta(out, dout)
+        iters = 20 if t <= 2048 else 5
+        ms = cuda_ms(torch, lambda: flash_dkv_cuda(q, k, v, ones, ones, dout, lse, delta), iters=iters)
+        qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v))
+        sdpa_out = F.scaled_dot_product_attention(qt, kt, vt)
+        dout_t = dout.transpose(1, 2).contiguous()
+        library_ms = cuda_ms(
+            torch, lambda: torch.autograd.grad(sdpa_out, (qt, kt, vt), dout_t, retain_graph=True),
+            iters=iters)
+        tensor_bytes = q.numel() * q.element_size()
+        bytes_moved = 6 * tensor_bytes + 2 * lse.numel() * 4 + 2 * ones.numel() * 4
+        bound_ms, bound_by = bound(bytes_moved, 8 * d * h * b * t * t, BF16_FLOPS)
+        print(f"  [{card}] B5 [{b}, {t}, 12, 64] bf16, all live: kernel {ms:.4f} ms, SDPA backward "
+              f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+        del out, qt, kt, vt, sdpa_out
 
 
 @phase("2c. flash against dense attention (flash_probe)")

@@ -16,22 +16,48 @@
 // - ds = p (dP - delta), with dP = dO.v and delta = rowsum(dO.O), which
 //   the caller computes in fp32.
 // - dq = scale sum_k ds k, dk = scale sum_q ds q, dv = sum_q p dO. The
-//   backward scales the dot product (s = scale q.k, as _p_block does);
-//   the forward kernel scales q before it. Both are within the bars.
-// - All arithmetic is fp32 (bf16 inputs are upcast); the outputs are
-//   written in the input type.
+//   backward scales the dot product (s = scale q.k, as _p_block does).
+// - The outputs are written in the input type.
 //
 // What bounds them: at the flagship shape (B = 256 rows, T = 128, 12
 // heads of 64, bf16) dq reads q, k, v, dO, lse, delta and the tags and
 // writes dq, about 255 MB, 76 us at 3.35 TB/s; dk/dv writes two outputs,
-// about 305 MB, 91 us. Their 6 and 8 flops per head element per live
-// (q, k) pair take a few us on the bf16 tensor cores. So both are bound
-// by memory on paper. These first kernels do their arithmetic on the
-// fp32 CUDA cores, as the forward does, and are bound by those in
-// practice; mma/wgmma and TMA come later.
+// about 305 MB, 91 us; their 6 and 8 flops per head element per live
+// pair take a few us on the bf16 tensor cores, so both are bound by
+// bytes there. At (B, T) = (2, 8192) with every key live, dk/dv moves
+// about 152 MB (45 us) and does 0.82 TFLOP (0.83 ms at 989 TFLOP/s):
+// bound by the products.
 //
-// Design. Each output row has one owner, so there are no atomics and the
-// results are deterministic, as with the TPU's split into two kernels:
+// Each output row has one owner, so there are no atomics and the results
+// are deterministic, as with the TPU's split into two kernels.
+//
+// dk/dv, bf16 (the tensor-core body, FlashAttention-2's dk/dv pass): one
+// block of 4 warps per (64 keys, head, batch row), each warp owning 16
+// key rows. Their K and V fragments are read from shared memory once
+// and held in registers for the whole walk (at D = 128, where they would
+// not fit beside the two accumulators, they stay in shared memory and
+// are read again for each query tile). The block walks the query tiles
+// (64 rows; 32 at D = 128): Q, dO, the query tags, lse and delta come in
+// by cp.async, two stages in dynamic shared memory, so the next tile
+// loads while this one computes. Four mma.sync.m16n8k16 products per
+// tile pair, bf16 operands and fp32 accumulators (tensor_core.cuh):
+//   S^T = K Q^T; P^T = exp2(scale log2(e) S^T - log2(e) lse), masked, 0
+//   on rows whose lse is -inf; dV += P^T dO (P^T rounded to bf16 in
+//   registers, dO through ldmatrix.trans); dP^T = V dO^T; dS^T = P^T
+//   (dP^T - delta); dK += dS^T Q (dS^T rounded to bf16, Q through
+//   ldmatrix.trans).
+// dk is scaled once at the end; both outputs are staged through the
+// warp's own rows of the K and V tiles and stored with 16-byte writes.
+// Every query tile is visited and masked by tag, as in the forward
+// (flash_attention.cu says why no tile is skipped). A dead key gets
+// exactly 0: every p of its row is 0.
+//
+// dq (both types), and dk/dv in float32, keep the CUDA-core arithmetic
+// of the first port: all fp32 (bf16 inputs upcast), as the float32
+// contract (1e-4 against the plain backward, with TF32 off) needs, which
+// tensor-core products cannot meet; dq in bf16 is redesigned next. The
+// input type alone chooses the dk/dv body inside the C entry point;
+// neither is a fallback for the other. Design of the CUDA-core kernels:
 // - dq: one block per (tile of 64 query rows, head, batch row). A query
 //   row belongs to TPR = D/16 threads, each holding 16 contiguous
 //   elements of q, dO and the dq accumulator in registers; the row's lse
@@ -52,6 +78,10 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include <type_traits>
+
+#include "tensor_core.cuh"
 
 namespace {
 
@@ -266,6 +296,241 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     }
 }
 
+// ---- The bf16 tensor-core dk/dv body -------------------------------------
+
+namespace bf16_dkv {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int WARPS = 4;
+constexpr int THREADS = 32 * WARPS;
+constexpr int BKEY = 16 * WARPS;  // own key rows per block, 16 per warp
+constexpr int STAGES = 2;
+
+// Dynamic shared memory, in bytes: the block's K and V (later the dk
+// and dv staging), STAGES tiles each of Q and dO, and the streamed query
+// tags, lse and delta.
+template <int D>
+struct Smem {
+    static constexpr int BQ = D >= 128 ? 32 : 64;  // queries per streamed tile
+    static constexpr int LD = D + 8;                // bf16 per shared row: 16 bytes of padding
+    static constexpr int K = 0;
+    static constexpr int V = K + BKEY * LD * 2;
+    static constexpr int Q = V + BKEY * LD * 2;
+    static constexpr int DO = Q + STAGES * BQ * LD * 2;
+    static constexpr int TAGS = DO + STAGES * BQ * LD * 2;
+    static constexpr int LSE = TAGS + STAGES * BQ * 4;
+    static constexpr int DELTA = LSE + STAGES * BQ * 4;
+    static constexpr int BYTES = DELTA + STAGES * BQ * 4;
+};
+
+template <int D>
+__global__ void __launch_bounds__(THREADS)
+flash_dkv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
+               const bf16* __restrict__ v, const int* __restrict__ qtag,
+               const int* __restrict__ ktag, const bf16* __restrict__ dout,
+               const float* __restrict__ lse, const float* __restrict__ delta,
+               bf16* __restrict__ dk, bf16* __restrict__ dv, int seq, int heads, float scale,
+               float scale_log2) {
+    using S = Smem<D>;
+    constexpr int LD = S::LD, BQ = S::BQ;
+    // The warp's K and V fragments (the A operands of S^T and dP^T) are
+    // read from shared memory once and held in registers below D = 128
+    // (faster than reading them for every query tile at D = 64, at every
+    // shape measured; PERF.md has the times); at D = 128 they would not
+    // fit beside the two accumulators and are read for each tile.
+    constexpr bool KV_REGS = D < 128;
+    extern __shared__ __align__(16) unsigned char smem[];
+    bf16* ks = reinterpret_cast<bf16*>(smem + S::K);
+    bf16* vs = reinterpret_cast<bf16*>(smem + S::V);
+    bf16* qs = reinterpret_cast<bf16*>(smem + S::Q);
+    bf16* dos = reinterpret_cast<bf16*>(smem + S::DO);
+    int* qts = reinterpret_cast<int*>(smem + S::TAGS);
+    float* lses = reinterpret_cast<float*>(smem + S::LSE);
+    float* deltas = reinterpret_cast<float*>(smem + S::DELTA);
+
+    const int b = blockIdx.z, h = blockIdx.y, k0 = blockIdx.x * BKEY;
+    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+    const int g = lane >> 2, t4 = lane & 3;  // the mma fragments' row group and column pair
+    const size_t tok = (size_t)heads * D;    // [B, T, H, D]: between tokens
+    const size_t base = (size_t)b * seq * tok + (size_t)h * D;
+    const int* kt_row = ktag + (size_t)b * seq;
+    const int n_tiles = (seq + BQ - 1) / BQ;
+
+    auto load_q = [&](int tile, int stage) {
+        const int q0 = tile * BQ;
+        tc::load_rows<D, LD, BQ, THREADS>(qs + stage * BQ * LD, q + base, tok, q0, seq);
+        tc::load_rows<D, LD, BQ, THREADS>(dos + stage * BQ * LD, dout + base, tok, q0, seq);
+        if (tid < BQ) {
+            const bool ok = q0 + tid < seq;  // tag 0 past T: no key sees it
+            const size_t t = (size_t)b * seq + (ok ? q0 + tid : 0);
+            tc::cp_async4(qts + stage * BQ + tid, qtag + t, ok);
+            tc::cp_async4(lses + stage * BQ + tid, lse + t * heads + h, ok);
+            tc::cp_async4(deltas + stage * BQ + tid, delta + t * heads + h, ok);
+        }
+    };
+    tc::load_rows<D, LD, BKEY, THREADS>(ks, k + base, tok, k0, seq);
+    tc::load_rows<D, LD, BKEY, THREADS>(vs, v + base, tok, k0, seq);
+    load_q(0, 0);
+    tc::cp_async_commit();
+
+    const int r0 = k0 + warp * 16 + g, r1 = r0 + 8;  // this thread's two key rows
+    const int kt0 = r0 < seq ? kt_row[r0] : 0, kt1 = r1 < seq ? kt_row[r1] : 0;
+    const bf16* kw = ks + warp * 16 * LD;  // the warp's own rows: the A operands
+    const bf16* vw = vs + warp * 16 * LD;
+
+    float dka[D / 8][4], dva[D / 8][4];
+#pragma unroll
+    for (int i = 0; i < D / 8; ++i) {
+        dka[i][0] = dka[i][1] = dka[i][2] = dka[i][3] = 0.f;
+        dva[i][0] = dva[i][1] = dva[i][2] = dva[i][3] = 0.f;
+    }
+    uint32_t kf[KV_REGS ? D / 16 : 1][4], vf[KV_REGS ? D / 16 : 1][4];
+
+    for (int j = 0, stage = 0; j < n_tiles; ++j, stage ^= 1) {
+        if (j + 1 < n_tiles) {
+            load_q(j + 1, stage ^ 1);
+            tc::cp_async_commit();
+            tc::cp_async_wait<1>();
+        } else {
+            tc::cp_async_wait<0>();
+        }
+        __syncthreads();  // query tile j (and, first, K and V) has landed for every thread
+        if constexpr (KV_REGS) {
+            if (j == 0) {
+#pragma unroll
+                for (int kk = 0; kk < D / 16; ++kk) {
+                    tc::ldsm_x4(kf[kk], kw + (lane & 15) * LD + kk * 16 + (lane >> 4) * 8);
+                    tc::ldsm_x4(vf[kk], vw + (lane & 15) * LD + kk * 16 + (lane >> 4) * 8);
+                }
+            }
+        }
+        const bf16* qst = qs + stage * BQ * LD;
+        const bf16* dost = dos + stage * BQ * LD;
+        const int* qt = qts + stage * BQ;
+        const float* ls = lses + stage * BQ;
+        const float* dl = deltas + stage * BQ;
+
+        // S^T = K Q^T and dP^T = V dO^T: 16 keys x BQ queries for this warp.
+        float p[BQ / 8][4], dp[BQ / 8][4];
+#pragma unroll
+        for (int n = 0; n < BQ / 8; ++n) {
+            p[n][0] = p[n][1] = p[n][2] = p[n][3] = 0.f;
+            dp[n][0] = dp[n][1] = dp[n][2] = dp[n][3] = 0.f;
+        }
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+            uint32_t ka[4], va[4];
+            if constexpr (KV_REGS) {
+#pragma unroll
+                for (int i = 0; i < 4; ++i) {
+                    ka[i] = kf[kk][i];
+                    va[i] = vf[kk][i];
+                }
+            } else {
+                tc::ldsm_x4(ka, kw + (lane & 15) * LD + kk * 16 + (lane >> 4) * 8);
+                tc::ldsm_x4(va, vw + (lane & 15) * LD + kk * 16 + (lane >> 4) * 8);
+            }
+#pragma unroll
+            for (int np = 0; np < BQ / 16; ++np) {
+                const int off = (np * 16 + (lane >> 4) * 8 + (lane & 7)) * LD + kk * 16 +
+                                ((lane >> 3) & 1) * 8;
+                uint32_t qb[4], db[4];
+                tc::ldsm_x4(qb, qst + off);
+                tc::ldsm_x4(db, dost + off);
+                tc::mma16816(p[2 * np], ka, qb[0], qb[1]);
+                tc::mma16816(p[2 * np + 1], ka, qb[2], qb[3]);
+                tc::mma16816(dp[2 * np], va, db[0], db[1]);
+                tc::mma16816(dp[2 * np + 1], va, db[2], db[3]);
+            }
+        }
+
+        // P^T from the saved lse (0 on a masked pair and on a dead row),
+        // then dS^T = P^T (dP^T - delta); both rounded to bf16 as the A
+        // operands of the two accumulating products.
+        uint32_t pa[BQ / 16][4], da[BQ / 16][4];
+#pragma unroll
+        for (int n = 0; n < BQ / 8; ++n) {
+            const int col = n * 8 + 2 * t4;  // this thread's two queries of the tile
+            const float2 l = *reinterpret_cast<const float2*>(ls + col);
+            const float2 dlt = *reinterpret_cast<const float2*>(dl + col);
+            const int2 tg = *reinterpret_cast<const int2*>(qt + col);
+            const float la = l.x * tc::LOG2E, lb = l.y * tc::LOG2E;
+            // A select, never a product: a dead row's exp2 is inf.
+            const bool ua = l.x > -INFINITY, ub = l.y > -INFINITY;
+            float pv[4];
+            pv[0] = (ua && kt0 > 0 && tg.x == kt0) ? tc::ex2(fmaf(p[n][0], scale_log2, -la)) : 0.f;
+            pv[1] = (ub && kt0 > 0 && tg.y == kt0) ? tc::ex2(fmaf(p[n][1], scale_log2, -lb)) : 0.f;
+            pv[2] = (ua && kt1 > 0 && tg.x == kt1) ? tc::ex2(fmaf(p[n][2], scale_log2, -la)) : 0.f;
+            pv[3] = (ub && kt1 > 0 && tg.y == kt1) ? tc::ex2(fmaf(p[n][3], scale_log2, -lb)) : 0.f;
+            pa[n / 2][(n & 1) * 2] = tc::pack_bf16(pv[0], pv[1]);
+            pa[n / 2][(n & 1) * 2 + 1] = tc::pack_bf16(pv[2], pv[3]);
+            da[n / 2][(n & 1) * 2] =
+                tc::pack_bf16(pv[0] * (dp[n][0] - dlt.x), pv[1] * (dp[n][1] - dlt.y));
+            da[n / 2][(n & 1) * 2 + 1] =
+                tc::pack_bf16(pv[2] * (dp[n][2] - dlt.x), pv[3] * (dp[n][3] - dlt.y));
+        }
+
+        // dV += P^T dO and dK += dS^T Q: dO and Q [query][d] are the k x n
+        // operands, read transposed.
+#pragma unroll
+        for (int kc = 0; kc < BQ / 16; ++kc) {
+#pragma unroll
+            for (int dd = 0; dd < D / 16; ++dd) {
+                const int off = (kc * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD + dd * 16 +
+                                (lane >> 4) * 8;
+                uint32_t ob[4], qb[4];
+                tc::ldsm_x4_trans(ob, dost + off);
+                tc::ldsm_x4_trans(qb, qst + off);
+                tc::mma16816(dva[2 * dd], pa[kc], ob[0], ob[1]);
+                tc::mma16816(dva[2 * dd + 1], pa[kc], ob[2], ob[3]);
+                tc::mma16816(dka[2 * dd], da[kc], qb[0], qb[1]);
+                tc::mma16816(dka[2 * dd + 1], da[kc], qb[2], qb[3]);
+            }
+        }
+        __syncthreads();  // every warp is done with this stage before it is refilled
+    }
+
+    // Stage dk (scaled once) and dv in the warp's own rows of the K and V
+    // tiles (which only this warp read), then 16-byte stores.
+    bf16* kst = ks + warp * 16 * LD;
+    bf16* vst = vs + warp * 16 * LD;
+#pragma unroll
+    for (int i = 0; i < D / 8; ++i) {
+        const int c = i * 8 + 2 * t4;
+        *reinterpret_cast<uint32_t*>(kst + g * LD + c) =
+            tc::pack_bf16(dka[i][0] * scale, dka[i][1] * scale);
+        *reinterpret_cast<uint32_t*>(kst + (g + 8) * LD + c) =
+            tc::pack_bf16(dka[i][2] * scale, dka[i][3] * scale);
+        *reinterpret_cast<uint32_t*>(vst + g * LD + c) = tc::pack_bf16(dva[i][0], dva[i][1]);
+        *reinterpret_cast<uint32_t*>(vst + (g + 8) * LD + c) =
+            tc::pack_bf16(dva[i][2], dva[i][3]);
+    }
+    __syncwarp();
+    tc::store_rows16<D, LD>(dk + base, kst, tok, k0 + warp * 16, seq, lane);
+    tc::store_rows16<D, LD>(dv + base, vst, tok, k0 + warp * 16, seq, lane);
+}
+
+template <int D>
+cudaError_t launch(const void* q, const void* k, const void* v, const int* qtag,
+                   const int* ktag, const void* dout, const float* lse, const float* delta,
+                   void* dk, void* dv, int batch, int seq, int heads, float scale,
+                   cudaStream_t stream) {
+    // Above 48 KB of dynamic shared memory a kernel must say so, once per
+    // process (the port drives one card a process).
+    static const cudaError_t attr = cudaFuncSetAttribute(
+        flash_dkv_bf16<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, Smem<D>::BYTES);
+    if (attr != cudaSuccess) return attr;
+    const dim3 grid((seq + BKEY - 1) / BKEY, heads, batch);
+    flash_dkv_bf16<D><<<grid, THREADS, Smem<D>::BYTES, stream>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+        qtag, ktag, static_cast<const bf16*>(dout), lse, delta, static_cast<bf16*>(dk),
+        static_cast<bf16*>(dv), seq, heads, scale, scale * tc::LOG2E);
+    return cudaGetLastError();
+}
+
+}  // namespace bf16_dkv
+
 struct Args {
     const void *q, *k, *v;
     const int *qtag, *ktag;
@@ -279,19 +544,24 @@ struct Args {
 
 template <bool DKV, typename T, int D>
 cudaError_t launch(const Args& a) {
-    const dim3 grid((a.seq + ROWS - 1) / ROWS, a.heads, a.batch);
-    const T *q = static_cast<const T*>(a.q), *k = static_cast<const T*>(a.k),
-            *v = static_cast<const T*>(a.v), *dout = static_cast<const T*>(a.dout);
-    if constexpr (DKV) {
-        flash_dkv_kernel<T, D><<<grid, Split<D>::THREADS, 0, a.stream>>>(
-            q, k, v, a.qtag, a.ktag, dout, a.lse, a.delta, static_cast<T*>(a.out0),
-            static_cast<T*>(a.out1), a.seq, a.heads, a.scale);
+    if constexpr (DKV && std::is_same_v<T, __nv_bfloat16>) {  // the tensor-core body
+        return bf16_dkv::launch<D>(a.q, a.k, a.v, a.qtag, a.ktag, a.dout, a.lse, a.delta,
+                                   a.out0, a.out1, a.batch, a.seq, a.heads, a.scale, a.stream);
     } else {
-        flash_dq_kernel<T, D><<<grid, Split<D>::THREADS, 0, a.stream>>>(
-            q, k, v, a.qtag, a.ktag, dout, a.lse, a.delta, static_cast<T*>(a.out0), a.seq,
-            a.heads, a.scale);
+        const dim3 grid((a.seq + ROWS - 1) / ROWS, a.heads, a.batch);
+        const T *q = static_cast<const T*>(a.q), *k = static_cast<const T*>(a.k),
+                *v = static_cast<const T*>(a.v), *dout = static_cast<const T*>(a.dout);
+        if constexpr (DKV) {
+            flash_dkv_kernel<T, D><<<grid, Split<D>::THREADS, 0, a.stream>>>(
+                q, k, v, a.qtag, a.ktag, dout, a.lse, a.delta, static_cast<T*>(a.out0),
+                static_cast<T*>(a.out1), a.seq, a.heads, a.scale);
+        } else {
+            flash_dq_kernel<T, D><<<grid, Split<D>::THREADS, 0, a.stream>>>(
+                q, k, v, a.qtag, a.ktag, dout, a.lse, a.delta, static_cast<T*>(a.out0), a.seq,
+                a.heads, a.scale);
+        }
+        return cudaGetLastError();
     }
-    return cudaGetLastError();
 }
 
 template <bool DKV, typename T>
@@ -316,9 +586,9 @@ int run(int is_bf16, int head_dim, const Args& a) {
 extern "C" {
 
 // q, k, v, dout and the outputs: [batch, seq, heads, head_dim] contiguous,
-// bf16 (is_bf16 = 1) or fp32; qtag, ktag: int32 [batch, seq]; lse and
-// delta: fp32 [batch, seq, heads]. Launch on `stream` and return
-// cudaGetLastError().
+// bf16 (is_bf16 = 1, 16-byte aligned) or fp32; qtag, ktag: int32 [batch,
+// seq]; lse and delta: fp32 [batch, seq, heads]. Launch on `stream` and
+// return the CUDA error of the launch (0 on success).
 int svoc_flash_attention_dq(const void* q, const void* k, const void* v, const int* qtag,
                             const int* ktag, const void* dout, const float* lse,
                             const float* delta, void* dq, int is_bf16, int batch, int seq,

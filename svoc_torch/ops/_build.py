@@ -4,8 +4,8 @@ counterpart: a Pallas kernel compiles inside ``jax.jit``).
 Each ``svoc_torch/csrc/<name>.cu`` has a plain C interface. ``nvcc``
 compiles it for ``sm_90a`` into ``svoc_torch/_build/lib<name>-<hash>.so``
 (git-ignored), and :func:`load` opens it with ctypes. The hash covers the
-source and the flags, so an edited source builds anew and an unchanged
-one is reused. :func:`build` starts one ``nvcc`` per source, all at
+source, the shared headers ``csrc/*.cuh`` and the flags, so an edited
+source or header builds anew and an unchanged one is reused. :func:`build` starts one ``nvcc`` per source, all at
 once, so that a cold start waits for the slowest file only.
 """
 
@@ -44,9 +44,14 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+    """Where ``csrc/<name>.cu`` builds to: named by a hash of the source,
+    every shared header ``csrc/*.cuh`` (any of them may be included) and
+    the flags."""
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
 def build(names: Sequence[str]) -> Dict[str, str]:

@@ -7,7 +7,11 @@ Mirrors :mod:`svoc_tpu.ops.pallas_attention` (``_tag_mask``,
 ``_flash_dkv_kernel``, ``_flash_diff`` and ``flash_attention``;
 ``pallas_attention.py:48-131, 142-249, 378-502``).  The kernels are
 ``svoc_torch/csrc/flash_attention.cu`` (forward) and
-``svoc_torch/csrc/flash_attention_bwd.cu`` (dq, and dk with dv).
+``svoc_torch/csrc/flash_attention_bwd.cu`` (dq, and dk with dv).  The
+input type chooses the body inside each kernel: bf16 runs the forward
+and dk/dv on the tensor cores (``mma.sync``, bf16 operands, fp32
+accumulators), float32 runs fp32 arithmetic on the CUDA cores, which its
+2e-5 contract needs; dq runs on the CUDA cores in both.
 
 One mask rule covers both modes: query i sees key j iff their tags are
 equal and the key's tag is > 0.  Packed rows (``segment_ids``) use the
@@ -144,6 +148,14 @@ def _check_kernel_inputs(q, k, v, qtag, ktag) -> None:
         raise ValueError("q, k, v and the tags must be contiguous")
     if q.device.type != "cuda" or any(x.device != q.device for x in tensors):
         raise ValueError("the CUDA kernel needs every tensor on one CUDA device")
+    _check_aligned(q, k, v)
+
+
+def _check_aligned(*tensors) -> None:
+    """The bf16 bodies move rows by 16-byte ``cp.async``: every bf16
+    tensor must start on a 16-byte boundary (a fresh allocation does)."""
+    if any(x.dtype == torch.bfloat16 and x.data_ptr() % 16 for x in tensors):
+        raise ValueError("bf16 q, k, v and dout must start on a 16-byte boundary")
 
 
 def _check_bwd_inputs(q, k, v, qtag, ktag, dout, lse, delta) -> None:
@@ -159,6 +171,7 @@ def _check_bwd_inputs(q, k, v, qtag, ktag, dout, lse, delta) -> None:
     _check_kernel_inputs(q, k, v, qtag, ktag)
     if any(x.device != q.device for x in extra):
         raise ValueError("the CUDA kernel needs every tensor on one CUDA device")
+    _check_aligned(dout)
 
 
 @functools.cache

@@ -292,3 +292,18 @@ def test_build_paths_stay_in_the_package():
                  "gated_claims_consensus", "grid_copy"):
         assert (_build.CSRC / f"{name}.cu").exists()
         assert _build.library_path(name).parent == _build.BUILD_DIR
+
+
+def test_library_path_covers_the_shared_headers(tmp_path, monkeypatch):
+    """Editing a shared header (``csrc/*.cuh``) names a new library, so the
+    next load builds anew; a file that is no source or header does not."""
+    (tmp_path / "kernel.cu").write_text('#include "helpers.cuh"\n')
+    (tmp_path / "helpers.cuh").write_text("// first\n")
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    first = _build.library_path("kernel")
+    assert _build.library_path("kernel") == first
+    (tmp_path / "notes.txt").write_text("not compiled")
+    assert _build.library_path("kernel") == first
+    (tmp_path / "helpers.cuh").write_text("// second\n")
+    assert _build.library_path("kernel") != first
+    assert first.parent == _build.BUILD_DIR

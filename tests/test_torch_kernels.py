@@ -42,36 +42,36 @@ def cuda():
 
 def _segments(b, t, gen, device):
     ids = torch.arange(1, t + 1, device=device)
-    seg = torch.stack([
-        torch.repeat_interleave(ids, torch.randint(1, t // 3, (t,), generator=gen, device=device))[:t]
-        for _ in range(b)
-    ])
+    lengths = torch.randint(1, max(2, t // 3), (t,), generator=gen, device=device)
+    seg = torch.stack([torch.repeat_interleave(ids, lengths)[:t] for _ in range(b)])
     seg[:, t - t // 5 :] = 0  # padding tail
     seg[0] = 0  # a row of padding only: every query dead
     return seg.to(torch.int32).contiguous()
 
 
-@pytest.mark.parametrize(
-    "dtype,d,tol",
-    [
-        (torch.float32, 16, 2e-5),
-        (torch.float32, 32, 2e-5),
-        (torch.float32, 64, 2e-5),
-        (torch.float32, 128, 2e-5),
-        (torch.bfloat16, 64, 3e-2),
-    ],
-)
-@pytest.mark.parametrize("mode", ["segments", "kmask"])
-def test_flash_kernel_matches_plain(cuda, dtype, d, tol, mode):
-    gen = torch.Generator(device=cuda).manual_seed(d)
-    b, t, h = 3, 77, 2  # T is no multiple of any tile
-    q, k, v = (torch.randn(b, t, h, d, generator=gen, device=cuda).to(dtype) for _ in range(3))
+def _tags(q, mode, gen):
+    b, t = q.shape[:2]
     if mode == "segments":
-        qtag, ktag = attention_tags(q, segment_ids=_segments(b, t, gen, cuda))
-    else:
-        kmask = torch.rand(b, t, generator=gen, device=cuda) > 0.3
-        kmask[0] = False
-        qtag, ktag = attention_tags(q, kmask=kmask)
+        return attention_tags(q, segment_ids=_segments(b, t, gen, q.device))
+    kmask = torch.rand(b, t, generator=gen, device=q.device) > 0.3
+    kmask[0] = False
+    return attention_tags(q, kmask=kmask)
+
+
+#: bf16 reaches the tensor-core bodies at every head width, T from one
+#: token to many key tiles; float32 the CUDA-core bodies.
+FWD_CASES = [(torch.float32, d, 77, 2e-5) for d in (16, 32, 64, 128)] + [
+    (torch.bfloat16, d, t, 3e-2) for d in (16, 32, 64, 128) for t in (1, 77, 1000)
+]
+
+
+@pytest.mark.parametrize("dtype,d,t,tol", FWD_CASES)
+@pytest.mark.parametrize("mode", ["segments", "kmask"])
+def test_flash_kernel_matches_plain(cuda, dtype, d, t, tol, mode):
+    gen = torch.Generator(device=cuda).manual_seed(d + t)
+    b, h = 3, 2  # T is no multiple of any tile (but T = 1 fits one)
+    q, k, v = (torch.randn(b, t, h, d, generator=gen, device=cuda).to(dtype) for _ in range(3))
+    qtag, ktag = _tags(q, mode, gen)
     out, lse = flash_attention_cuda(q, k, v, qtag, ktag, return_lse=True)
     ref, ref_lse = flash_attention_plain(q, k, v, qtag, ktag, return_lse=True)
     torch.cuda.synchronize()
@@ -80,39 +80,95 @@ def test_flash_kernel_matches_plain(cuda, dtype, d, tol, mode):
     live = torch.isfinite(ref_lse)
     assert torch.equal(live, torch.isfinite(lse))
     torch.testing.assert_close(lse[live], ref_lse[live], atol=2e-5 if dtype == torch.float32 else 1e-3, rtol=0)
-    assert torch.all(out[0] == 0)
+    assert torch.all(out[0] == 0) and torch.all(torch.isneginf(lse[0]))
+    dead = ~live
+    assert torch.all(out[dead] == 0) and torch.all(torch.isneginf(lse[dead]))
+
+
+def _layout(kind, b, t, device):
+    """Segment ids over [b, t]: one segment over every token (every pair
+    live), or runs of 50 tokens (most tile pairs fully masked)."""
+    if kind == "one_segment":
+        return torch.ones(b, t, dtype=torch.int32, device=device)
+    seg = (torch.arange(t, device=device) // 50 + 1).expand(b, t).clone()
+    seg[:, -7:] = 0
+    return seg.to(torch.int32).contiguous()
+
+
+@pytest.mark.parametrize("kind", ["one_segment", "runs_of_50"])
+@pytest.mark.parametrize("d,t", [(64, 1000), (128, 1000), (64, 4100)])
+def test_flash_long_rows_are_exact_and_deterministic(cuda, kind, d, t):
+    """bf16 over many tiles (65 key tiles at T = 4100), one segment and
+    runs of 50 tokens: the forward and dk/dv match their plain versions,
+    and two launches give the same bits (one owner per row, no
+    atomics)."""
+    gen = torch.Generator(device=cuda).manual_seed(d + t)
+    b, h = 2, 3
+    q, k, v, dout = (torch.randn(b, t, h, d, generator=gen, device=cuda).bfloat16() for _ in range(4))
+    qtag, ktag = attention_tags(q, segment_ids=_layout(kind, b, t, cuda))
+    out, lse = flash_attention_cuda(q, k, v, qtag, ktag, return_lse=True)
+    again, lse_again = flash_attention_cuda(q, k, v, qtag, ktag, return_lse=True)
+    ref, ref_lse = flash_attention_plain(q, k, v, qtag, ktag, return_lse=True)
+    delta = attention_delta(out, dout)
+    dk, dv = flash_dkv_cuda(q, k, v, qtag, ktag, dout, lse, delta)
+    dk2, dv2 = flash_dkv_cuda(q, k, v, qtag, ktag, dout, lse, delta)
+    _, rdk, rdv = flash_attention_bwd_plain(
+        q.float(), k.float(), v.float(), qtag, ktag, out.float(), lse, dout.float()
+    )
+    torch.cuda.synchronize()
+    assert torch.equal(out, again) and torch.equal(lse, lse_again)
+    assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
+    torch.testing.assert_close(out.float(), ref.float(), atol=3e-2, rtol=0)
+    live = torch.isfinite(ref_lse)
+    assert torch.equal(live, torch.isfinite(lse))
+    torch.testing.assert_close(lse[live], ref_lse[live], atol=1e-3, rtol=0)
+    for name, got, r in (("dk", dk, rdk), ("dv", dv, rdv)):
+        torch.testing.assert_close(got.float(), r, atol=3e-2, rtol=2.0**-8, msg=name)
+    dead = ktag == 0
+    assert torch.all(out[dead] == 0) and torch.all(dk[dead] == 0) and torch.all(dv[dead] == 0)
+
+
+def test_flash_wrappers_refuse_misaligned_bf16(cuda):
+    """A bf16 view that starts 2 bytes into its allocation: the 16-byte
+    cp.async of the tensor-core bodies cannot read it, so every wrapper
+    refuses it before any launch."""
+    x = torch.zeros(1 + 8 * 2 * 16, device=cuda, dtype=torch.bfloat16)[1:].view(1, 8, 2, 16)
+    ok = torch.zeros(1, 8, 2, 16, device=cuda, dtype=torch.bfloat16)
+    tags = torch.ones(1, 8, dtype=torch.int32, device=cuda)
+    stats = torch.zeros(1, 8, 2, device=cuda)
+    assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    for wrapper, args in (
+        (flash_attention_cuda, (x, ok, ok, tags, tags)),
+        (flash_dq_cuda, (ok, ok, ok, tags, tags, x, stats, stats)),
+        (flash_dkv_cuda, (ok, x, ok, tags, tags, ok, stats, stats)),
+    ):
+        before = wrapper.launches
+        with pytest.raises(ValueError, match="16-byte"):
+            wrapper(*args)
+        assert wrapper.launches == before
 
 
 def _bwd_case(cuda, b, t, h, d, dtype, mode, seed):
     gen = torch.Generator(device=cuda).manual_seed(seed)
     q, k, v, dout = (torch.randn(b, t, h, d, generator=gen, device=cuda).to(dtype) for _ in range(4))
-    if mode == "segments":
-        qtag, ktag = attention_tags(q, segment_ids=_segments(b, t, gen, cuda))
-    else:
-        kmask = torch.rand(b, t, generator=gen, device=cuda) > 0.3
-        kmask[0] = False
-        qtag, ktag = attention_tags(q, kmask=kmask)
+    qtag, ktag = _tags(q, mode, gen)
     out, lse = flash_attention_cuda(q, k, v, qtag, ktag, return_lse=True)
     return q, k, v, qtag, ktag, out, lse, dout
 
 
-@pytest.mark.parametrize(
-    "dtype,d,b,t,h",
-    [
-        (torch.float32, 16, 3, 77, 2),
-        (torch.float32, 32, 3, 77, 2),
-        (torch.float32, 64, 3, 77, 2),
-        (torch.float32, 128, 3, 77, 2),
-        (torch.bfloat16, 64, 8, 128, 12),
-    ],
-)
+BWD_CASES = [(torch.float32, d, 3, 77, 2) for d in (16, 32, 64, 128)] + [
+    (torch.bfloat16, 64, 8, 128, 12)
+] + [(torch.bfloat16, d, 3, t, 2) for d in (16, 32, 64, 128) for t in (1, 77, 1000)]
+
+
+@pytest.mark.parametrize("dtype,d,b,t,h", BWD_CASES)
 @pytest.mark.parametrize("mode", ["segments", "kmask"])
 def test_flash_backward_kernels_match_plain(cuda, dtype, d, b, t, h, mode):
     """dq and dk/dv against the plain backward's fp32 result on the same
     inputs: float32 within 1e-4 (``tests/test_pallas_attention.py``);
     bf16 within 3e-2 plus one bf16 rounding (2^-8 relative) of the
     kernel's output.  Dead queries and keys no query sees: exactly 0."""
-    q, k, v, qtag, ktag, out, lse, dout = _bwd_case(cuda, b, t, h, d, dtype, mode, seed=d)
+    q, k, v, qtag, ktag, out, lse, dout = _bwd_case(cuda, b, t, h, d, dtype, mode, seed=d + t)
     delta = attention_delta(out, dout)
     dq = flash_dq_cuda(q, k, v, qtag, ktag, dout, lse, delta)
     dk, dv = flash_dkv_cuda(q, k, v, qtag, ktag, dout, lse, delta)
