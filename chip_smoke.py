@@ -25,18 +25,20 @@ Phases:
    lse, and T = 1000 as one segment and in runs of 50 tokens; the share
    of 64 x 64 tile pairs that a tag-range skip would save at the flagship
    (the kernels visit every tile). Times by CUDA events at the flagship
-   shape and at flash_probe's four shapes beside SDPA and the bound.
+   shape and at flash_probe's four shapes beside SDPA and the bound (B1
+   twice at each, before and after SDPA).
 2b. The flash backward kernels (dq, and dk with dv) against the plain
    backward's fp32 result on the same inputs: the flagship shape in
    bf16 with segment ids from a real packed batch (3e-2, plus one bf16
    rounding of the kernel's output), the per-key mask mode with a fully
    masked row, float32 at every head width with T = 77 (1e-4), bf16 at
-   every head width with T = 1, 77 and 1000 in both mask modes (dk/dv
-   of two launches bit for bit equal), T = 1000 as one segment and in
-   runs of 50 tokens, and exact zeros for padding queries and dead keys;
-   then their times beside the plain backward's and SDPA's backward under
-   the same boolean mask, and dk/dv's at flash_probe's four shapes beside
-   SDPA's backward and the bound.
+   every head width with T = 1, 77 and 1000 in both mask modes (dq, dk
+   and dv of two launches bit for bit equal), T = 1000 as one segment
+   and in runs of 50 tokens, and exact zeros for padding queries and
+   dead keys; then their times beside the plain backward's and SDPA's
+   backward under the same boolean mask, and at flash_probe's four
+   shapes beside SDPA's backward and the bounds (``backward_times``;
+   dq's CUDA-core times from before its tensor-core body beside).
 2c. Flash against dense attention, in-process through
    ``svoc_torch.tools.flash_probe``: the numerics adjudication
    (``parity_only``: both bf16 results against a float32-truth dense
@@ -46,9 +48,10 @@ Phases:
    peak device memory; SDPA under the same all-ones key mask is timed
    beside them by the same protocol (yardstick only).
 3. The fused-consensus kernel against its plain version: N = 1024, M = 6,
-   n_failing = 128, constrained and unconstrained, a tie-heavy fleet,
-   N = 7 and N = 1000. The reliable mask exact; essence, risk and
-   reliabilities within 1e-5; skewness within 1e-4; kurtosis within 1e-3.
+   n_failing = 128, constrained and unconstrained, three tie-heavy fleets
+   (quantised to 1e-2, every row equal, -0.0 and +0.0 mixed), N = 7 and
+   N = 1000. The reliable mask exact; essence, risk and reliabilities
+   within 1e-5; skewness within 1e-4; kurtosis within 1e-3.
 3b. The gated claim-cube kernel against its plain version: the
    ``bench.py --claims 64 --claims-oracles 1024`` cube ([64, 1024, 6],
    n_failing 256, every eighth claim's last oracle quarantined), the
@@ -95,10 +98,12 @@ Phases:
    round-robin into one packed forward of 256 rows of 128 tokens with up
    to 8 comments, then per-claim windows (8 -> 50 rows) and fleets, the
    in-graph quarantine gate and one gated claim-cube launch. The last
-   claim's oracle 1023 is tampered in rotation (a NaN component, an inf
-   row, a 7.5 row; the first step clean). Eight steps, the last five
-   timed, with every kernel's launch count set to 0 before and read
-   after: 12 flash and 1 claim-cube launch a step, no other. The
+   claim's oracle 1023 is tampered in rotation by the fabric scenario's
+   hook in its numpy form, which gets the block on the host as float64
+   (a NaN component, an inf row, a 7.5 row; the first step clean).
+   Eight steps, the last five timed, with every kernel's launch count
+   set to 0 before and read after: 12 flash and 1 claim-cube launch a
+   step, no other. The
    offender's slot is quarantined (the host gate agrees, with its
    reason) and it still reports a finite consensus over 1023 oracles;
    a second run without the tamper gives the 63 other claims' outputs
@@ -161,6 +166,10 @@ KERNEL_ROWS = {
                                "svoc_tpu/ops/pallas_consensus.py:411"),
     "grid_copy": ("svoc_torch/csrc/grid_copy.cu", "tools/tpu_probe.py:99"),
 }
+#: B4's bf16 times (ms) at flash_probe's four shapes with its CUDA-core
+#: body, before the tensor-core body: backward_times() run on that
+#: body's tree (an NVIDIA H100 80GB HBM3 at 700.00 W).
+OLD_DQ_MS = {(256, 128): 1.5497, (8, 512): 0.7043, (8, 2048): 10.8642, (2, 8192): 42.4093}
 PROBE_TIMEOUT_S = 120  # each probe of phase 7 (about 10 s each on an H100)
 PROBE_RECORDS = ("backend", "grid_copy", "consensus128", "consensus256", "consensus512",
                  "consensus1024", "flash512", "encoder512_dense", "encoder512_flash")
@@ -458,22 +467,25 @@ def flash_phase(torch, results):
 
     # Times at flash_probe's four shapes, every key live, by CUDA events;
     # SDPA without a mask (the same function here) and under an all-ones
-    # boolean mask (as at the flagship shape).
+    # boolean mask (as at the flagship shape). B1 is timed twice, before
+    # and after SDPA, over at least 2 ms of launches each.
     card = nvidia_smi()
     for b, t in flash_probe.SHAPES:
         q, k, v = qkv(b, t, h, d, torch.bfloat16)
         ones = torch.ones(b, t, dtype=torch.int32, device=dev)
         qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
         mask = torch.ones(b, 1, 1, t, dtype=torch.bool, device=dev)
-        iters = 20 if t <= 2048 else 10
-        ms = cuda_ms(torch, lambda: flash_attention_cuda(q, k, v, ones, ones), iters=iters)
+        iters = 100 if t <= 2048 else 20
+        first_ms = cuda_ms(torch, lambda: flash_attention_cuda(q, k, v, ones, ones), iters=iters)
         sdpa_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt), iters=iters)
         masked_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask),
                             iters=iters)
+        ms = cuda_ms(torch, lambda: flash_attention_cuda(q, k, v, ones, ones), iters=iters)
         bytes_moved = 4 * q.numel() * q.element_size() + 2 * ones.numel() * 4
         bound_ms, bound_by = bound(bytes_moved, 4 * d * h * b * t * t, BF16_FLOPS)
-        print(f"  [{card}] B1 [{b}, {t}, 12, 64] bf16, all live: kernel {ms:.4f} ms, SDPA {sdpa_ms:.4f} ms "
-              f"(all-ones mask {masked_ms:.4f} ms), bound {bound_ms:.4f} ms ({bound_by})")
+        print(f"  [{card}] B1 [{b}, {t}, 12, 64] bf16, all live: kernel {first_ms:.4f} ms before SDPA, "
+              f"{ms:.4f} ms after ({iters} launches each), SDPA {sdpa_ms:.4f} ms (all-ones mask "
+              f"{masked_ms:.4f} ms), bound {bound_ms:.4f} ms ({bound_by})")
         del qt, kt, vt
 
 
@@ -485,7 +497,6 @@ def flash_bwd_phase(torch, results):
         attention_delta, attention_tags, flash_attention_bwd_plain, flash_attention_cuda,
         flash_dkv_cuda, flash_dq_cuda, tag_mask,
     )
-    from svoc_torch.tools import flash_probe
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(2)
@@ -524,6 +535,9 @@ def flash_bwd_phase(torch, results):
     pad = seg == 0
     check(bool(torch.all(dq[pad] == 0) and torch.all(dk[pad] == 0) and torch.all(dv[pad] == 0)),
           f"flagship: dq, dk and dv of all {int(pad.sum())} padding tokens exactly 0")
+    out_, lse_ = flash_attention_cuda(q, k, v, qtag, ktag, return_lse=True)
+    again = flash_dq_cuda(q, k, v, qtag, ktag, dout, lse_, attention_delta(out_, dout))
+    check(torch.equal(again, dq), "flagship: dq of two launches bit for bit equal")
 
     kmask = seg > 0
     kmask[3] = False  # a row whose every key is masked
@@ -545,10 +559,10 @@ def flash_bwd_phase(torch, results):
               "f32 [2, 77, 3, {}] segments: dq {:.3e}, dk {:.3e}, dv {:.3e} <= 1e-4; "
               "padding exactly 0".format(hd, *ferrs))
 
-    # bf16 (dk/dv through the tensor-core body) at every head width, T
-    # from one token to 16 tiles, both mask modes; dead keys exactly 0,
-    # two launches bit for bit the same; then T = 1000 as one segment and
-    # in runs of 50 tokens.
+    # bf16 (dq and dk/dv through the tensor-core bodies) at every head
+    # width, T from one token to 16 tiles, both mask modes; dead keys and
+    # rows exactly 0, two launches bit for bit the same; then T = 1000 as
+    # one segment and in runs of 50 tokens.
     for hd in (16, 32, 64, 128):
         for t_ in (1, 77, 1000):
             case_errs, ok = [], True
@@ -557,16 +571,18 @@ def flash_bwd_phase(torch, results):
                 a, b_ = small_tags(torch, sq, mode, gen)
                 (gq, gk, gv), berrs, bok, _ = run(sq, sk, sv, a, b_, sdo, 3e-2, bf16_rtol)
                 out_, lse_ = flash_attention_cuda(sq, sk, sv, a, b_, return_lse=True)
-                again = flash_dkv_cuda(sq, sk, sv, a, b_, sdo, lse_, attention_delta(out_, sdo))
+                delta_ = attention_delta(out_, sdo)
+                again = (flash_dq_cuda(sq, sk, sv, a, b_, sdo, lse_, delta_),
+                         *flash_dkv_cuda(sq, sk, sv, a, b_, sdo, lse_, delta_))
                 torch.cuda.synchronize()
                 dead_k, dead_q = b_ == 0, ~torch.isfinite(lse_).all(dim=-1)
                 case_errs += berrs
-                ok &= (bok and torch.equal(again[0], gk) and torch.equal(again[1], gv)
+                ok &= (bok and all(torch.equal(x, y) for x, y in zip(again, (gq, gk, gv)))
                        and bool(torch.all(gk[dead_k] == 0) and torch.all(gv[dead_k] == 0)
                                 and torch.all(gq[dead_q] == 0)))
             check(ok, "bf16 [3, {}, 2, {}]: segments dq {:.3e}, dk {:.3e}, dv {:.3e}; kmask dq {:.3e}, "
                       "dk {:.3e}, dv {:.3e} <= 3e-2 + 2^-8 |plain|; dead keys' dk, dv and dead rows' dq "
-                      "exactly 0; dk/dv of two launches equal".format(t_, hd, *case_errs))
+                      "exactly 0; dq, dk, dv of two launches equal".format(t_, hd, *case_errs))
     for kind in ("one segment", "runs of 50"):
         sq, sk, sv, sdo = (normal(2, 1000, 3, 64, torch.bfloat16) for _ in range(4))
         seg_ = run_segments(torch, 2, 1000, 1000 if kind == "one segment" else 50, dev)
@@ -603,15 +619,34 @@ def flash_bwd_phase(torch, results):
             plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
         )
 
-    # B5 at flash_probe's four shapes, every key live, by CUDA events,
-    # beside SDPA's whole backward (no mask: the same function here).
+    backward_times(torch)
+
+
+def backward_times(torch):
+    """B4 (dq) and B5 (dk/dv) at flash_probe's four shapes (bf16, 12 heads
+    of 64, every key live) by CUDA events, beside SDPA's whole backward
+    (no mask: the same function here) and each kernel's bound; B4's
+    CUDA-core times from before its tensor-core body in brackets. Imports
+    ``svoc_torch`` from ``sys.path``, so it times whichever tree comes
+    first there."""
+    import torch.nn.functional as F
+
+    from svoc_torch.ops.flash_attention import (
+        attention_delta, flash_attention_cuda, flash_dkv_cuda, flash_dq_cuda,
+    )
+    from svoc_torch.tools import flash_probe
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(2)
+    h, d = 12, 64
     card = nvidia_smi()
     for b, t in flash_probe.SHAPES:
-        q, k, v, dout = (normal(b, t, h, d, torch.bfloat16) for _ in range(4))
+        q, k, v, dout = (torch.randn(b, t, h, d, generator=gen, device=dev).bfloat16() for _ in range(4))
         ones = torch.ones(b, t, dtype=torch.int32, device=dev)
         out, lse = flash_attention_cuda(q, k, v, ones, ones, return_lse=True)
         delta = attention_delta(out, dout)
         iters = 20 if t <= 2048 else 5
+        dq_ms = cuda_ms(torch, lambda: flash_dq_cuda(q, k, v, ones, ones, dout, lse, delta), iters=iters)
         ms = cuda_ms(torch, lambda: flash_dkv_cuda(q, k, v, ones, ones, dout, lse, delta), iters=iters)
         qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v))
         sdpa_out = F.scaled_dot_product_attention(qt, kt, vt)
@@ -620,10 +655,13 @@ def flash_bwd_phase(torch, results):
             torch, lambda: torch.autograd.grad(sdpa_out, (qt, kt, vt), dout_t, retain_graph=True),
             iters=iters)
         tensor_bytes = q.numel() * q.element_size()
-        bytes_moved = 6 * tensor_bytes + 2 * lse.numel() * 4 + 2 * ones.numel() * 4
-        bound_ms, bound_by = bound(bytes_moved, 8 * d * h * b * t * t, BF16_FLOPS)
-        print(f"  [{card}] B5 [{b}, {t}, 12, 64] bf16, all live: kernel {ms:.4f} ms, SDPA backward "
-              f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+        reads = 4 * tensor_bytes + 2 * lse.numel() * 4 + 2 * ones.numel() * 4
+        dq_bound, dq_by = bound(reads + tensor_bytes, 6 * d * h * b * t * t, BF16_FLOPS)
+        bound_ms, bound_by = bound(reads + 2 * tensor_bytes, 8 * d * h * b * t * t, BF16_FLOPS)
+        print(f"  [{card}] [{b}, {t}, 12, 64] bf16, all live: B4 {dq_ms:.4f} ms "
+              f"[CUDA cores before: {OLD_DQ_MS.get((b, t), 'not measured')}], bound {dq_bound:.4f} ms "
+              f"({dq_by}); B5 {ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); SDPA backward "
+              f"{library_ms:.4f} ms")
         del out, qt, kt, vt, sdpa_out
 
 
@@ -717,16 +755,22 @@ def consensus_phase(torch, results):
             ConsensusConfig(n_failing=128, constrained=False))
     ties = torch.round(torch.rand(1024, 6, generator=gen, device=dev) * 100) / 100
     compare("N=1024 quantised to 1e-2 (ties)", ties.contiguous(), flagship)
+    # Every row equal (3/8: every sum exact, so the moments of a constant
+    # column are exact too), and values from {-0.0, +0.0, 0.25, 0.5}.
+    compare("N=1024 all rows equal", torch.full((1024, 6), 0.375, device=dev), flagship)
+    zeros = torch.tensor([-0.0, 0.0, 0.25, 0.5], device=dev)
+    signed = zeros[torch.randint(0, 4, (1024, 6), generator=gen, device=dev)].contiguous()
+    compare("N=1024 -0.0 and +0.0 mixed", signed, flagship)
     compare("N=7", torch.rand(7, 6, generator=gen, device=dev), ConsensusConfig(n_failing=2))
     compare("N=1000", torch.rand(1000, 6, generator=gen, device=dev), ConsensusConfig(n_failing=125))
 
-    ms = cuda_ms(torch, lambda: fused_consensus_cuda(uniform, flagship), iters=50)
+    ms = cuda_ms(torch, lambda: fused_consensus_cuda(uniform, flagship), iters=200)
     plain_ms = cuda_ms(torch, lambda: fused_consensus_plain(uniform, flagship), iters=10)
     n, m = uniform.shape
     bytes_moved = 4 * (n * m + 2 * m + 2 + n + n + 2 * m)
-    ops = 13 * n * math.ceil(math.log2(n)) + 12 * n * m  # 13 sorts' comparisons + moments
+    ops = (4 * m + 1) * n + 12 * n * m  # each of the 4M + 1 ranks reads every key once; moments
     bound_ms, bound_by = bound(bytes_moved, ops, FP32_FLOPS)
-    print(f"  N=1024 times: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+    print(f"  [{nvidia_smi()}] N=1024 times: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
           f"bound {bound_ms:.6f} ms ({bound_by})")
     results["fused_consensus"] = dict(
         max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
@@ -1277,6 +1321,8 @@ def claim_names(n: int):
 
 @phase("6. main path: full-width multi-claim serving step")
 def claims_path_phase(torch, launches):
+    import numpy as np
+
     from svoc_torch.consensus.batch import pad_claim_cube
     from svoc_torch.fabric.registry import ClaimSpec
     from svoc_torch.io.scraper import SyntheticSource
@@ -1296,15 +1342,15 @@ def claims_path_phase(torch, launches):
     def kind_of(cycle):  # the first step clean, then the rotation
         return None if cycle == 0 else rotation[(cycle - 1) % len(rotation)]
 
-    def tamper(cycle, block):  # fabric/scenario.py:140-152, on slot N-1
+    def tamper(cycle, block):  # fabric/scenario.py:140-152, on slot N-1: a host float64 block
         kind = kind_of(cycle)
         if kind is None:
             return block
-        block = block.clone()
+        block = np.array(block, copy=True)
         if kind == "nan":
-            block[slot, 0] = float("nan")
+            block[slot, 0] = np.nan
         elif kind == "inf":
-            block[slot, :] = float("inf")
+            block[slot, :] = np.inf
         else:
             block[slot, :] = 7.5  # out of the constrained [0, 1] domain
         return block

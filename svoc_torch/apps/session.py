@@ -11,6 +11,7 @@ from __future__ import annotations
 
 from typing import Callable, Optional, Tuple
 
+import numpy as np
 import torch
 
 from svoc_torch.fabric.registry import ClaimSpec
@@ -66,11 +67,19 @@ def fleet_block(
     oracles of which ``spec.n_failing`` fail, honest ones averaging
     ``subset`` window rows; then ``tamper(cycle, block)`` when given (the
     scenario hook, applied before the gate).  Returns ``(values [N, M]
-    float32, honest [N])`` on ``gen``'s device."""
+    float32, honest [N])`` on ``gen``'s device.
+
+    The hook gets what the reference's gets (``session.py:622-633``): the
+    block fetched to the host as a float64 numpy array; its return is
+    read as float64, cast to float32 and put back on the block's device.
+    Only a tampered claim pays that fetch, as in the reference."""
     draws = draw_fleet(
         gen, window.shape[0], window.shape[1], spec.n_oracles, spec.n_failing, subset
     )
     values, honest = assemble_fleet(window, *draws)
+    values = values.to(torch.float32)
     if tamper is not None:
-        values = tamper(cycle, values)
-    return values.to(torch.float32), honest
+        block = values.detach().cpu().numpy().astype(np.float64)
+        tampered = np.asarray(tamper(cycle, block), dtype=np.float64).astype(np.float32)
+        values = torch.from_numpy(tampered).to(values.device)
+    return values, honest

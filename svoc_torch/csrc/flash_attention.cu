@@ -442,10 +442,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, const int* qtag,
                    const int* ktag, void* o, float* lse, int batch, int seq, int heads,
                    float scale, cudaStream_t stream) {
     using C = Cfg<D>;
-    // Above 48 KB of dynamic shared memory a kernel must say so, once per
-    // process (the port drives one card a process).
-    static const cudaError_t attr = cudaFuncSetAttribute(
-        flash_fwd_bf16<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::BYTES);
+    static tc::SmemLimit limit;  // above 48 KB, once per device
+    const cudaError_t attr = limit.ensure(flash_fwd_bf16<D>, C::BYTES);
     if (attr != cudaSuccess) return attr;
     const dim3 grid((seq + C::BQ - 1) / C::BQ, heads, batch);
     flash_fwd_bf16<D><<<grid, C::THREADS, C::BYTES, stream>>>(

@@ -25,44 +25,55 @@
 // about 305 MB, 91 us; their 6 and 8 flops per head element per live
 // pair take a few us on the bf16 tensor cores, so both are bound by
 // bytes there. At (B, T) = (2, 8192) with every key live, dk/dv moves
-// about 152 MB (45 us) and does 0.82 TFLOP (0.83 ms at 989 TFLOP/s):
-// bound by the products.
+// about 152 MB (45 us) and does 0.82 TFLOP (0.83 ms at 989 TFLOP/s), dq
+// 0.62 TFLOP (0.63 ms): bound by the products.
 //
 // Each output row has one owner, so there are no atomics and the results
 // are deterministic, as with the TPU's split into two kernels.
 //
-// dk/dv, bf16 (the tensor-core body, FlashAttention-2's dk/dv pass): one
-// block of 4 warps per (64 keys, head, batch row), each warp owning 16
-// key rows. Their K and V fragments are read from shared memory once
-// and held in registers for the whole walk (at D = 128, where they would
-// not fit beside the two accumulators, they stay in shared memory and
-// are read again for each query tile). The block walks the query tiles
-// (64 rows; 32 at D = 128): Q, dO, the query tags, lse and delta come in
-// by cp.async, two stages in dynamic shared memory, so the next tile
-// loads while this one computes. Four mma.sync.m16n8k16 products per
-// tile pair, bf16 operands and fp32 accumulators (tensor_core.cuh):
-//   S^T = K Q^T; P^T = exp2(scale log2(e) S^T - log2(e) lse), masked, 0
-//   on rows whose lse is -inf; dV += P^T dO (P^T rounded to bf16 in
-//   registers, dO through ldmatrix.trans); dP^T = V dO^T; dS^T = P^T
-//   (dP^T - delta); dK += dS^T Q (dS^T rounded to bf16, Q through
-//   ldmatrix.trans).
-// dk is scaled once at the end; both outputs are staged through the
-// warp's own rows of the K and V tiles and stored with 16-byte writes.
-// Every query tile is visited and masked by tag, as in the forward
-// (flash_attention.cu says why no tile is skipped). A dead key gets
-// exactly 0: every p of its row is 0.
+// The bf16 bodies run on the tensor cores (FlashAttention-2's two passes),
+// mma.sync.m16n8k16 with bf16 operands and fp32 accumulators
+// (tensor_core.cuh), 4 warps a block, each warp owning 16 output rows:
 //
-// dq (both types), and dk/dv in float32, keep the CUDA-core arithmetic
-// of the first port: all fp32 (bf16 inputs upcast), as the float32
-// contract (1e-4 against the plain backward, with TF32 off) needs, which
-// tensor-core products cannot meet; dq in bf16 is redesigned next. The
-// input type alone chooses the dk/dv body inside the C entry point;
-// neither is a fallback for the other. Design of the CUDA-core kernels:
+// dq, bf16: one block per (64 query rows, head, batch row). The warp's Q
+// and dO fragments are read from shared memory once and held in
+// registers below D = 128 (at D = 128 they stay in shared memory beside
+// the accumulator and are read again for each key tile); its rows' lse
+// (log2 units), delta and tags are registers. The block walks the key
+// tiles (64 keys; 32 at D = 128): K, V and the key tags come in by
+// cp.async, two stages in dynamic shared memory, so the next tile loads
+// while this one computes. Per tile: S = Q K^T and dP = dO V^T; P =
+// exp2(scale log2(e) S - log2(e) lse), chosen by a select on the tag rule
+// and on a finite lse (a dead row's exp2 is inf), never a product; dS =
+// P (dP - delta) in registers, rounded to bf16 as the A operand of dQ +=
+// dS K (K through ldmatrix.trans).
+//
+// dk/dv, bf16: one block per (64 keys, head, batch row). The warp's K and
+// V fragments are held in registers below D = 128 the same way. The
+// block walks the query tiles (64 rows; 32 at D = 128): Q, dO, the query
+// tags, lse and delta come in by cp.async in two stages. Per tile: S^T =
+// K Q^T; P^T = exp2(scale log2(e) S^T - log2(e) lse), masked, 0 on rows
+// whose lse is -inf; dV += P^T dO (P^T rounded to bf16 in registers, dO
+// through ldmatrix.trans); dP^T = V dO^T; dS^T = P^T (dP^T - delta); dK
+// += dS^T Q (dS^T rounded to bf16, Q through ldmatrix.trans).
+//
+// dq and dk are scaled once at the end; every output is staged through
+// the warp's own rows of its Q (dq) or K and V (dk/dv) tile and stored
+// with 16-byte writes. Every tile is visited and masked by tag, as in the
+// forward (flash_attention.cu says why no tile is skipped). A dead row
+// gets dq exactly 0, and a dead key dk and dv exactly 0: every p of its
+// row is 0.
+//
+// float32 keeps the CUDA-core arithmetic of the first port, all fp32, as
+// the float32 contract (1e-4 against the plain backward, with TF32 off)
+// needs, which tensor-core products cannot meet. The input type alone
+// chooses the body inside the C entry points; neither is a fallback for
+// the other. Design of the CUDA-core kernels:
 // - dq: one block per (tile of 64 query rows, head, batch row). A query
 //   row belongs to TPR = D/16 threads, each holding 16 contiguous
 //   elements of q, dO and the dq accumulator in registers; the row's lse
 //   and delta are registers too. Key and value tiles go through shared
-//   memory as fp32 and are walked key by key.
+//   memory and are walked key by key.
 // - dk/dv: one block per (tile of 64 key rows, head, batch row), with a
 //   key row split the same way over threads holding k, v and the dk and
 //   dv accumulators; query tiles (q, dO, tags, lse, delta) go through
@@ -87,18 +98,6 @@ namespace {
 
 constexpr int ROWS = 64;  // output rows (queries for dq, keys for dk/dv) per block
 constexpr unsigned FULL = 0xffffffffu;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-    return __float2bfloat16(x);
-}
 
 template <int D>
 struct Split {
@@ -149,20 +148,20 @@ __device__ __forceinline__ void axpy(float (&acc)[DP], float w, const float* s) 
 }
 
 // Copies rows [r0, r0 + n) of two [B, T, H, D] tensors (at `base`, the
-// offset of this batch row and head) into shared memory as fp32 in the
-// padded slice layout; rows past n are zero.
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(const T* __restrict__ a, const T* __restrict__ b,
-                                          float* as, float* bs, size_t base,
-                                          size_t tok_stride, int r0, int n) {
+// offset of this batch row and head) into shared memory in the padded
+// slice layout; rows past n are zero.
+template <int D>
+__device__ __forceinline__ void load_tile(const float* __restrict__ a,
+                                          const float* __restrict__ b, float* as, float* bs,
+                                          size_t base, size_t tok_stride, int r0, int n) {
     using L = Split<D>;
     for (int e = threadIdx.x; e < L::TILE * D; e += L::THREADS) {
         const int r = e / D, c = e % D;
         float ax = 0.f, bx = 0.f;
         if (r < n) {
             const size_t off = base + (size_t)(r0 + r) * tok_stride + c;
-            ax = to_f32(a[off]);
-            bx = to_f32(b[off]);
+            ax = a[off];
+            bx = b[off];
         }
         const int s = r * L::ROW + (c / L::DP) * L::SLICE + c % L::DP;
         as[s] = ax;
@@ -170,13 +169,13 @@ __device__ __forceinline__ void load_tile(const T* __restrict__ a, const T* __re
     }
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(Split<D>::THREADS)
-flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                const int* __restrict__ qtag, const int* __restrict__ ktag,
-                const T* __restrict__ dout, const float* __restrict__ lse,
-                const float* __restrict__ delta, T* __restrict__ dq, int seq, int heads,
-                float scale) {
+flash_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                const float* __restrict__ v, const int* __restrict__ qtag,
+                const int* __restrict__ ktag, const float* __restrict__ dout,
+                const float* __restrict__ lse, const float* __restrict__ delta,
+                float* __restrict__ dq, int seq, int heads, float scale) {
     using L = Split<D>;
     __shared__ __align__(16) float ks[L::TILE * L::ROW];
     __shared__ __align__(16) float vs[L::TILE * L::ROW];
@@ -198,15 +197,15 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
     float qv[L::DP], dov[L::DP], acc[L::DP];
 #pragma unroll
     for (int i = 0; i < L::DP; ++i) {
-        qv[i] = active ? to_f32(q[mine + i]) : 0.f;
-        dov[i] = active ? to_f32(dout[mine + i]) : 0.f;
+        qv[i] = active ? q[mine + i] : 0.f;
+        dov[i] = active ? dout[mine + i] : 0.f;
         acc[i] = 0.f;
     }
 
     for (int k0 = 0; k0 < seq; k0 += L::TILE) {
         const int kn = min(L::TILE, seq - k0);
         __syncthreads();  // the previous tile is consumed
-        load_tile<T, D>(k, v, ks, vs, base, tok_stride, k0, kn);
+        load_tile<D>(k, v, ks, vs, base, tok_stride, k0, kn);
         for (int r = threadIdx.x; r < L::TILE; r += L::THREADS)
             kts[r] = r < kn ? ktag[(size_t)b * seq + k0 + r] : 0;  // tag 0: dead key
         __syncthreads();
@@ -226,16 +225,17 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
 
     if (!active) return;
 #pragma unroll
-    for (int i = 0; i < L::DP; ++i) dq[mine + i] = from_f32<T>(acc[i] * scale);
+    for (int i = 0; i < L::DP; ++i) dq[mine + i] = acc[i] * scale;
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(Split<D>::THREADS)
-flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 const int* __restrict__ qtag, const int* __restrict__ ktag,
-                 const T* __restrict__ dout, const float* __restrict__ lse,
-                 const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
-                 int seq, int heads, float scale) {
+flash_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, const int* __restrict__ qtag,
+                 const int* __restrict__ ktag, const float* __restrict__ dout,
+                 const float* __restrict__ lse, const float* __restrict__ delta,
+                 float* __restrict__ dk, float* __restrict__ dv, int seq, int heads,
+                 float scale) {
     using L = Split<D>;
     __shared__ __align__(16) float qs[L::TILE * L::ROW];
     __shared__ __align__(16) float dos[L::TILE * L::ROW];
@@ -255,8 +255,8 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     float kv[L::DP], vv[L::DP], dka[L::DP], dva[L::DP];
 #pragma unroll
     for (int i = 0; i < L::DP; ++i) {
-        kv[i] = active ? to_f32(k[mine + i]) : 0.f;
-        vv[i] = active ? to_f32(v[mine + i]) : 0.f;
+        kv[i] = active ? k[mine + i] : 0.f;
+        vv[i] = active ? v[mine + i] : 0.f;
         dka[i] = 0.f;
         dva[i] = 0.f;
     }
@@ -264,7 +264,7 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     for (int q0 = 0; q0 < seq; q0 += L::TILE) {
         const int qn = min(L::TILE, seq - q0);
         __syncthreads();
-        load_tile<T, D>(q, dout, qs, dos, base, tok_stride, q0, qn);
+        load_tile<D>(q, dout, qs, dos, base, tok_stride, q0, qn);
         for (int r = threadIdx.x; r < L::TILE; r += L::THREADS) {
             const size_t tok = (size_t)b * seq + q0 + r;
             qts[r] = r < qn ? qtag[tok] : 0;
@@ -291,8 +291,8 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     if (!active) return;
 #pragma unroll
     for (int i = 0; i < L::DP; ++i) {
-        dk[mine + i] = from_f32<T>(dka[i] * scale);
-        dv[mine + i] = from_f32<T>(dva[i]);
+        dk[mine + i] = dka[i] * scale;
+        dv[mine + i] = dva[i];
     }
 }
 
@@ -516,10 +516,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, const int* qtag,
                    const int* ktag, const void* dout, const float* lse, const float* delta,
                    void* dk, void* dv, int batch, int seq, int heads, float scale,
                    cudaStream_t stream) {
-    // Above 48 KB of dynamic shared memory a kernel must say so, once per
-    // process (the port drives one card a process).
-    static const cudaError_t attr = cudaFuncSetAttribute(
-        flash_dkv_bf16<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, Smem<D>::BYTES);
+    static tc::SmemLimit limit;  // above 48 KB, once per device
+    const cudaError_t attr = limit.ensure(flash_dkv_bf16<D>, Smem<D>::BYTES);
     if (attr != cudaSuccess) return attr;
     const dim3 grid((seq + BKEY - 1) / BKEY, heads, batch);
     flash_dkv_bf16<D><<<grid, THREADS, Smem<D>::BYTES, stream>>>(
@@ -530,6 +528,214 @@ cudaError_t launch(const void* q, const void* k, const void* v, const int* qtag,
 }
 
 }  // namespace bf16_dkv
+
+// ---- The bf16 tensor-core dq body ----------------------------------------
+
+namespace bf16_dq {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int WARPS = 4;
+constexpr int THREADS = 32 * WARPS;
+constexpr int BQ = 16 * WARPS;  // own query rows per block, 16 per warp
+constexpr int STAGES = 2;
+
+// Dynamic shared memory, in bytes: the block's Q and dO (later the dq
+// staging), STAGES tiles each of K and V, and the streamed key tags.
+template <int D>
+struct Smem {
+    static constexpr int BK = D >= 128 ? 32 : 64;  // keys per streamed tile
+    static constexpr int LD = D + 8;                // bf16 per shared row: 16 bytes of padding
+    static constexpr int Q = 0;
+    static constexpr int DO = Q + BQ * LD * 2;
+    static constexpr int K = DO + BQ * LD * 2;
+    static constexpr int V = K + STAGES * BK * LD * 2;
+    static constexpr int TAGS = V + STAGES * BK * LD * 2;
+    static constexpr int BYTES = TAGS + STAGES * BK * 4;
+};
+
+template <int D>
+__global__ void __launch_bounds__(THREADS)
+flash_dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
+              const bf16* __restrict__ v, const int* __restrict__ qtag,
+              const int* __restrict__ ktag, const bf16* __restrict__ dout,
+              const float* __restrict__ lse, const float* __restrict__ delta,
+              bf16* __restrict__ dq, int seq, int heads, float scale, float scale_log2) {
+    using S = Smem<D>;
+    constexpr int LD = S::LD, BK = S::BK;
+    // The warp's Q and dO fragments (the A operands of S and dP) stay in
+    // registers below D = 128, as B5's K and V do; at D = 128 they would
+    // not fit beside the accumulator and are read for each tile.
+    constexpr bool QD_REGS = D < 128;
+    extern __shared__ __align__(16) unsigned char smem[];
+    bf16* qs = reinterpret_cast<bf16*>(smem + S::Q);
+    bf16* dos = reinterpret_cast<bf16*>(smem + S::DO);
+    bf16* ks = reinterpret_cast<bf16*>(smem + S::K);
+    bf16* vs = reinterpret_cast<bf16*>(smem + S::V);
+    int* kts = reinterpret_cast<int*>(smem + S::TAGS);
+
+    const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * BQ;
+    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+    const int g = lane >> 2, t4 = lane & 3;  // the mma fragments' row group and column pair
+    const size_t tok = (size_t)heads * D;    // [B, T, H, D]: between tokens
+    const size_t base = (size_t)b * seq * tok + (size_t)h * D;
+    const int* kt_row = ktag + (size_t)b * seq;
+    const int n_tiles = (seq + BK - 1) / BK;
+
+    auto load_kv = [&](int tile, int stage) {
+        const int k0 = tile * BK;
+        tc::load_rows<D, LD, BK, THREADS>(ks + stage * BK * LD, k + base, tok, k0, seq);
+        tc::load_rows<D, LD, BK, THREADS>(vs + stage * BK * LD, v + base, tok, k0, seq);
+        if (tid < BK) {
+            const bool ok = k0 + tid < seq;  // tag 0 past T: no query sees it
+            tc::cp_async4(kts + stage * BK + tid, kt_row + (ok ? k0 + tid : 0), ok);
+        }
+    };
+    tc::load_rows<D, LD, BQ, THREADS>(qs, q + base, tok, q0, seq);
+    tc::load_rows<D, LD, BQ, THREADS>(dos, dout + base, tok, q0, seq);
+    load_kv(0, 0);
+    tc::cp_async_commit();
+
+    // This thread's two query rows: their tags, lse in log2 units and
+    // delta. A row past T or with lse -inf (dead) is never live.
+    const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;
+    const size_t s0 = ((size_t)b * seq + r0) * heads + h, s1 = s0 + (size_t)8 * heads;
+    const int qt0 = r0 < seq ? qtag[(size_t)b * seq + r0] : 0;
+    const int qt1 = r1 < seq ? qtag[(size_t)b * seq + r1] : 0;
+    const float l0 = r0 < seq ? lse[s0] : -INFINITY, l1 = r1 < seq ? lse[s1] : -INFINITY;
+    const float dl0 = r0 < seq ? delta[s0] : 0.f, dl1 = r1 < seq ? delta[s1] : 0.f;
+    const bool live0 = l0 > -INFINITY, live1 = l1 > -INFINITY;
+    const float la0 = live0 ? l0 * tc::LOG2E : 0.f, la1 = live1 ? l1 * tc::LOG2E : 0.f;
+    const bf16* qw = qs + warp * 16 * LD;  // the warp's own rows: the A operands
+    const bf16* dw = dos + warp * 16 * LD;
+
+    float acc[D / 8][4];
+#pragma unroll
+    for (int i = 0; i < D / 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+    uint32_t qf[QD_REGS ? D / 16 : 1][4], df[QD_REGS ? D / 16 : 1][4];
+
+    for (int j = 0, stage = 0; j < n_tiles; ++j, stage ^= 1) {
+        if (j + 1 < n_tiles) {
+            load_kv(j + 1, stage ^ 1);
+            tc::cp_async_commit();
+            tc::cp_async_wait<1>();
+        } else {
+            tc::cp_async_wait<0>();
+        }
+        __syncthreads();  // key tile j (and, first, Q and dO) has landed for every thread
+        if constexpr (QD_REGS) {
+            if (j == 0) {
+#pragma unroll
+                for (int kk = 0; kk < D / 16; ++kk) {
+                    tc::ldsm_x4(qf[kk], qw + (lane & 15) * LD + kk * 16 + (lane >> 4) * 8);
+                    tc::ldsm_x4(df[kk], dw + (lane & 15) * LD + kk * 16 + (lane >> 4) * 8);
+                }
+            }
+        }
+        const bf16* kst = ks + stage * BK * LD;
+        const bf16* vst = vs + stage * BK * LD;
+        const int* kt = kts + stage * BK;
+
+        // S = Q K^T and dP = dO V^T: 16 queries x BK keys for this warp.
+        float s[BK / 8][4], dp[BK / 8][4];
+#pragma unroll
+        for (int n = 0; n < BK / 8; ++n) {
+            s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+            dp[n][0] = dp[n][1] = dp[n][2] = dp[n][3] = 0.f;
+        }
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+            uint32_t qa[4], da[4];
+            if constexpr (QD_REGS) {
+#pragma unroll
+                for (int i = 0; i < 4; ++i) {
+                    qa[i] = qf[kk][i];
+                    da[i] = df[kk][i];
+                }
+            } else {
+                tc::ldsm_x4(qa, qw + (lane & 15) * LD + kk * 16 + (lane >> 4) * 8);
+                tc::ldsm_x4(da, dw + (lane & 15) * LD + kk * 16 + (lane >> 4) * 8);
+            }
+#pragma unroll
+            for (int np = 0; np < BK / 16; ++np) {
+                const int off = (np * 16 + (lane >> 4) * 8 + (lane & 7)) * LD + kk * 16 +
+                                ((lane >> 3) & 1) * 8;
+                uint32_t kb[4], vb[4];
+                tc::ldsm_x4(kb, kst + off);
+                tc::ldsm_x4(vb, vst + off);
+                tc::mma16816(s[2 * np], qa, kb[0], kb[1]);
+                tc::mma16816(s[2 * np + 1], qa, kb[2], kb[3]);
+                tc::mma16816(dp[2 * np], da, vb[0], vb[1]);
+                tc::mma16816(dp[2 * np + 1], da, vb[2], vb[3]);
+            }
+        }
+
+        // P from the saved lse (0 on a masked pair and on a dead row),
+        // then dS = P (dP - delta), rounded to bf16 as the A operand.
+        uint32_t dsa[BK / 16][4];
+#pragma unroll
+        for (int n = 0; n < BK / 8; ++n) {
+            const int2 tg = *reinterpret_cast<const int2*>(kt + n * 8 + 2 * t4);  // two keys
+            // A select, never a product: a masked pair and a dead row give
+            // exactly 0.
+            const bool u0 = live0 && tg.x > 0 && tg.x == qt0, u1 = live0 && tg.y > 0 && tg.y == qt0;
+            const bool u2 = live1 && tg.x > 0 && tg.x == qt1, u3 = live1 && tg.y > 0 && tg.y == qt1;
+            const float p0 = u0 ? tc::ex2(fmaf(s[n][0], scale_log2, -la0)) : 0.f;
+            const float p1 = u1 ? tc::ex2(fmaf(s[n][1], scale_log2, -la0)) : 0.f;
+            const float p2 = u2 ? tc::ex2(fmaf(s[n][2], scale_log2, -la1)) : 0.f;
+            const float p3 = u3 ? tc::ex2(fmaf(s[n][3], scale_log2, -la1)) : 0.f;
+            dsa[n / 2][(n & 1) * 2] = tc::pack_bf16(p0 * (dp[n][0] - dl0), p1 * (dp[n][1] - dl0));
+            dsa[n / 2][(n & 1) * 2 + 1] =
+                tc::pack_bf16(p2 * (dp[n][2] - dl1), p3 * (dp[n][3] - dl1));
+        }
+
+        // dQ += dS K: K [key][d] is the k x n operand, read transposed.
+#pragma unroll
+        for (int kc = 0; kc < BK / 16; ++kc) {
+#pragma unroll
+            for (int dd = 0; dd < D / 16; ++dd) {
+                const int off = (kc * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD + dd * 16 +
+                                (lane >> 4) * 8;
+                uint32_t kb[4];
+                tc::ldsm_x4_trans(kb, kst + off);
+                tc::mma16816(acc[2 * dd], dsa[kc], kb[0], kb[1]);
+                tc::mma16816(acc[2 * dd + 1], dsa[kc], kb[2], kb[3]);
+            }
+        }
+        __syncthreads();  // every warp is done with this stage before it is refilled
+    }
+
+    // Stage dq (scaled once) in the warp's own rows of the Q tile (which
+    // only this warp read), then 16-byte stores.
+    bf16* st = qs + warp * 16 * LD;
+#pragma unroll
+    for (int i = 0; i < D / 8; ++i) {
+        const int c = i * 8 + 2 * t4;
+        *reinterpret_cast<uint32_t*>(st + g * LD + c) =
+            tc::pack_bf16(acc[i][0] * scale, acc[i][1] * scale);
+        *reinterpret_cast<uint32_t*>(st + (g + 8) * LD + c) =
+            tc::pack_bf16(acc[i][2] * scale, acc[i][3] * scale);
+    }
+    __syncwarp();
+    tc::store_rows16<D, LD>(dq + base, st, tok, q0 + warp * 16, seq, lane);
+}
+
+template <int D>
+cudaError_t launch(const void* q, const void* k, const void* v, const int* qtag,
+                   const int* ktag, const void* dout, const float* lse, const float* delta,
+                   void* dq, int batch, int seq, int heads, float scale, cudaStream_t stream) {
+    static tc::SmemLimit limit;  // above 48 KB, once per device
+    const cudaError_t attr = limit.ensure(flash_dq_bf16<D>, Smem<D>::BYTES);
+    if (attr != cudaSuccess) return attr;
+    const dim3 grid((seq + BQ - 1) / BQ, heads, batch);
+    flash_dq_bf16<D><<<grid, THREADS, Smem<D>::BYTES, stream>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+        qtag, ktag, static_cast<const bf16*>(dout), lse, delta, static_cast<bf16*>(dq), seq,
+        heads, scale, scale * tc::LOG2E);
+    return cudaGetLastError();
+}
+
+}  // namespace bf16_dq
 
 struct Args {
     const void *q, *k, *v;
@@ -542,23 +748,30 @@ struct Args {
     cudaStream_t stream;
 };
 
+// The input type alone chooses the body: bf16 the tensor cores, float32
+// the CUDA cores.
 template <bool DKV, typename T, int D>
 cudaError_t launch(const Args& a) {
-    if constexpr (DKV && std::is_same_v<T, __nv_bfloat16>) {  // the tensor-core body
-        return bf16_dkv::launch<D>(a.q, a.k, a.v, a.qtag, a.ktag, a.dout, a.lse, a.delta,
-                                   a.out0, a.out1, a.batch, a.seq, a.heads, a.scale, a.stream);
+    if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+        if constexpr (DKV)
+            return bf16_dkv::launch<D>(a.q, a.k, a.v, a.qtag, a.ktag, a.dout, a.lse, a.delta,
+                                       a.out0, a.out1, a.batch, a.seq, a.heads, a.scale,
+                                       a.stream);
+        else
+            return bf16_dq::launch<D>(a.q, a.k, a.v, a.qtag, a.ktag, a.dout, a.lse, a.delta,
+                                      a.out0, a.batch, a.seq, a.heads, a.scale, a.stream);
     } else {
         const dim3 grid((a.seq + ROWS - 1) / ROWS, a.heads, a.batch);
-        const T *q = static_cast<const T*>(a.q), *k = static_cast<const T*>(a.k),
-                *v = static_cast<const T*>(a.v), *dout = static_cast<const T*>(a.dout);
+        const float *q = static_cast<const float*>(a.q), *k = static_cast<const float*>(a.k),
+                    *v = static_cast<const float*>(a.v), *dout = static_cast<const float*>(a.dout);
         if constexpr (DKV) {
-            flash_dkv_kernel<T, D><<<grid, Split<D>::THREADS, 0, a.stream>>>(
-                q, k, v, a.qtag, a.ktag, dout, a.lse, a.delta, static_cast<T*>(a.out0),
-                static_cast<T*>(a.out1), a.seq, a.heads, a.scale);
+            flash_dkv_kernel<D><<<grid, Split<D>::THREADS, 0, a.stream>>>(
+                q, k, v, a.qtag, a.ktag, dout, a.lse, a.delta, static_cast<float*>(a.out0),
+                static_cast<float*>(a.out1), a.seq, a.heads, a.scale);
         } else {
-            flash_dq_kernel<T, D><<<grid, Split<D>::THREADS, 0, a.stream>>>(
-                q, k, v, a.qtag, a.ktag, dout, a.lse, a.delta, static_cast<T*>(a.out0), a.seq,
-                a.heads, a.scale);
+            flash_dq_kernel<D><<<grid, Split<D>::THREADS, 0, a.stream>>>(
+                q, k, v, a.qtag, a.ktag, dout, a.lse, a.delta, static_cast<float*>(a.out0),
+                a.seq, a.heads, a.scale);
         }
         return cudaGetLastError();
     }

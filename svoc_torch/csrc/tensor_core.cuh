@@ -4,6 +4,9 @@
 // m16n8k16 bf16 mma.sync with fp32 accumulators, and 16-byte row loads
 // and stores of the [B, T, H, D] layout.
 //
+// Host side: SmemLimit raises a body's dynamic shared-memory limit once
+// per device.
+//
 // Fragment layouts of mma.m16n8k16 (lane = 4 g + t): A (16 x 16, row
 // major) holds rows g and g + 8, columns 2t, 2t + 1 and 2t + 8, 2t + 9,
 // as four bf16 pairs {(g, 2t), (g + 8, 2t), (g, 2t + 8), (g + 8, 2t + 8)};
@@ -19,7 +22,31 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+
 namespace tc {
+
+// A kernel that takes more than 48 KB of dynamic shared memory must say
+// so on each device it runs on. One SmemLimit per kernel (a static in
+// its launcher) remembers, per device, that the attribute is set; a set
+// that failed is not remembered and is tried again on the next call.
+// Devices past kMaxDevices set it on every call.
+struct SmemLimit {
+    static constexpr int kMaxDevices = 64;
+    std::atomic<bool> set[kMaxDevices] = {};
+
+    template <typename Kernel>
+    cudaError_t ensure(Kernel* kernel, int bytes) {
+        int dev = 0;
+        cudaError_t err = cudaGetDevice(&dev);
+        if (err != cudaSuccess) return err;
+        const bool cached = dev >= 0 && dev < kMaxDevices;
+        if (cached && set[dev].load(std::memory_order_acquire)) return cudaSuccess;
+        err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+        if (err == cudaSuccess && cached) set[dev].store(true, std::memory_order_release);
+        return err;
+    }
+};
 
 constexpr unsigned FULL = 0xffffffffu;
 constexpr float LOG2E = 1.4426950408889634f;

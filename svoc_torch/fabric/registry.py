@@ -23,8 +23,11 @@ class ClaimSpec:
     base seed (:func:`svoc_torch.sim.generators.claim_seed`).
     ``weight`` is the claim's fair-scheduling share.  ``tamper`` is the
     Byzantine-scenario hook, called as ``tamper(cycle, block)`` with the
-    claim's served-cycle count and its ``[N, M]`` fleet block, returning
-    the (possibly corrupted) block; None for an honest claim."""
+    claim's served-cycle count and its ``[N, M]`` fleet block as a host
+    float64 numpy array, returning the (possibly corrupted) block as an
+    array, which is cast to float32 and put back on the device (the
+    reference's contract, ``svoc_tpu/apps/session.py:622-633``); None for
+    an honest claim."""
 
     claim_id: str
     seed: Optional[int] = None

@@ -7,6 +7,10 @@ compiles it for ``sm_90a`` into ``svoc_torch/_build/lib<name>-<hash>.so``
 source, the shared headers ``csrc/*.cuh`` and the flags, so an edited
 source or header builds anew and an unchanged one is reused. :func:`build` starts one ``nvcc`` per source, all at
 once, so that a cold start waits for the slowest file only.
+
+Every kernel launch goes through :func:`launch`, which makes the
+tensors' device current, so that a kernel runs on its tensors' device
+whatever device the caller has current.
 """
 
 from __future__ import annotations
@@ -18,7 +22,9 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Sequence
+from typing import Callable, Dict, Sequence
+
+import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
@@ -91,3 +97,14 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(library_path(name)))
             _loaded[name] = lib
         return lib
+
+
+def launch(kernel: str, fn: Callable[..., int], device: torch.device, *args) -> None:
+    """Call the C entry ``fn(*args, stream)`` of a kernel with ``device``
+    current and that device's current stream as its last argument;
+    raises ``RuntimeError`` naming ``kernel`` when it returns a CUDA
+    error (a refused launch never runs, and no synchronise reports it)."""
+    with torch.cuda.device(device):
+        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {err}")

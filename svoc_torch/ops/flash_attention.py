@@ -8,10 +8,10 @@ Mirrors :mod:`svoc_tpu.ops.pallas_attention` (``_tag_mask``,
 ``pallas_attention.py:48-131, 142-249, 378-502``).  The kernels are
 ``svoc_torch/csrc/flash_attention.cu`` (forward) and
 ``svoc_torch/csrc/flash_attention_bwd.cu`` (dq, and dk with dv).  The
-input type chooses the body inside each kernel: bf16 runs the forward
-and dk/dv on the tensor cores (``mma.sync``, bf16 operands, fp32
+input type chooses the body inside each kernel: bf16 runs the forward,
+dq and dk/dv on the tensor cores (``mma.sync``, bf16 operands, fp32
 accumulators), float32 runs fp32 arithmetic on the CUDA cores, which its
-2e-5 contract needs; dq runs on the CUDA cores in both.
+2e-5 (forward) and 1e-4 (backward) contracts need.
 
 One mask rule covers both modes: query i sees key j iff their tags are
 equal and the key's tag is > 0.  Packed rows (``segment_ids``) use the
@@ -198,14 +198,12 @@ def _bwd_kernel(name: str):
 
 def _launch_bwd(name, q, k, v, qtag, ktag, dout, lse, delta, outs) -> None:
     b, t, h, d = q.shape
-    err = _bwd_kernel(name)(
+    _build.launch(
+        name, _bwd_kernel(name), q.device,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), qtag.data_ptr(), ktag.data_ptr(),
         dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), *(o.data_ptr() for o in outs),
         int(q.dtype == torch.bfloat16), b, t, h, d, 1.0 / math.sqrt(d),
-        torch.cuda.current_stream(q.device).cuda_stream,
     )
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
 
 
 def flash_dq_cuda(q, k, v, qtag, ktag, dout, lse, delta):
@@ -235,7 +233,8 @@ flash_dkv_cuda.launches = 0
 
 
 def flash_attention_cuda(q, k, v, qtag, ktag, return_lse: bool = False):
-    """Launch ``csrc/flash_attention.cu`` on the current stream."""
+    """Launch ``csrc/flash_attention.cu`` on q's device and its current
+    stream."""
     _check_kernel_inputs(q, k, v, qtag, ktag)
     b, t, h, d = q.shape
     out = torch.empty_like(q)
@@ -244,14 +243,12 @@ def flash_attention_cuda(q, k, v, qtag, ktag, return_lse: bool = False):
         if return_lse
         else None
     )
-    err = _kernel()(
+    _build.launch(
+        "flash attention", _kernel(), q.device,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), qtag.data_ptr(), ktag.data_ptr(),
         out.data_ptr(), None if lse is None else lse.data_ptr(),
         int(q.dtype == torch.bfloat16), b, t, h, d, 1.0 / math.sqrt(d),
-        torch.cuda.current_stream(q.device).cuda_stream,
     )
-    if err != 0:
-        raise RuntimeError(f"flash attention kernel launch failed: CUDA error {err}")
     flash_attention_cuda.launches += 1
     return (out, lse) if return_lse else out
 

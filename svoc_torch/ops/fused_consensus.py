@@ -155,7 +155,8 @@ def _lib():
 def fused_consensus_cuda(
     values: torch.Tensor, cfg: ConsensusConfig
 ) -> FusedConsensusOutput:
-    """Launch ``csrc/fused_consensus.cu`` on the current stream."""
+    """Launch ``csrc/fused_consensus.cu`` on the values' device and its
+    current stream."""
     _check_kernel_inputs(values, cfg)
     n, dim = values.shape
     m = n - cfg.n_failing
@@ -168,14 +169,13 @@ def fused_consensus_cuda(
     moments = torch.empty(2, dim, **f32)
     lo_all, hi_all = _smooth_median_ranks(n)
     lo_rel, hi_rel = _smooth_median_ranks(m)
-    err = _lib().svoc_fused_consensus(
+    _build.launch(
+        "fused_consensus", _lib().svoc_fused_consensus, values.device,
         values.data_ptr(), essence.data_ptr(), essence1.data_ptr(), rel.data_ptr(),
         mask.data_ptr(), qr.data_ptr(), moments.data_ptr(),
         n, dim, m, lo_all, hi_all, lo_rel, hi_rel, int(cfg.constrained),
-        float(cfg.max_spread), torch.cuda.current_stream(values.device).cuda_stream,
+        float(cfg.max_spread),
     )
-    if err != 0:
-        raise RuntimeError(f"fused_consensus kernel launch failed: CUDA error {err}")
     fused_consensus_cuda.launches += 1
     return FusedConsensusOutput(
         essence=essence,
@@ -350,8 +350,9 @@ def fused_consensus_gated_claims_cuda(
     claim_mask: torch.Tensor,
     cfg: ConsensusConfig,
 ) -> ConsensusOutput:
-    """Launch ``csrc/gated_claims_consensus.cu`` on the current stream:
-    one block per claim; padding claims come back inactive."""
+    """Launch ``csrc/gated_claims_consensus.cu`` on the values' device
+    and its current stream: one block per claim; padding claims come back
+    inactive."""
     _check_gated_inputs(values, ok, claim_mask, cfg)
     c, n, dim = values.shape
     dev = values.device
@@ -365,15 +366,13 @@ def fused_consensus_gated_claims_cuda(
     skew = torch.empty(c, dim, **f32)
     kurt = torch.empty(c, dim, **f32)
     valid = torch.empty(c, dtype=torch.bool, device=dev)
-    err = _gated_lib().svoc_gated_claims_consensus(
+    _build.launch(
+        "gated_claims_consensus", _gated_lib().svoc_gated_claims_consensus, dev,
         values.data_ptr(), ok.data_ptr(), claim_mask.data_ptr(), essence.data_ptr(),
         essence1.data_ptr(), rel1.data_ptr(), rel2.data_ptr(), reliable.data_ptr(),
         qr.data_ptr(), skew.data_ptr(), kurt.data_ptr(), valid.data_ptr(),
         c, n, dim, cfg.n_failing, int(cfg.constrained), float(cfg.max_spread),
-        torch.cuda.current_stream(dev).cuda_stream,
     )
-    if err != 0:
-        raise RuntimeError(f"gated_claims_consensus kernel launch failed: CUDA error {err}")
     fused_consensus_gated_claims_cuda.launches += 1
     return ConsensusOutput(
         essence=essence,

@@ -65,9 +65,9 @@ def _kernel():
 
 
 def grid_copy_cuda(x: torch.Tensor, block: Sequence[int]) -> torch.Tensor:
-    """Launch ``csrc/grid_copy.cu`` on the current stream: one thread
-    block per grid cell.  Raises ``ValueError`` on what the kernel does
-    not take."""
+    """Launch ``csrc/grid_copy.cu`` on x's device and its current stream:
+    one thread block per grid cell.  Raises ``ValueError`` on what the
+    kernel does not take."""
     grid = _grid(x, block)
     if x.element_size() not in (2, 4):
         raise ValueError(f"the kernel copies 2- and 4-byte elements, got {x.dtype}")
@@ -86,12 +86,10 @@ def grid_copy_cuda(x: torch.Tensor, block: Sequence[int]) -> torch.Tensor:
         and (x.shape[2] * es) % 16 == 0
         and (bc * es) % 16 == 0
     )
-    err = _kernel()(
-        x.data_ptr(), out.data_ptr(), es, x.shape[0], x.shape[1], x.shape[2], br, bc,
-        int(vec), torch.cuda.current_stream(x.device).cuda_stream,
+    _build.launch(
+        "grid copy", _kernel(), x.device,
+        x.data_ptr(), out.data_ptr(), es, x.shape[0], x.shape[1], x.shape[2], br, bc, int(vec),
     )
-    if err != 0:
-        raise RuntimeError(f"grid copy kernel launch failed: CUDA error {err}")
     grid_copy_cuda.launches += 1
     return out
 

@@ -10,14 +10,16 @@ rows, float32, within 1e-4 (the bar of
 ``tests/test_pallas_attention.py::test_flash_backward_matches_dense``).
 Masked keys and padding queries get exactly zero gradient, as there.
 
-The bf16 dk/dv of the card come from a tensor-core body whose roundings
-differ from the plain version's: :func:`_dkv_model` repeats them (bf16
-operands, fp32 accumulation, P^T and dS^T rounded to bf16 before the
-products that accumulate dv and dk), and it is held against the JAX VJP
-on bf16 inputs at the bar the card holds the kernel to (3e-2 plus one
-bf16 rounding, 2^-8 relative).
+The bf16 dq and dk/dv of the card come from tensor-core bodies whose
+roundings differ from the plain version's: :func:`_dq_model` and
+:func:`_dkv_model` repeat them (bf16 operands, fp32 accumulation, dS (and
+P^T for dv) rounded to bf16 before the products that accumulate dq, dk
+and dv, and dq's final rounding to bf16), and they are held against the
+JAX VJP on bf16 inputs at the bar the card holds the kernels to (3e-2
+plus one bf16 rounding, 2^-8 relative).
 """
 
+import functools
 import math
 
 import numpy as np
@@ -178,6 +180,62 @@ def test_bf16_backward_keeps_dtypes_and_is_finite():
         assert g.dtype == torch.bfloat16 and bool(torch.isfinite(g).all())
 
 
+def _bf16_case(mode, b, t, h, d):
+    """bf16 inputs and cotangent from a numpy seed with dead rows: the
+    torch tensors, their tags, the plain forward's ``out`` and ``lse``,
+    and ``jax.grad`` of the Pallas flash (interpret mode) as fp32 numpy,
+    computed once per case."""
+    return _bf16_case_cached(mode, b, t, h, d)
+
+
+@functools.lru_cache(maxsize=None)
+def _bf16_case_cached(mode, b, t, h, d):
+    arrays = [x.astype(jnp.bfloat16) for x in map(jnp.asarray, _inputs(b, t, h, d, seed=d + t))]
+    jmask, tmask = _masks(mode, b, t, seed=b + d)
+    ref = [np.asarray(g.astype(jnp.float32)) for g in _jax_grads(*arrays[:3], arrays[3], jmask)]
+    tq, tk, tv, tdo = (torch.from_numpy(np.array(x.astype(jnp.float32))).bfloat16() for x in arrays)
+    qtag, ktag = attention_tags(tq, **tmask)
+    out, lse = flash_attention_plain(tq, tk, tv, qtag, ktag, return_lse=True)
+    return (tq, tk, tv, qtag, ktag, out, lse, tdo), ref
+
+
+def _dq_model(q, k, v, qtag, ktag, out, lse, dout):
+    """The roundings of the bf16 dq body of ``csrc/flash_attention_bwd.cu``
+    on bf16 ``[B, T, H, D]`` inputs, from the forward's ``out`` and
+    ``lse``: S and dP from bf16 operands with fp32 sums, P = exp2 of the
+    log2-scaled score less the log2-scaled lse (0 where masked or dead),
+    dS = P (dP - delta) in fp32 rounded to bf16, dQ = scale * sum dS K in
+    fp32, then the kernel's final rounding to bf16 (returned as fp32)."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
+    row_lse = lse.permute(0, 2, 1)[..., None]  # [B, H, Tq, 1]
+    live = tag_mask(qtag, ktag)[:, None] & torch.isfinite(row_lse)
+    log2e = math.log2(math.e)
+    p = torch.where(live, torch.exp2(s * (scale * log2e) - torch.where(live, row_lse, 0.0) * log2e), 0.0)
+    dp = torch.einsum("bqhd,bkhd->bhqk", dout.float(), v.float())
+    ds = p * (dp - attention_delta(out, dout).permute(0, 2, 1)[..., None])
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds.bfloat16().float(), k.float()) * scale
+    return dq.bfloat16().float()
+
+
+@pytest.mark.parametrize("mode", ["segments", "kmask"])
+@pytest.mark.parametrize("b,t,h,d", [(2, 16, 2, 16), (2, 16, 2, 32), (2, 16, 2, 64), (2, 8, 2, 128)])
+def test_tensor_core_dq_roundings_meet_the_bar_against_jax_grad(mode, b, t, h, d):
+    """The dq model against ``jax.grad`` of the Pallas flash (interpret
+    mode) within 3e-2 + 2^-8 |ref| at every head width, and against the
+    port's plain backward (the card's comparison) at the same bar; dead
+    rows exactly 0."""
+    (tq, tk, tv, qtag, ktag, out, lse, tdo), (ref_dq, _, _) = _bf16_case(mode, b, t, h, d)
+    dq = _dq_model(tq, tk, tv, qtag, ktag, out, lse, tdo)
+    plain_dq, _, _ = flash_attention_bwd_plain(
+        tq.float(), tk.float(), tv.float(), qtag, ktag, out.float(), lse, tdo.float()
+    )
+    np.testing.assert_allclose(dq.numpy(), ref_dq, atol=3e-2, rtol=2.0**-8, err_msg="dq")
+    torch.testing.assert_close(dq, plain_dq, atol=3e-2, rtol=2.0**-8, msg="dq")
+    dead = ~torch.isfinite(lse).all(dim=-1)
+    assert dead.any() and torch.all(dq[dead] == 0) and np.all(ref_dq[dead.numpy()] == 0.0)
+
+
 def _dkv_model(q, k, v, qtag, ktag, out, lse, dout):
     """The roundings of the bf16 dk/dv body of
     ``csrc/flash_attention_bwd.cu`` on bf16 ``[B, T, H, D]`` inputs, from
@@ -203,18 +261,12 @@ def test_tensor_core_dkv_roundings_meet_the_bar_against_jax_grad(mode, b, t, h, 
     model's dk and dv against ``jax.grad`` of the Pallas flash (interpret
     mode) within 3e-2 + 2^-8 |ref|, and against the port's plain backward
     (the card's comparison) at the same bar; dead keys exactly 0."""
-    arrays = [x.astype(jnp.bfloat16) for x in map(jnp.asarray, _inputs(b, t, h, d, seed=d + t))]
-    jmask, tmask = _masks(mode, b, t, seed=b + d)
-    _, ref_dk, ref_dv = _jax_grads(*arrays[:3], arrays[3], jmask)
-    tq, tk, tv, tdo = (torch.from_numpy(np.array(x.astype(jnp.float32))).bfloat16() for x in arrays)
-    qtag, ktag = attention_tags(tq, **tmask)
-    out, lse = flash_attention_plain(tq, tk, tv, qtag, ktag, return_lse=True)
+    (tq, tk, tv, qtag, ktag, out, lse, tdo), (_, ref_dk, ref_dv) = _bf16_case(mode, b, t, h, d)
     dk, dv = _dkv_model(tq, tk, tv, qtag, ktag, out, lse, tdo)
     _, plain_dk, plain_dv = flash_attention_bwd_plain(
         tq.float(), tk.float(), tv.float(), qtag, ktag, out.float(), lse, tdo.float()
     )
     for name, got, ref, plain in (("dk", dk, ref_dk, plain_dk), ("dv", dv, ref_dv, plain_dv)):
-        ref = np.asarray(ref.astype(jnp.float32))
         np.testing.assert_allclose(got.numpy(), ref, atol=3e-2, rtol=2.0**-8, err_msg=name)
         torch.testing.assert_close(got, plain, atol=3e-2, rtol=2.0**-8, msg=name)
         dead = (ktag == 0).numpy()

@@ -568,7 +568,8 @@ def test_small_multi_claim_step_matches_jax(monkeypatch):
     offender = names[-1]
     specs = [
         ClaimSpec(cid, seed=claim_seed(0, cid), n_oracles=n_oracles, n_failing=n_failing,
-                  tamper=(lambda cycle, block: _tamper(kinds[cycle], block.clone(), n_oracles - 1))
+                  tamper=(lambda cycle, block: _tamper(kinds[cycle], np.array(block, copy=True),
+                                                       n_oracles - 1))
                   if cid == offender else None)
         for cid in names
     ]

@@ -307,3 +307,62 @@ def test_library_path_covers_the_shared_headers(tmp_path, monkeypatch):
     (tmp_path / "helpers.cuh").write_text("// second\n")
     assert _build.library_path("kernel") != first
     assert first.parent == _build.BUILD_DIR
+
+
+class _FakeDevice:
+    """Stands in for ``torch.cuda.device``: records the device entered
+    and what is current while the helper calls the kernel."""
+
+    current = None
+    entered = []
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+
+    def __enter__(self):
+        self.previous, _FakeDevice.current = _FakeDevice.current, self.device
+        _FakeDevice.entered.append(self.device)
+
+    def __exit__(self, *exc):
+        _FakeDevice.current = self.previous
+
+
+@pytest.mark.parametrize("index", [0, 1])
+def test_launch_enters_the_tensors_device_and_passes_its_stream(monkeypatch, index):
+    """The kernel runs with its tensors' device current, whatever device
+    the caller has current, and gets that device's current stream last."""
+    monkeypatch.setattr(_FakeDevice, "entered", [])
+    monkeypatch.setattr(_FakeDevice, "current", torch.device("cuda", 1 - index))
+    monkeypatch.setattr(torch.cuda, "device", _FakeDevice)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device: type("S", (), {"cuda_stream": 7000 + torch.device(device).index})())
+    calls = []
+
+    def kernel(*args):
+        calls.append((args, _FakeDevice.current))
+        return 0
+
+    _build.launch("probe", kernel, torch.device("cuda", index), 11, 22)
+    assert calls == [((11, 22, 7000 + index), torch.device("cuda", index))]
+    assert _FakeDevice.entered == [torch.device("cuda", index)]
+    assert _FakeDevice.current == torch.device("cuda", 1 - index)  # restored
+
+
+def test_launch_raises_naming_the_kernel_on_a_cuda_error(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "device", _FakeDevice)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device: type("S", (), {"cuda_stream": 0})())
+    with pytest.raises(RuntimeError, match="gated_claims_consensus kernel launch failed: CUDA error 1"):
+        _build.launch("gated_claims_consensus", lambda *args: 1, torch.device("cuda", 0))
+
+
+def test_only_the_launch_helper_asks_for_a_stream():
+    """Every kernel wrapper launches through ``_build.launch``: no other
+    module of ``svoc_torch/ops`` reads a current stream or a device."""
+    for path in sorted((REPO / "svoc_torch" / "ops").glob("*.py")):
+        text = path.read_text()
+        if path.name == "_build.py":
+            assert text.count("current_stream(") == 1 and text.count("torch.cuda.device(") == 1
+        else:
+            assert "current_stream" not in text and "cuda_stream" not in text, path.name
+            if "_build.load(" in text:
+                assert "_build.launch(" in text, path.name

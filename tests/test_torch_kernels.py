@@ -99,8 +99,8 @@ def _layout(kind, b, t, device):
 @pytest.mark.parametrize("d,t", [(64, 1000), (128, 1000), (64, 4100)])
 def test_flash_long_rows_are_exact_and_deterministic(cuda, kind, d, t):
     """bf16 over many tiles (65 key tiles at T = 4100), one segment and
-    runs of 50 tokens: the forward and dk/dv match their plain versions,
-    and two launches give the same bits (one owner per row, no
+    runs of 50 tokens: the forward, dq and dk/dv match their plain
+    versions, and two launches give the same bits (one owner per row, no
     atomics)."""
     gen = torch.Generator(device=cuda).manual_seed(d + t)
     b, h = 2, 3
@@ -110,28 +110,32 @@ def test_flash_long_rows_are_exact_and_deterministic(cuda, kind, d, t):
     again, lse_again = flash_attention_cuda(q, k, v, qtag, ktag, return_lse=True)
     ref, ref_lse = flash_attention_plain(q, k, v, qtag, ktag, return_lse=True)
     delta = attention_delta(out, dout)
+    dq = flash_dq_cuda(q, k, v, qtag, ktag, dout, lse, delta)
+    dq2 = flash_dq_cuda(q, k, v, qtag, ktag, dout, lse, delta)
     dk, dv = flash_dkv_cuda(q, k, v, qtag, ktag, dout, lse, delta)
     dk2, dv2 = flash_dkv_cuda(q, k, v, qtag, ktag, dout, lse, delta)
-    _, rdk, rdv = flash_attention_bwd_plain(
+    rdq, rdk, rdv = flash_attention_bwd_plain(
         q.float(), k.float(), v.float(), qtag, ktag, out.float(), lse, dout.float()
     )
     torch.cuda.synchronize()
     assert torch.equal(out, again) and torch.equal(lse, lse_again)
-    assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
+    assert torch.equal(dq, dq2) and torch.equal(dk, dk2) and torch.equal(dv, dv2)
     torch.testing.assert_close(out.float(), ref.float(), atol=3e-2, rtol=0)
     live = torch.isfinite(ref_lse)
     assert torch.equal(live, torch.isfinite(lse))
     torch.testing.assert_close(lse[live], ref_lse[live], atol=1e-3, rtol=0)
-    for name, got, r in (("dk", dk, rdk), ("dv", dv, rdv)):
+    for name, got, r in (("dq", dq, rdq), ("dk", dk, rdk), ("dv", dv, rdv)):
         torch.testing.assert_close(got.float(), r, atol=3e-2, rtol=2.0**-8, msg=name)
     dead = ktag == 0
     assert torch.all(out[dead] == 0) and torch.all(dk[dead] == 0) and torch.all(dv[dead] == 0)
+    assert torch.all(dq[dead] == 0)  # a padding query: its lse is -inf
 
 
 def test_flash_wrappers_refuse_misaligned_bf16(cuda):
     """A bf16 view that starts 2 bytes into its allocation: the 16-byte
     cp.async of the tensor-core bodies cannot read it, so every wrapper
-    refuses it before any launch."""
+    refuses it before any launch, in each of the places the body reads
+    by cp.async (dq: q, k, v and dout)."""
     x = torch.zeros(1 + 8 * 2 * 16, device=cuda, dtype=torch.bfloat16)[1:].view(1, 8, 2, 16)
     ok = torch.zeros(1, 8, 2, 16, device=cuda, dtype=torch.bfloat16)
     tags = torch.ones(1, 8, dtype=torch.int32, device=cuda)
@@ -139,6 +143,9 @@ def test_flash_wrappers_refuse_misaligned_bf16(cuda):
     assert x.is_contiguous() and x.data_ptr() % 16 != 0
     for wrapper, args in (
         (flash_attention_cuda, (x, ok, ok, tags, tags)),
+        (flash_dq_cuda, (x, ok, ok, tags, tags, ok, stats, stats)),
+        (flash_dq_cuda, (ok, x, ok, tags, tags, ok, stats, stats)),
+        (flash_dq_cuda, (ok, ok, x, tags, tags, ok, stats, stats)),
         (flash_dq_cuda, (ok, ok, ok, tags, tags, x, stats, stats)),
         (flash_dkv_cuda, (ok, x, ok, tags, tags, ok, stats, stats)),
     ):
@@ -167,11 +174,15 @@ def test_flash_backward_kernels_match_plain(cuda, dtype, d, b, t, h, mode):
     """dq and dk/dv against the plain backward's fp32 result on the same
     inputs: float32 within 1e-4 (``tests/test_pallas_attention.py``);
     bf16 within 3e-2 plus one bf16 rounding (2^-8 relative) of the
-    kernel's output.  Dead queries and keys no query sees: exactly 0."""
+    kernel's output.  Dead queries and keys no query sees: exactly 0.
+    Two launches of each give the same bits (one owner per row)."""
     q, k, v, qtag, ktag, out, lse, dout = _bwd_case(cuda, b, t, h, d, dtype, mode, seed=d + t)
     delta = attention_delta(out, dout)
     dq = flash_dq_cuda(q, k, v, qtag, ktag, dout, lse, delta)
     dk, dv = flash_dkv_cuda(q, k, v, qtag, ktag, dout, lse, delta)
+    assert torch.equal(flash_dq_cuda(q, k, v, qtag, ktag, dout, lse, delta), dq)
+    again = flash_dkv_cuda(q, k, v, qtag, ktag, dout, lse, delta)
+    assert torch.equal(again[0], dk) and torch.equal(again[1], dv)
     ref = flash_attention_bwd_plain(
         q.float(), k.float(), v.float(), qtag, ktag, out.float(), lse, dout.float()
     )
@@ -267,9 +278,41 @@ def test_consensus_kernel_matches_plain(cuda, n, f, constrained):
     torch.testing.assert_close(out.kurtosis, ref.kurtosis, atol=1e-3, rtol=0)
 
 
+def _tie_fleet(kind, n, gen, device):
+    """Fleets whose ranks hinge on the tie order: values quantised to
+    1e-2, every row equal (3/8, so that every sum is exact), or drawn
+    from {-0.0, +0.0, 0.25, 0.5} (-0.0 ties with +0.0)."""
+    if kind == "quantised":
+        return torch.round(torch.rand(n, 6, generator=gen, device=device) * 100) / 100
+    if kind == "all_equal":
+        return torch.full((n, 6), 0.375, device=device)
+    choice = torch.tensor([-0.0, 0.0, 0.25, 0.5], device=device)
+    return choice[torch.randint(0, 4, (n, 6), generator=gen, device=device)].contiguous()
+
+
+@pytest.mark.parametrize("n", [7, 1000, 1024, 2048, 5216])
+@pytest.mark.parametrize("kind", ["quantised", "all_equal", "signed_zeros"])
+def test_consensus_kernel_tie_order(cuda, kind, n):
+    """Tie-heavy fleets, up to the largest the first port accepted at M =
+    6 (5216): the reliable mask exact and the reference's bars."""
+    gen = torch.Generator(device=cuda).manual_seed(n)
+    values = _tie_fleet(kind, n, gen, cuda)
+    cfg = ConsensusConfig(n_failing=n // 8)
+    out = fused_consensus_cuda(values, cfg)
+    ref = fused_consensus_plain(values, cfg)
+    torch.cuda.synchronize()
+    assert torch.equal(out.reliable, ref.reliable)
+    for field in ("essence", "essence_first_pass", "quadratic_risk",
+                  "reliability_first_pass", "reliability_second_pass"):
+        torch.testing.assert_close(getattr(out, field), getattr(ref, field), atol=1e-5, rtol=0)
+    torch.testing.assert_close(out.skewness, ref.skewness, atol=1e-4, rtol=0)
+    torch.testing.assert_close(out.kurtosis, ref.kurtosis, atol=1e-3, rtol=0)
+
+
 def test_consensus_kernel_refuses_a_fleet_beyond_shared_memory(cuda):
-    """The largest fleet that fits one block runs; the next power of two
-    (whose sort buffers double) is refused before any launch."""
+    """A 4096-oracle fleet runs; an 8192-oracle fleet, whose staged
+    columns, risks and mask alone take 256 KB, is refused before any
+    launch."""
     before = fused_consensus_cuda.launches
     with pytest.raises(ValueError, match="shared memory"):
         fused_consensus_cuda(torch.zeros(8192, 6, device=cuda), ConsensusConfig())
