@@ -5,6 +5,9 @@ Run from the root of the repository, with no arguments::
 
     python3 chip_smoke.py
 
+or with ``--parent DIR``, a checkout of another commit, to time its B6,
+its wrappers' host cost and its B3 in the same run (phases 1b and 3b).
+
 Phases:
 
 1. Environment: the card's name and power limit, the torch and CUDA
@@ -13,9 +16,15 @@ Phases:
 1b. The gridded block-copy kernel against its plain version and its
    input, bit for bit: the probe's shape ([4, 256, 128] float32, blocks
    (1, 128, 128), grid (4, 2, 1)), [64, 8192, 128] float32 (256 MiB each
-   way), a (1, 64, 128) block (grid (4, 4, 1)), bf16, a narrow block on
-   the scalar path, two refusals; times beside ``x.clone()`` and the
-   bound ``2 * bytes / 3.35 TB/s``.
+   way, NaNs and -0.0 among its words), a (1, 64, 128) block (grid (4,
+   4, 1)), bf16, a tile whose unrolled rounds end part full, a narrow
+   block on the scalar path, two refusals; times by CUDA events beside
+   ``x.clone()`` and the bound ``2 * bytes / 3.35 TB/s`` at both shapes,
+   and the host µs per call of every kernel wrapper and of ``x.clone()``
+   (the median of 20 rounds of 50 calls, no synchronise), with B6's
+   split into checks, allocation, launch helper and ctypes call; with
+   ``--parent DIR``, the same for the tree in DIR, between two readings
+   of this tree's.
 2. The flash-attention kernel against its plain PyTorch version: the
    flagship shape [256, 128, 12, 64] in bf16 with segment ids from a real
    packed batch (3e-2), the per-key mask mode, float32 at every head width
@@ -51,7 +60,9 @@ Phases:
    n_failing = 128, constrained and unconstrained, three tie-heavy fleets
    (quantised to 1e-2, every row equal, -0.0 and +0.0 mixed), N = 7 and
    N = 1000. The reliable mask exact; essence, risk and reliabilities
-   within 1e-5; skewness within 1e-4; kurtosis within 1e-3.
+   within 1e-5; skewness within 1e-4; kurtosis within 1e-3. Its time at
+   N = 1024 by CUDA events over 200 launches and by the profiler's
+   device time of one launch (informational).
 3b. The gated claim-cube kernel against its plain version: the
    ``bench.py --claims 64 --claims-oracles 1024`` cube ([64, 1024, 6],
    n_failing 256, every eighth claim's last oracle quarantined), the
@@ -61,9 +72,13 @@ Phases:
    an unconstrained cube. The reliable mask and interval_valid exact;
    essences, reliabilities and finite risks within 1e-5, infinite risks
    equal; skewness within 1e-4; kurtosis within 1e-3. Two refusals (a
-   smooth_mode "true" config, a fleet beyond shared memory). Times at
-   [64, 1024, 6]: the kernel, the plain version, the bound, and 64
-   sequential one-claim launches against one batched launch (claims/s).
+   smooth_mode "true" config, a fleet beyond shared memory), and the
+   largest fleet the kernel's layout takes at M = 6 (at least the 4635
+   of its first version). Times at [64, 1024, 6]: the kernel by CUDA
+   events over 50 launches and by the profiler's device time of one
+   launch (with ``--parent DIR``, the tree in DIR's between two readings
+   of this tree's), the plain version, the bound, and 64 sequential
+   one-claim launches against one batched launch (claims/s).
 4. The serving step: first a small float32 step on the card against the
    same step on the CPU (the plain versions the CPU tests hold against the
    JAX package), for each of the three flagship variants; then the main
@@ -175,6 +190,9 @@ PROBE_RECORDS = ("backend", "grid_copy", "consensus128", "consensus256", "consen
                  "consensus1024", "flash512", "encoder512_dense", "encoder512_flash")
 
 failures: list = []
+#: A checkout of the parent commit (``--parent DIR``): phases 1b and 3b
+#: then time its B6 and B3 in the same run. None: not timed.
+PARENT = None
 
 
 def check(ok: bool, what: str) -> bool:
@@ -221,6 +239,36 @@ def cuda_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_us(event) -> float:
+    """An event's own device time in µs, under either of torch's names."""
+    return getattr(event, "self_device_time_total", 0) or getattr(event, "self_cuda_time_total", 0)
+
+
+def profiled_ms(torch, fn, kernel: str, iters: int = 20):
+    """Device time of one launch of the kernel whose name holds
+    ``kernel``: ``torch.profiler`` over ``iters`` calls of ``fn``, that
+    kernel's own device time over ``iters``. Informational: None when the
+    profiler shows no such kernel."""
+    try:
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        fn()
+        torch.cuda.synchronize()
+        for _ in range(2):  # a profile has come back without device events: one more
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                for _ in range(iters):
+                    fn()
+                torch.cuda.synchronize()
+            hits = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and kernel in e.key]
+            if hits:
+                return sum(device_us(e) for e in hits) / iters / 1e3
+        return None
+    except Exception:  # the profiler is an observation, not a check
+        traceback.print_exc()
+        return None
+
+
 def bound(bytes_moved: float, ops: float, peak_ops: float):
     t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S, ops / peak_ops
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
@@ -243,6 +291,134 @@ def environment(torch):
             if "registers" in line or "spill" in line:
                 print(f"  [{name}] {line.strip()}")
     return True
+
+
+def host_us(torch, fn, calls: int = 1000, rounds: int = 20) -> float:
+    """Host microseconds per call of ``fn``: ``calls`` calls in ``rounds``
+    rounds with no synchronise inside a round (the card drains between
+    rounds, off the clock, so that no call waits on a full queue); the
+    median round, so that a round in which the shared host took the core
+    away does not count."""
+    fn()
+    torch.cuda.synchronize()
+    per_round = calls // rounds
+    spent = []
+    for _ in range(rounds):
+        t0 = time.perf_counter()
+        for _ in range(per_round):
+            fn()
+        spent.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+    return sorted(spent)[rounds // 2] / per_round * 1e6
+
+
+def host_costs(torch) -> None:
+    """Host µs per call of every kernel wrapper (B1 to B6 at their
+    main-path shapes, ``x.clone()`` beside them), and of B6 split into
+    its checks and argument preparation (the rest), its output's
+    allocation, the launch helper (with a C entry that does nothing) and
+    the ctypes call of the kernel itself. Informational.
+    Imports ``svoc_torch`` from ``sys.path``, so it measures whichever
+    tree comes first there."""
+    from svoc_torch.consensus.kernel import ConsensusConfig
+    from svoc_torch.ops import _build
+    from svoc_torch.ops.flash_attention import (
+        attention_delta, attention_tags, flash_attention_cuda, flash_dkv_cuda, flash_dq_cuda,
+    )
+    from svoc_torch.ops.fused_consensus import (
+        fused_consensus_cuda, fused_consensus_gated_claims_cuda,
+    )
+    from svoc_torch.ops.grid_copy import grid_copy_cuda
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    q, k, v, dout = (torch.randn(256, 128, 12, 64, generator=gen, device=dev).bfloat16() for _ in range(4))
+    qtag, ktag = attention_tags(q, segment_ids=run_segments(torch, 256, 128, 16, dev))
+    out, lse = flash_attention_cuda(q, k, v, qtag, ktag, return_lse=True)
+    delta = attention_delta(out, dout)
+    fleet = torch.rand(1024, 6, generator=gen, device=dev)
+    cube = torch.rand(CLAIMS, ORACLES, 6, generator=gen, device=dev)
+    ok = torch.ones(CLAIMS, ORACLES, dtype=torch.bool, device=dev)
+    claim_mask = torch.ones(CLAIMS, dtype=torch.bool, device=dev)
+    flagship, claims = ConsensusConfig(n_failing=128), ConsensusConfig(n_failing=256)
+    x, block = torch.zeros(4, 256, 128, device=dev), (1, 128, 128)
+    costs = {
+        "B1": lambda: flash_attention_cuda(q, k, v, qtag, ktag),
+        "B4": lambda: flash_dq_cuda(q, k, v, qtag, ktag, dout, lse, delta),
+        "B5": lambda: flash_dkv_cuda(q, k, v, qtag, ktag, dout, lse, delta),
+        "B2": lambda: fused_consensus_cuda(fleet, flagship),
+        "B3": lambda: fused_consensus_gated_claims_cuda(cube, ok, claim_mask, claims),
+        "B6": lambda: grid_copy_cuda(x, block),
+        "x.clone()": lambda: x.clone(),
+    }
+    us = {name: host_us(torch, fn) for name, fn in costs.items()}
+
+    # B6's C entry and arguments, caught on their way through the helper.
+    launch, seen = _build.launch, {}
+
+    def spy(kernel, fn, device, *args):
+        seen.update(fn=fn, device=device, args=args)
+        return launch(kernel, fn, device, *args)
+
+    _build.launch = spy
+    try:
+        held = grid_copy_cuda(x, block)  # keeps the output the caught pointers name
+    finally:
+        _build.launch = launch
+    stream = torch.cuda.current_stream().cuda_stream
+    split = {
+        "allocation": host_us(torch, lambda: torch.empty_like(x)),
+        "launch helper": host_us(torch, lambda: launch("probe", lambda *a: 0, seen["device"], *seen["args"])),
+        "ctypes call": host_us(torch, lambda: seen["fn"](*seen["args"], stream)),
+    }
+    split = {"checks and arguments": us["B6"] - sum(split.values()), **split}
+    del held
+    print(f"  [{nvidia_smi()}] host us per call (median of 20 rounds of 50 calls, no synchronise): "
+          + ", ".join(f"{name} {t:.2f}" for name, t in us.items())
+          + "; B6 split: " + ", ".join(f"{name} {t:.2f}" for name, t in split.items()), flush=True)
+
+
+def copy_times(torch) -> dict:
+    """B6 and ``x.clone()`` by CUDA events, over 500 launches at the
+    probe's shape and 50 at [64, 8192, 128] float32, with the bound.
+    Imports ``svoc_torch`` from ``sys.path``."""
+    from svoc_torch.ops.grid_copy import grid_copy_cuda
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(6)
+    card, block, times = nvidia_smi(), (1, 128, 128), {}
+    for shape, iters in (((4, 256, 128), 500), ((64, 8192, 128), 50)):
+        x = torch.randn(*shape, generator=gen, device=dev)
+        ms = cuda_ms(torch, lambda: grid_copy_cuda(x, block), iters=iters)
+        library_ms = cuda_ms(torch, lambda: x.clone(), iters=iters)
+        bytes_moved = 2 * x.numel() * x.element_size()
+        bound_ms, bound_by = bound(bytes_moved, 0, FP32_FLOPS)
+        print(f"  [{card}] {list(shape)} f32: B6 {ms:.4f} ms ({bytes_moved / ms / 1e9:.3f} TB/s), "
+              f"x.clone() {library_ms:.4f} ms, bound {bound_ms:.6f} ms ({bound_by}; "
+              f"{bytes_moved} bytes)", flush=True)
+        times[shape] = dict(ms=ms, library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
+        del x
+    return times
+
+
+def on_parent(*names: str) -> None:
+    """Run this script's functions ``names`` (each taking ``torch``) in a
+    new interpreter against the tree given by ``--parent``, so that a
+    change is timed beside its parent in one run; informational, and
+    skipped without ``--parent``."""
+    if PARENT is None:
+        print(f"  parent tree: not given (--parent DIR); {', '.join(names)} not run there")
+        return
+    code = ("import runpy, sys, torch; sys.path.insert(0, '.'); "
+            "from svoc_torch.ops import _build; "
+            f"ns = runpy.run_path({str(Path(__file__).resolve())!r}); _build.build(ns['KERNELS']); "
+            + "; ".join(f"ns[{name!r}](torch)" for name in names))
+    res = subprocess.run([sys.executable, "-c", code], cwd=PARENT, capture_output=True, text=True,
+                         timeout=900)
+    for line in res.stdout.splitlines():
+        print(f"  parent {PARENT}: {line.strip()}")
+    if res.returncode != 0:
+        print(f"  parent run failed (informational): {res.stderr[-2000:]}")
 
 
 @phase("1b. grid copy: kernel vs plain")
@@ -269,10 +445,13 @@ def grid_copy_phase(torch, results):
     probe_x = torch.arange(4 * 256 * 128, dtype=torch.float32, device=dev).reshape(4, 256, 128)
     block = (1, 128, 128)
     big = torch.randn(64, 8192, 128, generator=gen, device=dev)
+    big.view(-1)[:4] = torch.tensor([float("nan"), -float("nan"), -0.0, float("inf")], device=dev)
     compare("the probe's shape", probe_x, block)
-    compare("256 MiB", big, block)
+    compare("256 MiB, NaNs and -0.0 among its words", big, block)
     compare("an odd block", probe_x, (1, 64, 128))
     compare("bf16", torch.randn(8, 512, 256, generator=gen, device=dev).bfloat16(), (1, 128, 64))
+    compare("a tile whose unrolled rounds end part full",
+            torch.randn(2, 96, 160, generator=gen, device=dev), (1, 48, 160))
     compare("a narrow block (scalar path)", torch.randn(3, 10, 6, generator=gen, device=dev), (1, 5, 3))
 
     for name, x, blk in (
@@ -290,19 +469,18 @@ def grid_copy_phase(torch, results):
 
     card = nvidia_smi()
     for name, x, plain_iters in (("[4, 256, 128]", probe_x, 10), ("[64, 8192, 128]", big, 2)):
-        ms = cuda_ms(torch, lambda: grid_copy_cuda(x, block), iters=50)
         plain_ms = cuda_ms(torch, lambda: grid_copy_plain(x, block), iters=plain_iters, warmup=1)
-        library_ms = cuda_ms(torch, lambda: x.clone(), iters=50)
-        bytes_moved = 2 * x.numel() * x.element_size()
-        bound_ms, bound_by = bound(bytes_moved, 0, FP32_FLOPS)
-        print(f"  [{card}] {name} f32 times: kernel {ms:.4f} ms ({bytes_moved / ms / 1e9:.3f} TB/s), "
-              f"plain {plain_ms:.4f} ms, x.clone() {library_ms:.4f} ms, bound {bound_ms:.6f} ms "
-              f"({bound_by}; {bytes_moved} bytes)")
-        if x is probe_x:  # the shape the probe path gives the kernel
-            results["grid_copy"] = dict(
-                max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, library_ms=library_ms,
-            )
+        print(f"  [{card}] {name} f32: plain {plain_ms:.4f} ms")
+        if x is probe_x:
+            probe_plain_ms = plain_ms
+    del big
+    # This tree, the parent's (with --parent), this tree again.
+    times = copy_times(torch)
+    host_costs(torch)
+    on_parent("copy_times", "host_costs")
+    copy_times(torch)
+    host_costs(torch)
+    results["grid_copy"] = dict(max_abs_err=worst, plain_ms=probe_plain_ms, **times[(4, 256, 128)])
 
 
 def packed_batch(seed: int):
@@ -766,12 +944,14 @@ def consensus_phase(torch, results):
 
     ms = cuda_ms(torch, lambda: fused_consensus_cuda(uniform, flagship), iters=200)
     plain_ms = cuda_ms(torch, lambda: fused_consensus_plain(uniform, flagship), iters=10)
+    dev_ms = profiled_ms(torch, lambda: fused_consensus_cuda(uniform, flagship), "fused_consensus_kernel")
     n, m = uniform.shape
     bytes_moved = 4 * (n * m + 2 * m + 2 + n + n + 2 * m)
     ops = (4 * m + 1) * n + 12 * n * m  # each of the 4M + 1 ranks reads every key once; moments
     bound_ms, bound_by = bound(bytes_moved, ops, FP32_FLOPS)
-    print(f"  [{nvidia_smi()}] N=1024 times: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"bound {bound_ms:.6f} ms ({bound_by})")
+    print(f"  [{nvidia_smi()}] N=1024 times: kernel {ms:.4f} ms (CUDA events, 200 launches), "
+          f"{dev_ms if dev_ms is None else f'{dev_ms:.4f}'} ms (profiler device time, informational), "
+          f"plain {plain_ms:.4f} ms, bound {bound_ms:.6f} ms ({bound_by})")
     results["fused_consensus"] = dict(
         max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
         bound_by=bound_by, library_ms=None,
@@ -812,14 +992,45 @@ def host_s(torch, fn, iters: int = 20) -> float:
     return (time.perf_counter() - t0) / iters
 
 
-@phase("3b. gated claim-cube consensus: kernel vs plain")
-def gated_claims_phase(torch, results):
+def bench_cube():
+    """The cube of ``bench.py --claims 64 --claims-oracles 1024``
+    (``bench.py:2587-2629``) as numpy: values, admission masks, config."""
     import numpy as np
 
+    from svoc_torch.consensus.kernel import ConsensusConfig
+
+    rng = np.random.default_rng(0)
+    values = rng.uniform(0.0, 1.0, size=(CLAIMS, ORACLES, 6)).astype(np.float32)
+    ok = np.ones((CLAIMS, ORACLES), dtype=bool)
+    ok[:: max(1, CLAIMS // 8), -1] = False
+    return values, ok, ConsensusConfig(n_failing=256, constrained=True)
+
+
+def gated_times(torch):
+    """B3 at the bench_claims cube: CUDA events over 50 back-to-back
+    launches, and the profiler's device time of one launch (over 20).
+    Imports ``svoc_torch`` from ``sys.path``."""
+    from svoc_torch.consensus.batch import pad_claim_cube
+    from svoc_torch.ops.fused_consensus import fused_consensus_gated_claims_cuda
+
+    bench, bench_ok, cfg = bench_cube()
+    values, ok, mask = (t.cuda() for t in pad_claim_cube(bench, bench_ok))
+    ms = cuda_ms(torch, lambda: fused_consensus_gated_claims_cuda(values, ok, mask, cfg), iters=50)
+    dev_ms = profiled_ms(torch, lambda: fused_consensus_gated_claims_cuda(values, ok, mask, cfg),
+                         "gated_claims_kernel")
+    print(f"  [{nvidia_smi()}] [64, 1024, 6] B3: {ms:.4f} ms (CUDA events, 50 launches), "
+          f"{dev_ms if dev_ms is None else f'{dev_ms:.4f}'} ms (profiler device time, informational)",
+          flush=True)
+    return ms, dev_ms
+
+
+@phase("3b. gated claim-cube consensus: kernel vs plain")
+def gated_claims_phase(torch, results):
     from svoc_torch.consensus.batch import pad_claim_cube
     from svoc_torch.consensus.kernel import ConsensusConfig
     from svoc_torch.ops.fused_consensus import (
-        fused_consensus_gated_claims_cuda, fused_consensus_gated_claims_plain,
+        MAX_SMEM_BYTES, _gated_smem_bytes, fused_consensus_gated_claims_cuda,
+        fused_consensus_gated_claims_plain,
     )
 
     dev = torch.device("cuda")
@@ -838,12 +1049,7 @@ def gated_claims_phase(torch, results):
                     + ", ".join(f"{f} {e:.2e}" for f, e in errs.items()))
         return out, mask
 
-    # bench.py --claims 64 --claims-oracles 1024 (bench.py:2587-2629).
-    rng = np.random.default_rng(0)
-    bench = rng.uniform(0.0, 1.0, size=(CLAIMS, ORACLES, 6)).astype(np.float32)
-    bench_ok = np.ones((CLAIMS, ORACLES), dtype=bool)
-    bench_ok[:: max(1, CLAIMS // 8), -1] = False
-    bench_cfg = ConsensusConfig(n_failing=256, constrained=True)
+    bench, bench_ok, bench_cfg = bench_cube()
     compare("bench_claims cube [64, 1024, 6], n_failing 256", bench, bench_ok, bench_cfg)
 
     for n in (1024, 7):
@@ -887,7 +1093,22 @@ def gated_claims_phase(torch, results):
         check(refused and fused_consensus_gated_claims_cuda.launches == before,
               f"refuses {name} with ValueError before any launch")
 
-    ms = cuda_ms(torch, lambda: fused_consensus_gated_claims_cuda(values, ok, mask, bench_cfg), iters=50)
+    lo, hi = 1, 65535  # the largest N whose [N, 6] claim fits one block
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        lo, hi = (mid, hi) if _gated_smem_bytes(mid, 6) <= MAX_SMEM_BYTES else (lo, mid - 1)
+    largest = lo
+    check(largest >= 4635, f"the layout takes N up to {largest} at M = 6 (the bitonic one: 4635)")
+    big = torch.rand(2, largest, 6, generator=gen, device=dev)
+    big_ok = torch.rand(2, largest, generator=gen, device=dev) > 0.05
+    compare(f"[2, {largest}, 6], the largest fleet at M = 6", big, big_ok,
+            ConsensusConfig(n_failing=largest // 8))
+    del big, big_ok
+
+    # This tree, the parent's (with --parent), this tree again.
+    ms, dev_ms = gated_times(torch)
+    on_parent("gated_times")
+    gated_times(torch)
     plain_ms = cuda_ms(
         torch, lambda: fused_consensus_gated_claims_plain(values, ok, mask, bench_cfg), iters=10)
     c, n, m = values.shape
@@ -907,7 +1128,9 @@ def gated_claims_phase(torch, results):
         fused_consensus_gated_claims_cuda(*a, bench_cfg).essence.sum() for a in per_claim).item())
     seq_ms = cuda_ms(torch, lambda: [fused_consensus_gated_claims_cuda(*a, bench_cfg) for a in per_claim],
                      iters=10)
-    print(f"  [{nvidia_smi()}] [64, 1024, 6] times: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+    print(f"  [{nvidia_smi()}] [64, 1024, 6] times: kernel {ms:.4f} ms (CUDA events), "
+          f"{dev_ms if dev_ms is None else f'{dev_ms:.4f}'} ms (profiler device time), "
+          f"plain {plain_ms:.4f} ms, "
           f"bound {bound_ms:.6f} ms ({bound_by}; {bytes_moved} bytes, {ops} operations); "
           f"64 one-claim launches {seq_ms:.4f} ms (CUDA events)")
     print(f"  claims/s with a host fetch: batched {c / batched_s:.1f} ({batched_s * 1e3:.4f} ms), "
@@ -1119,9 +1342,6 @@ def profile_one_step(torch, run):
         # on their own.
         kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
                    and not getattr(e, "is_user_annotation", False)]
-
-        def device_us(e):
-            return getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
 
         busy_ms = sum(device_us(e) for e in kernels) / 1e3
         print(f"  profiled step (informational): wall {wall_ms:.3f} ms, device busy "
@@ -1536,6 +1756,12 @@ def main() -> int:
         return 2
     if not torch.cuda.is_available():
         print("FAIL: no CUDA device; the port's kernels run only on the card", file=sys.stderr)
+        return 2
+    global PARENT
+    if sys.argv[1:2] == ["--parent"] and len(sys.argv) == 3:
+        PARENT = str(Path(sys.argv[2]).resolve())
+    elif len(sys.argv) > 1:
+        print("usage: python3 chip_smoke.py [--parent DIR]", file=sys.stderr)
         return 2
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     try:

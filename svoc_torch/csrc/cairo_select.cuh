@@ -1,6 +1,6 @@
 // Rank selection in the Cairo order inside one thread block, for Hopper
 // (sm_90a): the order statistics of the consensus kernels
-// (fused_consensus.cu; written to be shared with gated_claims_consensus.cu).
+// (fused_consensus.cu, gated_claims_consensus.cu).
 //
 // The Cairo contract sorts ascending by key with ties in DESCENDING index
 // (contract/src/sort.cairo; svoc_torch/ops/sort.py::cairo_rank). A kernel

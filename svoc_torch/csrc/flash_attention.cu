@@ -71,6 +71,7 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "smem_limit.cuh"
 #include "tensor_core.cuh"
 
 namespace {
@@ -442,7 +443,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const int* qtag,
                    const int* ktag, void* o, float* lse, int batch, int seq, int heads,
                    float scale, cudaStream_t stream) {
     using C = Cfg<D>;
-    static tc::SmemLimit limit;  // above 48 KB, once per device
+    static svoc::SmemLimit limit;  // above 48 KB, once per device
     const cudaError_t attr = limit.ensure(flash_fwd_bf16<D>, C::BYTES);
     if (attr != cudaSuccess) return attr;
     const dim3 grid((seq + C::BQ - 1) / C::BQ, heads, batch);

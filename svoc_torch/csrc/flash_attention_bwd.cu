@@ -92,6 +92,7 @@
 
 #include <type_traits>
 
+#include "smem_limit.cuh"
 #include "tensor_core.cuh"
 
 namespace {
@@ -516,7 +517,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const int* qtag,
                    const int* ktag, const void* dout, const float* lse, const float* delta,
                    void* dk, void* dv, int batch, int seq, int heads, float scale,
                    cudaStream_t stream) {
-    static tc::SmemLimit limit;  // above 48 KB, once per device
+    static svoc::SmemLimit limit;  // above 48 KB, once per device
     const cudaError_t attr = limit.ensure(flash_dkv_bf16<D>, Smem<D>::BYTES);
     if (attr != cudaSuccess) return attr;
     const dim3 grid((seq + BKEY - 1) / BKEY, heads, batch);
@@ -724,7 +725,7 @@ template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, const int* qtag,
                    const int* ktag, const void* dout, const float* lse, const float* delta,
                    void* dq, int batch, int seq, int heads, float scale, cudaStream_t stream) {
-    static tc::SmemLimit limit;  // above 48 KB, once per device
+    static svoc::SmemLimit limit;  // above 48 KB, once per device
     const cudaError_t attr = limit.ensure(flash_dq_bf16<D>, Smem<D>::BYTES);
     if (attr != cudaSuccess) return attr;
     const dim3 grid((seq + BQ - 1) / BQ, heads, batch);

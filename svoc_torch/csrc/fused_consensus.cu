@@ -45,12 +45,16 @@
 // Shared memory: fused_layout(n, dim) below, the one place that knows it
 // (svoc_fused_consensus_smem_bytes returns its size); the wrapper refuses
 // a fleet whose need exceeds one block's 227 KB (N up to 6159 at M = 6).
+// Above 48 KB the launcher raises the kernel's limit to those 227 KB once
+// per device (smem_limit.cuh), not on every launch.
 // The TPU-only limits (N % 128 == 0, N <= 1024) do not apply.
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 #include "cairo_select.cuh"
+#include "smem_limit.cuh"
 
 namespace {
 
@@ -114,7 +118,7 @@ __device__ __forceinline__ float reliability(float mean_qr, int dim, int constra
 __global__ void __launch_bounds__(kMaxThreads)
 fused_consensus_kernel(const float* __restrict__ values, float* __restrict__ essence,
                        float* __restrict__ essence1, float* __restrict__ rel_out,
-                       int* __restrict__ mask_out, float* __restrict__ qr_out,
+                       uint8_t* __restrict__ mask_out, float* __restrict__ qr_out,
                        float* __restrict__ moments, int n, int dim, int m, int r_lo_all,
                        int r_hi_all, int r_lo_rel, int r_hi_rel, int constrained,
                        float max_spread) {
@@ -173,7 +177,7 @@ fused_consensus_kernel(const float* __restrict__ values, float* __restrict__ ess
     for (int i = tid; i < n; i += threads) {
         const int r = cairo::composite(qr[i], i, n, lbits) < cut ? 1 : 0;
         rel[i] = r;
-        mask_out[i] = r;
+        mask_out[i] = (uint8_t)r;
     }
     __syncthreads();
 
@@ -278,13 +282,13 @@ size_t svoc_fused_consensus_smem_bytes(int n, int dim) { return fused_layout(n, 
 // Launches the kernel on `stream` and returns cudaGetLastError(). The
 // caller checks shapes, dtypes and the shared-memory need first.
 int svoc_fused_consensus(const float* values, float* essence, float* essence1,
-                         float* rel, int* mask, float* qr, float* moments, int n, int dim,
+                         float* rel, uint8_t* mask, float* qr, float* moments, int n, int dim,
                          int m, int r_lo_all, int r_hi_all, int r_lo_rel, int r_hi_rel,
                          int constrained, float max_spread, void* stream) {
     const size_t smem = svoc_fused_consensus_smem_bytes(n, dim);
-    if (smem > 48 * 1024) {  // on the current device, every call: nothing is cached
-        const cudaError_t err = cudaFuncSetAttribute(
-            fused_consensus_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (smem > svoc::kSmallSmemBytes) {  // once per device, to the most any fleet may take
+        static svoc::SmemLimit limit;
+        const cudaError_t err = limit.ensure(fused_consensus_kernel, svoc::kMaxSmemBytes);
         if (err != cudaSuccess) return (int)err;
     }
     int threads = ((n + 31) / 32) * 32;

@@ -9,8 +9,9 @@ source or header builds anew and an unchanged one is reused. :func:`build` start
 once, so that a cold start waits for the slowest file only.
 
 Every kernel launch goes through :func:`launch`, which makes the
-tensors' device current, so that a kernel runs on its tensors' device
-whatever device the caller has current.
+tensors' device current when it is not, so that a kernel runs on its
+tensors' device and that device's current stream whatever device the
+caller has current.
 """
 
 from __future__ import annotations
@@ -103,8 +104,20 @@ def launch(kernel: str, fn: Callable[..., int], device: torch.device, *args) -> 
     """Call the C entry ``fn(*args, stream)`` of a kernel with ``device``
     current and that device's current stream as its last argument;
     raises ``RuntimeError`` naming ``kernel`` when it returns a CUDA
-    error (a refused launch never runs, and no synchronise reports it)."""
-    with torch.cuda.device(device):
-        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    error (a refused launch never runs, and no synchronise reports it).
+
+    The device is switched only when it is not the current one, and the
+    previous device is current again afterwards. The stream is asked for
+    on every call, as a raw handle (no ``torch.cuda.Stream`` is built),
+    so that a caller's ``torch.cuda.stream(s)`` is honoured."""
+    current = torch.cuda.current_device()
+    index = current if device.index is None else device.index
+    if index != current:
+        torch.cuda.set_device(index)
+    try:
+        err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    finally:
+        if index != current:
+            torch.cuda.set_device(current)
     if err != 0:
         raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {err}")

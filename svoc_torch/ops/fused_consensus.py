@@ -132,7 +132,7 @@ def _check_kernel_inputs(values: torch.Tensor, cfg: ConsensusConfig) -> None:
     if values.device.type != "cuda":
         raise ValueError(f"the CUDA kernel needs a CUDA tensor, got {values.device}")
     n, dim = values.shape
-    need = _lib().svoc_fused_consensus_smem_bytes(n, dim)
+    need = _smem_bytes(n, dim)
     if need > MAX_SMEM_BYTES:
         raise ValueError(
             f"a [{n}, {dim}] fleet needs {need} bytes of shared memory, "
@@ -152,6 +152,11 @@ def _lib():
     return lib
 
 
+@functools.lru_cache(maxsize=None)
+def _smem_bytes(n: int, dim: int) -> int:
+    return _lib().svoc_fused_consensus_smem_bytes(n, dim)
+
+
 def fused_consensus_cuda(
     values: torch.Tensor, cfg: ConsensusConfig
 ) -> FusedConsensusOutput:
@@ -164,7 +169,7 @@ def fused_consensus_cuda(
     essence = torch.empty(dim, **f32)
     essence1 = torch.empty(dim, **f32)
     rel = torch.empty(2, **f32)
-    mask = torch.empty(n, dtype=torch.int32, device=values.device)
+    mask = torch.empty(n, dtype=torch.bool, device=values.device)  # written as bytes 0 and 1
     qr = torch.empty(n, **f32)
     moments = torch.empty(2, dim, **f32)
     lo_all, hi_all = _smooth_median_ranks(n)
@@ -182,7 +187,7 @@ def fused_consensus_cuda(
         essence_first_pass=essence1,
         reliability_first_pass=rel[0],
         reliability_second_pass=rel[1],
-        reliable=mask.bool(),
+        reliable=mask,
         quadratic_risk=qr,
         skewness=moments[0],
         kurtosis=moments[1],

@@ -28,16 +28,16 @@ from svoc_torch.ops import _build
 MAX_GRID = (2**31 - 1, 65535, 65535)
 
 
-def _grid(x: torch.Tensor, block: Sequence[int]) -> Tuple[int, int, int]:
-    """The grid ``(G, R/br, C/bc)`` of ``block`` over ``x``; raises on a
-    block that does not tile ``x`` exactly, as a ``BlockSpec`` would."""
-    if x.dim() != 3 or x.numel() == 0:
-        raise ValueError(f"x must be a non-empty [G, R, C] tensor, got {tuple(x.shape)}")
+def _grid_of(shape: Sequence[int], block: Sequence[int]) -> Tuple[int, int, int]:
+    """The grid ``(G, R/br, C/bc)`` of ``block`` over ``shape``; raises on
+    a block that does not tile it exactly, as a ``BlockSpec`` would."""
+    if len(shape) != 3 or 0 in shape:
+        raise ValueError(f"x must be a non-empty [G, R, C] tensor, got {tuple(shape)}")
     if len(block) != 3 or block[0] != 1 or block[1] < 1 or block[2] < 1:
         raise ValueError(f"block must be (1, br, bc) with br, bc >= 1, got {tuple(block)}")
-    g, r, c = x.shape
+    g, r, c = shape
     if r % block[1] or c % block[2]:
-        raise ValueError(f"block {tuple(block)} does not divide the shape {tuple(x.shape)}")
+        raise ValueError(f"block {tuple(block)} does not divide the shape {tuple(shape)}")
     return g, r // block[1], c // block[2]
 
 
@@ -45,7 +45,7 @@ def grid_copy_plain(x: torch.Tensor, block: Sequence[int]) -> torch.Tensor:
     """The kernel's function in plain PyTorch, on any device: a loop over
     the grid that assigns tile by tile, so that a wrong index map would
     show."""
-    grid = _grid(x, block)
+    grid = _grid_of(x.shape, block)
     _, br, bc = block
     out = torch.empty_like(x)
     for g in range(grid[0]):
@@ -64,31 +64,38 @@ def _kernel():
     return fn
 
 
+@functools.lru_cache(maxsize=256)
+def _geometry(shape: torch.Size, dtype: torch.dtype, block: Tuple[int, ...]) -> bool:
+    """The kernel's checks of what every call with this key shares, made
+    once per key (a refusal raises and is not remembered); returns
+    whether every tile row is a whole number of 16-byte words."""
+    grid = _grid_of(shape, block)
+    es = dtype.itemsize
+    if es not in (2, 4):
+        raise ValueError(f"the kernel copies 2- and 4-byte elements, got {dtype}")
+    if any(n > limit for n, limit in zip(grid, MAX_GRID)):
+        raise ValueError(f"grid {grid} exceeds CUDA's limits {MAX_GRID}")
+    return (shape[2] * es) % 16 == 0 and (block[2] * es) % 16 == 0
+
+
 def grid_copy_cuda(x: torch.Tensor, block: Sequence[int]) -> torch.Tensor:
     """Launch ``csrc/grid_copy.cu`` on x's device and its current stream:
     one thread block per grid cell.  Raises ``ValueError`` on what the
-    kernel does not take."""
-    grid = _grid(x, block)
-    if x.element_size() not in (2, 4):
-        raise ValueError(f"the kernel copies 2- and 4-byte elements, got {x.dtype}")
+    kernel does not take, before any launch."""
+    block, shape = tuple(block), x.shape
+    wide = _geometry(shape, x.dtype, block)
     if not x.is_contiguous():
         raise ValueError("x must be contiguous")
-    if any(n > limit for n, limit in zip(grid, MAX_GRID)):
-        raise ValueError(f"grid {grid} exceeds CUDA's limits {MAX_GRID}")
-    if x.device.type != "cuda":
+    dev = x.device
+    if dev.type != "cuda":
         raise ValueError("the CUDA kernel needs a tensor on a CUDA device")
-    _, br, bc = block
     out = torch.empty_like(x)
-    es = x.element_size()
-    vec = (
-        x.data_ptr() % 16 == 0
-        and out.data_ptr() % 16 == 0
-        and (x.shape[2] * es) % 16 == 0
-        and (bc * es) % 16 == 0
-    )
+    src, dst = x.data_ptr(), out.data_ptr()
+    g, rows, cols = shape
     _build.launch(
-        "grid copy", _kernel(), x.device,
-        x.data_ptr(), out.data_ptr(), es, x.shape[0], x.shape[1], x.shape[2], br, bc, int(vec),
+        "grid copy", _kernel(), dev,
+        src, dst, x.element_size(), g, rows, cols, block[1], block[2],
+        int(wide and src % 16 == 0 and dst % 16 == 0),
     )
     grid_copy_cuda.launches += 1
     return out

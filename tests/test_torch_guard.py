@@ -309,48 +309,62 @@ def test_library_path_covers_the_shared_headers(tmp_path, monkeypatch):
     assert first.parent == _build.BUILD_DIR
 
 
-class _FakeDevice:
-    """Stands in for ``torch.cuda.device``: records the device entered
-    and what is current while the helper calls the kernel."""
+class _FakeCuda:
+    """Stands in for what the launch helper asks of the CUDA runtime: the
+    current device, ``set_device`` (recorded), and each device's current
+    raw stream (7000 + its index)."""
 
-    current = None
-    entered = []
+    def __init__(self, monkeypatch, current):
+        self.current, self.switches = current, []
+        monkeypatch.setattr(torch.cuda, "current_device", lambda: self.current)
+        monkeypatch.setattr(torch.cuda, "set_device", self.set_device)
+        monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream", lambda index: 7000 + index,
+                            raising=False)
 
-    def __init__(self, device):
-        self.device = torch.device(device)
-
-    def __enter__(self):
-        self.previous, _FakeDevice.current = _FakeDevice.current, self.device
-        _FakeDevice.entered.append(self.device)
-
-    def __exit__(self, *exc):
-        _FakeDevice.current = self.previous
+    def set_device(self, index):
+        self.switches.append(index)
+        self.current = index
 
 
 @pytest.mark.parametrize("index", [0, 1])
 def test_launch_enters_the_tensors_device_and_passes_its_stream(monkeypatch, index):
     """The kernel runs with its tensors' device current, whatever device
-    the caller has current, and gets that device's current stream last."""
-    monkeypatch.setattr(_FakeDevice, "entered", [])
-    monkeypatch.setattr(_FakeDevice, "current", torch.device("cuda", 1 - index))
-    monkeypatch.setattr(torch.cuda, "device", _FakeDevice)
-    monkeypatch.setattr(torch.cuda, "current_stream",
-                        lambda device: type("S", (), {"cuda_stream": 7000 + torch.device(device).index})())
+    the caller has current, and gets that device's current stream last;
+    the caller's device is current again after, also when the call
+    raises."""
+    cuda = _FakeCuda(monkeypatch, current=1 - index)
     calls = []
 
     def kernel(*args):
-        calls.append((args, _FakeDevice.current))
+        calls.append((args, cuda.current))
         return 0
 
     _build.launch("probe", kernel, torch.device("cuda", index), 11, 22)
-    assert calls == [((11, 22, 7000 + index), torch.device("cuda", index))]
-    assert _FakeDevice.entered == [torch.device("cuda", index)]
-    assert _FakeDevice.current == torch.device("cuda", 1 - index)  # restored
+    assert calls == [((11, 22, 7000 + index), index)]
+    assert cuda.switches == [index, 1 - index] and cuda.current == 1 - index  # restored
+
+    def broken(*args):
+        raise OSError("the call itself failed")
+
+    with pytest.raises(OSError):
+        _build.launch("probe", broken, torch.device("cuda", index))
+    assert cuda.current == 1 - index
+
+
+@pytest.mark.parametrize("device", [torch.device("cuda", 0), torch.device("cuda", 1),
+                                    torch.device("cuda")], ids=["cuda0", "cuda1", "no_index"])
+def test_launch_on_the_current_device_switches_nothing(monkeypatch, device):
+    """Already current (or a device without an index, which means the
+    current one): no device switch, and the current device's stream."""
+    current = 1 if device.index == 1 else 0
+    cuda = _FakeCuda(monkeypatch, current=current)
+    calls = []
+    _build.launch("probe", lambda *args: calls.append(args) or 0, device, 5)
+    assert calls == [(5, 7000 + current)] and cuda.switches == []
 
 
 def test_launch_raises_naming_the_kernel_on_a_cuda_error(monkeypatch):
-    monkeypatch.setattr(torch.cuda, "device", _FakeDevice)
-    monkeypatch.setattr(torch.cuda, "current_stream", lambda device: type("S", (), {"cuda_stream": 0})())
+    _FakeCuda(monkeypatch, current=0)
     with pytest.raises(RuntimeError, match="gated_claims_consensus kernel launch failed: CUDA error 1"):
         _build.launch("gated_claims_consensus", lambda *args: 1, torch.device("cuda", 0))
 
@@ -361,8 +375,11 @@ def test_only_the_launch_helper_asks_for_a_stream():
     for path in sorted((REPO / "svoc_torch" / "ops").glob("*.py")):
         text = path.read_text()
         if path.name == "_build.py":
-            assert text.count("current_stream(") == 1 and text.count("torch.cuda.device(") == 1
+            assert text.count("_cuda_getCurrentRawStream(") == 1
+            assert text.count("torch.cuda.current_device(") == 1
         else:
-            assert "current_stream" not in text and "cuda_stream" not in text, path.name
+            for word in ("current_stream", "cuda_stream", "RawStream", "set_device",
+                         "current_device", "torch.cuda.device("):
+                assert word not in text, (path.name, word)
             if "_build.load(" in text:
                 assert "_build.launch(" in text, path.name

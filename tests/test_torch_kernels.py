@@ -390,6 +390,114 @@ def test_gated_claims_kernel_tie_order(cuda):
     assert_gated_match(out, fused_consensus_gated_claims_plain(values, ok, mask, cfg))
 
 
+def _largest_gated_fleet(dim):
+    """The largest N whose [N, dim] claim the gated kernel's layout fits
+    in one block's shared memory, asked of the built kernel."""
+    from svoc_torch.ops.fused_consensus import MAX_SMEM_BYTES, _gated_smem_bytes
+
+    lo, hi = 1, 65535
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        lo, hi = (mid, hi) if _gated_smem_bytes(mid, dim) <= MAX_SMEM_BYTES else (lo, mid - 1)
+    return lo
+
+
+def test_gated_claims_kernel_takes_every_fleet_the_bitonic_one_took(cuda):
+    """N up to 4635 at M = 6 fitted the bitonic layout; the radix-select
+    layout must take at least as many, and refuse the next N."""
+    largest = _largest_gated_fleet(6)
+    assert largest >= 4635
+    with pytest.raises(ValueError, match="shared memory"):
+        fused_consensus_gated_claims_cuda(
+            torch.zeros(1, largest + 1, 6, device=cuda),
+            torch.ones(1, largest + 1, dtype=torch.bool, device=cuda),
+            torch.ones(1, dtype=torch.bool, device=cuda), ConsensusConfig())
+
+
+@pytest.mark.parametrize("n", [7, 1024, 4635, "largest"])
+@pytest.mark.parametrize("kind", ["quantised", "all_equal", "signed_zeros"])
+def test_gated_claims_kernel_tie_kinds(cuda, kind, n):
+    """Tie-heavy claims (two of four partly quarantined) up to the largest
+    fleet the layout takes at M = 6: the reference's bars."""
+    n = _largest_gated_fleet(6) if n == "largest" else n
+    gen = torch.Generator(device=cuda).manual_seed(n + 7)
+    values = torch.stack([_tie_fleet(kind, n, gen, cuda) for _ in range(4)])
+    ok = torch.ones(4, n, dtype=torch.bool, device=cuda)
+    ok[1:3] = torch.rand(2, n, generator=gen, device=cuda) > 0.1
+    mask = torch.ones(4, dtype=torch.bool, device=cuda)
+    cfg = ConsensusConfig(n_failing=max(2, n // 8))
+    out = fused_consensus_gated_claims_cuda(values, ok, mask, cfg)
+    assert_gated_match(out, fused_consensus_gated_claims_plain(values, ok, mask, cfg))
+
+
+@pytest.mark.parametrize("failing", ["n/8", "zero"])
+@pytest.mark.parametrize("n", [7, 1024])
+def test_gated_claims_kernel_degenerate_cuts(cuda, n, failing):
+    """All quarantined, a single survivor, fewer admitted rows than
+    n_failing (a negative cut: no reliable row), and with n_failing = 0
+    every row admitted (the cut at N: every row reliable)."""
+    f = max(2, n // 8)
+    gen = torch.Generator(device=cuda).manual_seed(n)
+    values = torch.rand(5, n, 6, generator=gen, device=cuda)
+    ok = torch.ones(5, n, dtype=torch.bool, device=cuda)
+    ok[1] = False
+    ok[2, : n - 1] = False
+    ok[3, f - 1:] = False
+    cfg = ConsensusConfig(n_failing=f if failing == "n/8" else 0)
+    mask = torch.ones(5, dtype=torch.bool, device=cuda)
+    out = fused_consensus_gated_claims_cuda(values, ok, mask, cfg)
+    assert_gated_match(out, fused_consensus_gated_claims_plain(values, ok, mask, cfg))
+    assert not out.interval_valid[1:3].any() and torch.isinf(out.quadratic_risk[1]).all()
+    if failing == "zero":
+        assert torch.equal(out.reliable, ok)
+    else:
+        assert not out.reliable[3].any() and not out.interval_valid[3]
+
+
+def test_gated_claims_kernel_is_deterministic(cuda):
+    """Two launches on the bench_claims cube are bit for bit equal."""
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    values = torch.rand(64, 1024, 6, generator=gen, device=cuda)
+    ok = torch.rand(64, 1024, generator=gen, device=cuda) > 0.02
+    mask = torch.ones(64, dtype=torch.bool, device=cuda)
+    cfg = ConsensusConfig(n_failing=256)
+    a = fused_consensus_gated_claims_cuda(values, ok, mask, cfg)
+    b = fused_consensus_gated_claims_cuda(values, ok, mask, cfg)
+    torch.cuda.synchronize()
+    for x, y in zip(a, b):  # as raw bytes: NaN payloads and -0.0 count
+        assert torch.equal(x.view(torch.uint8), y.view(torch.uint8))
+
+
+@pytest.mark.parametrize("kernel", ["grid_copy", "gated_claims"])
+def test_launch_runs_on_the_callers_stream(cuda, kernel):
+    """Under ``torch.cuda.stream(s)`` the kernel runs on s: its input is
+    written on s behind a spin of some milliseconds, so a launch on any
+    other stream would read it before the write."""
+    from svoc_torch.ops.grid_copy import grid_copy_cuda
+
+    s = torch.cuda.Stream()
+    if kernel == "grid_copy":
+        x = torch.zeros(4, 256, 128, device=cuda)
+    else:
+        x = torch.zeros(2, 64, 6, device=cuda)
+        ok = torch.ones(2, 64, dtype=torch.bool, device=cuda)
+        mask = torch.ones(2, dtype=torch.bool, device=cuda)
+        cfg = ConsensusConfig(n_failing=8)
+    torch.cuda.synchronize()
+    with torch.cuda.stream(s):
+        torch.cuda._sleep(100_000_000)  # about 50 ms on an H100
+        x.copy_(torch.linspace(0.01, 0.99, x.numel(), device=cuda).view_as(x))
+        if kernel == "grid_copy":
+            out = grid_copy_cuda(x, (1, 128, 128))
+        else:
+            out = fused_consensus_gated_claims_cuda(x, ok, mask, cfg).essence
+    s.synchronize()
+    if kernel == "grid_copy":
+        assert torch.equal(out, x)
+    else:
+        assert torch.equal(out, fused_consensus_gated_claims_plain(x, ok, mask, cfg).essence)
+
+
 @pytest.mark.parametrize("fault", ["smooth_mode", "dtype", "ok_dtype", "ok_shape", "contiguity",
                                    "device", "shared_memory"])
 def test_gated_claims_kernel_refuses_on_cuda(cuda, fault):
@@ -424,6 +532,8 @@ def test_gated_claims_kernel_refuses_on_cuda(cuda, fault):
         ((2, 10, 6), (1, 5, 3)),  # nothing 16-byte aligned: the scalar path
         ((5, 7, 9), (1, 1, 1)),  # one element per block
         ((2, 512, 1024), (1, 512, 1024)),  # one large tile per block
+        ((2, 96, 160), (1, 48, 160)),  # 1920 words a tile: the unrolled loop's last round part full
+        ((2, 8, 4096), (1, 2, 4096)),  # a tile row wider than the block's threads
     ],
 )
 def test_grid_copy_kernel_is_bit_exact(cuda, dtype, shape, block):
