@@ -11,8 +11,10 @@ its wrappers' host cost and its B3 in the same run (phases 1b and 3b).
 Phases:
 
 1. Environment: the card's name and power limit, the torch and CUDA
-   versions, and the build of every CUDA kernel from ``svoc_torch/csrc``
-   (one ``nvcc`` per source, all at once, into ``svoc_torch/_build``).
+   versions, the build of every CUDA kernel from ``svoc_torch/csrc``
+   (one ``nvcc`` per source, all at once, into ``svoc_torch/_build``)
+   and of the native host runtime (``svoc_torch/runtime``, ``g++``),
+   each with its time.
 1b. The gridded block-copy kernel against its plain version and its
    input, bit for bit: the probe's shape ([4, 256, 128] float32, blocks
    (1, 128, 128), grid (4, 2, 1)), [64, 8192, 128] float32 (256 MiB each
@@ -79,16 +81,35 @@ Phases:
    launch (with ``--parent DIR``, the tree in DIR's between two readings
    of this tree's), the plain version, the bound, and 64 sequential
    one-claim launches against one batched launch (claims/s).
+3c. The threefry kernel against its plain version, bit for bit: one key
+   over 2**20 counters (bits and pairs), 1024 and 57344 keys (phase 6's
+   largest launch), counters that cross into the high word, a base per
+   key; the draws (``PRNGKey``, ``split``, ``fold_in``, ``uniform``,
+   ``permutation`` in one and two rounds, ``choice``) against known
+   answers of ``jax.random`` under jax 0.9.0 kept as literals; the
+   flagship's fleet draws on the card against the CPU. Times: the
+   flagship's ``draw_fleet`` and the kernel at [57344 keys, 64 counters]
+   by CUDA events, beside the plain version and the bound.
 4. The serving step: first a small float32 step on the card against the
    same step on the CPU (the plain versions the CPU tests hold against the
    JAX package), for each of the three flagship variants; then the main
    path at full width, ROBERTA_GO_EMOTIONS
    with bf16 weights, 256 packed rows of 128 tokens with up to 8 comments,
-   a 50-comment window, 1024 oracles, subsets of 10: one warm-up step and
-   five timed steps on distinct batches. Every kernel's launch count is
-   set to 0 just before the main path and read just after it; the
-   backward kernels must launch 0 times there. One more step then runs
-   under ``torch.profiler`` for a breakdown of device time
+   a 50-comment window, 1024 oracles, subsets of 10, the fleet keyed by
+   the reference's chain (``PRNGKey(0)``, ``key = fold_in(key, step)``).
+   It runs twice on the same comments: with the serial native feed
+   (tokenize, pack and copy on the caller's thread, each timed: one
+   warm-up and five timed steps), then with the feed overlapped through
+   the two-stage prefetch pipeline (one warm-up and eight timed steps);
+   each prints comments/s on the wall clock beside the step alone. The
+   two runs give the same essences step for step, the overlapped
+   batches equal the serial Python feed's bit for bit, and the
+   forward's CUDA-event time with the feed running stays within the
+   serial run's range plus its spread (at least 5 % of its mean).
+   Every kernel's launch count is set to 0 just before the main path
+   and read just after it (8 threefry launches a step); the backward
+   kernels must launch 0 times there. One more step then runs under
+   ``torch.profiler`` for a breakdown of device time
    (informational: it cannot fail the run). Then (4c) the other two
    flagship variants at the same full width, ``packed`` (packed rows,
    dense attention) and ``dense`` (256 unpacked comments, dense
@@ -118,13 +139,16 @@ Phases:
    (a NaN component, an inf row, a 7.5 row; the first step clean).
    Eight steps, the last five timed, with every kernel's launch count
    set to 0 before and read after: 12 flash and 1 claim-cube launch a
-   step, no other. The
-   offender's slot is quarantined (the host gate agrees, with its
+   step and 8 threefry launches (the fed claims' keys split at once,
+   then one batched fleet build), no other. The offender's slot is
+   quarantined (the host gate agrees, with its
    reason) and it still reports a finite consensus over 1023 oracles;
    a second run without the tamper gives the 63 other claims' outputs
    bit for bit; one step's cube through the plain path meets the 3b
-   bars; essences differ across claims and steps. One more step runs
-   under ``torch.profiler`` (informational).
+   bars; essences differ across claims and steps. The device operations
+   of one ``fleets()`` call are counted by the profiler, and one more
+   step runs under it (informational). Last, one batched fleet build of
+   64 claims equals 64 one-claim builds bit for bit, and both are timed.
 7. The probe path: ``svoc_torch.tools.probe.main`` through its normal
    entry, each probe in its own interpreter under a timeout: nine records
    (``backend``, ``grid_copy``, ``consensus128/256/512/1024``,
@@ -159,8 +183,13 @@ HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
 FP32_FLOPS = 67e12
 KERNELS = ("flash_attention", "flash_attention_bwd", "fused_consensus",
-           "gated_claims_consensus", "grid_copy")  # sources
+           "gated_claims_consensus", "grid_copy", "threefry")  # sources
 MAIN_STEPS = 5  # timed steps after one warm-up step
+OVERLAP_STEPS = 8  # timed steps of the serving path with the overlapped feed
+#: The least spread of the serving forward's CUDA-event time: its mean
+#: over five steps ranged 18.6-20.1 ms (±4 %) between runs on an NVIDIA
+#: H100 80GB HBM3 at 700 W.
+FORWARD_SPREAD = 0.05
 CLAIMS, ORACLES, REQUESTS_PER_CLAIM = 64, 1024, 8  # the multi-claim path
 CLAIM_STEPS, CLAIM_TIMED = 8, 5  # its steps, of which the last are timed
 FIXED_STEPS = 10  # training steps on one fixed batch
@@ -180,7 +209,31 @@ KERNEL_ROWS = {
     "gated_claims_consensus": ("svoc_torch/csrc/gated_claims_consensus.cu",
                                "svoc_tpu/ops/pallas_consensus.py:411"),
     "grid_copy": ("svoc_torch/csrc/grid_copy.cu", "tools/tpu_probe.py:99"),
+    "threefry": ("svoc_torch/csrc/threefry.cu", "jax/_src/prng.py threefry2x32 (XLA, no Pallas)"),
 }
+#: jax.random under jax 0.9.0 (partitionable threefry), generated with
+#: it and kept as literals: the card's machine has no JAX.
+#: (what, the port's call, JAX's answer)
+KNOWN_ANSWERS = (
+    ("PRNGKey(3_000_000_000)", lambda p, k: p.PRNGKey(3_000_000_000, "cuda"), [0, 3000000000]),
+    ("split(PRNGKey(0), 3)", lambda p, k: p.split(k(0), 3),
+     [[1797259609, 2579123966], [928981903, 3453687069], [4146024105, 2718843009]]),
+    ("split(PRNGKey(3_000_000_000), 2)", lambda p, k: p.split(k(3_000_000_000), 2),
+     [[3521736166, 882574885], [2043274875, 1597276722]]),
+    ("fold_in(PRNGKey(0), 0)", lambda p, k: p.fold_in(k(0), 0), [1797259609, 2579123966]),
+    ("fold_in chain of steps 0, 1, 2", lambda p, k: p.fold_in(p.fold_in(p.fold_in(k(0), 0), 1), 2),
+     [276444683, 838309524]),
+    ("fold_in(PRNGKey(7), 2**31 + 5)", lambda p, k: p.fold_in(k(7), 2**31 + 5), [3129736998, 445282630]),
+    ("uniform(PRNGKey(42), (4,)), float32 bits", lambda p, k: p.uniform(k(42), (4,)),
+     [1056585764, 1059981104, 1058915320, 1057988288]),
+    ("permutation(PRNGKey(0), 10)", lambda p, k: p.permutation(k(0), 10), [0, 1, 8, 5, 6, 4, 3, 2, 7, 9]),
+    ("permutation(PRNGKey(2), 1024)[:8]", lambda p, k: p.permutation(k(2), 1024)[:8],
+     [135, 543, 783, 164, 965, 319, 792, 83]),
+    ("permutation(PRNGKey(1), 1626)[:8] (two rounds)", lambda p, k: p.permutation(k(1), 1626)[:8],
+     [1043, 964, 1303, 1265, 149, 25, 367, 1023]),
+    ("choice(PRNGKey(5), 50, (10,), replace=False)", lambda p, k: p.choice(k(5), 50, 10),
+     [45, 10, 17, 43, 31, 20, 9, 14, 0, 2]),
+)
 #: B4's bf16 times (ms) at flash_probe's four shapes with its CUDA-core
 #: body, before the tensor-core body: backward_times() run on that
 #: body's tree (an NVIDIA H100 80GB HBM3 at 700.00 W).
@@ -269,6 +322,22 @@ def profiled_ms(torch, fn, kernel: str, iters: int = 20):
         return None
 
 
+def device_ops(torch, fn) -> int:
+    """Kernels and copies ``fn`` puts on the card, by ``torch.profiler``
+    (informational: -1 when the profiler shows none)."""
+    try:
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        return sum(e.count for e in prof.key_averages() if e.device_type == DeviceType.CUDA) or -1
+    except Exception:  # the profiler is an observation, not a check
+        traceback.print_exc()
+        return -1
+
+
 def bound(bytes_moved: float, ops: float, peak_ops: float):
     t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S, ops / peak_ops
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
@@ -281,11 +350,17 @@ def environment(torch):
     print(f"  card: {nvidia_smi()}")
     print(f"  torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"device {torch.cuda.get_device_name(0)}, count {torch.cuda.device_count()}")
+    from svoc_torch.runtime import native
+
     t0 = time.perf_counter()
     reports = _build.build(KERNELS)
     for name in KERNELS:
         _build.load(name)
     print(f"  kernel build: {time.perf_counter() - t0:.3f} s ({', '.join(KERNELS)})")
+    t0 = time.perf_counter()
+    native.load_native_library()
+    print(f"  native runtime build (g++, {' '.join(native.CXX_FLAGS)}): {time.perf_counter() - t0:.3f} s "
+          f"({native.library_path().name})")
     for name, report in reports.items():
         for line in report.splitlines():
             if "registers" in line or "spill" in line:
@@ -484,13 +559,14 @@ def grid_copy_phase(torch, results):
 
 
 def packed_batch(seed: int):
-    from svoc_torch.flagship import packed_comment_stream
+    from svoc_torch.flagship import pack_stream, token_lists
     from svoc_torch.io.scraper import SyntheticSource
     from svoc_torch.models.configs import ROBERTA_GO_EMOTIONS as cfg
     from svoc_torch.models.tokenizer import HashingTokenizer
 
     tok = HashingTokenizer(cfg.vocab_size, pad_id=cfg.pad_id, max_len=128)
-    batch, _ = next(packed_comment_stream(tok, SyntheticSource(batch=256, seed=seed), 256, 128, 8))
+    lists = token_lists(tok, SyntheticSource(batch=256, seed=seed), 128)
+    batch, _ = next(pack_stream(lists, 256, 128, 8, tok.pad_id))
     return batch
 
 
@@ -1142,12 +1218,68 @@ def gated_claims_phase(torch, results):
     )
 
 
+@phase("3c. threefry draws: kernel vs plain")
+def threefry_phase(torch, results):
+    from svoc_torch.ops.threefry import threefry_cuda, threefry_plain
+    from svoc_torch.sim import prng
+    from svoc_torch.sim.oracle import draw_fleet
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(0)
+    worst = 0
+    for what, b, n, xor, base in (
+        ("one key, 2**20 counters, bits", 1, 1 << 20, True, 0),
+        ("one key, 2**20 counters, pairs", 1, 1 << 20, False, 0),
+        ("1024 keys x 50 counters, bits", 1024, 50, True, 0),
+        ("57344 keys x 64 counters, bits (phase 6's largest launch)", 57344, 64, True, 0),
+        ("4096 keys x 3 counters from 2**32 - 2 (the high word)", 4096, 3, False, 2**32 - 2),
+        ("64 keys x 9 counters, a base per key", 64, 9, False, None),
+    ):
+        keys = torch.randint(0, 2**32, (b, 2), generator=gen, dtype=torch.int64)
+        base_cpu = torch.randint(0, 2**32, (b,), generator=gen, dtype=torch.int64) if base is None else base
+        base_dev = base_cpu.to(dev) if base is None else base
+        want = threefry_plain(keys, n, base_cpu, xor)
+        got = threefry_cuda(keys.to(dev), n, base_dev, xor).cpu()
+        worst = max(worst, (got - want).abs().max().item())
+        check(torch.equal(got, want), f"{what}: kernel == plain, bit for bit")
+    key_of = lambda seed: prng.PRNGKey(seed, dev)  # noqa: E731
+    for what, fn, want in KNOWN_ANSWERS:
+        got = fn(prng, key_of)
+        if got.is_floating_point():
+            got = got.view(torch.int32)
+        check(got.tolist() == want, f"{what} == jax.random's {want}")
+    key = prng.fold_in(key_of(0), 0)
+    card = draw_fleet(key, 50, 6, 1024, 128, 10)
+    plain = draw_fleet(key.cpu(), 50, 6, 1024, 128, 10)
+    check(all(torch.equal(a.cpu(), b) for a, b in zip(card, plain)),
+          "the flagship's fleet draws (N = 1024, W = 50, subsets of 10): card == CPU, bit for bit")
+
+    torch.cuda.synchronize()
+    before = threefry_cuda.launches
+    draw_fleet(key, 50, 6, 1024, 128, 10)
+    per_call = threefry_cuda.launches - before
+    draws_ms = cuda_ms(torch, lambda: draw_fleet(key, 50, 6, 1024, 128, 10), iters=50)
+    keys = prng.split(key_of(1), 57344)
+    ms = cuda_ms(torch, lambda: threefry_cuda(keys, 64, xor=True), iters=100)
+    plain_ms = cuda_ms(torch, lambda: threefry_plain(keys, 64, xor=True), iters=5)
+    counters = 57344 * 64
+    bytes_moved = 16 * 57344 + 8 * counters  # keys read once, 32-bit words written as int64
+    ops = 117 * counters  # 20 rounds of add, rotate (2 shifts, or), xor; 17 key adds
+    bound_ms, bound_by = bound(bytes_moved, ops, FP32_FLOPS)
+    print(f"  [{nvidia_smi()}] the flagship's draw_fleet: {draws_ms:.4f} ms (CUDA events, 50 calls), "
+          f"{per_call} threefry launches a call; the kernel at [57344 keys, 64 counters]: {ms:.4f} ms "
+          f"(100 launches), plain {plain_ms:.4f} ms, bound {bound_ms:.6f} ms ({bound_by})")
+    results["threefry"] = dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                               bound_by=bound_by, library_ms=None)
+
+
 @phase("4a. small serving step: card vs CPU")
 def small_step_phase(torch):
     from svoc_torch.flagship import FlagshipStep
     from svoc_torch.io.scraper import SyntheticSource
     from svoc_torch.models.configs import TINY_TEST
     from svoc_torch.models.encoder import init_params
+    from svoc_torch.sim.prng import PRNGKey
 
     params = init_params(TINY_TEST, seed=3, device="cpu")
     kw = dict(rows=16, seq=32, max_seg=4, n_oracles=64, params_dtype=None, params=params)
@@ -1155,10 +1287,9 @@ def small_step_phase(torch):
         card = FlagshipStep(TINY_TEST, variant=variant, device="cuda", **kw)
         cpu = FlagshipStep(TINY_TEST, variant=variant, device="cpu", **kw)
         batch, _ = next(card.comments(SyntheticSource(batch=16, seed=5)))
-        draws = card.draws(torch.Generator(device="cuda").manual_seed(1))
         w_card, w_cpu = card.window(batch), cpu.window(batch)
-        out_card, _ = card.consensus(w_card, draws)
-        out_cpu, _ = cpu.consensus(w_cpu, type(draws)(*(x.cpu() for x in draws)))
+        out_card, _ = card(batch, PRNGKey(1, "cuda"))
+        out_cpu, _ = cpu(batch, PRNGKey(1, "cpu"))
         w_err = (w_card.cpu() - w_cpu).abs().max().item()
         e_err = (out_card.essence.cpu() - out_cpu.essence).abs().max().item()
         check(w_err <= 1e-4,
@@ -1169,75 +1300,146 @@ def small_step_phase(torch):
 
 @phase("4b. main path: full-width packed-flash serving step")
 def main_path_phase(torch, launches):
-    from svoc_torch.flagship import FlagshipStep
+    import numpy as np
+
+    from svoc_torch.flagship import FlagshipStep, pack_stream, token_lists
+    from svoc_torch.io.pipeline import DevicePut
     from svoc_torch.io.scraper import SyntheticSource
+    from svoc_torch.models.packing import pack_tokens, pack_tokens_auto
+    from svoc_torch.models.tokenizer import HashingTokenizer
     from svoc_torch.ops.flash_attention import flash_attention_cuda, flash_dkv_cuda, flash_dq_cuda
     from svoc_torch.ops.fused_consensus import fused_consensus_cuda, fused_consensus_plain
+    from svoc_torch.ops.threefry import threefry_cuda
+    from svoc_torch.sim import prng
     from svoc_torch.sim.oracle import assemble_fleet
 
     step = FlagshipStep(device="cuda")  # ROBERTA_GO_EMOTIONS, bf16 weights
     n_layers = step.pipe.cfg.n_layers
-    feed = step.comments(SyntheticSource(batch=256, seed=0))
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    torch.cuda.synchronize()
+    rows, seq, max_seg, pad = step.rows, step.seq, step.max_seg, step.pipe.tokenizer.pad_id
+    split = dict(source=0.0, tokenize=0.0, pack=0.0)
 
-    for wrapper in (flash_attention_cuda, fused_consensus_cuda, flash_dq_cuda, flash_dkv_cuda):
+    def timed(stage, fn):
+        def run(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            split[stage] += time.perf_counter() - t0
+            return out
+        return run
+
+    def serial_native_feed():
+        """Tokenize, pack and copy on this thread, each stage timed."""
+        put = DevicePut("cuda", slots=2)
+        batches = pack_stream(
+            token_lists(timed("tokenize", step.pipe.tokenizer),
+                        timed("source", SyntheticSource(batch=rows, seed=0)), seq),
+            rows, seq, max_seg, pad, pack=timed("pack", pack_tokens_auto))
+        for item in batches:
+            staged, n = put(item)
+            yield staged.wait(), n
+
+    def drive(feed, n_steps, keep=None):
+        """One warm-up step and ``n_steps`` timed steps on ``feed``, keyed
+        by the reference's chain: PRNGKey(0), then key = fold_in(key, s)."""
+        key = prng.PRNGKey(0, "cuda")
+        essences, rows_out = [], []
+        for i in range(1 + n_steps):
+            for stage in split:
+                split[stage] = 0.0
+            t0 = time.perf_counter()
+            batch, n_comments = next(feed)
+            t1 = time.perf_counter()
+            if keep is not None:
+                keep.append(batch)
+            key = prng.fold_in(key, i)
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+            ev[0].record()
+            window = step.window(batch)
+            ev[1].record()
+            out, honest = step.consensus(window, step.draws(key))
+            ev[2].record()
+            essence = out.essence.cpu()  # fetched to the host: the step is done
+            t2 = time.perf_counter()
+            essences.append(tuple(essence.tolist()))
+            rows_out.append(dict(feed_ms=(t1 - t0) * 1e3, step_ms=(t2 - t1) * 1e3,
+                                 source_ms=split["source"] * 1e3, tokenize_ms=split["tokenize"] * 1e3,
+                                 pack_ms=split["pack"] * 1e3,
+                                 forward_ms=ev[0].elapsed_time(ev[1]),
+                                 consensus_ms=ev[1].elapsed_time(ev[2]), comments=n_comments))
+        return essences, rows_out, (window, out, honest)
+
+    counted = (flash_attention_cuda, fused_consensus_cuda, threefry_cuda, flash_dq_cuda, flash_dkv_cuda)
+    torch.cuda.synchronize()
+    for wrapper in counted:
         wrapper.launches = 0
-    essences, rows = [], []
-    for i in range(1 + MAIN_STEPS):
-        t0 = time.perf_counter()
-        batch, n_comments = next(feed)
-        t1 = time.perf_counter()
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
-        ev[0].record()
-        window = step.window(batch)
-        ev[1].record()
-        out, honest = step.consensus(window, step.draws(gen))
-        ev[2].record()
-        essence = out.essence.cpu()  # fetched to the host: the step is done
-        t2 = time.perf_counter()
-        essences.append(tuple(essence.tolist()))
-        rows.append(dict(feed_ms=(t1 - t0) * 1e3, step_ms=(t2 - t1) * 1e3,
-                         forward_ms=ev[0].elapsed_time(ev[1]),
-                         consensus_ms=ev[1].elapsed_time(ev[2]), comments=n_comments))
+    serial_essences, serial_rows, _ = drive(serial_native_feed(), MAIN_STEPS)
+    feed = step.comments(SyntheticSource(batch=rows, seed=0))
+    staged = []
+    essences, rows_run, (window, out, honest) = drive(feed, OVERLAP_STEPS, keep=staged)
     launches["flash_attention"] = flash_attention_cuda.launches
     launches["fused_consensus"] = fused_consensus_cuda.launches
+    launches["threefry"] = threefry_cuda.launches
     backward = (flash_dq_cuda.launches, flash_dkv_cuda.launches)
 
-    steps = 1 + MAIN_STEPS
+    steps = 2 + MAIN_STEPS + OVERLAP_STEPS
     check(launches["flash_attention"] == n_layers * steps,
           f"flash kernel launches {launches['flash_attention']} == {n_layers} x {steps} steps")
     check(launches["fused_consensus"] == steps,
           f"consensus kernel launches {launches['fused_consensus']} == {steps} steps")
+    check(launches["threefry"] == 8 * steps,
+          f"threefry launches {launches['threefry']} == 8 x {steps} steps (fold_in, 7 for the fleet)")
     check(backward == (0, 0), f"backward kernel launches while serving (dq, dk/dv) {backward} == (0, 0)")
-    check(len(set(essences)) == steps, f"{steps} distinct essences on distinct batches")
+    check(len(set(essences)) == 1 + OVERLAP_STEPS, f"{1 + OVERLAP_STEPS} distinct essences on distinct batches")
+    check(essences[:1 + MAIN_STEPS] == serial_essences,
+          "the overlapped feed's steps give the serial native feed's essences, step for step")
     e = torch.tensor(essences)
-    check(bool(torch.isfinite(e).all()) and e.shape == (steps, 6),
+    check(bool(torch.isfinite(e).all()) and e.shape == (1 + OVERLAP_STEPS, 6),
           f"essences finite, shape {tuple(e.shape)}")
     check(int(out.reliable.sum()) == 1024 - step.ccfg.n_failing and honest.shape == (1024,),
           f"last step: {int(out.reliable.sum())} reliable of 1024")
-    values, _ = assemble_fleet(window, *step.draws(torch.Generator(device="cuda").manual_seed(99)))
+    values, _ = assemble_fleet(window, *step.draws(prng.PRNGKey(99, "cuda")))
     ref = fused_consensus_plain(values, step.ccfg)
     got = fused_consensus_cuda(values.contiguous(), step.ccfg)
     check(torch.equal(ref.reliable, got.reliable)
           and (ref.essence - got.essence).abs().max().item() <= 1e-5,
           "a full-width fleet of the last window: kernel consensus == plain")
+    python_tok = HashingTokenizer(step.pipe.cfg.vocab_size, pad_id=pad, max_len=seq)
+    python_feed = pack_stream(token_lists(python_tok, SyntheticSource(batch=rows, seed=0), seq),
+                              rows, seq, max_seg, pad, pack=pack_tokens)
+    same = all(np.array_equal(a.cpu().numpy(), b)
+               for batch in staged for a, b in zip(batch, next(python_feed)[0]))
+    check(same, f"the overlapped feed's {len(staged)} batches == the serial Python feed's, bit for bit")
 
-    timed = rows[1:]
-    mean = lambda key: sum(r[key] for r in timed) / len(timed)  # noqa: E731
-    n_comments = sum(r["comments"] for r in timed)
-    wall_s = sum(r["feed_ms"] + r["step_ms"] for r in timed) / 1e3
-    device_s = sum(r["step_ms"] for r in timed) / 1e3
     card = nvidia_smi()
-    print(f"  [{card}] {len(timed)} timed steps: step {mean('step_ms'):.3f} ms "
-          f"(forward {mean('forward_ms'):.3f} ms, consensus {mean('consensus_ms'):.3f} ms), "
-          f"host feed {mean('feed_ms'):.3f} ms")
-    print(f"  [{card}] {n_comments / len(timed):.1f} comments/step: "
-          f"{n_comments / device_s:.1f} comments/s over the step, "
-          f"{n_comments / wall_s:.1f} comments/s with the serial host feed")
-    print("  per step: " + json.dumps(rows))
+    mean = lambda rs, key: sum(r[key] for r in rs) / len(rs)  # noqa: E731
+    for name, rs in (("serial native feed", serial_rows[1:]), ("overlapped feed", rows_run[1:])):
+        n_comments = sum(r["comments"] for r in rs)
+        wall_s = sum(r["feed_ms"] + r["step_ms"] for r in rs) / 1e3
+        device_s = sum(r["step_ms"] for r in rs) / 1e3
+        print(f"  [{card}] {name}, {len(rs)} timed steps: step {mean(rs, 'step_ms'):.3f} ms (forward "
+              f"{mean(rs, 'forward_ms'):.3f} ms, consensus {mean(rs, 'consensus_ms'):.3f} ms), feed wait "
+              f"{mean(rs, 'feed_ms'):.3f} ms; {n_comments / len(rs):.1f} comments/step: "
+              f"{n_comments / wall_s:.1f} comments/s on the wall clock, {n_comments / device_s:.1f} over "
+              f"the step alone")
+    rs = serial_rows[1:]
+    rest_ms = mean(rs, "feed_ms") - sum(mean(rs, f"{stage}_ms") for stage in split)
+    print(f"  [{card}] the serial feed's split, host ms a step: source (SyntheticSource) "
+          f"{mean(rs, 'source_ms'):.3f}, tokenize {mean(rs, 'tokenize_ms'):.3f}, pack "
+          f"{mean(rs, 'pack_ms'):.3f}, copy and the rest (strip, buffer, pinned copy) {rest_ms:.3f}")
+    alone = [r["forward_ms"] for r in serial_rows[1:]]
+    fed = [r["forward_ms"] for r in rows_run[1:]]
+    # The spread: the range of the steps without the feed, but at least
+    # FORWARD_SPREAD of their mean, the forward's spread between runs (five
+    # steps can land inside a range narrower than that).
+    spread = max(max(alone) - min(alone), FORWARD_SPREAD * sum(alone) / len(alone))
+    check(sum(fed) / len(fed) <= max(alone) + spread,
+          f"forward with the feed running {sum(fed) / len(fed):.3f} ms (mean) <= without it "
+          f"{min(alone):.3f}-{max(alone):.3f} ms + the spread {spread:.3f}")
+    print("  serial per step: " + json.dumps(serial_rows))
+    print("  overlapped per step: " + json.dumps(rows_run))
     batch, _ = next(feed)
-    profile_one_step(torch, lambda: step(batch, gen)[0].essence.cpu())
+    key = prng.PRNGKey(0, "cuda")
+    profile_one_step(torch, lambda: step(batch, key)[0].essence.cpu())
+    feed.close()
 
 
 @phase("4c. the packed and dense flagship variants at full width")
@@ -1251,6 +1453,7 @@ def variants_phase(torch, launches):
     from svoc_torch.models.packing import pack_tokens, strip_padding
     from svoc_torch.ops.flash_attention import flash_attention_cuda, flash_dkv_cuda, flash_dq_cuda
     from svoc_torch.ops.fused_consensus import fused_consensus_cuda
+    from svoc_torch.sim import prng
 
     # One set of bf16 weights (seed 0, as phase 4b draws them) under all
     # three variants.
@@ -1263,26 +1466,28 @@ def variants_phase(torch, launches):
     for variant in ("packed", "dense"):
         step = steps[variant]
         feed = step.comments(SyntheticSource(batch=256, seed=0))
-        gen = torch.Generator(device="cuda").manual_seed(0)
+        key = prng.PRNGKey(0, "cuda")
         torch.cuda.synchronize()
         for wrapper in counted:
             wrapper.launches = 0
         essences, rows = [], []
-        for _ in range(1 + MAIN_STEPS):
+        for i in range(1 + MAIN_STEPS):
             t0 = time.perf_counter()
             batch, n_comments = next(feed)
             t1 = time.perf_counter()
+            key = prng.fold_in(key, i)
             ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
             ev[0].record()
             window = step.window(batch)
             ev[1].record()
-            out, _ = step.consensus(window, step.draws(gen))
+            out, _ = step.consensus(window, step.draws(key))
             ev[2].record()
             essences.append(tuple(out.essence.cpu().tolist()))  # on the host: the step is done
             t2 = time.perf_counter()
             rows.append(dict(feed_ms=(t1 - t0) * 1e3, step_ms=(t2 - t1) * 1e3,
                              forward_ms=ev[0].elapsed_time(ev[1]),
                              consensus_ms=ev[1].elapsed_time(ev[2]), comments=n_comments))
+        feed.close()
         counts = [w.launches for w in counted]
         launches["fused_consensus"] = launches.get("fused_consensus", 0) + counts[1]
         steps_run = 1 + MAIN_STEPS
@@ -1298,7 +1503,7 @@ def variants_phase(torch, launches):
         n_comments = sum(r["comments"] for r in timed)
         print(f"  [{card}] {variant}: {len(timed)} timed steps: step {mean('step_ms'):.3f} ms "
               f"(forward {mean('forward_ms'):.3f} ms, consensus {mean('consensus_ms'):.3f} ms), "
-              f"host feed {mean('feed_ms'):.3f} ms; {n_comments / len(timed):.1f} comments/step, "
+              f"feed wait {mean('feed_ms'):.3f} ms; {n_comments / len(timed):.1f} comments/step, "
               f"{n_comments / (sum(r['step_ms'] for r in timed) / 1e3):.1f} comments/s over the step")
         print(f"  {variant} per step: " + json.dumps(rows))
 
@@ -1380,7 +1585,7 @@ def packed_state(torch, cfg, params, tx, device):
 def small_train_phase(torch):
     import numpy as np
 
-    from svoc_torch.flagship import packed_comment_stream
+    from svoc_torch.flagship import pack_stream, token_lists
     from svoc_torch.io.scraper import SyntheticSource
     from svoc_torch.models.configs import TINY_TEST
     from svoc_torch.models.encoder import init_params
@@ -1389,7 +1594,8 @@ def small_train_phase(torch):
 
     cfg = dataclasses.replace(TINY_TEST, attention="flash")
     tok = HashingTokenizer(cfg.vocab_size, pad_id=cfg.pad_id, max_len=32)
-    batch, n = next(packed_comment_stream(tok, SyntheticSource(batch=16, seed=5), 16, 32, 4))
+    batch, n = next(pack_stream(token_lists(tok, SyntheticSource(batch=16, seed=5), 32), 16, 32, 4,
+                                tok.pad_id))
     params = init_params(cfg, seed=3, device="cpu")
     step = make_packed_train_step()
     # Bars from the card's own runs (NVIDIA H100 80GB HBM3): SGD's
@@ -1419,7 +1625,7 @@ def train_path_phase(torch, launches):
 
     import numpy as np
 
-    from svoc_torch.flagship import packed_comment_stream
+    from svoc_torch.flagship import pack_stream, token_lists
     from svoc_torch.io.scraper import SyntheticSource
     from svoc_torch.models.configs import ROBERTA_GO_EMOTIONS
     from svoc_torch.models.encoder import init_params
@@ -1431,7 +1637,10 @@ def train_path_phase(torch, launches):
     cfg = dataclasses.replace(ROBERTA_GO_EMOTIONS, attention="flash")
     dev = torch.device("cuda")
     tok = HashingTokenizer(cfg.vocab_size, pad_id=cfg.pad_id, max_len=128)
-    feed = packed_comment_stream(tok, SyntheticSource(batch=256, seed=7), 256, 128, 8)
+    # A serial feed, between the timed steps: a feed thread would take the
+    # GIL from the step's launches (phase 4b).
+    feed = pack_stream(token_lists(tok, SyntheticSource(batch=256, seed=7), 128), 256, 128, 8,
+                       tok.pad_id)
     rng = np.random.default_rng(0)
 
     def next_batch():
@@ -1550,9 +1759,12 @@ def claims_path_phase(torch, launches):
     from svoc_torch.ops.fused_consensus import (
         fused_consensus_cuda, fused_consensus_gated_claims_cuda, fused_consensus_gated_claims_plain,
     )
+    from svoc_torch.apps.session import fleet_block
+    from svoc_torch.ops.threefry import threefry_cuda
     from svoc_torch.robustness.sanitize import QuarantineGate, SanitizeConfig, quarantine_mask_claims
     from svoc_torch.serving.batcher import ClaimQueues
     from svoc_torch.serving.tier import ClaimServingStep
+    from svoc_torch.sim import prng
     from svoc_torch.sim.generators import claim_seed
 
     names = claim_names(CLAIMS)
@@ -1582,7 +1794,7 @@ def claims_path_phase(torch, launches):
 
     counted = {"flash_attention": flash_attention_cuda, "gated_claims_consensus":
                fused_consensus_gated_claims_cuda, "fused_consensus": fused_consensus_cuda,
-               "flash_dq": flash_dq_cuda, "flash_dkv": flash_dkv_cuda}
+               "flash_dq": flash_dq_cuda, "flash_dkv": flash_dkv_cuda, "threefry": threefry_cuda}
 
     def run(step, timed):
         """CLAIM_STEPS steps on fresh per-claim comment sources; the
@@ -1626,10 +1838,12 @@ def claims_path_phase(torch, launches):
     for wrapper in counted.values():
         wrapper.launches = 0
     results, rows, per_step = run(step, timed=True)
-    for name in ("flash_attention", "gated_claims_consensus"):
+    for name in ("flash_attention", "gated_claims_consensus", "threefry"):
         launches[name] = launches.get(name, 0) + counted[name].launches
+    # threefry: one split of the fed claims' keys, 7 for the one batch of fleets
+    # (every claim is fed 8 requests a step, so all share a window bucket).
     want = dict(flash_attention=n_layers, gated_claims_consensus=1, fused_consensus=0,
-                flash_dq=0, flash_dkv=0)
+                flash_dq=0, flash_dkv=0, threefry=8)
     check(all(c == want for c in per_step),
           f"every step launched {want} ({CLAIM_STEPS} steps; totals "
           f"{ {k: w.launches for k, w in counted.items()} })")
@@ -1693,7 +1907,23 @@ def claims_path_phase(torch, launches):
         for text in sources[cid]():
             queues.submit(cid, text)
     requests = queues.assemble(CLAIMS * REQUESTS_PER_CLAIM)
+    vectors = clean.forward(clean.pack(requests))
+    counts = device_ops(torch, lambda: clean.fleets(requests, vectors))
+    print(f"  [{card}] one fleets() call of {CLAIMS} claims: {counts} device operations (profiler)")
     profile_one_step(torch, lambda: clean(requests)[0].out.essence.cpu())
+
+    spec = specs(False)[0]
+    keys = prng.split(prng.PRNGKey(5, "cuda"), CLAIMS)
+    windows = torch.rand(CLAIMS, 64, 6, device="cuda", generator=torch.Generator(device="cuda").manual_seed(5))
+    batched, _ = fleet_block(keys, windows, spec, 10)
+    one_by_one = [fleet_block(keys[c], windows[c], spec, 10)[0] for c in range(CLAIMS)]
+    check(all(torch.equal(batched[c], one) for c, one in enumerate(one_by_one)),
+          f"one batched fleet build of {CLAIMS} claims == {CLAIMS} one-claim builds, bit for bit")
+    batched_ms = cuda_ms(torch, lambda: fleet_block(keys, windows, spec, 10), iters=10)
+    loop_ms = cuda_ms(torch, lambda: [fleet_block(keys[c], windows[c], spec, 10) for c in range(CLAIMS)],
+                      iters=3)
+    print(f"  [{card}] {CLAIMS} claims' fleets (N = {ORACLES}, W = 64): one batched build "
+          f"{batched_ms:.3f} ms, {CLAIMS} one-claim builds {loop_ms:.3f} ms (CUDA events)")
 
 
 @phase("7. the probe path (svoc_torch.tools.probe)")
@@ -1742,10 +1972,11 @@ def probe_phase(torch, launches):
           f"flash {by_name['encoder512_flash']['forward_ms']} ms")
     check(grid_copy_cuda.launches == before,
           "the probes ran in their own interpreters (no launch counted in this one)")
+    inside = {k: sum(c.get(k, 0) for c in counts.values()) for k in KERNEL_ROWS}  # no probe draws
     for kernel in KERNEL_ROWS:
-        launches[kernel] = launches.get(kernel, 0) + sum(c[kernel] for c in counts.values())
+        launches[kernel] = launches.get(kernel, 0) + inside[kernel]
     print(f"  [{nvidia_smi()}] launches inside the probes: "
-          + json.dumps({k: v for k, v in ((k, sum(c[k] for c in counts.values())) for k in KERNEL_ROWS) if v}))
+          + json.dumps({k: v for k, v in inside.items() if v}))
 
 
 def main() -> int:
@@ -1778,6 +2009,7 @@ def main() -> int:
         flash_dense_phase(torch)
         consensus_phase(torch, results)
         gated_claims_phase(torch, results)
+        threefry_phase(torch, results)
         small_step_phase(torch)
         main_path_phase(torch, launches)
         variants_phase(torch, launches)

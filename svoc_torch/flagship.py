@@ -1,57 +1,102 @@
 """The flagship serving step, end to end, in its three variants.
 
 Mirrors ``bench.py::bench_flagship`` (``bench.py:646-723``) and the body
-of ``bench.py::_bench_packed_flagship`` (``bench.py:1870-1950``) with
+of ``bench.py::_bench_packed_flagship`` (``bench.py:1870-2060``) with
 the fused consensus, in the non-pipelined order: forward → tracked
 vectors → window → bootstrap fleet → two-pass consensus.  The variants
 are the reference's: ``"packed_flash"`` (sequence-packed rows, flash
 attention; the default, as the reference's recorded decision routes
 it), ``"packed"`` (packed rows, dense attention) and ``"dense"``
 (unpacked rows of one comment each, dense attention).  All three give
-the same per-comment vectors to float tolerance.  The host feeds mirror
-``bench.py::packed_comment_stream`` (``bench.py:1725``) and the
-unpacked ``unique_batches`` (``bench.py:737``) without their prefetch
-threads.  The pipelined twin (``bench.py:719, 1946``) is not ported yet.
+the same per-comment vectors to float tolerance.
+
+The host feed is the reference's two-stage feed (``bench.py:1725-1811,
+2027``): an inner :class:`~svoc_torch.io.pipeline.PrefetchPipeline`
+tokenizes with the native tokenizer and strips the padding while the
+native packer (:func:`~svoc_torch.models.packing.pack_tokens_auto`)
+packs; an outer one copies each batch to the device
+(:class:`~svoc_torch.io.pipeline.DevicePut`).  Unlike the reference's,
+the source, the tokenizer and the packer run in a worker process
+(:func:`~svoc_torch.io.pipeline.worker_stream`), so that their Python
+holds no GIL the launching thread waits for; the unpacked feed
+tokenizes there too.  The fleet's key chain is the reference's:
+``PRNGKey(0)``, then ``key = fold_in(key, step)`` (``bench.py:2051``).
+The pipelined twin (``bench.py:719, 1946``) is not ported yet.
 """
 
 from __future__ import annotations
 
 import collections
 import dataclasses
-from typing import Callable, Iterator, List, NamedTuple, Tuple
+import itertools
+from typing import Callable, Iterable, Iterator, List, NamedTuple, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from svoc_torch.consensus.kernel import ConsensusConfig
+from svoc_torch.io.pipeline import PrefetchPipeline, staged_stream, worker_stream
 from svoc_torch.models.configs import ROBERTA_GO_EMOTIONS, EncoderConfig
-from svoc_torch.models.packing import PackedBatch, pack_tokens, strip_padding
+from svoc_torch.models.packing import PackedBatch, pack_tokens_auto, strip_padding
 from svoc_torch.models.sentiment import SentimentPipeline
-from svoc_torch.models.tokenizer import HashingTokenizer
 from svoc_torch.ops.fused_consensus import FusedConsensusOutput, fused_consensus
 from svoc_torch.ops.select import first_valid_window
 from svoc_torch.sim.oracle import FleetDraws, assemble_fleet, draw_fleet
 
+Tokenizer = Callable[[Sequence[str], int], Tuple[np.ndarray, np.ndarray]]
+#: Batches each stage of the feed keeps ready ahead of its consumer (the
+#: reference's prefetch depth, ``bench.py:1773, 2028``).
+FEED_DEPTH = 4
+
+
+def token_lists(tokenizer: Tokenizer, source: Callable[[], List[str]],
+                seq: int) -> Iterator[List[np.ndarray]]:
+    """The source's batches tokenized and stripped of padding, serially."""
+    while True:
+        yield strip_padding(*tokenizer(source(), seq))
+
+
+def pack_stream(
+    lists: Iterable[List[np.ndarray]],
+    rows: int,
+    seq: int,
+    max_seg: int,
+    pad_id: int,
+    pack=pack_tokens_auto,
+) -> Iterator[Tuple[PackedBatch, int]]:
+    """``(PackedBatch, n_comments)`` with fixed ``[rows, seq]`` shapes
+    from batches of token lists.  The buffer always holds ``rows *
+    max_seg`` token lists, enough to fill every row, so no batch is
+    partly empty."""
+    lists = iter(lists)
+    buf: collections.deque = collections.deque()
+    need = rows * max_seg
+    while True:
+        while len(buf) < need:
+            buf.extend(next(lists))
+        batch, n = pack(list(buf), seq, max_seg, pad_id, rows=rows)
+        for _ in range(n):
+            buf.popleft()
+        yield batch, n
+
 
 def packed_comment_stream(
-    tokenizer: HashingTokenizer,
+    tokenizer: Tokenizer,
     source: Callable[[], List[str]],
     rows: int,
     seq: int,
     max_seg: int,
 ) -> Iterator[Tuple[PackedBatch, int]]:
-    """``(PackedBatch, n_comments)`` with fixed ``[rows, seq]`` shapes.
-    The buffer always holds ``rows * max_seg`` token lists, enough to
-    fill every row, so no batch is partly empty."""
-    buf: collections.deque = collections.deque()
-    need = rows * max_seg
-    while True:
-        while len(buf) < need:
-            buf.extend(strip_padding(*tokenizer(source(), seq)))
-        batch, n = pack_tokens(list(buf), seq, max_seg, tokenizer.pad_id, rows=rows)
-        for _ in range(n):
-            buf.popleft()
-        yield batch, n
+    """The packed host feed: tokenize and strip on an inner prefetch
+    thread, pack natively on the caller's thread.  Closing the generator
+    closes the inner pipeline."""
+
+    def tokenize_strip(texts, seq_len):
+        return strip_padding(*tokenizer(texts, seq_len))
+
+    texts = (source() for _ in itertools.count())
+    with PrefetchPipeline(texts, tokenize_strip, seq_len=seq, depth=FEED_DEPTH) as lists:
+        yield from pack_stream(lists, rows, seq, max_seg, tokenizer.pad_id)
 
 
 class TokenBatch(NamedTuple):
@@ -62,7 +107,7 @@ class TokenBatch(NamedTuple):
 
 
 def comment_stream(
-    tokenizer: HashingTokenizer,
+    tokenizer: Tokenizer,
     source: Callable[[], List[str]],
     rows: int,
     seq: int,
@@ -130,33 +175,40 @@ class FlagshipStep:
         self.ccfg = ConsensusConfig(n_failing=max(2, n_oracles // 8), constrained=True)
 
     def comments(self, source: Callable[[], List[str]]):
-        """The host feed of this step's shape and layout from ``source``."""
-        if not self.packed:
-            return comment_stream(self.pipe.tokenizer, source, self.rows, self.seq)
-        return packed_comment_stream(
-            self.pipe.tokenizer, source, self.rows, self.seq, self.max_seg
-        )
+        """The host feed of this step's shape and layout from ``source``
+        (picklable: it runs in the feed's worker process, on its own
+        copy), produced ``FEED_DEPTH`` batches ahead and copied to the step's
+        device on a prefetch thread: ``(batch, n_comments)``, the batch's
+        fields tensors ready on the caller's stream.  Close the generator
+        (or drop it) to stop the worker and the thread."""
+        tok = self.pipe.tokenizer
+        if self.packed:
+            items = worker_stream(packed_comment_stream, tok, source, self.rows, self.seq,
+                                  self.max_seg, depth=FEED_DEPTH)
+        else:
+            items = worker_stream(comment_stream, tok, source, self.rows, self.seq,
+                                  depth=FEED_DEPTH)
+        return staged_stream(items, self.device, FEED_DEPTH)
 
     def window(self, batch: "PackedBatch | TokenBatch") -> torch.Tensor:
         """Forward → vectors → the window ``[W, M]``: the first
         ``window_size`` valid segment vectors of a packed batch, the
-        first ``window_size`` rows of an unpacked one."""
+        first ``window_size`` rows of an unpacked one.  The batch's
+        fields are numpy arrays or tensors (from :meth:`comments`)."""
+        dev = lambda a: torch.as_tensor(a, device=self.device)  # noqa: E731
         if not self.packed:
-            ids, mask = (torch.from_numpy(a).to(self.device) for a in batch)
-            return self.pipe.forward(ids, mask)[: self.window_size]
-        dev = [
-            torch.from_numpy(a).to(self.device)
-            for a in (batch.ids, batch.pos, batch.seg, batch.cls_pos)
-        ]
-        valid = torch.from_numpy(batch.seg_valid > 0).to(self.device)
-        vecs = self.pipe.packed_forward(*dev)
+            return self.pipe.forward(dev(batch.ids), dev(batch.mask))[: self.window_size]
+        vecs = self.pipe.packed_forward(*map(dev, (batch.ids, batch.pos, batch.seg, batch.cls_pos)))
+        valid = dev(batch.seg_valid) > 0
         return first_valid_window(
             vecs.reshape(-1, self.pipe.dimension), valid.reshape(-1), self.window_size
         )
 
-    def draws(self, gen: torch.Generator) -> FleetDraws:
+    def draws(self, key: torch.Tensor) -> FleetDraws:
+        """The fleet's draws from ``key [2]`` on the step's device (the
+        reference's ``gen_oracle_predictions(key, ...)``)."""
         return draw_fleet(
-            gen, self.window_size, self.pipe.dimension, self.n_oracles,
+            key, self.window_size, self.pipe.dimension, self.n_oracles,
             self.ccfg.n_failing, self.subset_size,
         )
 
@@ -167,5 +219,8 @@ class FlagshipStep:
         values, honest = assemble_fleet(window, *draws)
         return fused_consensus(values.contiguous(), self.ccfg), honest
 
-    def __call__(self, batch: "PackedBatch | TokenBatch", gen: torch.Generator):
-        return self.consensus(self.window(batch), self.draws(gen))
+    def __call__(self, batch: "PackedBatch | TokenBatch", key: torch.Tensor):
+        """One step on ``batch`` with the fleet drawn from ``key``; the
+        reference's step ``s`` uses ``key = fold_in(key, s)`` on the key
+        of the step before, from ``PRNGKey(0)``."""
+        return self.consensus(self.window(batch), self.draws(key))

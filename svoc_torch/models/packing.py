@@ -2,11 +2,12 @@
 
 Mirrors :mod:`svoc_tpu.models.packing` (``PackedBatch``,
 ``strip_padding``, ``pack_tokens``, ``pack_labels``,
-``pack_tokens_auto``, ``PackedSentimentEncoder``; ``packing.py:55-147,
-183-285``).  :func:`pack_tokens` is the Python greedy next-fit packer and
-gives arrays identical to the reference's for the same token lists.  The
-native C++ packer is not ported yet (ROADMAP A item 2), so
-:func:`pack_tokens_auto` is the Python packer and nothing else.
+``fill_ratios``, ``pack_tokens_auto``, ``PackedSentimentEncoder``;
+``packing.py:55-165, 183-285``).  :func:`pack_tokens` is the Python
+greedy next-fit packer and gives arrays identical to the reference's for
+the same token lists; it is the plain version of the native C++ packer
+(:mod:`svoc_torch.runtime`, ROADMAP A6), to which :func:`pack_tokens_auto`
+routes every batch, with no fallback.
 
 Positions restart per segment at ``pad_id + 1``; a packed segment sees
 exactly the keys of its own comment, so its logits are those of the
@@ -22,6 +23,7 @@ import torch
 
 from svoc_torch.models.encoder import SentimentEncoder, check_attention
 from svoc_torch.ops.dense_attention import block_diagonal_bias
+from svoc_torch.runtime import native_pack_tokens_raw
 
 
 class PackedBatch(NamedTuple):
@@ -109,6 +111,22 @@ def pack_tokens(
     return PackedBatch(ids, pos, seg, cls_pos, seg_valid, owner), n_consumed
 
 
+def fill_ratios(batch: PackedBatch) -> dict:
+    """Occupancy of a packed batch: ``segments`` (segments used over
+    ``R × S`` slots) and ``tokens`` (real tokens over ``R × T`` id
+    slots)."""
+    r, s = batch.seg_valid.shape
+    t = batch.ids.shape[1]
+    segments_used = int(batch.seg_valid.sum())
+    real_tokens = int((batch.seg > 0).sum())
+    return {
+        "rows": int(r),
+        "segments_used": segments_used,
+        "segments": round(segments_used / float(max(r * s, 1)), 6),
+        "tokens": round(real_tokens / float(max(r * t, 1)), 6),
+    }
+
+
 def pack_tokens_auto(
     token_lists: Sequence[Sequence[int]],
     seq_len: int,
@@ -116,11 +134,11 @@ def pack_tokens_auto(
     pad_id: int,
     rows: int | None = None,
 ) -> Tuple[PackedBatch, int]:
-    """The packer the pipeline calls.  The reference tries its native C++
-    packer here and falls back to :func:`pack_tokens`, to which it is
-    bit-identical; the port has no native packer yet, so this is
-    :func:`pack_tokens`."""
-    return pack_tokens(token_lists, seq_len, max_segments, pad_id, rows)
+    """:func:`pack_tokens` through the native C++ packer (GIL-free, the
+    host hot stage of packed serving); bit-identical to it.  Raises when
+    the native runtime cannot be built."""
+    *arrays, n = native_pack_tokens_raw(token_lists, seq_len, max_segments, pad_id, rows)
+    return PackedBatch(*arrays), n
 
 
 def pack_labels(batch: PackedBatch, labels: np.ndarray) -> np.ndarray:

@@ -5,7 +5,8 @@ Mirrors :mod:`svoc_tpu.models.sentiment` (``GO_EMOTIONS_LABELS``,
 ``TRACKED_INDICES``, ``scores_to_vectors`` and ``SentimentPipeline``;
 ``sentiment.py:26-59, 62-341``).  Not ported here: ``tokenizer_name`` (no
 HF tokenizer files are in the repository, so the pipeline always runs
-the hashing tokenizer, which is also what the reference falls back to),
+the native hashing tokenizer, which is also what the reference falls
+back to),
 ``data_mesh``, ``quant`` (:mod:`svoc_torch.models.forward` raises for
 int8) and the ``stage_span`` traces.
 """
@@ -22,7 +23,7 @@ from svoc_torch.models.configs import ROBERTA_GO_EMOTIONS, EncoderConfig
 from svoc_torch.models.encoder import ATTENTIONS, init_params, load_encoder
 from svoc_torch.models.forward import resolve_forward
 from svoc_torch.models.packing import pack_tokens_auto, strip_padding
-from svoc_torch.models.tokenizer import HashingTokenizer
+from svoc_torch.models.tokenizer import load_tokenizer
 
 #: The 28 go_emotions labels in model-head order.
 GO_EMOTIONS_LABELS = (
@@ -116,7 +117,7 @@ class SentimentPipeline:
         }
         self.model = load_encoder(unpacked_cls, cfg, params)
         self.packed_model = load_encoder(packed_cls, cfg, params)
-        self.tokenizer = HashingTokenizer(cfg.vocab_size, pad_id=cfg.pad_id, max_len=seq_len)
+        self.tokenizer = load_tokenizer(cfg.vocab_size, pad_id=cfg.pad_id, max_len=seq_len)
 
     @property
     def dimension(self) -> int:

@@ -4,8 +4,11 @@ Mirrors :class:`svoc_tpu.models.tokenizer.HashingTokenizer`
 (``tokenizer.py:29-89``): lowercase, split on non-alphanumerics, FNV-1a
 hash into the vocabulary after four special ids.  The flagship names an
 HF tokenizer that is not in the repository, so the reference runs this
-hashing fallback, and so does the port.  The native C++ tokenizer comes
-in a later slice.
+hashing fallback, and so does the port.  :func:`load_tokenizer`
+(``tokenizer.py:118-143``, without the HF branch, whose files the
+repository lacks) returns the native C++ tokenizer
+(:mod:`svoc_torch.runtime`, ROADMAP A6), which the serving paths run; this Python
+tokenizer is its plain version, bit-identical on ASCII text.
 """
 
 from __future__ import annotations
@@ -13,6 +16,8 @@ from __future__ import annotations
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
+
+from svoc_torch.runtime import NativeHashingTokenizer
 
 _FNV_OFFSET = 14695981039346656037
 _FNV_PRIME = 1099511628211
@@ -68,3 +73,10 @@ class HashingTokenizer:
             ids[i, : len(toks)] = toks
             mask[i, : len(toks)] = 1
         return ids, mask
+
+
+def load_tokenizer(vocab_size: int, pad_id: int = 1, max_len: int = 512):
+    """The tokenizer the pipelines run: the native hashing tokenizer,
+    built at first use; raises ``RuntimeError`` when it cannot be built
+    (no fallback to :class:`HashingTokenizer`)."""
+    return NativeHashingTokenizer(vocab_size, pad_id=pad_id, max_len=max_len)

@@ -2,8 +2,9 @@
 
 Mirrors :func:`svoc_tpu.sim.generators.claim_seed`
 (``generators.py:26-45``), bit for bit.  The beta, Kumaraswamy and
-Gaussian fleet generators of that module are not ported yet: they wait
-for the threefry port (ROADMAP A item 2).
+Gaussian fleet generators of that module and ``claim_fleet_keys`` are
+not ported yet (ROADMAP A4; the threefry draws they build on are
+:mod:`svoc_torch.sim.prng`).
 """
 
 from __future__ import annotations

@@ -44,7 +44,6 @@ from svoc_tpu.sim.oracle import gen_oracle_predictions as jax_gen_oracle_predict
 from svoc_tpu.utils.events import EventJournal
 from svoc_tpu.utils.metrics import MetricsRegistry
 
-from svoc_torch.apps import session as torch_session
 from svoc_torch.apps.session import request_window
 from svoc_torch.consensus import batch as torch_batch
 from svoc_torch.consensus.kernel import (
@@ -67,7 +66,6 @@ from svoc_torch.robustness import sanitize as torch_sanitize
 from svoc_torch.serving.batcher import ClaimQueues, Request, group_by_claim
 from svoc_torch.serving.tier import ClaimServingStep
 from svoc_torch.sim.generators import claim_seed
-from svoc_torch.sim.oracle import FleetDraws
 
 FLOAT_FIELDS = ("essence", "essence_first_pass", "reliability_first_pass",
                 "reliability_second_pass")
@@ -533,17 +531,6 @@ def test_group_by_claim_matches():
 # ---------------------------------------------------------------------------
 
 
-def _jax_draws(key, w, m, n_oracles, n_failing, subset):
-    """The random numbers ``gen_oracle_predictions`` draws from ``key``."""
-    k_fail, k_boot, k_perm = jax.random.split(key, 3)
-    failing = jax.random.uniform(k_fail, (n_failing, m))
-    boot = jax.vmap(lambda k: jax.random.choice(k, w, shape=(subset,), replace=False))(
-        jax.random.split(k_boot, n_oracles - n_failing)
-    )
-    perm = jax.random.permutation(k_perm, n_oracles)
-    return FleetDraws(*(torch.from_numpy(np.array(a)) for a in (failing, boot, perm)))
-
-
 def _tamper(kind, block, slot):
     """The fabric scenario's tamper (``svoc_tpu/fabric/scenario.py:140-152``)."""
     if kind == "nan":
@@ -555,13 +542,15 @@ def _tamper(kind, block, slot):
     return block
 
 
-def test_small_multi_claim_step_matches_jax(monkeypatch):
+def test_small_multi_claim_step_matches_jax():
     """TINY_TEST encoder (flax weights carried across), 4 claims x 16
     oracles, the last claim's slot 15 tampered in rotation (a NaN
     component, an inf row, a 7.5 row): the port's
     ``ClaimServingStep`` against the JAX packed forward → per-claim
-    windows → ``claims_consensus_sanitized``, with JAX's fleet draws fed
-    to the port."""
+    windows → ``claims_consensus_sanitized``, each claim's fleet drawn by
+    ``gen_oracle_predictions`` from the reference ``Session``'s key chain
+    (``PRNGKey(claim_seed)``, one ``split`` a fetch); the port draws its
+    own from its keys, with no JAX draws fed in."""
     names = _claim_names(4)
     n_oracles, n_failing, rows, seq, max_seg = 16, 4, 16, 32, 4
     kinds = [None, "nan", "inf", "range"]  # cycle 0 clean, as in the fabric scenario
@@ -576,8 +565,6 @@ def test_small_multi_claim_step_matches_jax(monkeypatch):
     flax_params = jax_init_params(JaxEncoder(jax_configs.TINY_TEST), seed=1)
     step = ClaimServingStep(specs, TINY_TEST, rows=rows, seq=seq, max_seg=max_seg,
                             params=params_from_flax(flax_params), params_dtype=None, device="cpu")
-    draws = collections.deque()
-    monkeypatch.setattr(torch_session, "draw_fleet", lambda *args: draws.popleft())
 
     assert step.pipe.cfg.attention == "flash"  # the step sets it; so does the JAX side
     jcfg = dataclasses.replace(jax_configs.TINY_TEST, attention="flash")
@@ -608,7 +595,6 @@ def test_small_multi_claim_step_matches_jax(monkeypatch):
             feed = per_request[[i for i, r in enumerate(requests) if r.claim == cid]]
             windows[cid], tiled, subset = reference_window(windows[cid], feed, 50)
             keys[cid], sub = jax.random.split(keys[cid])
-            draws.append(_jax_draws(sub, tiled.shape[0], 6, n_oracles, n_failing, subset))
             values, _ = jax_gen_oracle_predictions(sub, jnp.asarray(tiled), n_oracles, n_failing, subset)
             values = np.array(values, dtype=np.float64)
             blocks.append(_tamper(kind, values, n_oracles - 1) if cid == offender else values)
@@ -617,7 +603,7 @@ def test_small_multi_claim_step_matches_jax(monkeypatch):
             jnp.asarray(jv), jnp.asarray(jm), cfg, 0.0, 1.0, consensus_impl="xla")
 
         (result,) = step(requests)
-        assert result.claims == tuple(names) and not draws
+        assert result.claims == tuple(names)
         np.testing.assert_array_equal(result.ok.numpy(), np.asarray(ref_ok))
         assert_claims_match(result.out, type(ref)(*(np.asarray(f)[:4] for f in ref)))
         assert result.ok[:-1].all() and result.ok[-1, :-1].all()

@@ -3,6 +3,7 @@ CPU fallback, and its CUDA wrappers refuse what their kernels do not
 take before anything is built or launched."""
 
 import dataclasses
+import functools
 import pkgutil
 import subprocess
 import sys
@@ -30,6 +31,8 @@ from svoc_torch.ops.fused_consensus import (
     fused_consensus_gated_claims,
     fused_consensus_gated_claims_cuda,
 )
+from svoc_torch.ops.threefry import threefry_cuda
+from svoc_torch.sim.prng import PRNGKey
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -50,7 +53,9 @@ def test_every_module_imports_without_jax_or_svoc_tpu():
                  "svoc_torch.serving.batcher", "svoc_torch.serving.tier",
                  "svoc_torch.ops.dense_attention", "svoc_torch.ops.grid_copy",
                  "svoc_torch.models.forward", "svoc_torch.utils.artifacts",
-                 "svoc_torch.tools.probe", "svoc_torch.tools.flash_probe"):
+                 "svoc_torch.tools.probe", "svoc_torch.tools.flash_probe",
+                 "svoc_torch.runtime.native", "svoc_torch.io.pipeline", "svoc_torch.sim.prng",
+                 "svoc_torch.ops.threefry"):
         assert name in names
     code = (
         "import importlib, sys\n"
@@ -205,10 +210,11 @@ def test_flash_encoder_on_cpu_never_counts_a_launch():
                         n_oracles=16, window_size=4, subset_size=2, params_dtype=None,
                         device="cpu")
     batch, _ = pack_tokens([[2, 5, 6, 3], [2, 7, 3], [2, 9, 9, 3]], 16, 2, 1, rows=2)
-    before = (flash_attention_cuda.launches, fused_consensus_cuda.launches)
-    out, honest = step(batch, torch.Generator().manual_seed(0))
+    counts = (flash_attention_cuda, fused_consensus_cuda, threefry_cuda)
+    before = [c.launches for c in counts]
+    out, honest = step(batch, PRNGKey(0, "cpu"))
     assert out.essence.shape == (6,) and honest.shape == (16,)
-    assert (flash_attention_cuda.launches, fused_consensus_cuda.launches) == before
+    assert [c.launches for c in counts] == before
 
 
 def test_dense_config_never_reaches_flash_attention(monkeypatch):
@@ -235,14 +241,14 @@ def test_dense_config_never_reaches_flash_attention(monkeypatch):
     batch, _ = pack_tokens([[2, 5, 6, 3], [2, 7, 3], [2, 9, 9, 3]], 16, 2, 1, rows=2)
     kw = dict(rows=2, seq=16, max_seg=2, n_oracles=16, window_size=2, subset_size=2,
               params_dtype=None, device="cpu")
-    gen = torch.Generator().manual_seed(0)
-    out, _ = FlagshipStep(TINY_TEST, variant="packed", **kw)(batch, gen)
+    key = PRNGKey(0, "cpu")
+    out, _ = FlagshipStep(TINY_TEST, variant="packed", **kw)(batch, key)
     assert out.essence.shape == (6,)
     dense = FlagshipStep(TINY_TEST, variant="dense", **kw)
-    out, _ = dense(next(dense.comments(lambda: texts))[0], gen)
+    out, _ = dense(next(dense.comments(functools.partial(list, texts)))[0], key)  # a picklable source
     assert out.essence.shape == (6,)
     with pytest.raises(AssertionError, match="flash_attention reached"):
-        FlagshipStep(TINY_TEST, variant="packed_flash", **kw)(batch, gen)
+        FlagshipStep(TINY_TEST, variant="packed_flash", **kw)(batch, key)
     assert [c.launches for c in counts] == before
 
 
@@ -276,7 +282,8 @@ def test_cpu_claim_step_never_counts_a_launch():
     specs = [ClaimSpec(cid, n_oracles=16, n_failing=4) for cid in ("alpha", "beta", "gamma")]
     step = ClaimServingStep(specs, TINY_TEST, rows=8, seq=32, max_seg=4, params_dtype=None,
                             device="cpu")
-    counts = (flash_attention_cuda, fused_consensus_cuda, fused_consensus_gated_claims_cuda)
+    counts = (flash_attention_cuda, fused_consensus_cuda, fused_consensus_gated_claims_cuda,
+              threefry_cuda)
     before = [c.launches for c in counts]
     requests = [Request(cid, f"{cid} comment number {i}") for i in range(2) for cid in ("alpha", "gamma")]
     (result,) = step(requests)
@@ -289,7 +296,7 @@ def test_cpu_claim_step_never_counts_a_launch():
 def test_build_paths_stay_in_the_package():
     assert _build.BUILD_DIR == REPO / "svoc_torch" / "_build"
     for name in ("flash_attention", "flash_attention_bwd", "fused_consensus",
-                 "gated_claims_consensus", "grid_copy"):
+                 "gated_claims_consensus", "grid_copy", "threefry"):
         assert (_build.CSRC / f"{name}.cu").exists()
         assert _build.library_path(name).parent == _build.BUILD_DIR
 

@@ -582,3 +582,50 @@ def test_grid_copy_kernel_refuses_on_cuda(cuda, fault):
     with pytest.raises(ValueError):
         grid_copy_cuda(x, block)
     assert grid_copy_cuda.launches == before
+
+
+# ---------------------------------------------------------------------------
+# threefry2x32 (svoc_torch/csrc/threefry.cu), bit for bit
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("b,n,xor", [(1, 1 << 20, True), (1, 1 << 20, False), (1024, 50, True),
+                                     (57344, 64, True), (3, 7, False), (5, 1, False)])
+def test_threefry_kernel_equals_plain(cuda, b, n, xor):
+    from svoc_torch.ops.threefry import threefry_cuda, threefry_plain
+
+    gen = torch.Generator().manual_seed(b + n)
+    keys = torch.randint(0, 2**32, (b, 2), generator=gen, dtype=torch.int64)
+    want = threefry_plain(keys, n, xor=xor)
+    before = threefry_cuda.launches
+    got = threefry_cuda(keys.to(cuda), n, xor=xor)
+    assert threefry_cuda.launches == before + 1
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+
+
+def test_threefry_kernel_takes_a_base_per_key(cuda):
+    from svoc_torch.ops.threefry import MASK, threefry_cuda, threefry_plain
+
+    gen = torch.Generator().manual_seed(3)
+    keys = torch.randint(0, 2**32, (64, 2), generator=gen, dtype=torch.int64)
+    base = torch.randint(0, 2**32, (64,), generator=gen, dtype=torch.int64)
+    base[0] = MASK  # base + i crosses 2**32: the high word counts
+    for n in (1, 9):
+        want = threefry_plain(keys, n, base)
+        assert torch.equal(threefry_cuda(keys.to(cuda), n, base.to(cuda)).cpu(), want)
+        assert torch.equal(threefry_cuda(keys.to(cuda), n, MASK).cpu(), threefry_plain(keys, n, MASK))
+
+
+def test_threefry_draws_on_the_card_equal_the_cpu(cuda):
+    from svoc_torch.sim import prng
+    from svoc_torch.sim.oracle import assemble_fleet, draw_fleet
+
+    keys = prng.split(prng.PRNGKey(0, "cpu"), 64)
+    window = torch.rand(64, 64, 6, generator=torch.Generator().manual_seed(0))
+    want = assemble_fleet(window, *draw_fleet(keys, 64, 6, 1024, 128, 10))
+    got = assemble_fleet(window.to(cuda), *draw_fleet(keys.to(cuda), 64, 6, 1024, 128, 10))
+    assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
+    for n in (50, 2048):
+        assert torch.equal(prng.permutation(keys.to(cuda), n).cpu(), prng.permutation(keys, n))
+    assert torch.equal(prng.fold_in(keys.to(cuda), 7).cpu(), prng.fold_in(keys, 7))

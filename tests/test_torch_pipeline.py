@@ -41,6 +41,7 @@ from svoc_torch.models.packing import (
     strip_padding,
 )
 from svoc_torch.models.sentiment import SentimentPipeline
+from svoc_torch.sim.prng import PRNGKey
 
 SEQ, BATCH = 32, 4
 
@@ -190,7 +191,7 @@ def test_flagship_variants_match_jax_and_each_other(flax_params):
         np.testing.assert_allclose(windows[variant], windows["dense"], atol=1e-4, err_msg=variant)
 
     # One consensus over the same window and draws, whatever the variant.
-    draws = steps["dense"].draws(torch.Generator().manual_seed(0))
+    draws = steps["dense"].draws(PRNGKey(0, "cpu"))
     outs = [step.consensus(torch.from_numpy(windows["dense"]), draws)[0] for step in steps.values()]
     assert all(torch.equal(o.essence, outs[0].essence) for o in outs)
 
@@ -206,7 +207,7 @@ def test_flagship_feeds_have_fixed_shapes(flax_params):
     texts = source() + source()
     want = dense.pipe.tokenizer(texts[:4], 16), dense.pipe.tokenizer(texts[4:8], 16)
     assert np.array_equal(a.ids, want[0][0]) and np.array_equal(b.ids, want[1][0])  # none dropped
-    out, honest = dense(a, torch.Generator().manual_seed(0))
+    out, honest = dense(a, PRNGKey(0, "cpu"))
     assert out.essence.shape == (6,) and honest.shape == (16,)
     packed, n = next(FlagshipStep(TINY_TEST, variant="packed", **kw).comments(
         SyntheticSource(batch=6, seed=0)))

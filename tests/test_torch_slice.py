@@ -7,7 +7,10 @@
 - The tiny slice end to end, from texts to the consensus essence, with
   flax's TINY_TEST weights and an identical fleet, against the same
   chain in JAX (Pallas kernels in interpret mode): vectors within 1e-4,
-  the reliable mask exact, essence and reliabilities within 1e-5.
+  the reliable mask exact, essence and reliabilities within 1e-5; first
+  with JAX's draws fed in, then keyed (``step(batch, key)``, the port's
+  own threefry draws from the same key, no JAX draws fed in), where the
+  honest mask is exact too.
 """
 
 import dataclasses
@@ -35,6 +38,7 @@ from svoc_torch.models.configs import TINY_TEST
 from svoc_torch.models.from_jax import params_from_flax
 from svoc_torch.ops.select import first_valid_window
 from svoc_torch.sim.oracle import FleetDraws, assemble_fleet, draw_fleet
+from svoc_torch.sim.prng import PRNGKey
 
 
 def _jax_draws(key, w, m, n_oracles, n_failing, subset):
@@ -74,9 +78,8 @@ def test_assemble_fleet_matches_gen_oracle_predictions(n_oracles, n_failing, sub
 
 
 def test_torch_draws_make_a_well_formed_fleet():
-    gen = torch.Generator().manual_seed(0)
-    window = torch.rand(12, 6, generator=gen)
-    draws = draw_fleet(gen, 12, 6, 40, 5, subset_size=10)
+    window = torch.rand(12, 6, generator=torch.Generator().manual_seed(0))
+    draws = draw_fleet(PRNGKey(0, "cpu"), 12, 6, 40, 5, subset_size=10)
     assert draws.boot_idx.shape == (35, 10)
     assert all(len(set(row.tolist())) == 10 for row in draws.boot_idx)  # no repeats
     assert sorted(draws.perm.tolist()) == list(range(40))
@@ -100,23 +103,27 @@ def test_tiny_slice_end_to_end_matches_jax():
     # (the port's default variant, "packed_flash", sets flash itself).
     assert step.pipe.cfg.attention == "flash"
     jcfg = dataclasses.replace(jax_configs.TINY_TEST, attention="flash")
+    batch = type(batch)(*(np.asarray(a) for a in batch))  # the feed's CPU tensors, as numpy
     logits = JaxPacked(jcfg).apply(
         flax_params, *map(jnp.asarray, (batch.ids, batch.pos, batch.seg, batch.cls_pos))
     )
     vecs = jax_scores_to_vectors(logits.reshape(rows * max_seg, -1))
     jwindow = jax_first_valid_window(vecs, jnp.asarray(batch.seg_valid > 0).reshape(-1), rows)
     key = jax.random.PRNGKey(4)
-    jvals, _ = jax_gen_oracle_predictions(key, jwindow, n_oracles, step.ccfg.n_failing, subset)
+    jvals, jhonest = jax_gen_oracle_predictions(key, jwindow, n_oracles, step.ccfg.n_failing, subset)
     ref = jax_fused(jvals, JaxConfig(n_failing=step.ccfg.n_failing), interpret=True)
 
     # The port on the same fleet draws.
     window = step.window(batch)
     np.testing.assert_allclose(window.numpy(), np.asarray(jwindow), atol=1e-4)
-    out, _ = step.consensus(window, _jax_draws(key, rows, 6, n_oracles, step.ccfg.n_failing, subset))
-    np.testing.assert_array_equal(out.reliable.numpy(), np.asarray(ref.reliable))
-    for field in ("essence", "essence_first_pass", "reliability_first_pass",
-                  "reliability_second_pass"):
-        np.testing.assert_allclose(
-            np.asarray(getattr(out, field)), np.asarray(getattr(ref, field)), atol=1e-5,
-            err_msg=field,
-        )
+    fed, _ = step.consensus(window, _jax_draws(key, rows, 6, n_oracles, step.ccfg.n_failing, subset))
+    keyed, honest = step(batch, PRNGKey(4, "cpu"))
+    np.testing.assert_array_equal(honest.numpy(), np.asarray(jhonest))
+    for out in (fed, keyed):
+        np.testing.assert_array_equal(out.reliable.numpy(), np.asarray(ref.reliable))
+        for field in ("essence", "essence_first_pass", "reliability_first_pass",
+                      "reliability_second_pass"):
+            np.testing.assert_allclose(
+                np.asarray(getattr(out, field)), np.asarray(getattr(ref, field)), atol=1e-5,
+                err_msg=field,
+            )

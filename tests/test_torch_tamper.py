@@ -20,6 +20,7 @@ from svoc_torch.fabric.registry import ClaimSpec
 from svoc_torch.models.configs import TINY_TEST
 from svoc_torch.serving.batcher import Request
 from svoc_torch.serving.tier import ClaimServingStep
+from svoc_torch.sim.prng import PRNGKey
 
 N_ORACLES, SLOT = 16, 15
 KINDS = [None, "nan", "inf", "range"]
@@ -50,7 +51,7 @@ def _scenario_hook(kinds, slot=SLOT):
 def _fleet(tamper=None, cycle=0):
     spec = ClaimSpec("alpha", n_oracles=N_ORACLES, n_failing=4)
     window = torch.from_numpy(np.random.default_rng(3).uniform(size=(8, 6)).astype(np.float32))
-    return fleet_block(torch.Generator().manual_seed(5), window, spec, 4, tamper, cycle)
+    return fleet_block(PRNGKey(5, "cpu"), window, spec, 4, tamper, cycle)
 
 
 @pytest.mark.parametrize("cycle,kind", list(enumerate(KINDS)))
