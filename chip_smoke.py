@@ -159,6 +159,34 @@ Phases:
    grid-copy kernel must have launched in ``grid_copy``, the flash kernel
    12 times a forward in ``encoder512_flash`` and never in
    ``encoder512_dense``. A probe that fails or times out fails the run.
+8. The commit path (``ops/fixedpoint.py``, ``consensus/wsad_engine.py``,
+   ``consensus/state.py``, ``io/chain.py``). (a) Two flagship steps at
+   full width (phase 4b's weights and key chain, the serial native feed):
+   each step's 1024-oracle fleet (128 failing) from ``window``, ``draws``
+   and ``assemble_fleet``, B2 for the float consensus, one fetch, then
+   ``ChainAdapter(LocalChainBackend(OracleConsensusContract(3 admins,
+   1024 oracles, n_failing 128, constrained, M = 6, device="cuda")))
+   .update_all_the_predictions``: the activation cycle, then a full
+   cycle. Each cycle prints the smallest reliable-subset variance of the
+   committed ints (wsad units), then its route (certified, or the
+   ``BatchNotCertified`` reason and the per-tx fall-through), seconds,
+   golden recomputes, the sweep's K, its CUDA-event time and how many
+   prefixes fall inside each guard band. The on-chain state must equal
+   ``two_pass_consensus`` on the committed ints (or both raise the same
+   panic at the failed tx), the essence be within 2e-6 of B2's and the
+   reliable flags equal B2's mask; flash 12, B2 1 and threefry 8
+   launches a step, counted from 0 over the two steps. (b) The 64-oracle
+   twins of ``tests/test_batch_commit.py`` (seed 5, two cycles), batched
+   with the sweep on the card against the per-tx loop: identical state,
+   the certified path taken (one sweep of K = 64 on CUDA, no fallback);
+   the sweep at K = N = 1024 on two seeded uniform fleets, timed by CUDA
+   events, against the same sweep on the CPU (``certify``'s booleans
+   identical, the margins within 1e-5 and 1e-6), with the prefixes it
+   rejects. (c) ``bench.py``'s config 5: 7 oracles (2 failing,
+   ``strict_interval=False``), one signed tx per oracle after each
+   full-width forward, ten timed steps after a warm-up: comments/s with
+   the submit, submit ms a step, reverted txs and the consensus read
+   back.
 
 It then prints one JSON line of per-kernel numbers, the card's
 ``nvidia-smi`` name and power limit, and last
@@ -186,6 +214,7 @@ KERNELS = ("flash_attention", "flash_attention_bwd", "fused_consensus",
            "gated_claims_consensus", "grid_copy", "threefry")  # sources
 MAIN_STEPS = 5  # timed steps after one warm-up step
 OVERLAP_STEPS = 8  # timed steps of the serving path with the overlapped feed
+CONFIG5_STEPS = 10  # timed steps of phase 8's per-tx submit (bench.py's config 5)
 #: The least spread of the serving forward's CUDA-event time: its mean
 #: over five steps ranged 18.6-20.1 ms (±4 %) between runs on an NVIDIA
 #: H100 80GB HBM3 at 700 W.
@@ -1979,6 +2008,265 @@ def probe_phase(torch, launches):
           + json.dumps({k: v for k, v in inside.items() if v}))
 
 
+def band_rejects(margins) -> dict:
+    """How many prefixes of a sweep fall inside each of ``certify``'s
+    guard bands (``svoc_torch.consensus.batch.CertifyMargins``)."""
+    from svoc_torch.consensus.batch import CertifyMargins
+    from svoc_torch.ops.fixedpoint import WSAD
+
+    bands = CertifyMargins()
+    host = {name: value.double().cpu().numpy() for name, value in margins._asdict().items()}
+
+    def in_sqrt_band(a):
+        return int(((a * WSAD >= bands.sqrt_band_lo) & (a * WSAD <= bands.sqrt_band_hi)).sum())
+
+    return dict(rel=int(((host["rel1"] <= bands.rel) | (host["rel2"] <= bands.rel)).sum()),
+                sqrt1=in_sqrt_band(host["sqrt_arg1"]), sqrt2=in_sqrt_band(host["sqrt_arg2"]),
+                variance=int((host["min_variance"] * WSAD <= bands.variance).sum()),
+                boundary_gap=int((host["boundary_gap"] <= bands.boundary_gap).sum()))
+
+
+def contract_state(contract) -> dict:
+    """Every field of a contract simulator, as plain Python values."""
+    return dict(active=contract.consensus_active, value=list(contract.consensus_value),
+                rel1=contract.reliability_first_pass, rel2=contract.reliability_second_pass,
+                skew=list(contract.skewness), kurt=list(contract.kurtosis),
+                oracles=[(o.address, o.enabled, o.reliable, list(o.value)) for o in contract.oracles])
+
+
+@phase("8. the commit path: the flagship's fleet on chain")
+def commit_path_phase(torch, launches):
+    import numpy as np
+
+    from svoc_torch.consensus import batch as sweep_module
+    from svoc_torch.consensus import wsad_engine
+    from svoc_torch.consensus.kernel import ConsensusConfig
+    from svoc_torch.consensus.state import OracleConsensusContract
+    from svoc_torch.flagship import FlagshipStep, pack_stream, token_lists
+    from svoc_torch.io.chain import ChainAdapter, ChainCommitError, LocalChainBackend
+    from svoc_torch.io.scraper import SyntheticSource
+    from svoc_torch.ops.fixedpoint import WSAD, to_wsad_rows
+    from svoc_torch.ops.flash_attention import flash_attention_cuda
+    from svoc_torch.ops.fused_consensus import fused_consensus, fused_consensus_cuda
+    from svoc_torch.ops.threefry import threefry_cuda
+    from svoc_torch.sim import prng
+    from svoc_torch.sim.oracle import assemble_fleet, draw_fleet
+
+    card = nvidia_smi()
+    step = FlagshipStep(device="cuda")  # ROBERTA_GO_EMOTIONS, phase 4b's seeded bf16 weights, packed_flash
+    n_layers, n, n_failing = step.pipe.cfg.n_layers, step.n_oracles, step.ccfg.n_failing
+    tok = step.pipe.tokenizer
+    feed = pack_stream(token_lists(tok, SyntheticSource(batch=step.rows, seed=0), step.seq),
+                       step.rows, step.seq, step.max_seg, tok.pad_id)
+
+    # Every sweep the contracts run, with its K, device and CUDA-event time.
+    sweeps = []
+    real_sweep = sweep_module.prefix_margins_sweep
+
+    def timed_sweep(old, new, pos, cfg, ks):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        out = real_sweep(old, new, pos, cfg, ks)
+        ev[1].record()
+        ev[1].synchronize()
+        sweeps.append(dict(k=int(ks.numel()), device=old.device.type, ms=ev[0].elapsed_time(ev[1]),
+                           rejects=band_rejects(out)))
+        return out
+
+    sweep_module.prefix_margins_sweep = timed_sweep
+    try:
+        # (a) One step's 1024-oracle fleet a cycle, committed through the adapter.
+        contract = OracleConsensusContract([0xA0, 0xA1, 0xA2], [0x1000 + i for i in range(n)],
+                                           n_failing_oracles=n_failing, constrained=True, dimension=6,
+                                           device="cuda")
+        adapter = ChainAdapter(LocalChainBackend(contract))
+        golden = [0]
+        real_golden = contract._golden_recompute
+
+        def counted_golden(values):
+            golden[0] += 1
+            return real_golden(values)
+
+        contract._golden_recompute = counted_golden
+        refusals = []
+        backend = adapter.backend
+        real_batch = backend.invoke_update_predictions_batch
+
+        def recorded_batch(*args, **kwargs):
+            try:
+                return real_batch(*args, **kwargs)
+            except Exception as e:
+                refusals.append(f"{type(e).__name__}: {e}")
+                raise
+
+        backend.invoke_update_predictions_batch = recorded_batch
+        counted = (flash_attention_cuda, fused_consensus_cuda, threefry_cuda)
+        torch.cuda.synchronize()
+        for wrapper in counted:
+            wrapper.launches = 0
+        key = prng.PRNGKey(0, "cuda")
+        for cycle in range(2):
+            batch, _ = next(feed)
+            key = prng.fold_in(key, cycle)
+            values, _ = assemble_fleet(step.window(batch), *step.draws(key))
+            out = fused_consensus(values.contiguous(), step.ccfg)  # B2
+            host = torch.cat([values.reshape(-1), out.essence, out.reliable.float()]).cpu()  # one fetch
+            fleet = host[: n * 6].reshape(n, 6).double().numpy()
+            b2_essence, b2_reliable = host[n * 6: n * 6 + 6].tolist(), (host[n * 6 + 6:] > 0).tolist()
+            ints = to_wsad_rows(fleet)
+            rel_rows = [row for row, ok in zip(ints, b2_reliable) if ok]
+            means = wsad_engine.nd_average(rel_rows)
+            min_var = min(wsad_engine.nd_component_wise_variance(rel_rows, means))
+            print(f"  [{card}] cycle {cycle}: the smallest reliable-subset variance (B2's mask, the "
+                  f"committed ints) {min_var} wsad units", flush=True)
+            golden[0], refusals[:], first_sweep = 0, [], len(sweeps)
+            t0 = time.perf_counter()
+            try:
+                sent, err = adapter.update_all_the_predictions(fleet), None
+            except ChainCommitError as e:
+                sent, err = e.committed, e
+            secs = time.perf_counter() - t0
+            swept = sweeps[first_sweep:]
+            if refusals:
+                route = f"not certified ({refusals[0]}), the per-tx loop"
+            elif swept:
+                route = "certified"
+            else:
+                route = "batched, the gate opening on the last tx (no intermediate recompute)"
+            sweep_text = (f"sweep K = {swept[0]['k']} on {swept[0]['device']}, {swept[0]['ms']:.3f} ms "
+                          f"(CUDA events), prefixes inside each band {swept[0]['rejects']}"
+                          if swept else "no sweep")
+            print(f"  [{card}] cycle {cycle}: route {route}; {secs:.3f} s, {golden[0]} golden "
+                  f"recomputes, {sweep_text}; {sent} txs"
+                  + (f", failed at tx {err.committed}: {type(err.cause).__name__}: {err.cause}" if err else ""),
+                  flush=True)
+            block = [list(o.value) for o in contract.oracles]
+            if err is None:
+                ref = wsad_engine.two_pass_consensus(block, constrained=True, n_failing=n_failing, max_spread=0)
+                got = contract_state(contract)
+                check(got["value"] == ref["essence"] and got["rel1"] == ref["reliability_first_pass"]
+                      and got["rel2"] == ref["reliability_second_pass"] and got["skew"] == ref["skewness"]
+                      and got["kurt"] == ref["kurtosis"]
+                      and [o[2] for o in got["oracles"]] == ref["reliable"],
+                      f"cycle {cycle}: the on-chain state == two_pass_consensus on the committed ints")
+                e_err = max(abs(a - b) for a, b in zip(contract.get_consensus_value(as_floats=True), b2_essence))
+                check(e_err <= 2e-6, f"cycle {cycle}: on-chain essence vs B2's: max err {e_err:.3e} <= 2e-6")
+                same = sum(a == b for a, b in zip(ref["reliable"], b2_reliable))
+                check(same == n, f"cycle {cycle}: the reliable flags == B2's mask ({same} of {n} agree)")
+            else:
+                block[err.committed] = ints[err.committed]
+                try:
+                    wsad_engine.two_pass_consensus(block, constrained=True, n_failing=n_failing, max_spread=0)
+                    raised = None
+                except Exception as e:  # the panic the failed tx met, recomputed
+                    raised = e
+                check(type(raised) is type(err.cause),
+                      f"cycle {cycle}: two_pass_consensus raises the chain's panic at tx {err.committed} "
+                      f"({type(raised).__name__})")
+        counts = dict(zip(("flash_attention", "fused_consensus", "threefry"), (w.launches for w in counted)))
+        for name, count in counts.items():
+            launches[name] = launches.get(name, 0) + count
+        check(tuple(counts.values()) == (n_layers * 2, 2, 16),
+              f"(a) launches {counts} == flash {n_layers}, B2 1, threefry 8 a step, 2 steps (as in phase 4b)")
+
+        # (b) The certified route on the card: tests/test_batch_commit.py's 64-oracle twins.
+        callers = [f"o{i}" for i in range(64)]
+        twins = [OracleConsensusContract(["a0", "a1", "a2"], callers, n_failing_oracles=16, dimension=6,
+                                         device="cuda") for _ in range(2)]
+        seq, bat = twins
+
+        def refuse(*args, **kwargs):
+            raise AssertionError("fell back to the sequential path")
+
+        bat._sequential_batch = refuse
+        rng = np.random.default_rng(5)
+        first_sweep = len(sweeps)
+        for _ in range(2):
+            preds = rng.uniform(0.05, 0.95, size=(64, 6))
+            for caller, p in zip(callers, preds):
+                seq.update_prediction(caller, p)
+            bat.update_predictions_batch(callers, preds)
+        swept = sweeps[first_sweep:]
+        check(contract_state(seq) == contract_state(bat) and bat.consensus_active,
+              "(b) 64-oracle twins, two cycles: batched == sequential, exactly")
+        check(len(swept) == 1 and swept[0]["device"] == "cuda" and swept[0]["k"] == 64,
+              f"(b) the certified fast path taken, one sweep on the card: {swept}")
+    finally:
+        sweep_module.prefix_margins_sweep = real_sweep
+
+    # The sweep at K = N = 1024: two seeded uniform fleets, committed in
+    # oracle order (the JAX package's own fleet-1024 cycle).
+    rng = np.random.default_rng(0)
+    old, new = (rng.uniform(0.05, 0.95, size=(1024, 6)).astype(np.float32) for _ in range(2))
+    pos = np.arange(1024, dtype=np.int32)
+    ks = np.concatenate([np.arange(1, 1024), [1023]]).astype(np.int32)
+    cfg = ConsensusConfig(n_failing=128)
+    on_card = [torch.from_numpy(a).cuda() for a in (old, new, pos)]
+    ks_card = torch.from_numpy(ks).cuda()
+    ms = cuda_ms(torch, lambda: real_sweep(*on_card, cfg, ks_card), iters=10, warmup=2)
+    card_margins = real_sweep(*on_card, cfg, ks_card)
+    t0 = time.perf_counter()
+    safe = sweep_module.certify(card_margins, cfg, True)
+    certify_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    cpu_margins = real_sweep(*(torch.from_numpy(a) for a in (old, new, pos)), cfg, torch.from_numpy(ks))
+    cpu_s = time.perf_counter() - t0
+    errs = {name: (getattr(card_margins, name).cpu() - getattr(cpu_margins, name)).abs().max().item()
+            for name in card_margins._fields}
+    check(np.array_equal(safe, sweep_module.certify(cpu_margins, cfg, True))
+          and max(errs[f] for f in ("rel1", "rel2", "sqrt_arg1", "sqrt_arg2")) <= 1e-5
+          and max(errs["min_variance"], errs["boundary_gap"]) <= 1e-6,
+          f"(b) the sweep at K = N = 1024 on the card == on the CPU (certify's booleans; max errs "
+          f"{ {k: float(f'{v:.3e}') for k, v in errs.items()} })")
+    print(f"  [{card}] (b) the sweep at K = N = 1024, M = 6, n_failing 128: {ms:.4f} ms (CUDA events, 10 "
+          f"calls), certify's fetch and bands {certify_ms:.3f} ms (host clock), the same sweep on the "
+          f"host's CPU {cpu_s:.3f} s; certify rejects {int((~safe).sum())} of 1024 prefixes; inside each "
+          f"band {band_rejects(card_margins)}", flush=True)
+
+    # (c) The reference's on-chain submit shape (bench.py:1240-1380, config 5).
+    c5 = OracleConsensusContract(list(range(1, 4)), list(range(10, 17)), n_failing_oracles=2,
+                                 constrained=True, dimension=6, strict_interval=False, device="cuda")
+    a5 = ChainAdapter(LocalChainBackend(c5))
+    oracles = a5.call_oracle_list()
+    key = prng.PRNGKey(0, "cuda")
+    txs = reverted = n_comments = 0
+    submit_s, causes = 0.0, {}
+    flash_before = flash_attention_cuda.launches
+    t_start = None
+    for s in range(1 + CONFIG5_STEPS):  # one warm-up step
+        if s == 1:
+            txs = reverted = n_comments = 0
+            submit_s, causes = 0.0, {}
+            t_start = time.perf_counter()
+        batch, comments = next(feed)
+        key = prng.fold_in(key, s)
+        values, _ = assemble_fleet(step.window(batch), *draw_fleet(key, step.window_size, 6, 7, 2,
+                                                                   step.subset_size))
+        preds = values.cpu().double().numpy()
+        t_sub = time.perf_counter()
+        for oracle, prediction in zip(oracles, preds):
+            try:
+                a5.invoke_update_prediction(oracle, prediction)
+                txs += 1
+            except (ArithmeticError, AssertionError) as e:  # a Cairo panic reverts that tx
+                reverted += 1
+                causes[type(e).__name__] = causes.get(type(e).__name__, 0) + 1
+        consensus = a5.call_consensus()
+        rel2 = a5.call_second_pass_consensus_reliability()
+        submit_s += time.perf_counter() - t_sub
+        n_comments += comments
+    wall_s = time.perf_counter() - t_start
+    launches["flash_attention"] = launches.get("flash_attention", 0) + flash_attention_cuda.launches - flash_before
+    check(a5.call_consensus_active() and all(math.isfinite(x) for x in consensus) and len(consensus) == 6
+          and txs + reverted == 7 * CONFIG5_STEPS
+          and flash_attention_cuda.launches - flash_before == n_layers * (1 + CONFIG5_STEPS),
+          f"(c) config 5, {CONFIG5_STEPS} steps: {txs} txs landed, {reverted} reverted; consensus read back "
+          f"{[round(x, 6) for x in consensus]}, rel2 {rel2:.6f}")
+    print(f"  [{card}] (c) config 5 (7 oracles, 2 failing, per-tx submit after each full-width forward, the "
+          f"serial native feed): {n_comments / wall_s:.1f} comments/s including the submit, submit "
+          f"{1e3 * submit_s / CONFIG5_STEPS:.3f} ms a step, {reverted} reverted txs {causes}", flush=True)
+
+
 def main() -> int:
     try:
         import torch
@@ -2020,8 +2308,11 @@ def main() -> int:
         claims_path_phase(torch, launches)
         claimed = dict(launches)
         probe_phase(torch, launches)
+        probed = dict(launches)
+        commit_path_phase(torch, launches)
         print(f"  launches: serving paths {serving}; with the train path {trained}; "
-              f"with the multi-claim path {claimed}; with the probe path {launches}")
+              f"with the multi-claim path {claimed}; with the probe path {probed}; "
+              f"with the commit path {launches}")
     check(all(launches.get(name, 0) > 0 for name in KERNEL_ROWS),
           f"every kernel launched on its path: { {k: launches.get(k, 0) for k in KERNEL_ROWS} }")
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "svoc_tpu"))

@@ -1,17 +1,55 @@
 """Indexed sort with the reference contract's exact tie semantics.
 
-Mirrors :mod:`svoc_tpu.ops.sort` (``argsort_cairo``,
-``reliability_mask``, ``gated_reliability_mask``).  The Cairo contract's
-indexed merge sort
+Mirrors :mod:`svoc_tpu.ops.sort` (``indexed_sort_host``,
+``argsort_cairo``, ``reliability_mask``, ``gated_reliability_mask``).
+The Cairo contract's indexed merge sort
 (``contract/src/sort.cairo:13-103``) takes the right element on ties,
 so equal values come out in **descending original index**.  The top
 ``n - n_failing`` entries of that order are marked reliable, so the tie
 order decides which oracle gets masked.
+
+:func:`indexed_sort_host` is the merge sort itself on Python ints (the
+golden engine's order); the tensor functions reach the same order by a
+stable sort of the reversed vector.
 """
 
 from __future__ import annotations
 
+from typing import List, Sequence, Tuple
+
 import torch
+
+
+def indexed_sort_host(values: Sequence[int]) -> List[Tuple[int, int]]:
+    """``IndexedMergeSort::sort`` (``sort.cairo:13-17``) on Python ints
+    (``svoc_tpu/ops/sort.py:29``): ``(original_index, value)`` pairs
+    ascending by value, a tie taking the right half's element first."""
+    arr = list(enumerate(values))
+
+    def sort_aux(a: List[Tuple[int, int]]) -> List[Tuple[int, int]]:
+        if len(a) <= 1:
+            return list(a)
+        middle = len(a) // 2
+        left = sort_aux(a[:middle])
+        right = sort_aux(a[middle:])
+        out: List[Tuple[int, int]] = []
+        li = ri = 0
+        while len(out) < len(left) + len(right):
+            if li == len(left):
+                out.append(right[ri])
+                ri += 1
+            elif ri == len(right):
+                out.append(left[li])
+                li += 1
+            elif left[li][1] < right[ri][1]:
+                out.append(left[li])
+                li += 1
+            else:
+                out.append(right[ri])
+                ri += 1
+        return out
+
+    return sort_aux(arr)
 
 
 def argsort_cairo(values: torch.Tensor) -> torch.Tensor:

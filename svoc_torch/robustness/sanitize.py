@@ -31,13 +31,9 @@ from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-#: The largest signed 128-bit integer (the port's copy of
-#: ``svoc_tpu/ops/fixedpoint.py::I128_MAX``).
-I128_MAX: int = 2**127 - 1
-
-#: Largest real-unit magnitude the wsad/felt codec can represent
-#: (``I128_MAX / 1e6``).
-WSAD_LIMIT: float = float(I128_MAX) * 1e-6
+# The codec's bounds: the largest signed 128-bit integer, and the
+# largest real-unit magnitude the wsad/felt codec represents.
+from svoc_torch.ops.fixedpoint import I128_MAX, WSAD_LIMIT  # noqa: F401
 
 #: Quarantine reasons, in precedence order (first match wins).
 QUARANTINE_REASONS: Tuple[str, ...] = ("nan", "inf", "range", "codec")

@@ -1,5 +1,6 @@
-"""Guards of the port: it loads no JAX, it defaults to CUDA without a
-CPU fallback, and its CUDA wrappers refuse what their kernels do not
+"""Guards of the port: it loads no JAX (nor ``starknet_py``: the chain
+adapter imports it only when a Sepolia backend is built), it defaults to
+CUDA without a CPU fallback, and its CUDA wrappers refuse what their kernels do not
 take before anything is built or launched."""
 
 import dataclasses
@@ -55,12 +56,16 @@ def test_every_module_imports_without_jax_or_svoc_tpu():
                  "svoc_torch.models.forward", "svoc_torch.utils.artifacts",
                  "svoc_torch.tools.probe", "svoc_torch.tools.flash_probe",
                  "svoc_torch.runtime.native", "svoc_torch.io.pipeline", "svoc_torch.sim.prng",
-                 "svoc_torch.ops.threefry"):
+                 "svoc_torch.ops.threefry", "svoc_torch.utils.rounding", "svoc_torch.ops.fixedpoint",
+                 "svoc_torch.consensus.wsad_engine", "svoc_torch.consensus.state",
+                 "svoc_torch.utils.metrics", "svoc_torch.durability.faultspace",
+                 "svoc_torch.io.deploy", "svoc_torch.io.chain"):
         assert name in names
     code = (
         "import importlib, sys\n"
         f"for name in {names!r}: importlib.import_module(name)\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'svoc_tpu'))\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'svoc_tpu', 'starknet_py'))\n"
         "assert not bad, bad\n"
     )
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)

@@ -629,3 +629,51 @@ def test_threefry_draws_on_the_card_equal_the_cpu(cuda):
     for n in (50, 2048):
         assert torch.equal(prng.permutation(keys.to(cuda), n).cpu(), prng.permutation(keys, n))
     assert torch.equal(prng.fold_in(keys.to(cuda), 7).cpu(), prng.fold_in(keys, 7))
+
+
+@pytest.mark.parametrize("n", [64, 1024])
+def test_prefix_sweep_on_the_card_equals_the_cpu(cuda, n):
+    """The batched commit's certification sweep (plain PyTorch, no kernel
+    of its own) at K = N on the card against the CPU: rel₁, rel₂ and the
+    sqrt arguments within 1e-5, the min variance and the boundary gap
+    within 1e-6, and ``certify``'s booleans identical."""
+    import numpy as np
+
+    from svoc_torch.consensus import batch
+
+    gen = torch.Generator().manual_seed(n)
+    old = torch.rand(n, 6, generator=gen) * 0.9 + 0.05
+    new = torch.rand(n, 6, generator=gen) * 0.9 + 0.05
+    pos = torch.randperm(n, generator=gen).to(torch.int32)
+    ks = torch.arange(1, n + 1, dtype=torch.int32).clamp(max=n - 1)
+    for cfg in (ConsensusConfig(n_failing=n // 8), ConsensusConfig(n_failing=n // 4, constrained=False,
+                                                                   max_spread=2.0)):
+        want = batch.prefix_margins_sweep(old, new, pos, cfg, ks)
+        got = batch.prefix_margins_sweep(old.to(cuda), new.to(cuda), pos.to(cuda), cfg, ks.to(cuda))
+        for name, bar in [("rel1", 1e-5), ("rel2", 1e-5), ("sqrt_arg1", 1e-5), ("sqrt_arg2", 1e-5),
+                          ("min_variance", 1e-6), ("boundary_gap", 1e-6)]:
+            g, w = getattr(got, name), getattr(want, name)
+            assert g.device.type == "cuda" and g.shape == (n,)
+            assert (g.cpu() - w).abs().max().item() <= bar, name
+        assert np.array_equal(batch.certify(got, cfg, True), batch.certify(want, cfg, True))
+
+
+def test_batched_commit_sweeps_on_the_card(cuda):
+    """Twin contracts, the sweep on the card and on the CPU: the same
+    route and the same exact state, with the certified fast path taken."""
+    import numpy as np
+
+    from svoc_torch.consensus.state import OracleConsensusContract
+
+    n = 64
+    callers = [f"o{i}" for i in range(n)]
+    twins = [OracleConsensusContract(["a0", "a1", "a2"], callers, n_failing_oracles=16, dimension=6,
+                                     device=device) for device in ("cuda", "cpu")]
+    rng = np.random.default_rng(5)
+    for _ in range(2):
+        preds = rng.uniform(0.05, 0.95, (n, 6))
+        for c in twins:
+            assert c.update_predictions_batch(callers, preds, on_uncertified="raise") == n
+    assert [c.get_oracle_value_list("a0") for c in twins[:1]] == [twins[1].get_oracle_value_list("a0")]
+    assert twins[0].get_consensus_value() == twins[1].get_consensus_value()
+    assert twins[0].get_kurtosis() == twins[1].get_kurtosis()
