@@ -187,6 +187,36 @@ Phases:
    full-width forward, ten timed steps after a warm-up: comments/s with
    the submit, submit ms a step, reverted txs and the consensus read
    back.
+9. The claim fabric (``apps/session.py``, ``fabric/*``, ``resilience/*``,
+   ``utils/{events,slo}.py``), through its entry points. (a) B3 against
+   its plain version at the fabric's shapes, [4, 7, 6] with the
+   offender's quarantined inf row and [64, 7, 6] (37 claims and 27
+   padding claims, quarantined nan, inf and 7.5 rows), to the 3b bars,
+   and its reliable mask and interval_valid equal to the CPU route's;
+   then ``run_fabric_scenario(0, cycles=12)`` (4 claims x 7 oracles, the
+   last claim tampered) on the card twice and pipelined once: per-claim
+   and journal fingerprints equal to the JAX package's (the constants
+   of ``svoc_torch.tools.fabric_smoke``) and across the two runs, the
+   offender voted out, the siblings clean, 7 injections, 4 claims served
+   every cycle, B3 launched once a cycle and threefry 8 times a fetch,
+   counted from 0 for each run. (b) One ``MultiSession`` of 64 claims x
+   7 oracles (2 failing), each with its own store of 120 synthetic
+   comments, sharing the ``Session``'s default vectorizer
+   (ROBERTA_GO_EMOTIONS, packed, dense, seeded weights) with its output
+   layer calibrated (``calibrate_head``), the last claim tampered on the
+   scenario's schedule, 6 cycles of one group, twice with fresh journals
+   and registries: per-claim fingerprints equal across the runs, the
+   offender's injections refused and charged and 0x16 voted out, no
+   refusing verdict or quarantine charge on any sibling, B3 once a cycle
+   at [64, 7, 6] and threefry 8 times a fetch; a cycle's time split
+   (fetch: vectorize, fleet, host sync; the fabric consensus; the commit
+   plane), comments vectorized a second, the commit routes and peak
+   device memory, and the group's consensus by CUDA events. (c) One
+   ``Session`` with its own default vectorizer: 8 fetches at the init's
+   scale report each block's smallest honest variance and whether the
+   golden recompute panics; then, calibrated, 10 cycles of ``fetch``,
+   ``commit_resilient`` and ``supervisor_step``, the chain state equal
+   to the golden engine's after each, threefry 8 launches a fetch.
 
 It then prints one JSON line of per-kernel numbers, the card's
 ``nvidia-smi`` name and power limit, and last
@@ -221,6 +251,8 @@ CONFIG5_STEPS = 10  # timed steps of phase 8's per-tx submit (bench.py's config 
 FORWARD_SPREAD = 0.05
 CLAIMS, ORACLES, REQUESTS_PER_CLAIM = 64, 1024, 8  # the multi-claim path
 CLAIM_STEPS, CLAIM_TIMED = 8, 5  # its steps, of which the last are timed
+FABRIC_CLAIMS, FABRIC_CYCLES = 64, 6  # phase 9b: bench.py --claims 64, 7 oracles each
+SESSION_CYCLES = 10  # phase 9c: the single-claim loop
 FIXED_STEPS = 10  # training steps on one fixed batch
 #: The fixed batch's last loss must be below this × its first (0.963
 #: measured on an NVIDIA H100 80GB HBM3).
@@ -2267,6 +2299,373 @@ def commit_path_phase(torch, launches):
           f"{1e3 * submit_s / CONFIG5_STEPS:.3f} ms a step, {reverted} reverted txs {causes}", flush=True)
 
 
+FABRIC_STAGES = ("fetch", "vectorize", "fleet", "consensus", "fabric_consensus", "fabric_dispatch",
+                 "fabric_sync")
+
+
+def stage_seconds() -> dict:
+    """The process registry's per-stage span sums (s) and the commit
+    timer's, keyed by stage; a phase reads the difference of two."""
+    from svoc_torch.utils.metrics import registry
+
+    out = {s: registry.histogram("stage_seconds", labels={"stage": s}).sum for s in FABRIC_STAGES}
+    out["commit"] = registry.timer("commit_latency").total_s
+    return out
+
+
+def commit_routes() -> dict:
+    """The process registry's commit-plane counts: chain RPCs by mode and
+    batched-commit fallbacks by reason."""
+    from svoc_torch.utils.metrics import registry
+
+    return {f"{name}{{{k}={v}}}": value for name in ("chain_commit_rpcs", "commit_batch_fallback")
+            for labels, value in registry.family_series(name) for k, v in labels.items()}
+
+
+def diff(after: dict, before: dict) -> dict:
+    return {k: after[k] - before.get(k, 0) for k in after if after[k] - before.get(k, 0)}
+
+
+def fabric_tamper(kinds, slot):
+    """The fabric scenario's offender hook (``fabric/scenario.py``) on
+    ``slot``, over the per-cycle kinds."""
+    import numpy as np
+
+    def tamper(cycle, block):
+        kind = kinds[cycle] if cycle < len(kinds) else None
+        if kind is None:
+            return block
+        block = np.array(block, copy=True)
+        if kind == "nan":
+            block[slot, 0] = np.nan
+        elif kind == "inf":
+            block[slot, :] = np.inf
+        else:
+            block[slot, :] = 7.5
+        return block
+    return tamper
+
+
+def golden_check(session, what: str) -> None:
+    """The session's chain state against ``two_pass_consensus`` on the
+    ints its oracles hold (the golden engine)."""
+    from svoc_torch.consensus import wsad_engine
+
+    contract = session.adapter.backend.contract
+    if not contract.consensus_active:
+        check(False, f"{what}: the consensus is active")
+        return
+    cfg = session.config
+    ref = wsad_engine.two_pass_consensus([list(o.value) for o in contract.oracles],
+                                         constrained=cfg.constrained, n_failing=cfg.n_failing,
+                                         max_spread=0)
+    got = contract_state(contract)
+    check(got["value"] == ref["essence"] and got["rel1"] == ref["reliability_first_pass"]
+          and got["rel2"] == ref["reliability_second_pass"] and got["skew"] == ref["skewness"]
+          and got["kurt"] == ref["kurtosis"] and [o[2] for o in got["oracles"]] == ref["reliable"],
+          f"{what}: the chain state == two_pass_consensus on the committed ints")
+
+
+def calibrate_head(torch, pipe, comments: int = 256, seed: int = 12345) -> float:
+    """Re-centre and scale a seeded pipeline's output layer in place so
+    that its logits have zero mean and unit spread over ``comments``
+    seeded synthetic comments; returns the scale.
+
+    A stand-in for trained weights: at the init's scale the logits vary
+    by only 0.1-0.3 across comments, so the 5 honest oracles of a
+    7-oracle fleet agree to within a few wsad units per label and the
+    contract's recompute panics (``wsad_sqrt`` of a variance <= 1, the
+    reference's ``math.cairo`` semantics) in most cycles: phase 9c
+    prints how often, before it calibrates."""
+    from svoc_torch.io.scraper import SyntheticSource
+
+    ids, mask = pipe.tokenizer(SyntheticSource(batch=comments, seed=seed)(), pipe.seq_len)
+    with torch.inference_mode():
+        logits = torch.cat([
+            pipe.model(torch.from_numpy(ids[i:i + 32]).to(pipe.device),
+                       torch.from_numpy(mask[i:i + 32]).to(pipe.device)).float()
+            for i in range(0, comments, 32)
+        ])
+        scale = float(1.0 / logits.std(dim=0).mean())
+        for head in {id(m.head_out): m.head_out for m in (pipe.model, pipe.packed_model)}.values():
+            head.bias.copy_(scale * (head.bias - logits.mean(dim=0)))
+            head.weight.mul_(scale)
+    return scale
+
+
+def fleet_diversity(session, fetches: int) -> list:
+    """``fetches`` fetches of ``session`` (no commit): each block's
+    smallest per-label variance over its honest oracles in wsad units,
+    and whether the golden engine's recompute of the block panics."""
+    from svoc_torch.consensus import wsad_engine
+    from svoc_torch.ops.fixedpoint import to_wsad_rows
+
+    out = []
+    for _ in range(fetches):
+        preview = session.fetch()
+        rows = to_wsad_rows(preview["values"])
+        honest = [r for r, h in zip(rows, preview["honest"]) if h]
+        var = min(wsad_engine.nd_component_wise_variance(honest, wsad_engine.nd_average(honest)))
+        try:
+            wsad_engine.two_pass_consensus(rows, constrained=True, n_failing=session.config.n_failing,
+                                           max_spread=0)
+            out.append((var, "ok"))
+        except ZeroDivisionError:
+            out.append((var, "panic"))
+    return out
+
+
+@phase("9a. the claim fabric: the seeded scenario on the card")
+def fabric_scenario_phase(torch, launches):
+    import numpy as np
+
+    from svoc_torch.consensus.batch import pad_claim_cube
+    from svoc_torch.consensus.kernel import consensus_step_gated_claims
+    from svoc_torch.fabric.registry import ClaimSpec
+    from svoc_torch.fabric.scenario import run_fabric_scenario
+    from svoc_torch.ops.fused_consensus import (
+        fused_consensus_gated_claims_cuda, fused_consensus_gated_claims_plain,
+    )
+    from svoc_torch.ops.threefry import threefry_cuda
+    from svoc_torch.tools.fabric_smoke import REFERENCE_FINGERPRINTS, reference_mismatches
+
+    card = nvidia_smi()
+    cfg = ClaimSpec("x").consensus_config()  # every fabric claim's: 7 oracles, 2 failing
+    rng = np.random.default_rng(9)
+    for claims, name in ((4, "[4, 7, 6], the offender's quarantined inf row"),
+                         (37, "[64, 7, 6], 37 claims + 27 padding, quarantined nan/inf/7.5 rows")):
+        vals = rng.uniform(0.05, 0.95, size=(claims, 7, 6)).astype(np.float32)
+        ok = np.ones((claims, 7), dtype=bool)
+        vals[-1, 6, :], ok[-1, 6] = np.inf, False
+        if claims > 4:
+            vals[5, 2, 0], vals[11, 0, :], ok[5, 2], ok[11, 0] = np.nan, 7.5, False, False
+        values, ok_t, mask = (t.cuda() for t in pad_claim_cube(vals, ok))
+        kernel = fused_consensus_gated_claims_cuda(values, ok_t, mask, cfg)
+        plain = fused_consensus_gated_claims_plain(values, ok_t, mask, cfg)
+        good, errs, _ = gated_errors(torch, kernel, plain)
+        check(good, f"B3 at {name} vs plain: " + ", ".join(f"{f} {e:.2e}" for f, e in errs.items()))
+        cpu = consensus_step_gated_claims(values.cpu(), ok_t.cpu(), mask.cpu(), cfg)
+        check(torch.equal(kernel.reliable.cpu(), cpu.reliable)
+              and torch.equal(kernel.interval_valid.cpu(), cpu.interval_valid),
+              f"B3 at {name}: reliable and interval_valid == the CPU route's (the fingerprinted fields)")
+        ms = cuda_ms(torch, lambda: fused_consensus_gated_claims_cuda(values, ok_t, mask, cfg), iters=50)
+        plain_ms = cuda_ms(torch, lambda: fused_consensus_gated_claims_plain(values, ok_t, mask, cfg), iters=20)
+        c, n, m = values.shape  # counted as phase 3b counts them
+        bytes_moved = sum(x.numel() * x.element_size() for x in (values, ok_t, mask, *kernel))
+        ops = c * ((2 * m + 1) * n * math.ceil(math.log2(n)) + 12 * n * m)
+        bound_ms, bound_by = bound(bytes_moved, ops, FP32_FLOPS)
+        print(f"  [{card}] B3 at [{c}, {n}, {m}]: {ms:.4f} ms (CUDA events, 50 launches), plain "
+              f"{plain_ms:.4f} ms, bound {bound_ms:.7f} ms ({bound_by})")
+
+    runs = []
+    for pipelined in (False, False, True):
+        torch.cuda.synchronize()
+        fused_consensus_gated_claims_cuda.launches = threefry_cuda.launches = 0
+        t0 = time.perf_counter()
+        result = run_fabric_scenario(0, cycles=12, pipelined=pipelined)  # device=None: CUDA
+        secs = time.perf_counter() - t0
+        counts = dict(gated_claims_consensus=fused_consensus_gated_claims_cuda.launches,
+                      threefry=threefry_cuda.launches)
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        runs.append(result)
+        label = "pipelined" if pipelined else "unpipelined"
+        print(f"  [{card}] scenario ({label}): {secs:.3f} s, launches {counts}, "
+              f"{result['journal_events']} events", flush=True)
+        fetches = sum(result["served_per_step"])
+        check(counts == dict(gated_claims_consensus=12, threefry=8 * fetches),
+              f"{label}: B3 launched once a cycle (12), threefry 8 a fetch ({fetches} fetches): {counts}")
+        check(result["offender_replaced"] and result["siblings_clean"]
+              and result["injection_count"] == 7 and result["served_per_step"] == [4] * 12,
+              f"{label}: offender replaced, siblings clean, 7 injections, 4 claims served every step")
+        mismatch = reference_mismatches(result, pipelined)
+        check(not mismatch, f"{label}: per-claim and journal fingerprints == the JAX package's "
+                            f"({sorted(REFERENCE_FINGERPRINTS[pipelined]['claims'])}; mismatches {mismatch})")
+    check(all(runs[0]["claims"][c]["fingerprint"] == runs[1]["claims"][c]["fingerprint"]
+              for c in runs[0]["claims"]), "two unpipelined card runs: per-claim fingerprints equal")
+
+
+@phase("9b. the claim fabric at full width: 64 claims x 7 oracles, one shared encoder")
+def fabric_width_phase(torch, launches):
+    import numpy as np
+
+    from svoc_torch.apps.session import Session
+    from svoc_torch.consensus.batch import pad_claim_cube
+    from svoc_torch.fabric import ClaimSpec, MultiSession
+    from svoc_torch.fabric.router import dispatch_group
+    from svoc_torch.fabric.scenario import _claim_names, _injection_schedule
+    from svoc_torch.io.comment_store import CommentStore
+    from svoc_torch.io.scraper import SyntheticSource
+    from svoc_torch.ops.flash_attention import flash_attention_cuda
+    from svoc_torch.ops.fused_consensus import fused_consensus_cuda, fused_consensus_gated_claims_cuda
+    from svoc_torch.ops.threefry import threefry_cuda
+    from svoc_torch.sim.generators import claim_seed
+    from svoc_torch.utils.events import EventJournal
+    from svoc_torch.utils.metrics import MetricsRegistry
+
+    card = nvidia_smi()
+    names = _claim_names(FABRIC_CLAIMS)
+    offender = names[-1]
+    kinds = _injection_schedule(0, offender, FABRIC_CYCLES)
+    # The reference Session's default vectorizer, built once through the
+    # entry point (ROBERTA_GO_EMOTIONS, packed, dense, seeded weights),
+    # its output layer calibrated (calibrate_head) and shared by all claims.
+    vectorizer = Session(device="cuda").vectorizer
+    scale = calibrate_head(torch, vectorizer)
+    print(f"  vectorizer: {vectorizer.cfg.n_layers} layers, hidden {vectorizer.cfg.hidden}, "
+          f"attention {vectorizer.cfg.attention}, packed {vectorizer.packed}, head calibrated "
+          f"(scale {scale:.3f}); injections {kinds}")
+    counted = {"gated_claims_consensus": fused_consensus_gated_claims_cuda, "threefry": threefry_cuda,
+               "flash_attention": flash_attention_cuda, "fused_consensus": fused_consensus_cuda}
+
+    def store_factory(claim_id):
+        store = CommentStore()
+        store.save(SyntheticSource(batch=120, seed=claim_seed(0, claim_id))())
+        return store
+
+    def run():
+        journal = EventJournal()
+        multi = MultiSession(base_seed=0, vectorizer=vectorizer, store_factory=store_factory,
+                             journal=journal, metrics=MetricsRegistry(), lineage_scope="fab",
+                             max_claims_per_batch=FABRIC_CLAIMS)  # device=None: CUDA
+        tamper = fabric_tamper(kinds, 6)
+        for cid in names:
+            multi.add_claim(ClaimSpec(claim_id=cid, tamper=tamper if cid == offender else None))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for wrapper in counted.values():
+            wrapper.launches = 0
+        stages, routes = stage_seconds(), commit_routes()
+        cycle_s, per_cycle = [], []
+        for _ in range(FABRIC_CYCLES):
+            before = {k: w.launches for k, w in counted.items()}
+            t0 = time.perf_counter()
+            report = multi.step()
+            cycle_s.append(time.perf_counter() - t0)
+            per_cycle.append(({k: w.launches - before[k] for k, w in counted.items()},
+                              len(report["served"])))
+        multi.flush()
+        counts = {k: w.launches for k, w in counted.items()}
+        return dict(multi=multi, journal=journal, cycle_s=cycle_s, per_cycle=per_cycle, counts=counts,
+                    stages=diff(stage_seconds(), stages), routes=diff(commit_routes(), routes),
+                    peak=torch.cuda.max_memory_allocated())
+
+    first, second = run(), run()
+    for name in ("gated_claims_consensus", "threefry"):
+        launches[name] = launches.get(name, 0) + first["counts"][name] + second["counts"][name]
+    fps = [{c: r["multi"].claim_fingerprint(c) for c in names} for r in (first, second)]
+    check(fps[0] == fps[1] and first["journal"].fingerprint() == second["journal"].fingerprint(),
+          f"two runs: {FABRIC_CLAIMS} per-claim fingerprints and the journal's equal")
+    want = {"gated_claims_consensus": 1, "threefry": 8 * FABRIC_CLAIMS, "flash_attention": 0,
+            "fused_consensus": 0}
+    check(all(c == (want, FABRIC_CLAIMS) for r in (first, second) for c in r["per_cycle"]),
+          f"every cycle served {FABRIC_CLAIMS} claims and launched {want}: {first['per_cycle'][0]}")
+    session = first["multi"].get(offender).session
+    snap = session.resilience_snapshot()
+    roster = [hex(a) for a in session.adapter.call_oracle_list()]
+    check(snap["replacements"] >= 1 and "0x16" not in roster,
+          f"offender {offender}: 0x16 voted out ({snap['replacements']} replacement(s), roster {roster})")
+    journal = first["journal"]
+
+    def family(s, etype):
+        return journal.recent(type=etype, lineage_prefix=s.lineage_prefix + "-")
+
+    injected = sum(k is not None for k in kinds)
+    check(len([e for e in family(session, "quarantine.verdict") if e.data.get("reasons")]) == injected
+          and len(family(session, "supervisor.charge")) == injected,
+          f"offender {offender}: {injected} refusing verdicts and {injected} quarantine charges")
+    siblings = [first["multi"].get(c).session for c in names[:-1]]
+    poisoned = [s.config.claim for s in siblings
+                if any(e.data.get("reasons") for e in family(s, "quarantine.verdict"))
+                or family(s, "supervisor.charge")]
+    check(not poisoned, f"{FABRIC_CLAIMS - 1} siblings: no refusing verdict, no quarantine charge: {poisoned}")
+    replaced = {s.config.claim: s.resilience_snapshot()["replacements"] for s in siblings
+                if s.resilience_snapshot()["replacements"]}
+    stranded = sum(len(family(s, "commit.skipped")) for s in siblings)
+    print(f"  siblings: replacements {replaced or 'none'}, {stranded} stranded txs (their own chains' "
+          f"recomputes; informational)")
+
+    # The group's consensus (dispatch_group on the last cycle's cube) by CUDA events.
+    states = first["multi"].registry.states()
+    cube = torch.from_numpy(np.stack([s.session.predictions for s in states]).astype(np.float32)).cuda()
+    oks = torch.from_numpy(np.stack([s.session.last_quarantine.ok for s in states])).cuda()
+    cfg = states[0].spec.consensus_config()
+    group_ms = cuda_ms(torch, lambda: dispatch_group(cube, oks, cfg), iters=50)
+    values, ok, mask = pad_claim_cube(cube, oks)
+    b3_ms = cuda_ms(torch, lambda: fused_consensus_gated_claims_cuda(values, ok, mask, cfg), iters=50)
+    for label, r in (("run 1", first), ("run 2", second)):
+        secs = sum(r["cycle_s"])
+        comments = FABRIC_CYCLES * FABRIC_CLAIMS * 30  # fetch_limit comments a fetch
+        st = r["stages"]
+        print(f"  [{card}] {label}: {FABRIC_CYCLES} cycles {secs:.3f} s "
+              f"({', '.join(f'{s * 1e3:.1f}' for s in r['cycle_s'])} ms); per cycle: fetch "
+              f"{st.get('fetch', 0) / FABRIC_CYCLES * 1e3:.1f} ms (vectorize "
+              f"{st.get('vectorize', 0) / FABRIC_CYCLES * 1e3:.1f}, fleet "
+              f"{st.get('fleet', 0) / FABRIC_CYCLES * 1e3:.1f}, host sync + gate + preview "
+              f"{st.get('consensus', 0) / FABRIC_CYCLES * 1e3:.1f}), fabric consensus "
+              f"{st.get('fabric_consensus', 0) / FABRIC_CYCLES * 1e3:.2f} ms (dispatch "
+              f"{st.get('fabric_dispatch', 0) / FABRIC_CYCLES * 1e3:.2f}, sync "
+              f"{st.get('fabric_sync', 0) / FABRIC_CYCLES * 1e3:.2f}), commit plane "
+              f"{st.get('commit', 0) / FABRIC_CYCLES * 1e3:.1f} ms; "
+              f"{comments / st['vectorize']:.1f} comments/s vectorized ({comments / secs:.1f} over "
+              f"the cycles); commit routes {r['routes']}; peak memory "
+              f"{r['peak'] / 2**20:.1f} MiB", flush=True)
+    print(f"  [{card}] the group's consensus at [64, 7, 6]: dispatch_group {group_ms:.4f} ms, "
+          f"B3 alone {b3_ms:.4f} ms (CUDA events, 50 calls)")
+
+
+@phase("9c. the single-claim loop: fetch, commit_resilient, supervisor_step")
+def session_loop_phase(torch, launches):
+    import numpy as np
+
+    from svoc_torch.apps.session import Session, SessionConfig
+    from svoc_torch.io.comment_store import CommentStore
+    from svoc_torch.io.scraper import SyntheticSource
+    from svoc_torch.ops.fused_consensus import fused_consensus_gated_claims_cuda
+    from svoc_torch.ops.threefry import threefry_cuda
+
+    card = nvidia_smi()
+
+    def store(seed):
+        s = CommentStore()
+        s.save(SyntheticSource(batch=120, seed=seed)())
+        return s
+
+    session = Session(SessionConfig(), store=store(0))  # device=None: CUDA, its own default vectorizer
+    raw = fleet_diversity(Session(SessionConfig(), store=store(1), vectorizer=session.vectorizer), 8)
+    print(f"  [{card}] the default vectorizer at the init's scale, 8 fetches (no commit): smallest "
+          f"honest per-label variance (wsad) and the golden recompute {raw}")
+    scale = calibrate_head(torch, session.vectorizer)
+    print(f"  head calibrated (scale {scale:.3f})")
+    torch.cuda.synchronize()
+    threefry_cuda.launches = fused_consensus_gated_claims_cuda.launches = 0
+    stages = stage_seconds()
+    outcomes, cycle_s = [], []
+    for cycle in range(SESSION_CYCLES):
+        t0 = time.perf_counter()
+        preview = session.fetch()
+        outcome = session.commit_resilient()
+        report = session.supervisor_step() or {}
+        cycle_s.append(time.perf_counter() - t0)
+        outcomes.append((outcome.sent, len(outcome.stranded), len(report.get("replaced", ()))))
+        check(preview["values"].shape == (7, 6) and bool(np.isfinite(preview["values"]).all())
+              and outcome.complete and "scores" in report,
+              f"cycle {cycle}: a finite [7, 6] block, {outcome.sent} txs landed, a supervisor fold")
+        golden_check(session, f"cycle {cycle}")
+    counts = dict(threefry=threefry_cuda.launches, gated_claims_consensus=fused_consensus_gated_claims_cuda.launches)
+    launches["threefry"] = launches.get("threefry", 0) + counts["threefry"]
+    check(counts == dict(threefry=8 * SESSION_CYCLES, gated_claims_consensus=0),
+          f"launches {counts}: threefry 8 a fetch, no claim cube")
+    st = diff(stage_seconds(), stages)
+    n = SESSION_CYCLES
+    print(f"  [{card}] {n} cycles: {sum(cycle_s):.3f} s ({', '.join(f'{s * 1e3:.1f}' for s in cycle_s)} ms); "
+          f"per cycle fetch {st.get('fetch', 0) / n * 1e3:.1f} ms (vectorize "
+          f"{st.get('vectorize', 0) / n * 1e3:.1f}, fleet {st.get('fleet', 0) / n * 1e3:.1f}, host sync + "
+          f"gate + preview {st.get('consensus', 0) / n * 1e3:.1f}), commit plane "
+          f"{st.get('commit', 0) / n * 1e3:.1f} ms; {30 * n / st['vectorize']:.1f} comments/s vectorized; "
+          f"outcomes {outcomes}; journal {session.journal.last_seq()} events")
+
+
 def main() -> int:
     try:
         import torch
@@ -2310,9 +2709,13 @@ def main() -> int:
         probe_phase(torch, launches)
         probed = dict(launches)
         commit_path_phase(torch, launches)
+        committed = dict(launches)
+        fabric_scenario_phase(torch, launches)
+        fabric_width_phase(torch, launches)
+        session_loop_phase(torch, launches)
         print(f"  launches: serving paths {serving}; with the train path {trained}; "
               f"with the multi-claim path {claimed}; with the probe path {probed}; "
-              f"with the commit path {launches}")
+              f"with the commit path {committed}; with the fabric paths {launches}")
     check(all(launches.get(name, 0) > 0 for name in KERNEL_ROWS),
           f"every kernel launched on its path: { {k: launches.get(k, 0) for k in KERNEL_ROWS} }")
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "svoc_tpu"))

@@ -1,54 +1,581 @@
-"""The claim-cube dispatch of one shape/config group.
+"""The claim router: fair micro-batches through one consensus dispatch.
 
-Mirrors the non-meshed, non-device-resident branch of
-:meth:`svoc_tpu.fabric.router.ClaimRouter._dispatch_group`
-(``router.py:567-713``) and the output slice of ``_finish_group``
-(``:806``): stack the claims' fleet blocks, pad the cube to its
-power-of-two bucket, one consensus dispatch, keep the first ``C`` rows.
-Scheduling and selection, the chain commit, SLO accounting, the journal,
-the pipelined mode, device-resident staging and the claim mesh are not
-ported yet (ROADMAP A9).
+Mirrors :mod:`svoc_tpu.fabric.router` (``router.py:189-977``): each
+:meth:`ClaimRouter.step`
+
+1. **selects** up to ``max_claims_per_batch`` claims by weighted
+   round-robin (a claim of weight *w* holds *w* slots in the rotation;
+   selection is deterministic, so seeded fabric runs replay
+   byte-identically),
+2. **fetches** each selected claim through its own
+   :meth:`~svoc_torch.apps.session.Session.fetch` (window → sentiment →
+   fleet → counted quarantine verdict, lineage
+   ``blk<scope>-<claim>-<n>``),
+3. **batches** the fetched fleet blocks into claim cubes — grouped by
+   ``(n_oracles, dimension, consensus config)``, padded to a
+   power-of-two claim count (:func:`svoc_torch.consensus.batch.pad_claim_cube`)
+   — and runs ONE gated consensus dispatch per group
+   (:func:`dispatch_group`: the plain claim-cube forms on the CPU, one
+   launch of the gated claim-cube kernel on CUDA), giving every claim
+   its essence, ``interval_valid`` and reliability mask,
+4. **commits** each claim resiliently (retry + resume + breaker +
+   supervisor — the claim's own instances), folds the supervisor, and
+5. **accounts** the per-claim SLO counters
+   (``claim_commit_cycles{claim=}`` …) that
+   :func:`svoc_torch.utils.slo.claim_slos` evaluates.
+
+One claim's Byzantine offender, dead chain, or burning error budget
+stays in that claim's fleet, breaker, and SLO — sibling claims share
+only the device dispatch.
+
+Not ported here: the claim mesh (``mesh=``, ROADMAP A12), the
+device-resident staging (``device_resident=True``, A12), and the
+compile plane's prewarmer (``warmup_mode="prewarm"``,
+:meth:`ClaimRouter.attach_prewarmer`, A10): each raises
+``NotImplementedError``.  ``cost_plane`` stays None until the
+observability plane comes (A10).  There is no ``consensus_impl``
+routing: the route follows the device.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+import threading
+from collections import deque
+from typing import Any, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
+from svoc_torch.apps.session import DegenerateBlockError, EmptyStoreError
 from svoc_torch.consensus.batch import (
+    _no_impl_routing,
     claims_consensus_gated,
     claims_consensus_sanitized,
     pad_claim_cube,
+    pow2_bucket,
 )
 from svoc_torch.consensus.kernel import ConsensusConfig, ConsensusOutput
+from svoc_torch.device import resolve_device
+from svoc_torch.fabric.registry import ClaimRegistry, ClaimState
+from svoc_torch.io.chain import ChainCommitError
+from svoc_torch.resilience.breaker import CircuitOpenError
 from svoc_torch.robustness.sanitize import SanitizeConfig
+from svoc_torch.utils.events import resolve_journal
+from svoc_torch.utils.metrics import MetricsRegistry
+from svoc_torch.utils.metrics import registry as _default_registry
+from svoc_torch.utils.metrics import stage_span
+from svoc_torch.utils.rounding import round6_list
 
 
 def dispatch_group(
-    blocks: Sequence[torch.Tensor],
-    oks: Optional[Sequence[torch.Tensor]],
+    blocks,
+    oks,
     cfg: ConsensusConfig,
     sanitized: bool = False,
 ) -> Tuple[ConsensusOutput, torch.Tensor]:
     """One consensus dispatch over the ``[N, M]`` fleet blocks of ``C``
-    claims that share a shape and ``cfg``.
+    claims that share a shape and ``cfg`` (the non-meshed branch of the
+    reference's ``_dispatch_group``, ``router.py:567-713``): pad the
+    cube to its power-of-two bucket, one dispatch, keep the first ``C``
+    rows.  ``blocks`` is a ``[C, N, M]`` tensor or a sequence of
+    ``[N, M]`` tensors.
 
     ``sanitized=True`` (the router's ``sanitized_dispatch`` mode)
     computes the admission masks from the cube on its device, with the
     bounds of ``SanitizeConfig.for_consensus(cfg.constrained)``, and
     ignores ``oks``; otherwise ``oks`` are the claims' ``[N]`` admission
-    masks (all admitted when None).  Returns ``(output, ok)``, each with
-    ``C`` rows."""
-    values = torch.stack([b.to(torch.float32) for b in blocks])
+    masks (a ``[C, N]`` tensor or a sequence; all admitted when None).
+    Returns ``(output, ok)``, each with ``C`` rows."""
+    if isinstance(blocks, torch.Tensor):
+        values = blocks.to(torch.float32)
+    else:
+        values = torch.stack([b.to(torch.float32) for b in blocks])
     c = values.shape[0]
     if sanitized:
         values, _, claim_mask = pad_claim_cube(values)
         bounds = SanitizeConfig.for_consensus(cfg.constrained)
         out, ok = claims_consensus_sanitized(values, claim_mask, cfg, bounds.lo, bounds.hi)
     else:
-        values, ok, claim_mask = pad_claim_cube(
-            values, None if oks is None else torch.stack(list(oks))
-        )
+        if oks is not None and not isinstance(oks, torch.Tensor):
+            oks = torch.stack(list(oks))
+        values, ok, claim_mask = pad_claim_cube(values, oks)
         out = claims_consensus_gated(values, ok, claim_mask, cfg)
     return ConsensusOutput(*(field[:c] for field in out)), ok[:c]
+
+
+class _PendingGroup:
+    """One in-flight claim-cube dispatch: the device outputs plus the
+    per-claim context (lineage, admission masks) captured at dispatch
+    time, so the pipelined write-back one cycle later journals against
+    the RIGHT blocks even after the sessions fetched new ones."""
+
+    __slots__ = ("members", "out", "ok", "bucket", "lineages")
+
+    def __init__(self, members, out, ok, bucket, lineages):
+        self.members = members
+        self.out = out
+        self.ok = ok
+        self.bucket = bucket
+        self.lineages = lineages
+
+
+class ClaimRouter:
+    """Multiplexes fetch → vectorize → consensus → commit across the
+    registry's claims.  ``step()`` is the single-threaded scheduling
+    loop (the fabric's controller thread); registry mutation and
+    snapshot reads are safe concurrently.  The claim cubes are
+    dispatched on ``device`` (``None``: CUDA, raising without a card)."""
+
+    def __init__(
+        self,
+        registry: ClaimRegistry,
+        *,
+        max_claims_per_batch: int = 8,
+        metrics: Optional[MetricsRegistry] = None,
+        journal=None,
+        sanitized_dispatch: bool = False,
+        consensus_impl: Optional[str] = None,
+        mesh=None,
+        pipelined: bool = False,
+        device_resident: bool = False,
+        warmup_mode: Optional[str] = None,
+        device=None,
+    ):
+        if max_claims_per_batch < 1:
+            raise ValueError("max_claims_per_batch must be >= 1")
+        _no_impl_routing(consensus_impl)
+        if mesh is not None and mesh != "off":
+            raise NotImplementedError(
+                f"mesh={mesh!r}: the claim mesh (parallel/claim_shard.py) is not "
+                "ported yet (ROADMAP A12)"
+            )
+        if device_resident:
+            raise NotImplementedError(
+                "device_resident=True: the resident staging of the claim cube is "
+                "not ported yet (ROADMAP A12)"
+            )
+        if warmup_mode not in (None, "none"):
+            raise NotImplementedError(
+                f"warmup_mode={warmup_mode!r}: the compile plane's prewarm is not "
+                "ported yet (ROADMAP A10)"
+            )
+        self.registry = registry
+        self.max_claims_per_batch = max_claims_per_batch
+        self.device = resolve_device(device)
+        self._metrics = metrics or _default_registry
+        self._journal = journal
+        #: The serving tier's cost-attribution plane (ROADMAP A10).
+        self.cost_plane = None
+        #: Double-buffered dispatch: the claim-cube consensus for cycle
+        #: k-1 runs on the device while the host fetches (and commits)
+        #: cycle k — its write-back (state.last_consensus,
+        #: ``fabric.consensus`` events) lands one cycle later, drained
+        #: by :meth:`flush`.  Pull-mode only: request-driven feeds need
+        #: same-cycle accounting.  Its own fingerprint family.
+        self.pipelined = pipelined
+        self._inflight: List[_PendingGroup] = []
+        #: Fuse gate + consensus into ONE device pass per micro-batch
+        #: (:func:`svoc_torch.consensus.batch.claims_consensus_sanitized`)
+        #: instead of reusing the host gate's per-claim verdicts.
+        self.sanitized_dispatch = sanitized_dispatch
+        self._lock = threading.Lock()
+        #: weighted rotation: claim ids, each appearing ``weight``
+        #: times.  Rebuilt lazily when the registry's membership
+        #: changes; rotation POSITION survives rebuilds (fairness
+        #: across adds/removes).
+        self._rotation: deque = deque()
+        self._rotation_members: Tuple[Tuple[str, int], ...] = ()
+        self.steps = 0
+        #: End-of-cycle hooks, called with the step report AFTER every
+        #: claim was committed/accounted.  Hooks run in registration
+        #: order on the router thread; an exception is counted
+        #: (``fabric_hook_errors``) and never kills the loop.
+        self.post_step_hooks: List[Any] = []
+
+    def _resolve_journal(self):
+        return resolve_journal(self._journal)
+
+    # -- scheduling ---------------------------------------------------------
+
+    def _refresh_rotation_locked(self, states: List[ClaimState]) -> None:
+        members = tuple(
+            (s.spec.claim_id, s.spec.weight)
+            for s in sorted(states, key=lambda s: s.index)
+        )
+        if members == self._rotation_members:
+            return
+        # Preserve relative order of surviving ids; new claims join at
+        # the rotation tail in registration order.
+        old_order = [cid for cid in self._rotation]
+        alive = {cid for cid, _w in members}
+        seen = set()
+        new_rotation: List[str] = []
+        for cid in old_order:
+            if cid in alive and cid not in seen:
+                seen.add(cid)
+                new_rotation.append(cid)
+        for cid, _w in members:
+            if cid not in seen:
+                seen.add(cid)
+                new_rotation.append(cid)
+        weights = dict(members)
+        expanded: List[str] = []
+        for cid in new_rotation:
+            expanded.extend([cid] * weights[cid])
+        self._rotation = deque(expanded)
+        self._rotation_members = members
+
+    def select(self) -> List[ClaimState]:
+        """The next micro-batch: up to ``max_claims_per_batch`` DISTINCT
+        unpaused claims in weighted-rotation order.  Deterministic —
+        the replay witness covers scheduling, not just math."""
+        states = self.registry.states()
+        by_id = {s.spec.claim_id: s for s in states}
+        with self._lock:
+            self._refresh_rotation_locked(states)
+            if not self._rotation:
+                return []
+            selected: List[ClaimState] = []
+            picked = set()
+            # One full rotation scan at most: claims beyond the batch
+            # cap (or paused) keep their slots for the next step.
+            for _ in range(len(self._rotation)):
+                cid = self._rotation[0]
+                self._rotation.rotate(-1)
+                if cid in picked:
+                    continue
+                state = by_id.get(cid)
+                if state is None or state.paused:
+                    continue
+                picked.add(cid)
+                selected.append(state)
+                if len(selected) >= self.max_claims_per_batch:
+                    break
+            return selected
+
+    # -- the multiplexed cycle ----------------------------------------------
+
+    def step(
+        self, feeds: Optional[Dict[str, Any]] = None
+    ) -> Dict[str, Any]:
+        """One fabric cycle over the next micro-batch.  Never raises on
+        a per-claim failure (an empty store or open breaker in one
+        claim must not starve its siblings); per-claim errors land in
+        the report and the claim's own counters.
+
+        ``feeds`` switches the cycle to **request-driven** feeding
+        (docs/SERVING.md): a ``{claim_id: [K, M] sentiment vectors}``
+        map.  Only fed claims are served this cycle, each through
+        ``Session.fetch(window=...)``, preserving lineage, gate
+        verdicts, and the per-claim isolation contract: a claim whose
+        feed is malformed lands in ITS
+        ``fabric_claim_errors{claim=,stage="fetch"}`` and its siblings
+        are still served.  ``feeds=None`` is the pull-mode cycle."""
+        if self.pipelined and feeds is not None:
+            raise ValueError(
+                "pipelined dispatch is pull-mode only: request-driven "
+                "feeds need same-cycle consensus accounting"
+            )
+        report = self._step_inner(feeds=feeds)
+        for hook in list(self.post_step_hooks):
+            try:
+                hook(report)
+            except Exception:  # noqa: BLE001 — a hook must not kill serving
+                self._metrics.counter("fabric_hook_errors").add(1)
+        return report
+
+    def flush(self) -> int:
+        """Drain the pipelined in-flight consensus write-backs (the
+        pipeline's one-cycle tail); returns how many groups were
+        finished.  A no-op when unpipelined or already drained."""
+        pending, self._inflight = self._inflight, []
+        if pending:
+            with stage_span("fabric_consensus"):
+                for group in pending:
+                    self._finish_group(group)
+        return len(pending)
+
+    def _step_inner(
+        self, feeds: Optional[Dict[str, Any]] = None
+    ) -> Dict[str, Any]:
+        self.steps += 1
+        report: Dict[str, Any] = {
+            "step": self.steps,
+            "served": [],
+            "skipped": {},
+            "claims": {},
+        }
+        if feeds is None:
+            selected = self.select()
+        else:
+            # Registration order (deterministic), fed + unpaused claims
+            # only.  Unknown claim ids in the feed are a caller bug —
+            # surfaced in the report, never fatal to the batch.
+            selected = []
+            known = {s.spec.claim_id: s for s in self.registry.states()}
+            for cid in feeds:
+                state = known.get(cid)
+                if state is None:
+                    report["skipped"][cid] = "unknown_claim"
+                elif state.paused:
+                    report["skipped"][cid] = "paused"
+                else:
+                    selected.append(state)
+            selected.sort(key=lambda s: s.index)
+        if not selected:
+            return report
+
+        # ---- fetch every selected claim (its own lineage + verdict) ----
+        fetched: List[ClaimState] = []
+        for state in selected:
+            spec = state.spec
+            tamper = None
+            if spec.tamper is not None:
+                cycle = state.cycles
+                tamper = lambda block, _t=spec.tamper, _c=cycle: _t(_c, block)
+            try:
+                state.session.fetch(
+                    tamper=tamper,
+                    window=None if feeds is None else feeds[spec.claim_id],
+                )
+            except EmptyStoreError:
+                report["skipped"][spec.claim_id] = "empty_store"
+                continue
+            except Exception as e:  # noqa: BLE001 — isolation contract
+                # ANY per-claim fetch failure skips THIS claim, never
+                # the batch — and, unlike the routine empty-store wait,
+                # surfaces in its own anomaly counter.
+                report["skipped"][spec.claim_id] = (
+                    f"fetch_error:{type(e).__name__}"
+                )
+                self._metrics.counter(
+                    "fabric_claim_errors",
+                    labels={"claim": spec.claim_id, "stage": "fetch"},
+                ).add(1)
+                continue
+            fetched.append(state)
+        if not fetched:
+            return report
+
+        # ---- claim-cube consensus: one dispatch per (shape, config) ----
+        groups: Dict[Any, List[ClaimState]] = {}
+        for state in fetched:
+            spec = state.spec
+            key = (spec.n_oracles, spec.dimension, spec.consensus_config())
+            groups.setdefault(key, []).append(state)
+        if self.pipelined:
+            # Double-buffered dispatch: enqueue cycle k's cubes (no host
+            # sync), THEN resolve cycle k-1's.  The commit below still
+            # commits cycle k's blocks (the chain path never consumed
+            # the cube outputs); only state.last_consensus and the
+            # ``fabric.consensus`` events trail one cycle, against the
+            # lineages captured at dispatch.
+            dispatched = [
+                self._dispatch_group(members, cfg)
+                for (_n, _m, cfg), members in groups.items()
+            ]
+            pending, self._inflight = self._inflight, dispatched
+            with stage_span("fabric_consensus"):
+                for group in pending:
+                    self._finish_group(group)
+        else:
+            with stage_span("fabric_consensus"):
+                for (_n, _m, cfg), members in groups.items():
+                    self._finish_group(self._dispatch_group(members, cfg))
+
+        # ---- commit + supervise + SLO, claim by claim ----
+        for state in fetched:
+            self._commit_claim(state)
+            state.cycles += 1
+            report["served"].append(state.spec.claim_id)
+            report["claims"][state.spec.claim_id] = {
+                "consensus": state.last_consensus,
+                "commit": state.last_commit,
+            }
+        return report
+
+    def _dispatch_group(
+        self, members: List[ClaimState], cfg
+    ) -> _PendingGroup:
+        """Collect one shape/config group's blocks and run ONE gated
+        consensus dispatch — device outputs only, no host sync (the
+        pipelined mode's overlap window lives between this and
+        :meth:`_finish_group`).  The cube and its masks go to the device
+        in one copy each."""
+        lineages = []
+        blocks = []
+        oks = []
+        with stage_span("fabric_stage"):
+            for state in members:
+                session = state.session
+                with session.lock:
+                    predictions = session.predictions
+                    quarantine = session.last_quarantine
+                    lineages.append(session.last_lineage)
+                blocks.append(predictions)
+                oks.append(
+                    np.asarray(quarantine.ok, dtype=bool)
+                    if quarantine is not None
+                    else np.ones(predictions.shape[0], dtype=bool)
+                )
+            cube = np.stack([np.asarray(b, dtype=np.float32) for b in blocks])
+            ok = np.stack(oks)
+        with stage_span("fabric_h2d"):
+            values_dev = torch.from_numpy(cube).to(self.device)
+            ok_dev = None if self.sanitized_dispatch else torch.from_numpy(ok).to(self.device)
+        with stage_span("fabric_dispatch"):
+            out, ok_out = dispatch_group(
+                values_dev, ok_dev, cfg, sanitized=self.sanitized_dispatch
+            )
+        # The journaled batch_bucket is the pow2 bucket of the group.
+        return _PendingGroup(members, out, ok_out, pow2_bucket(len(members)), lineages)
+
+    def attach_prewarmer(self, worker) -> None:
+        """The compile plane's prewarm worker (ROADMAP A10)."""
+        raise NotImplementedError(
+            "the compile plane's prewarmer is not ported yet (ROADMAP A10)"
+        )
+
+    def _finish_group(self, pending: _PendingGroup) -> None:
+        """Bring one dispatched group to the host and write each member's
+        per-claim slice back (consensus state, journal, metrics)."""
+        members = pending.members
+        out = pending.out
+        c = len(members)
+        n, m = out.reliable.shape[1], out.essence.shape[1]
+        with stage_span("fabric_sync"):
+            # ONE host copy for the whole micro-batch: every field the
+            # write-back reads, as float32 columns (the masks as exact
+            # 0/1), so the claim axis amortizes the sync a per-claim
+            # loop would pay C times.
+            host = torch.cat(
+                [
+                    out.essence,
+                    out.essence_first_pass,
+                    out.reliability_first_pass[:, None],
+                    out.reliability_second_pass[:, None],
+                    out.reliable.to(torch.float32),
+                    out.interval_valid.to(torch.float32)[:, None],
+                    pending.ok.to(torch.float32),
+                ],
+                dim=1,
+            ).cpu().numpy()
+            cols = np.cumsum([0, m, m, 1, 1, n, 1, n])
+            essence, essence1, rel1, rel2, reliable, valid, oks = (
+                host[:, cols[i] : cols[i + 1]] for i in range(7)
+            )
+            rel1, rel2, valid = rel1[:, 0], rel2[:, 0], valid[:, 0] > 0
+            reliable, oks = reliable > 0, oks > 0
+        journal = self._resolve_journal()
+        bucket = pending.bucket
+        with stage_span("fabric_journal"):
+            # Every journaled float rounds through ONE numpy pass
+            # (utils/rounding.round6's exactness contract; the replay
+            # fingerprints pin it).
+            essence_rows = round6_list(essence[:c])
+            essence1_rows = round6_list(essence1[:c])
+            rel1_vals = round6_list(rel1[:c])
+            rel2_vals = round6_list(rel2[:c])
+            reliable_rows = reliable[:c].tolist()
+            valid_flags = valid[:c].tolist()
+            n_reliable = reliable[:c].sum(axis=1).tolist()
+            admitted = oks.sum(axis=1).tolist()
+            for i, state in enumerate(members):
+                lineage = pending.lineages[i]
+                n_admitted = int(admitted[i])
+                slice_ = {
+                    "essence": essence_rows[i],
+                    "essence_first_pass": essence1_rows[i],
+                    "reliability_first_pass": rel1_vals[i],
+                    "reliability_second_pass": rel2_vals[i],
+                    "reliable": reliable_rows[i],
+                    "interval_valid": valid_flags[i],
+                    "admitted": n_admitted,
+                }
+                state.last_consensus = slice_
+                journal.emit(
+                    "fabric.consensus",
+                    lineage=lineage,
+                    claim=state.spec.claim_id,
+                    interval_valid=slice_["interval_valid"],
+                    admitted=n_admitted,
+                    n_reliable=int(n_reliable[i]),
+                    batch_claims=c,
+                    batch_bucket=bucket,
+                )
+                labels = {"claim": state.spec.claim_id}
+                self._metrics.counter(
+                    "claim_slots_inspected", labels=labels
+                ).add(n)
+                self._metrics.counter(
+                    "claim_slots_quarantined", labels=labels
+                ).add(n - n_admitted)
+                self._metrics.gauge(
+                    "claim_interval_valid", labels=labels
+                ).set(1.0 if slice_["interval_valid"] else 0.0)
+
+    def _commit_claim(self, state: ClaimState) -> None:
+        """One resilient commit + supervisor fold + SLO pass for one
+        claim; failures count into THAT claim's series only."""
+        session = state.session
+        labels = {"claim": state.spec.claim_id}
+        failed = None
+        outcome = None
+        try:
+            outcome = session.commit_resilient()
+        except DegenerateBlockError:
+            # Expected serving cold start (a first request-fed block
+            # has no oracle diversity yet): the chain write is deferred,
+            # not failed — no commit budget burned, no anomaly, and not
+            # a good commit either (``claim_commit_cycles`` counts only
+            # attempted chain writes).  The session already journaled
+            # ``commit.deferred`` on the block's lineage.
+            self._metrics.counter(
+                "claim_commit_deferred", labels=labels
+            ).add(1)
+            state.last_commit = {"deferred": True}
+            session.supervisor_step()
+            try:
+                state.evaluator.evaluate()
+            except Exception:
+                self._metrics.counter("slo_errors").add(1)
+            return
+        except (ChainCommitError, CircuitOpenError) as e:
+            # The commit path's EXPECTED failure classes: routine claim
+            # accounting (this claim's breaker/supervisor already saw
+            # them).
+            failed = type(e).__name__
+        except Exception as e:  # noqa: BLE001 — isolation contract
+            # Anything else is a defect surfacing per claim: it still
+            # must not starve the sibling claims, but it lands in the
+            # anomaly counter so it reads as a bug, not as SLO burn.
+            failed = f"{type(e).__name__}: {e}"
+            self._metrics.counter(
+                "fabric_claim_errors",
+                labels={"claim": state.spec.claim_id, "stage": "commit"},
+            ).add(1)
+        self._metrics.counter("claim_commit_cycles", labels=labels).add(1)
+        if failed is not None:
+            self._metrics.counter(
+                "claim_commit_failures", labels=labels
+            ).add(1)
+            state.last_commit = {"error": failed}
+        else:
+            if outcome.stranded:
+                # Degraded cycles burn the claim's commit budget just
+                # like the single-claim soak accounting.
+                self._metrics.counter(
+                    "claim_commit_failures", labels=labels
+                ).add(1)
+            state.last_commit = {
+                "sent": outcome.sent,
+                "total": outcome.total,
+                "attempts": outcome.attempts,
+                "stranded": len(outcome.stranded),
+                "complete": outcome.complete,
+            }
+        session.supervisor_step()
+        try:
+            state.evaluator.evaluate()
+        except Exception:
+            self._metrics.counter("slo_errors").add(1)

@@ -2,7 +2,8 @@
 
 Mirrors the parts of :mod:`svoc_tpu.ops.stats` that
 :func:`svoc_torch.consensus.kernel.consensus_step` and its gated forms
-call.  The second pass works on the full ``[N, M]`` block with a boolean
+call, and ``rank_array`` (``stats.py:153``), the ranking of the
+session's preview.  The second pass works on the full ``[N, M]`` block with a boolean
 mask, and masked rows sort as ``+inf`` so they can never enter a median.
 Every count is the mask's sum, a value known only at run time (the
 gated forms pass their ``ok`` and ``reliable`` masks); a smooth-median
@@ -115,3 +116,16 @@ def interval_ok(x: torch.Tensor) -> torch.Tensor:
     """Whether ``x`` lies in [0, 1] (the contract panics otherwise,
     ``math.cairo:294-296``); a 0-d bool tensor."""
     return torch.logical_and(torch.all(x >= 0.0), torch.all(x <= 1.0))
+
+
+def rank_array(scores: torch.Tensor):
+    """Deviation ranking used by the client UI (``oracle_scheduler.py:94-104``).
+
+    Returns ``(normalized_ranks, ranks)`` where the *smallest* deviation
+    gets the highest rank ``n-1`` and the largest deviation rank 0.  The
+    sort is stable with NaN last, as ``jnp.argsort``'s."""
+    n = scores.shape[0]
+    order = torch.argsort(scores, stable=True)  # ascending deviation
+    ranks = torch.empty(n, dtype=torch.int32, device=scores.device)
+    ranks[order] = torch.arange(n - 1, -1, -1, dtype=torch.int32, device=scores.device)
+    return ranks.to(torch.float32) / (n - 1), ranks

@@ -15,11 +15,11 @@ nan > inf > range > codec.
   function covers any leading shape, so the claim cube needs no vmap).
 - :class:`QuarantineGate` is the numpy host gate that reports reasons.
 
-The reference gate feeds the ``oracle_quarantine{reason=}`` metrics
-series and emits a ``quarantine.verdict`` journal event per counted
-inspection.  ``utils/metrics`` and ``utils/events`` are not ported yet:
-this gate keeps a plain :class:`collections.Counter` of reasons (and a
-count of slots inspected) and emits no event.
+As the reference's, a counted inspection feeds the
+``oracle_quarantine{reason=}`` and ``quarantine_slots_inspected``
+metrics series and emits one ``quarantine.verdict`` journal event; the
+gate also keeps a :class:`collections.Counter` of reasons and a count
+of slots inspected of its own.
 """
 
 from __future__ import annotations
@@ -34,6 +34,8 @@ import torch
 # The codec's bounds: the largest signed 128-bit integer, and the
 # largest real-unit magnitude the wsad/felt codec represents.
 from svoc_torch.ops.fixedpoint import I128_MAX, WSAD_LIMIT  # noqa: F401
+from svoc_torch.utils.events import resolve_journal
+from svoc_torch.utils.metrics import registry as _default_registry
 
 #: Quarantine reasons, in precedence order (first match wins).
 QUARANTINE_REASONS: Tuple[str, ...] = ("nan", "inf", "range", "codec")
@@ -155,16 +157,29 @@ class QuarantinedInputError(RuntimeError):
 class QuarantineGate:
     """Host gate: inspect → report → count.  ``reasons`` counts every
     quarantined slot of a counted inspection by reason;
-    ``slots_inspected`` counts the slots those inspections saw."""
+    ``slots_inspected`` counts the slots those inspections saw.
+    ``registry`` and ``journal`` default to the process's."""
 
-    def __init__(self, config: Optional[SanitizeConfig] = None):
+    def __init__(
+        self,
+        config: Optional[SanitizeConfig] = None,
+        registry=None,
+        journal=None,
+    ):
         self.config = config or SanitizeConfig()
         self.reasons: collections.Counter = collections.Counter()
         self.slots_inspected = 0
+        self._registry = registry
+        self._journal = journal
 
-    def inspect(self, values, *, count: bool = True) -> QuarantineReport:
+    def inspect(
+        self, values, *, count: bool = True, lineage: Optional[str] = None
+    ) -> QuarantineReport:
         """Classify every fleet slot of ``values [N, M]`` (numpy, or a
-        tensor on any device, which is brought to the host)."""
+        tensor on any device, which is brought to the host).  A counted
+        inspection (the once-per-fetch call) feeds the metrics and emits
+        the block's ``quarantine.verdict`` event tagged ``lineage``;
+        re-inspections of the same block pass ``count=False``."""
         if isinstance(values, torch.Tensor):
             values = values.detach().cpu().numpy()
         arr = np.asarray(values, dtype=np.float64)
@@ -178,8 +193,19 @@ class QuarantineGate:
                 reasons[slot] = reason
                 ok[slot] = False
         if count:
+            registry = self._registry or _default_registry
             self.reasons.update(reasons.values())
             self.slots_inspected += arr.shape[0]
+            for reason in reasons.values():
+                registry.counter("oracle_quarantine", labels={"reason": reason}).add(1)
+            registry.counter("quarantine_slots_inspected").add(arr.shape[0])
+            resolve_journal(self._journal).emit(
+                "quarantine.verdict",
+                lineage=lineage,
+                admitted=int(np.sum(ok)),
+                total=int(arr.shape[0]),
+                reasons={str(s): r for s, r in sorted(reasons.items())},
+            )
         return QuarantineReport(ok=ok, reasons=reasons)
 
     @staticmethod

@@ -11,8 +11,9 @@ cube.  The forward is the packed-flash one (the step sets
 flash-attention launches (ROBERTA_GO_EMOTIONS) and one launch of the
 gated claim-cube kernel per group.
 
-Admission and shedding, the result cache, latency accounting, SLOs, the
-chain commit and the journal are not ported yet (ROADMAP A10).
+Admission and shedding, the result cache, latency accounting, and the
+tier's SLOs, chain commits and journal events (over the claim fabric's
+``MultiSession``) are not ported yet (ROADMAP A10).
 """
 
 from __future__ import annotations

@@ -14,14 +14,12 @@ span, and the codec counts its saturations.
 Spans are timed around dispatch on the host and never synchronise the
 device.  Everything is thread-safe.
 
-Not ported with this core:
+The Tracer's JSONL file sink (``SVOC_TRACE_FILE`` or
+:meth:`Tracer.set_trace_file`) writes through
+:func:`svoc_torch.utils.events.shared_writer`, so spans and journal
+events rotate as one file.
 
-- the Tracer's JSONL file sink (``SVOC_TRACE_FILE`` or
-  :meth:`Tracer.set_trace_file`), which writes through
-  ``utils/events.py``'s shared rotating writer: ``events`` comes with
-  ROADMAP A9, and until then configuring a trace file raises
-  ``NotImplementedError``;
-- the compile listener, the runtime and MFU gauges and
+Not ported with this core: the compile listener, the runtime and MFU gauges and
   ``profile_trace`` (``metrics.py:756-974``), which read JAX's runtime
   (ROADMAP A10).
 """
@@ -38,13 +36,6 @@ import time
 from collections import deque
 from dataclasses import dataclass, field
 from typing import Any, Dict, Iterator, List, Optional, Tuple
-
-
-def _no_trace_file(path: str):
-    return NotImplementedError(
-        f"trace file {path!r}: the Tracer's JSONL sink writes through "
-        "utils/events.py, which is not ported yet (ROADMAP A9)"
-    )
 
 
 @dataclass
@@ -360,13 +351,18 @@ class Tracer:
     (lineage does NOT cross threads — producer threads pass it
     explicitly, e.g. ``PrefetchPipeline(lineage=...)``).
 
-    The reference's JSONL export (``SVOC_TRACE_FILE``) writes through
-    ``utils/events``' rotating writer; until that is ported (ROADMAP
-    A9) a configured trace file raises ``NotImplementedError`` rather
-    than drop spans silently.
+    Optional JSONL export: when a trace file is configured
+    (``SVOC_TRACE_FILE`` or :meth:`set_trace_file`) every completed
+    span is written as one JSON line through the shared size-capped
+    writer of :mod:`svoc_torch.utils.events` (``SVOC_TRACE_MAX_BYTES`` /
+    ``SVOC_TRACE_KEEP``), so spans and events land in one bounded
+    file.  Write failures are surfaced — the ``trace_write_errors``
+    counter plus a one-shot ``trace.write_error`` journal event — never
+    silently dropped.
     """
 
-    #: Env var consulted at every completion.
+    #: Env var consulted (per completion, so tests can monkeypatch it
+    #: after import) when no explicit trace file was configured.
     TRACE_ENV = "SVOC_TRACE_FILE"
 
     def __init__(self, registry: "MetricsRegistry" = None, capacity: int = 4096):
@@ -374,27 +370,29 @@ class Tracer:
         self._ring: deque = deque(maxlen=capacity)
         self._ids = itertools.count(1)
         self._local = threading.local()
-        self._lock = threading.Lock()  # the ring
+        self._lock = threading.Lock()  # ring + error latch
         self._trace_path: Optional[str] = None
+        self._trace_error = False
 
     # -- configuration ------------------------------------------------------
 
     def set_trace_file(self, path: Optional[str]) -> None:
-        """Clear (with None) the JSONL destination.  Pinning a path
-        raises ``NotImplementedError``: the sink needs ``utils/events``
-        (ROADMAP A9)."""
-        if path is not None:
-            raise _no_trace_file(path)
+        """Pin (or clear, with None) the JSONL destination, overriding
+        the env var.  The file opens lazily on the first completed span
+        and appends.  Clears the write-error latch so a repaired path
+        resumes export, and releases the previous destination's pooled
+        file handle."""
         with self._lock:
-            self._trace_path = None
+            old = self._resolve_path()
+            self._trace_path = path
+            self._trace_error = False
+        if old and old != path:
+            from svoc_torch.utils.events import release_writer
+
+            release_writer(old)
 
     def _resolve_path(self) -> Optional[str]:
-        """The configured trace file, which the port cannot write yet:
-        a path set through ``SVOC_TRACE_FILE`` raises."""
-        path = self._trace_path or os.environ.get(self.TRACE_ENV) or None
-        if path is not None:
-            raise _no_trace_file(path)
-        return None
+        return self._trace_path or os.environ.get(self.TRACE_ENV) or None
 
     # -- the span API -------------------------------------------------------
 
@@ -457,9 +455,34 @@ class Tracer:
             self._registry.histogram(
                 "stage_seconds", labels={"stage": record.name}
             ).observe(record.duration_s)
-        self._resolve_path()
+        path = self._resolve_path()
         with self._lock:
             self._ring.append(record)
+            if path is None:
+                self._trace_error = False
+                return
+            if self._trace_error:
+                return
+        try:
+            # Imported lazily: events.py imports this module at load time.
+            from svoc_torch.utils.events import shared_writer
+
+            shared_writer(path).write_line(record.to_json())
+        except (OSError, ValueError) as e:
+            # A bad path must never take down the pipeline, nor vanish:
+            # latch export off (until reconfigured), count the latch, and
+            # emit one event so the journal records why the trace went
+            # quiet.
+            with self._lock:
+                self._trace_error = True
+            reg = self._registry or registry
+            reg.counter("trace_write_errors").add(1)
+            try:
+                from svoc_torch.utils import events as _events
+
+                _events.journal.emit("trace.write_error", path=path, error=repr(e))
+            except Exception:
+                pass  # the journal's own export failing must not recurse
 
     def recent(self, n: Optional[int] = None) -> List[SpanRecord]:
         """The newest ``n`` spans (all buffered when ``n`` is None)."""
@@ -472,9 +495,13 @@ class Tracer:
             self._ring.clear()
 
     def flush(self) -> None:
-        """Nothing is buffered without a trace file (a configured one
-        raises, as in :meth:`_resolve_path`)."""
-        self._resolve_path()
+        """Flush the shared JSONL writer so every line is durable."""
+        path = self._resolve_path()
+        if path is None:
+            return
+        from svoc_torch.utils.events import shared_writer
+
+        shared_writer(path).flush()
 
 
 class MetricsRegistry:

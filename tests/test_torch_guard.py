@@ -59,7 +59,12 @@ def test_every_module_imports_without_jax_or_svoc_tpu():
                  "svoc_torch.ops.threefry", "svoc_torch.utils.rounding", "svoc_torch.ops.fixedpoint",
                  "svoc_torch.consensus.wsad_engine", "svoc_torch.consensus.state",
                  "svoc_torch.utils.metrics", "svoc_torch.durability.faultspace",
-                 "svoc_torch.io.deploy", "svoc_torch.io.chain"):
+                 "svoc_torch.io.deploy", "svoc_torch.io.chain",
+                 "svoc_torch.io.comment_store", "svoc_torch.utils.events",
+                 "svoc_torch.utils.slo", "svoc_torch.resilience.breaker",
+                 "svoc_torch.resilience.retry", "svoc_torch.resilience.supervisor",
+                 "svoc_torch.fabric.session", "svoc_torch.fabric.scenario",
+                 "svoc_torch.tools.fabric_smoke"):
         assert name in names
     code = (
         "import importlib, sys\n"
