@@ -117,6 +117,19 @@ Phases:
    0 flash launches and 1 fused-consensus launch a step; and on one
    shared set of 256 comments the per-comment vectors of the three
    variants agree (5e-3 in bf16).
+   Then (4d) the pipelined twin of 4b (``FlagshipStep.pipelined``, the
+   reference's default loop): 4b's step, comments, key chain and
+   overlapped feed; a priming forward of batch 0, eight steps each
+   running the forward of batch k on the caller's stream beside the
+   fleet and consensus of batch k-1 on the step's second stream, then
+   the drain. Its essences and second-pass reliabilities equal 4b's
+   overlapped run, step for step, one step later, bit for bit; 12 flash,
+   1 B2 and 8 threefry launches a step, 1 B2 and 7 threefry for the
+   drain; the side stream's path makes no host sync
+   (``torch.cuda.set_sync_debug_mode``). It prints the step and
+   comments/s on the wall clock beside 4b's, the forward's CUDA-event
+   time with the side stream busy, and one profiled step's idle share
+   beside 4b's (informational).
 5. The fine-tune step: first a small float32 step on the card against
    the same step on the CPU (one SGD(0.1) and one AdamW step, TINY_TEST,
    the same packed batch); then the training path at full width,
@@ -217,6 +230,31 @@ Phases:
    golden recompute panics; then, calibrated, 10 cycles of ``fetch``,
    ``commit_resilient`` and ``supervisor_step``, the chain state equal
    to the golden engine's after each, threefry 8 launches a fetch.
+10. The serving tier (``serving/*``, ``obsplane/*``). (a)
+   ``run_serving_scenario(0)`` (3 claims x 7 oracles, warm, overload and
+   recovery phases, the deterministic vectorizer) on the card, twice with
+   the cost plane on and twice with it off: the smoke's gates pass, and
+   the journal and per-claim fingerprints equal the same run's on the
+   CPU in this process and the JAX package's (the constants of
+   ``svoc_torch.tools.serving_smoke``); B3 once a serving step that
+   served a claim, threefry 8 times a claim served. (b) One
+   ``ServingTier`` over 64 claims x 7 oracles (2 failing), sanitised
+   dispatch and batched commits, the vectorizer one shared packed
+   ROBERTA_GO_EMOTIONS ``SentimentPipeline`` with flash attention and
+   bf16 weights (256 rows of 128 tokens, up to 8 comments a row), its
+   output layer calibrated (``calibrate_head``), the last claim tampered
+   on 9b's schedule. Each step submits 8 arrivals a claim (512), 35 %
+   from a hot pool of 10 texts, with ``max_requests_per_step`` 512 and
+   a queue that admits them all; one warm-up and ten timed steps on the
+   real clock. Checks: 12 flash launches for each 256-row chunk of the
+   cross-claim forward, exactly 1 claim-cube launch and 0 B2 a step;
+   every served claim's essence finite; cache hits; nothing shed or
+   dropped; the offender's injections refused and charged, no sibling
+   charged. It prints a step's split (assemble, vectorize with the
+   forward's CUDA-event time, the claims' fetch, the fabric consensus,
+   the commit plane), requests/s, the request latency's p50 and p99,
+   the cache hit rate, the ``packing_fill_ratio`` gauges and peak device
+   memory, and the comments vectorized a second beside 9b's.
 
 It then prints one JSON line of per-kernel numbers, the card's
 ``nvidia-smi`` name and power limit, and last
@@ -252,6 +290,13 @@ FORWARD_SPREAD = 0.05
 CLAIMS, ORACLES, REQUESTS_PER_CLAIM = 64, 1024, 8  # the multi-claim path
 CLAIM_STEPS, CLAIM_TIMED = 8, 5  # its steps, of which the last are timed
 FABRIC_CLAIMS, FABRIC_CYCLES = 64, 6  # phase 9b: bench.py --claims 64, 7 oracles each
+#: Phase 10b: claims, arrivals a claim a step, timed steps after one warm-up.
+SERVING_CLAIMS, SERVING_ARRIVALS, SERVING_STEPS = 64, 8, 10
+#: Phase 10b's request-latency target: a step serves every claim and
+#: commits its chain (9b's cycle took 0.98-1.32 s on an NVIDIA H100 80GB
+#: HBM3 at 700 W), so the reference's 0.25 s would shed the load it is
+#: there to measure.
+SERVING_LATENCY_TARGET_S = 5.0
 SESSION_CYCLES = 10  # phase 9c: the single-claim loop
 FIXED_STEPS = 10  # training steps on one fixed batch
 #: The fixed batch's last loss must be below this × its first (0.963
@@ -1403,6 +1448,7 @@ def main_path_phase(torch, launches):
         by the reference's chain: PRNGKey(0), then key = fold_in(key, s)."""
         key = prng.PRNGKey(0, "cuda")
         essences, rows_out = [], []
+        rel2s.clear()
         for i in range(1 + n_steps):
             for stage in split:
                 split[stage] = 0.0
@@ -1421,6 +1467,7 @@ def main_path_phase(torch, launches):
             essence = out.essence.cpu()  # fetched to the host: the step is done
             t2 = time.perf_counter()
             essences.append(tuple(essence.tolist()))
+            rel2s.append(out.reliability_second_pass.item())
             rows_out.append(dict(feed_ms=(t1 - t0) * 1e3, step_ms=(t2 - t1) * 1e3,
                                  source_ms=split["source"] * 1e3, tokenize_ms=split["tokenize"] * 1e3,
                                  pack_ms=split["pack"] * 1e3,
@@ -1429,6 +1476,7 @@ def main_path_phase(torch, launches):
         return essences, rows_out, (window, out, honest)
 
     counted = (flash_attention_cuda, fused_consensus_cuda, threefry_cuda, flash_dq_cuda, flash_dkv_cuda)
+    rel2s = []
     torch.cuda.synchronize()
     for wrapper in counted:
         wrapper.launches = 0
@@ -1499,8 +1547,9 @@ def main_path_phase(torch, launches):
     print("  overlapped per step: " + json.dumps(rows_run))
     batch, _ = next(feed)
     key = prng.PRNGKey(0, "cuda")
-    profile_one_step(torch, lambda: step(batch, key)[0].essence.cpu())
+    profiled = profile_one_step(torch, lambda: step(batch, key)[0].essence.cpu())
     feed.close()
+    return dict(step=step, essences=essences, rel2=list(rel2s), rows=rows_run[1:], profiled=profiled)
 
 
 @phase("4c. the packed and dense flagship variants at full width")
@@ -1589,6 +1638,133 @@ def variants_phase(torch, launches):
           f"256 shared comments, per-comment vectors in bf16: max differences {diffs} <= {VARIANT_BAR}")
 
 
+@phase("4d. the pipelined flagship step at full width")
+def pipelined_phase(torch, launches, serving):
+    """4b's step, comments and key chain, and the overlapped feed, run
+    pipelined (``FlagshipStep.pipelined``): one priming forward, then
+    OVERLAP_STEPS steps, each the forward of batch k beside the fleet and
+    consensus of batch k-1 on the step's second stream, then the drain."""
+    import warnings
+
+    from svoc_torch.io.scraper import SyntheticSource
+    from svoc_torch.ops.flash_attention import flash_attention_cuda
+    from svoc_torch.ops.fused_consensus import fused_consensus_cuda
+    from svoc_torch.ops.threefry import threefry_cuda
+    from svoc_torch.sim import prng
+
+    if not check(serving is not None, "phase 4b ran (its essences are this phase's reference)"):
+        return
+    step = serving["step"]
+    n_layers = step.pipe.cfg.n_layers
+    counted = (flash_attention_cuda, fused_consensus_cuda, threefry_cuda)
+    # CUDA events around the forward inside the pipelined step, on the
+    # caller's stream while the side stream runs the fleet and consensus.
+    forward_ev = []
+    window_of = step.window
+
+    def timed_window(batch):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        out = window_of(batch)
+        ev[1].record()
+        forward_ev.append(ev)
+        return out
+
+    step.window = timed_window
+    feed = step.comments(SyntheticSource(batch=step.rows, seed=0))
+    try:
+        torch.cuda.synchronize()
+        for wrapper in counted:
+            wrapper.launches = 0
+        key = prng.fold_in(prng.PRNGKey(0, "cuda"), 0)
+        batch, _ = next(feed)
+        window, prev_key = step.window(batch), key  # the priming forward of batch 0
+        essences, rel2s, rows, per_step = [], [], [], []
+        for i in range(1, 1 + OVERLAP_STEPS):
+            before = [w.launches for w in counted]
+            t0 = time.perf_counter()
+            batch, n_comments = next(feed)
+            t1 = time.perf_counter()
+            key = prng.fold_in(key, i)
+            window_next, out, _ = step.pipelined(batch, prev_key, window)
+            essence = out.essence.cpu()  # batch i-1's, on the host: the step is done
+            t2 = time.perf_counter()
+            essences.append(tuple(essence.tolist()))
+            rel2s.append(out.reliability_second_pass.item())
+            per_step.append([w.launches - b for w, b in zip(counted, before)])
+            rows.append(dict(feed_ms=(t1 - t0) * 1e3, step_ms=(t2 - t1) * 1e3,
+                             forward_ms=forward_ev[-1][0].elapsed_time(forward_ev[-1][1]),
+                             comments=n_comments))
+            window, prev_key = window_next, key
+        before = [w.launches for w in counted]
+        out, _ = step.drain(prev_key, window)
+        essences.append(tuple(out.essence.cpu().tolist()))
+        rel2s.append(out.reliability_second_pass.item())
+        drained = [w.launches - b for w, b in zip(counted, before)]
+        counts = [w.launches for w in counted]
+        for name, n in zip(("flash_attention", "fused_consensus", "threefry"), counts):
+            launches[name] = launches.get(name, 0) + n
+
+        check(all(c == [n_layers, 1, 8] for c in per_step) and drained == [0, 1, 7],
+              f"launches a pipelined step (flash, B2, threefry) {per_step[0]} == [{n_layers}, 1, 8] in "
+              f"all {OVERLAP_STEPS} steps, the drain {drained} == [0, 1, 7]; in all {counts}")
+        check(essences == serving["essences"] and rel2s == serving["rel2"],
+              f"{len(essences)} essences and second-pass reliabilities == 4b's overlapped run, "
+              f"step for step, one step later, bit for bit")
+
+        # The side stream's path makes no host sync: any sync would put
+        # the two streams back in one line.
+        def syncs(fn):
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.synchronize()
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    fn()
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+            # Setting the mode also warns that it is a prototype: not a sync.
+            return [str(w.message) for w in caught if "called a synchronizing" in str(w.message)]
+
+        def side():
+            with torch.cuda.stream(step._side):
+                step.drain(prev_key, window)
+
+        side_syncs = syncs(side)
+        check(not side_syncs, f"the fleet and consensus on the side stream make {len(side_syncs)} host "
+                              f"syncs == 0 {[m[:80] for m in side_syncs]}")
+        whole = syncs(lambda: step.pipelined(batch, prev_key, window))
+        print(f"  host syncs in one whole pipelined step (informational): {len(whole)}")
+        try:  # where the caller's stream syncs (informational)
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            step.pipelined(batch, prev_key, window)
+        except RuntimeError:
+            frames = [f for f in traceback.extract_tb(sys.exc_info()[2]) if "svoc_torch" in f.filename]
+            print("  the first sync: " + " <- ".join(f"{Path(f.filename).name}:{f.lineno} {f.line}"
+                                                      for f in reversed(frames[-3:])))
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+        card = nvidia_smi()
+        mean = lambda rs, k: sum(r[k] for r in rs) / len(rs)  # noqa: E731
+        for name, rs in (("4b overlapped, unpipelined", serving["rows"]), ("4d pipelined", rows)):
+            n_comments = sum(r["comments"] for r in rs)
+            wall_s = sum(r["feed_ms"] + r["step_ms"] for r in rs) / 1e3
+            print(f"  [{card}] {name}, {len(rs)} timed steps: step {mean(rs, 'step_ms'):.3f} ms "
+                  f"(forward {mean(rs, 'forward_ms'):.3f} ms by CUDA events), feed wait "
+                  f"{mean(rs, 'feed_ms'):.3f} ms; {n_comments / wall_s:.1f} comments/s on the wall "
+                  f"clock, {n_comments / (sum(r['step_ms'] for r in rs) / 1e3):.1f} over the step")
+        print("  pipelined per step: " + json.dumps(rows))
+        profiled = profile_one_step(torch, lambda: step.pipelined(batch, prev_key, window)[1].essence.cpu())
+        idle = lambda p: f"{p['idle']:.3f} of {p['wall_ms']:.3f} ms" if p else "not measured"  # noqa: E731
+        print(f"  [{card}] profiled step's idle share (informational): pipelined {idle(profiled)}, "
+              f"4b's unpipelined {idle(serving['profiled'])}")
+    finally:
+        feed.close()
+        del step.window  # back to the method
+
+
 def profile_one_step(torch, run):
     """One more step, ``run()`` (which ends by fetching its result to the
     host), under ``torch.profiler``: device busy time, idle share within
@@ -1614,9 +1790,11 @@ def profile_one_step(torch, run):
               f"{busy_ms:.3f} ms, idle share {1 - busy_ms / wall_ms:.3f}")
         for e in sorted(kernels, key=device_us, reverse=True)[:12]:
             print(f"    {device_us(e) / 1e3:9.3f} ms  x{e.count:<4d} {e.key[:100]}")
+        return dict(wall_ms=wall_ms, busy_ms=busy_ms, idle=1 - busy_ms / wall_ms)
     except Exception:  # the profiler is an observation, not a check
         traceback.print_exc()
         print("  profile unavailable (informational, not a check)")
+        return None
 
 
 def train_batch(torch, batch, n_comments, rng, n_labels, device):
@@ -2612,6 +2790,8 @@ def fabric_width_phase(torch, launches):
               f"{r['peak'] / 2**20:.1f} MiB", flush=True)
     print(f"  [{card}] the group's consensus at [64, 7, 6]: dispatch_group {group_ms:.4f} ms, "
           f"B3 alone {b3_ms:.4f} ms (CUDA events, 50 calls)")
+    return dict(comments_per_s=[FABRIC_CYCLES * FABRIC_CLAIMS * 30 / r["stages"]["vectorize"]
+                                for r in (first, second)])
 
 
 @phase("9c. the single-claim loop: fetch, commit_resilient, supervisor_step")
@@ -2666,6 +2846,233 @@ def session_loop_phase(torch, launches):
           f"outcomes {outcomes}; journal {session.journal.last_seq()} events")
 
 
+@phase("10a. the serving tier: the seeded scenario on the card")
+def serving_scenario_phase(torch, launches):
+    from svoc_torch.ops.flash_attention import flash_attention_cuda
+    from svoc_torch.ops.fused_consensus import fused_consensus_cuda, fused_consensus_gated_claims_cuda
+    from svoc_torch.ops.threefry import threefry_cuda
+    from svoc_torch.serving.scenario import run_serving_scenario
+    from svoc_torch.tools.serving_smoke import checks, reference_mismatches
+    from svoc_torch.utils.events import EventJournal
+
+    card = nvidia_smi()
+    counted = {"gated_claims_consensus": fused_consensus_gated_claims_cuda, "threefry": threefry_cuda,
+               "flash_attention": flash_attention_cuda, "fused_consensus": fused_consensus_cuda}
+    keys = ("journal_fingerprint", "journal_events", "per_claim_fingerprints")
+    for plane in ("on", "off"):
+        cpu = run_serving_scenario(0, cost_plane=plane, device="cpu")
+        runs = []
+        for _ in range(2):
+            journal = EventJournal()
+            torch.cuda.synchronize()
+            for wrapper in counted.values():
+                wrapper.launches = 0
+            t0 = time.perf_counter()
+            result = run_serving_scenario(0, cost_plane=plane, journal=journal)  # device=None: CUDA
+            secs = time.perf_counter() - t0
+            counts = {k: w.launches for k, w in counted.items()}
+            for k in ("gated_claims_consensus", "threefry"):
+                launches[k] = launches.get(k, 0) + counts[k]
+            served = [e.data["served"] for e in journal.recent(100_000) if e.type == "serving.step"]
+            want = dict(gated_claims_consensus=sum(n > 0 for n in served), flash_attention=0,
+                        fused_consensus=0)
+            print(f"  [{card}] scenario (plane {plane}): {secs:.3f} s, {result['steps']} steps, "
+                  f"launches {counts}, {result['journal_events']} events, shed "
+                  f"{result['shed_by_reason']}, cache {result['cache']['hit_rate']:.3f}", flush=True)
+            # 8 threefry launches a claim's fetch, 6 when its window holds one
+            # request (a permutation of one row draws nothing, as JAX's).
+            check({k: counts[k] for k in want} == want
+                  and 6 * sum(served) <= counts["threefry"] <= 8 * sum(served),
+                  f"plane {plane}: B3 once a step that served a claim, threefry 6-8 a claim served "
+                  f"({sum(served)}): {counts}")
+            runs.append(result)
+        gates = checks(*runs)
+        check(all(gates.values()), f"plane {plane}: the serving smoke's gates {gates}")
+        mismatch = reference_mismatches(runs[0])
+        check(all(r[k] == cpu[k] for r in runs for k in keys) and not mismatch,
+              f"plane {plane}: two card runs' journal and per-claim fingerprints == the CPU run's "
+              f"in this process and the JAX package's (mismatches {mismatch})")
+        check(runs[0]["cost_plane"].enabled == (plane == "on"), f"the cost plane is {plane}")
+
+
+@phase("10b. the serving tier at full width: 64 claims x 7 oracles, one packed flash forward a step")
+def serving_width_phase(torch, launches, fabric):
+    import collections
+    import dataclasses
+
+    import numpy as np
+
+    from svoc_torch.fabric import ClaimSpec, MultiSession
+    from svoc_torch.fabric.scenario import _claim_names, _injection_schedule
+    from svoc_torch.io.scraper import SyntheticSource
+    from svoc_torch.models.configs import ROBERTA_GO_EMOTIONS
+    from svoc_torch.models.sentiment import SentimentPipeline
+    from svoc_torch.ops.flash_attention import flash_attention_cuda
+    from svoc_torch.ops.fused_consensus import fused_consensus_cuda, fused_consensus_gated_claims_cuda
+    from svoc_torch.ops.threefry import threefry_cuda
+    from svoc_torch.serving.frontend import AdmissionConfig
+    from svoc_torch.serving.tier import ServingTier
+    from svoc_torch.utils.events import EventJournal
+    from svoc_torch.utils.metrics import MetricsRegistry
+    from svoc_torch.utils.metrics import registry as process_registry
+    from svoc_torch.utils.slo import serving_slos
+
+    card = nvidia_smi()
+    names = _claim_names(SERVING_CLAIMS)
+    offender = names[-1]
+    kinds = _injection_schedule(0, offender, 1 + SERVING_STEPS)
+    pipe = SentimentPipeline(dataclasses.replace(ROBERTA_GO_EMOTIONS, attention="flash"), seq_len=128,
+                             batch_size=256, params_dtype=torch.bfloat16, packed=True, max_segments=8,
+                             device="cuda")
+    scale = calibrate_head(torch, pipe)
+    print(f"  vectorizer: {pipe.cfg.n_layers} layers, hidden {pipe.cfg.hidden}, attention "
+          f"{pipe.cfg.attention}, bf16, 256 rows x 128 tokens, head calibrated (scale {scale:.3f}); "
+          f"injections {kinds}")
+    # The forward's CUDA events and the host's assemble and vectorize times.
+    forward_ev, host = [], collections.defaultdict(float)
+    packed_forward = pipe.packed_forward
+
+    def timed_forward(*arrays):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        out = packed_forward(*arrays)
+        ev[1].record()
+        forward_ev.append(ev)
+        return out
+
+    pipe.packed_forward = timed_forward
+    journal, metrics = EventJournal(capacity=1 << 17), MetricsRegistry()  # every event of the run
+    multi = MultiSession(base_seed=0, vectorizer=pipe, journal=journal, metrics=metrics,
+                         lineage_scope="srv", sanitized_dispatch=True,
+                         max_claims_per_batch=SERVING_CLAIMS)  # device=None: CUDA
+    tamper = fabric_tamper(kinds, 6)
+    for cid in names:
+        multi.add_claim(ClaimSpec(claim_id=cid, tamper=tamper if cid == offender else None))
+    tier = ServingTier(multi, vectorizer=pipe, admission=AdmissionConfig(queue_capacity=64),
+                       max_requests_per_step=SERVING_CLAIMS * SERVING_ARRIVALS,
+                       slos=serving_slos(metrics, latency_target_s=SERVING_LATENCY_TARGET_S))
+
+    def timed(name, fn):
+        def run(*args):
+            t0 = time.perf_counter()
+            out = fn(*args)
+            host[name] += time.perf_counter() - t0
+            if name == "vectorize":
+                host["unique"] += len({r.digest for r in args[0]})
+            return out
+        return run
+
+    tier.batcher.assemble = timed("assemble", tier.batcher.assemble)
+    tier.batcher.vectorize_requests = timed("vectorize", tier.batcher.vectorize_requests)
+
+    rng = np.random.default_rng(11)
+    pool = SyntheticSource(batch=10, seed=777)()
+    fresh = iter(SyntheticSource(batch=SERVING_CLAIMS * SERVING_ARRIVALS * (1 + SERVING_STEPS), seed=778)())
+    counted = {"flash_attention": flash_attention_cuda, "gated_claims_consensus": fused_consensus_gated_claims_cuda,
+               "fused_consensus": fused_consensus_cuda, "threefry": threefry_cuda}
+    stages = ("fetch", "fleet", "consensus", "fabric_consensus")
+    rows, latencies, finite, statuses = [], [], True, collections.Counter()
+    torch.cuda.synchronize()
+    for wrapper in counted.values():
+        wrapper.launches = 0
+    for i in range(1 + SERVING_STEPS):
+        if i == 1:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for cid in names:
+            for _ in range(SERVING_ARRIVALS):
+                text = pool[int(rng.integers(0, len(pool)))] if rng.random() < 0.35 else next(fresh)
+                statuses[tier.submit(cid, text)["status"]] += 1
+        t1 = time.perf_counter()
+        before = {k: w.launches for k, w in counted.items()}
+        st0, forward_ev[:], host_before = stage_seconds(), [], dict(host)
+        span0 = {s: process_registry.histogram("stage_seconds", labels={"stage": s}).sum for s in stages}
+        report = tier.step()
+        t2 = time.perf_counter()
+        counts = {k: w.launches - before[k] for k, w in counted.items()}
+        spans = {s: process_registry.histogram("stage_seconds", labels={"stage": s}).sum - span0[s]
+                 for s in stages}
+        st = diff(stage_seconds(), st0)
+        for cid in report["served"]:
+            finite &= bool(np.isfinite(multi.get(cid).last_consensus["essence"]).all())
+        lat = np.asarray(report["latencies_s"])
+        if i:
+            latencies.extend(report["latencies_s"])
+        rows.append(dict(
+            submit_ms=(t1 - t0) * 1e3, step_ms=(t2 - t1) * 1e3,
+            assemble_ms=(host["assemble"] - host_before.get("assemble", 0.0)) * 1e3,
+            vectorize_ms=(host["vectorize"] - host_before.get("vectorize", 0.0)) * 1e3,
+            forward_ms=sum(a.elapsed_time(b) for a, b in forward_ev), forwards=len(forward_ev),
+            unique=host["unique"] - host_before.get("unique", 0.0),
+            fetch_ms=spans["fetch"] * 1e3, fleet_ms=spans["fleet"] * 1e3,
+            fabric_consensus_ms=spans["fabric_consensus"] * 1e3, commit_ms=st.get("commit", 0.0) * 1e3,
+            requests=report["requests"], served=len(report["served"]), dropped=report["dropped"],
+            p50_ms=float(np.percentile(lat, 50)) * 1e3 if lat.size else None,
+            p99_ms=float(np.percentile(lat, 99)) * 1e3 if lat.size else None,
+            fill={k: process_registry.gauge("packing_fill_ratio", labels={"kind": k}).get()
+                  for k in ("segments", "tokens")},
+            launches=counts,
+        ))
+    peak = torch.cuda.max_memory_allocated()
+    pipe.packed_forward = packed_forward
+    total = {k: w.launches for k, w in counted.items()}
+    for k in ("flash_attention", "gated_claims_consensus", "threefry"):
+        launches[k] = launches.get(k, 0) + total[k]
+    n_layers = pipe.cfg.n_layers
+    timed_rows = rows[1:]
+    check(all(r["forwards"] >= 1 and r["launches"] == dict(
+        flash_attention=n_layers * r["forwards"], gated_claims_consensus=1, fused_consensus=0,
+        threefry=8 * r["served"]) for r in rows),
+        f"every step: {n_layers} flash launches a 256-row chunk, 1 claim-cube, 0 B2, threefry 8 a "
+        f"claim served (step 1: {rows[1]['forwards']} chunk(s), {rows[1]['launches']})")
+    check(all(r["served"] == SERVING_CLAIMS for r in rows) and finite,
+          f"every step served {SERVING_CLAIMS} claims, every served claim's essence finite")
+    shed, dropped = metrics.family_total("serving_shed"), metrics.family_total("serving_dropped")
+    cache = tier.cache.stats()
+    check(cache["hits"] > 0 and shed == 0 and dropped == 0,
+          f"cache hits {cache['hits']:g} > 0, nothing shed ({shed:g}) or dropped ({dropped:g}); "
+          f"submissions {dict(statuses)}")
+    state = multi.get(offender)
+    session = state.session
+
+    def family(s, etype):
+        return journal.recent(type=etype, lineage_prefix=s.lineage_prefix + "-")
+
+    injected = sum(k is not None for k in kinds[:state.cycles])
+    refused = [e for e in family(session, "quarantine.verdict") if e.data.get("reasons")]
+    check(injected > 0 and len(refused) == injected and len(family(session, "supervisor.charge")) == injected,
+          f"offender {offender}: {injected} injections over its {state.cycles} cycles, {len(refused)} "
+          f"refusing verdicts and {len(family(session, 'supervisor.charge'))} charges")
+    poisoned = [c for c in names[:-1] if any(e.data.get("reasons") for e in family(multi.get(c).session,
+                                                                                  "quarantine.verdict"))
+                or family(multi.get(c).session, "supervisor.charge")]
+    check(not poisoned, f"{SERVING_CLAIMS - 1} siblings: no refusing verdict, no quarantine charge: {poisoned}")
+
+    mean = lambda k: sum(r[k] for r in timed_rows) / len(timed_rows)  # noqa: E731
+    step_s = sum(r["step_ms"] for r in timed_rows) / 1e3
+    wall_s = step_s + sum(r["submit_ms"] for r in timed_rows) / 1e3
+    requests = sum(r["requests"] for r in timed_rows)
+    vec_s = sum(r["vectorize_ms"] for r in timed_rows) / 1e3
+    unique = sum(r["unique"] for r in timed_rows)
+    print(f"  [{card}] {len(timed_rows)} timed steps: step {mean('step_ms'):.3f} ms (assemble "
+          f"{mean('assemble_ms'):.3f}, vectorize {mean('vectorize_ms'):.3f} of which the forward "
+          f"{mean('forward_ms'):.3f} by CUDA events in {mean('forwards'):.1f} chunk(s), the claims' "
+          f"fetch {mean('fetch_ms'):.3f} (fleet {mean('fleet_ms'):.3f}), fabric consensus "
+          f"{mean('fabric_consensus_ms'):.3f}, commit plane {mean('commit_ms'):.3f}), submit "
+          f"{mean('submit_ms'):.3f} ms; {requests / step_s:.1f} requests/s over the step, "
+          f"{requests / wall_s:.1f} with the submits; request latency over the timed steps p50 "
+          f"{np.percentile(latencies, 50) * 1e3:.3f} ms, p99 {np.percentile(latencies, 99) * 1e3:.3f} "
+          f"ms; cache hit rate "
+          f"{cache['hit_rate']:.3f}; fill ratios {timed_rows[-1]['fill']}; peak memory "
+          f"{peak / 2**20:.1f} MiB", flush=True)
+    nine_b = fabric["comments_per_s"] if fabric else "not measured"
+    print(f"  [{card}] comments vectorized a second: {unique / vec_s:.1f} unique texts "
+          f"({requests / vec_s:.1f} requests) through one cross-claim forward a step, beside 9b's "
+          f"per-claim forwards {nine_b}")
+    print("  serving per step: " + json.dumps(rows))
+
+
 def main() -> int:
     try:
         import torch
@@ -2698,8 +3105,9 @@ def main() -> int:
         gated_claims_phase(torch, results)
         threefry_phase(torch, results)
         small_step_phase(torch)
-        main_path_phase(torch, launches)
+        serving_main = main_path_phase(torch, launches)
         variants_phase(torch, launches)
+        pipelined_phase(torch, launches, serving_main)
         serving = dict(launches)
         small_train_phase(torch)
         train_path_phase(torch, launches)
@@ -2711,11 +3119,15 @@ def main() -> int:
         commit_path_phase(torch, launches)
         committed = dict(launches)
         fabric_scenario_phase(torch, launches)
-        fabric_width_phase(torch, launches)
+        fabric = fabric_width_phase(torch, launches)
         session_loop_phase(torch, launches)
+        fabricked = dict(launches)
+        serving_scenario_phase(torch, launches)
+        serving_width_phase(torch, launches, fabric)
         print(f"  launches: serving paths {serving}; with the train path {trained}; "
               f"with the multi-claim path {claimed}; with the probe path {probed}; "
-              f"with the commit path {committed}; with the fabric paths {launches}")
+              f"with the commit path {committed}; with the fabric paths {fabricked}; "
+              f"with the serving tier {launches}")
     check(all(launches.get(name, 0) > 0 for name in KERNEL_ROWS),
           f"every kernel launched on its path: { {k: launches.get(k, 0) for k in KERNEL_ROWS} }")
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "svoc_tpu"))

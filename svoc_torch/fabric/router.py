@@ -28,18 +28,25 @@ One claim's Byzantine offender, dead chain, or burning error budget
 stays in that claim's fleet, breaker, and SLO — sibling claims share
 only the device dispatch.
 
-Not ported here: the claim mesh (``mesh=``, ROADMAP A12), the
+Every dispatch is counted cold or warm under
+``consensus_dispatch{warmth=}`` by its
+:class:`~svoc_torch.compile.universe.CompileKey` (``router.py:721-768``),
+and, when the serving tier sets ``cost_plane``, its host seconds feed the
+cost ledger and its claims get the ``h2d``, ``dispatched``, ``synced``
+and ``committed`` timeline marks (``router.py:553-558, 628-698,
+815-850``).  Neither reaches the journal, so the fingerprints do not
+change.  Not ported here: the claim mesh (``mesh=``, ROADMAP A12), the
 device-resident staging (``device_resident=True``, A12), and the
 compile plane's prewarmer (``warmup_mode="prewarm"``,
-:meth:`ClaimRouter.attach_prewarmer`, A10): each raises
-``NotImplementedError``.  ``cost_plane`` stays None until the
-observability plane comes (A10).  There is no ``consensus_impl``
+:meth:`ClaimRouter.attach_prewarmer`, the ``prewarmed`` warmth; A10b):
+each raises ``NotImplementedError``.  There is no ``consensus_impl``
 routing: the route follows the device.
 """
 
 from __future__ import annotations
 
 import threading
+import time
 from collections import deque
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -47,6 +54,7 @@ import numpy as np
 import torch
 
 from svoc_torch.apps.session import DegenerateBlockError, EmptyStoreError
+from svoc_torch.compile.universe import dispatch_key
 from svoc_torch.consensus.batch import (
     _no_impl_routing,
     claims_consensus_gated,
@@ -109,14 +117,23 @@ class _PendingGroup:
     time, so the pipelined write-back one cycle later journals against
     the RIGHT blocks even after the sessions fetched new ones."""
 
-    __slots__ = ("members", "out", "ok", "bucket", "lineages")
+    __slots__ = ("members", "out", "ok", "bucket", "lineages", "warmth_key", "warmth",
+                 "h2d_s", "dispatch_s")
 
-    def __init__(self, members, out, ok, bucket, lineages):
+    def __init__(self, members, out, ok, bucket, lineages, warmth_key=None, warmth="warm",
+                 h2d_s=0.0, dispatch_s=0.0):
         self.members = members
         self.out = out
         self.ok = ok
         self.bucket = bucket
         self.lineages = lineages
+        #: The dispatch's CompileKey and warmth, kept for the cost
+        #: ledger (None when the plane is off), and its measured host
+        #: seconds so far.
+        self.warmth_key = warmth_key
+        self.warmth = warmth
+        self.h2d_s = h2d_s
+        self.dispatch_s = dispatch_s
 
 
 class ClaimRouter:
@@ -157,15 +174,28 @@ class ClaimRouter:
         if warmup_mode not in (None, "none"):
             raise NotImplementedError(
                 f"warmup_mode={warmup_mode!r}: the compile plane's prewarm is not "
-                "ported yet (ROADMAP A10)"
+                "ported yet (ROADMAP A10b)"
             )
         self.registry = registry
         self.max_claims_per_batch = max_claims_per_batch
         self.device = resolve_device(device)
         self._metrics = metrics or _default_registry
         self._journal = journal
-        #: The serving tier's cost-attribution plane (ROADMAP A10).
+        #: The serving tier's cost-attribution plane
+        #: (:class:`~svoc_torch.obsplane.plane.CostPlane`); None: no
+        #: cost accounting.
         self.cost_plane = None
+        #: The compile plane's prewarm worker (ROADMAP A10b): always None.
+        self.prewarmer = None
+        self.warmup_mode = "none"
+        self.mesh_spec = None
+        #: The route of every claim-cube dispatch, read only: one kernel
+        #: launch on CUDA, the plain forms on the CPU.
+        self.consensus_impl = "cuda" if self.device.type == "cuda" else "plain"
+        #: CompileKeys dispatched at least once (the cold/warm boundary
+        #: of ``consensus_dispatch{warmth=}``), and each cube shape's key.
+        self._warmth_seen: set = set()
+        self._warmth_keys: Dict[Any, Any] = {}
         #: Double-buffered dispatch: the claim-cube consensus for cycle
         #: k-1 runs on the device while the host fetches (and commits)
         #: cycle k — its write-back (state.last_consensus,
@@ -384,8 +414,12 @@ class ClaimRouter:
                     self._finish_group(self._dispatch_group(members, cfg))
 
         # ---- commit + supervise + SLO, claim by claim ----
+        plane = self.cost_plane
+        track = plane is not None and plane.enabled
         for state in fetched:
             self._commit_claim(state)
+            if track:
+                plane.claim_mark([state.spec.claim_id], "committed")
             state.cycles += 1
             report["served"].append(state.spec.claim_id)
             report["claims"][state.spec.claim_id] = {
@@ -420,20 +454,63 @@ class ClaimRouter:
                 )
             cube = np.stack([np.asarray(b, dtype=np.float32) for b in blocks])
             ok = np.stack(oks)
+        bucket = pow2_bucket(len(members))
+        warmth_key, warmth = self._account_warmth(bucket, cube.shape[1], cube.shape[2], cfg)
+        # Cost plane: host perf_counter windows around the copy and the
+        # dispatch feed the ledger; the claims' marks ride the plane's
+        # (the tier's) clock.  Off, the path is the plane-less one.
+        plane = self.cost_plane
+        track = plane is not None and plane.enabled
+        claim_ids = [s.spec.claim_id for s in members] if track else None
+        t_start = time.perf_counter() if track else 0.0
         with stage_span("fabric_h2d"):
             values_dev = torch.from_numpy(cube).to(self.device)
             ok_dev = None if self.sanitized_dispatch else torch.from_numpy(ok).to(self.device)
+        h2d_s = dispatch_s = 0.0
+        if track:
+            h2d_s = time.perf_counter() - t_start
+            plane.claim_mark(claim_ids, "h2d")
         with stage_span("fabric_dispatch"):
             out, ok_out = dispatch_group(
                 values_dev, ok_dev, cfg, sanitized=self.sanitized_dispatch
             )
+        if track:
+            dispatch_s = max(0.0, time.perf_counter() - t_start - h2d_s)
+            plane.claim_mark(claim_ids, "dispatched")
+        # Seen only once the dispatch returned: a raising dispatch
+        # counts cold again on its retry.
+        self._warmth_seen.add(warmth_key)
         # The journaled batch_bucket is the pow2 bucket of the group.
-        return _PendingGroup(members, out, ok_out, pow2_bucket(len(members)), lineages)
+        return _PendingGroup(members, out, ok_out, bucket, lineages,
+                             warmth_key=warmth_key if track else None, warmth=warmth,
+                             h2d_s=h2d_s, dispatch_s=dispatch_s)
+
+    def _account_warmth(self, bucket: int, n: int, m: int, cfg):
+        """Count this dispatch ``cold`` (the first of its CompileKey in
+        this process) or ``warm`` (every repeat) under
+        ``consensus_dispatch{warmth=}``; returns ``(key, warmth)``.  The
+        caller marks the key seen once the dispatch returned.  On CUDA a
+        cold dispatch pays the kernel module's load, where the
+        reference's pays a compile.  The reference's ``prewarmed``
+        warmth needs the prewarm worker (ROADMAP A10b).  Metrics only:
+        the journal never sees warmth."""
+        shape_key = (bucket, n, m, cfg)
+        key = self._warmth_keys.get(shape_key)
+        if key is None:
+            key = dispatch_key(
+                sanitized=self.sanitized_dispatch, sharded=False, bucket=bucket,
+                n_oracles=n, dimension=m, cfg=cfg, donate=False,
+                impl=self.consensus_impl, mesh=None,
+            )
+            self._warmth_keys[shape_key] = key
+        warmth = "warm" if key in self._warmth_seen else "cold"
+        self._metrics.counter("consensus_dispatch", labels={"warmth": warmth}).add(1)
+        return key, warmth
 
     def attach_prewarmer(self, worker) -> None:
-        """The compile plane's prewarm worker (ROADMAP A10)."""
+        """The compile plane's prewarm worker (ROADMAP A10b)."""
         raise NotImplementedError(
-            "the compile plane's prewarmer is not ported yet (ROADMAP A10)"
+            "the compile plane's prewarmer is not ported yet (ROADMAP A10b)"
         )
 
     def _finish_group(self, pending: _PendingGroup) -> None:
@@ -443,6 +520,9 @@ class ClaimRouter:
         out = pending.out
         c = len(members)
         n, m = out.reliable.shape[1], out.essence.shape[1]
+        plane = self.cost_plane
+        track = plane is not None and plane.enabled and pending.warmth_key is not None
+        t_sync = time.perf_counter() if track else 0.0
         with stage_span("fabric_sync"):
             # ONE host copy for the whole micro-batch: every field the
             # write-back reads, as float32 columns (the masks as exact
@@ -466,6 +546,16 @@ class ClaimRouter:
             )
             rel1, rel2, valid = rel1[:, 0], rel2[:, 0], valid[:, 0] > 0
             reliable, oks = reliable > 0, oks > 0
+        if track:
+            # The dispatch's whole host cost lands in the ledger here, one
+            # fold a group, under the warmth it was counted at.
+            sync_s = time.perf_counter() - t_sync
+            plane.claim_mark([s.spec.claim_id for s in members], "synced")
+            plane.observe_dispatch(
+                pending.warmth_key, pending.warmth,
+                pending.h2d_s + pending.dispatch_s + sync_s,
+                breakdown={"h2d": pending.h2d_s, "dispatch": pending.dispatch_s, "sync": sync_s},
+            )
         journal = self._resolve_journal()
         bucket = pending.bucket
         with stage_span("fabric_journal"):

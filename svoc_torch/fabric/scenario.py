@@ -4,7 +4,7 @@ Mirrors :mod:`svoc_tpu.fabric.scenario` (``scenario.py:1-242``):
 :func:`run_fabric_scenario`, :func:`deterministic_vectorizer` and
 :func:`_injection_schedule`.  ``device=None`` means CUDA (raising
 without a card); ``mesh``, ``device_resident=True`` and
-``warmup=True`` raise ``NotImplementedError`` (ROADMAP A12, A12, A10).
+``warmup=True`` raise ``NotImplementedError`` (ROADMAP A12, A12, A10b).
 
 N claims (default 4 × 7 oracles) multiplexed through one
 :class:`~svoc_torch.fabric.session.MultiSession`; the LAST claim carries
@@ -121,7 +121,7 @@ def run_fabric_scenario(
     if warmup:
         raise NotImplementedError(
             "warmup=True: the compile plane's prewarm is not ported yet "
-            "(ROADMAP A10)"
+            "(ROADMAP A10b)"
         )
     if n_claims < 2:
         raise ValueError("isolation needs at least one sibling claim")

@@ -3,7 +3,7 @@
 Mirrors :mod:`svoc_tpu.fabric.session` (``session.py:1-380``).  The
 port's ``MultiSession(device=None)`` resolves its device once (CUDA,
 raising without a card) and hands it to every claim's ``Session`` and to
-the router.  ``start_prewarm`` (the compile plane, ROADMAP A10) and
+the router.  ``start_prewarm`` (the compile plane, ROADMAP A10b) and
 ``attach(console)`` (``apps/commands.py``, A12) raise
 ``NotImplementedError``; ``mesh``, ``device_resident`` and a prewarm
 ``warmup_mode`` raise in the router.
@@ -277,7 +277,7 @@ class MultiSession:
         (``svoc_tpu/fabric/session.py:272-322``), not ported yet."""
         raise NotImplementedError(
             "start_prewarm: the compile plane (compile/prewarm.py) is not "
-            "ported yet (ROADMAP A10)"
+            "ported yet (ROADMAP A10b)"
         )
 
     # -- views ---------------------------------------------------------------

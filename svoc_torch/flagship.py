@@ -21,7 +21,21 @@ the source, the tokenizer and the packer run in a worker process
 holds no GIL the launching thread waits for; the unpacked feed
 tokenizes there too.  The fleet's key chain is the reference's:
 ``PRNGKey(0)``, then ``key = fold_in(key, step)`` (``bench.py:2051``).
-The pipelined twin (``bench.py:719, 1946``) is not ported yet.
+
+The pipelined twin (:meth:`FlagshipStep.pipelined` and
+:meth:`FlagshipStep.drain`) mirrors the reference's default loop
+(``pipelined_step``, ``bench.py:1939-1957``, the loop at ``:2030-2078``
+and the body of ``fleet_consensus_body``, ``:1916-1935``): the fleet and
+consensus of batch k−1 run beside the forward of batch k, and after the
+loop a drain runs the last batch's.  The key that rides with a window is
+the key chained at that window's own step, so the per-batch outputs are
+``__call__``'s, one step later, key for key.  On CUDA the fleet and
+consensus go to a second stream, made once per step object, while the
+forward runs on the caller's; nothing on that path reads a value back to
+the host, so the two streams overlap on the device.  On the CPU it is
+the same code with no second stream.  The mesh forms of the reference's
+library (``parallel/serving.py:237, 275``) wait for the multi-GPU port
+(ROADMAP A12).
 """
 
 from __future__ import annotations
@@ -173,6 +187,8 @@ class FlagshipStep:
         self.window_size = min(window_size, rows)
         self.subset_size = subset_size
         self.ccfg = ConsensusConfig(n_failing=max(2, n_oracles // 8), constrained=True)
+        #: The stream :meth:`pipelined` runs the fleet and consensus on.
+        self._side = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
 
     def comments(self, source: Callable[[], List[str]]):
         """The host feed of this step's shape and layout from ``source``
@@ -224,3 +240,31 @@ class FlagshipStep:
         reference's step ``s`` uses ``key = fold_in(key, s)`` on the key
         of the step before, from ``PRNGKey(0)``."""
         return self.consensus(self.window(batch), self.draws(key))
+
+    def drain(self, key: torch.Tensor, window: torch.Tensor):
+        """The consensus of the pipeline's last window, drawn from the
+        key chained at its step (``bench.py:2074-2078``): ``(output,
+        honest)``."""
+        return self.consensus(window, self.draws(key))
+
+    def pipelined(self, batch: "PackedBatch | TokenBatch", key: torch.Tensor,
+                  window: torch.Tensor):
+        """One pipelined step: the forward of ``batch`` (step k) beside
+        the fleet and consensus of the window of step k−1, drawn from
+        ``key``, the key chained at step k−1.  Returns ``(window_k,
+        output_{k-1}, honest_{k-1})``; every tensor is ready for use on
+        the caller's stream."""
+        if self.device.type != "cuda":
+            out, honest = self.drain(key, window)
+            return self.window(batch), out, honest
+        main, side = torch.cuda.current_stream(self.device), self._side
+        side.wait_stream(main)  # the window and key were made on the caller's stream
+        with torch.cuda.stream(side):
+            out, honest = self.drain(key, window)
+        for t in (key, window):
+            t.record_stream(side)  # not reused before the side stream is done with them
+        new_window = self.window(batch)
+        main.wait_stream(side)
+        for t in (*out, honest):
+            t.record_stream(main)  # made on the side stream, read on the caller's
+        return new_window, out, honest

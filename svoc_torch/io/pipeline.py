@@ -28,6 +28,10 @@ them so much that the forward's device time grew fivefold on an H100
 (``chip_smoke.py`` phase 4b, PERF.md §6).  In its own process the feed
 takes no GIL from the launching thread; only the copy stage stays on a
 thread here.
+
+:func:`window_source` is the fetch loop's read stage over a
+:class:`~svoc_torch.io.comment_store.CommentStore`
+(``pipeline.py:197-210``).
 """
 
 from __future__ import annotations
@@ -38,7 +42,7 @@ import queue
 import threading
 import time
 import traceback
-from typing import Callable, Iterable, NamedTuple, Optional, Tuple
+from typing import Callable, Iterable, Iterator, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -333,3 +337,21 @@ def worker_stream(factory: Callable[..., Iterable], *args, depth: int = 4):
         proc.join()
         items.close()
         items.cancel_join_thread()
+
+
+def window_source(
+    store, *, window: int, limit: int, max_windows: Optional[int] = None
+) -> Iterator[Sequence[str]]:
+    """Circular comment windows from a
+    :class:`~svoc_torch.io.comment_store.CommentStore` (the fetch loop's
+    read stage, as a pipeline source): ``store.read_window`` from
+    position 0 on, until the store is empty or ``max_windows`` were
+    yielded."""
+    position = 0
+    count = 0
+    while max_windows is None or count < max_windows:
+        comments, _dates, position = store.read_window(position, window, limit)
+        if not comments:
+            return
+        yield comments
+        count += 1

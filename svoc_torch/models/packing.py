@@ -2,8 +2,8 @@
 
 Mirrors :mod:`svoc_tpu.models.packing` (``PackedBatch``,
 ``strip_padding``, ``pack_tokens``, ``pack_labels``,
-``fill_ratios``, ``pack_tokens_auto``, ``PackedSentimentEncoder``;
-``packing.py:55-165, 183-285``).  :func:`pack_tokens` is the Python
+``fill_ratios``, ``observe_fill_ratios``, ``pack_tokens_auto``,
+``PackedSentimentEncoder``; ``packing.py:55-285``).  :func:`pack_tokens` is the Python
 greedy next-fit packer and gives arrays identical to the reference's for
 the same token lists; it is the plain version of the native C++ packer
 (:mod:`svoc_torch.runtime`, ROADMAP A6), to which :func:`pack_tokens_auto`
@@ -125,6 +125,19 @@ def fill_ratios(batch: PackedBatch) -> dict:
         "segments": round(segments_used / float(max(r * s, 1)), 6),
         "tokens": round(real_tokens / float(max(r * t, 1)), 6),
     }
+
+
+def observe_fill_ratios(batch: PackedBatch, registry=None) -> dict:
+    """:func:`fill_ratios` plus the ``packing_fill_ratio{kind=}`` gauges
+    (``kind`` ``segments`` and ``tokens``) that every pack-path caller
+    (``SentimentPipeline.call_packed``, so the serving batcher) exports
+    into ``registry`` (the process registry when None)."""
+    if registry is None:
+        from svoc_torch.utils.metrics import registry as registry
+    ratios = fill_ratios(batch)
+    for kind in ("segments", "tokens"):
+        registry.gauge("packing_fill_ratio", labels={"kind": kind}).set(ratios[kind])
+    return ratios
 
 
 def pack_tokens_auto(

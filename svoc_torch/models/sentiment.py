@@ -22,7 +22,7 @@ from svoc_torch.device import resolve_device
 from svoc_torch.models.configs import ROBERTA_GO_EMOTIONS, EncoderConfig
 from svoc_torch.models.encoder import ATTENTIONS, init_params, load_encoder
 from svoc_torch.models.forward import resolve_forward
-from svoc_torch.models.packing import pack_tokens_auto, strip_padding
+from svoc_torch.models.packing import observe_fill_ratios, pack_tokens_auto, strip_padding
 from svoc_torch.models.tokenizer import load_tokenizer
 
 #: The 28 go_emotions labels in model-head order.
@@ -166,6 +166,9 @@ class SentimentPipeline:
         batch, n = pack_tokens_auto(
             strip_padding(ids, mask), self.seq_len, max_segments, self.tokenizer.pad_id
         )
+        # The packing_fill_ratio{kind=} gauges: how much of the segment
+        # and token headroom this pack used (sentiment.py:286).
+        observe_fill_ratios(batch)
         if n != len(texts):
             raise RuntimeError(f"packer consumed {n}/{len(texts)} without a row cap")
         out = np.zeros((len(texts), self.dimension), dtype=np.float64)

@@ -15,9 +15,16 @@ rank clipped into ``[0, N)`` that lands on a masked row reads the
   ``mode="cairo"`` keeps that; ``mode="true"`` is the proper median.
 - Skewness and kurtosis are the bias-corrected sample versions
   (``math.cairo:320-363``); variance is the biased mean of squares.
-- A mask selects: a masked row adds an exact 0 even where its value is
-  not finite, as the reference's product with a boolean mask (a select
-  in XLA) does.
+- What a masked row adds follows what XLA runs for the reference
+  (``stats.py:90-107``, a convert and a multiply in its jaxpr).  The
+  component-wise mean and variance multiply ``[N, M]`` by the broadcast
+  mask, so a masked row adds ``value * 0``: NaN where its value is not
+  finite.  The scalar mean's ``[N] * mask`` has no broadcast, and XLA's
+  algebraic simplifier turns ``x * convert(mask)`` into a select there:
+  a masked row adds an exact 0.  Skewness and kurtosis select, as the
+  reference's ``jnp.where`` does.  The gated forms reduce a block whose
+  non-finite entries are already zeroed, where multiply and select agree
+  bit for bit.
 """
 
 from __future__ import annotations
@@ -72,7 +79,7 @@ def _count(mask: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
 def masked_mean(values: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """Component-wise mean over unmasked rows (``math.cairo:240-269``)."""
     m = _count(mask, values.dtype)
-    return torch.where(mask[:, None], values, 0.0).sum(dim=0) / torch.clamp(m, min=1.0)
+    return (values * mask.to(values.dtype)[:, None]).sum(dim=0) / torch.clamp(m, min=1.0)
 
 
 def masked_scalar_mean(values: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -85,7 +92,7 @@ def masked_component_variance(
     values: torch.Tensor, mask: torch.Tensor, center: torch.Tensor
 ) -> torch.Tensor:
     """Biased per-component variance about ``center`` (``math.cairo:208-222``)."""
-    d = torch.where(mask[:, None], values - center[None, :], 0.0)
+    d = (values - center[None, :]) * mask.to(values.dtype)[:, None]
     m = _count(mask, values.dtype)
     return torch.sum(d * d, dim=0) / torch.clamp(m, min=1.0)
 

@@ -1,8 +1,34 @@
-"""The multi-claim serving step: the device half of one serving cycle.
+"""The serving tier: submit → micro-batch → fabric → respond, and the
+device half of one multi-claim serving step.
 
-Mirrors the device path of
+:class:`ServingTier` mirrors :class:`svoc_tpu.serving.tier.ServingTier`
+(``tier.py:45-521``), the reference's request path in front of the claim
+fabric:
+
+- :meth:`ServingTier.submit` is the ingestion edge: cache, admission and
+  bounded queues (:class:`~svoc_torch.serving.frontend.ServingFrontend`).
+- :meth:`ServingTier.step` is one continuous-batching cycle: the
+  :class:`~svoc_torch.serving.batcher.MicroBatcher` assembles a fair
+  cross-claim micro-batch, one packed forward vectorizes every cache
+  miss, the results fill the dedup cache, and the per-claim vector groups
+  feed the request-fed fabric cycle (``MultiSession.step(feeds=...)``:
+  the sanitised claim-cube consensus, then each claim's resilient
+  commit).  Completion observes each request's latency into
+  ``request_latency_seconds``, whose SLO's burn rate closes the
+  admission loop.
+- The clock is injectable: seeded scenarios
+  (:mod:`svoc_torch.serving.scenario`) drive virtual time, so latencies,
+  burn rates and shed decisions replay byte for byte.
+
+The tier owns no thread (``run_loop`` is the daemon-thread convenience).
+Its ``prewarmer`` stays None until the compile plane (ROADMAP A10b): a
+cold gate with no worker defers nothing, as in the reference;
+``attach(console)`` waits for the console (A12).
+
+:class:`ClaimServingStep` mirrors the device path of
 :meth:`svoc_tpu.serving.tier.ServingTier._step_inner`
-(``tier.py:197-300``) in the router's ``sanitized_dispatch`` mode:
+(``tier.py:197-300``) in the router's ``sanitized_dispatch`` mode, at
+the flagship's shape and with the fleets drawn in one batched pass:
 assembled requests → one cross-claim packed forward → per-claim vector
 groups → each claim's rolling request window and bootstrap fleet → one
 gate-and-consensus dispatch per shape/config group over the padded claim
@@ -10,16 +36,14 @@ cube.  The forward is the packed-flash one (the step sets
 ``cfg.attention = "flash"`` itself), so on CUDA that is 12
 flash-attention launches (ROBERTA_GO_EMOTIONS) and one launch of the
 gated claim-cube kernel per group.
-
-Admission and shedding, the result cache, latency accounting, and the
-tier's SLOs, chain commits and journal events (over the claim fabric's
-``MultiSession``) are not ported yet (ROADMAP A10).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
+import threading
+import time
+from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -31,9 +55,15 @@ from svoc_torch.fabric.router import dispatch_group
 from svoc_torch.models.configs import ROBERTA_GO_EMOTIONS, EncoderConfig
 from svoc_torch.models.packing import PackedBatch, pack_tokens_auto, strip_padding
 from svoc_torch.models.sentiment import SentimentPipeline
-from svoc_torch.serving.batcher import Request
+from svoc_torch.obsplane.plane import resolve_cost_plane
+from svoc_torch.serving.batcher import MicroBatcher, Request
+from svoc_torch.serving.cache import ResultCache
+from svoc_torch.serving.frontend import AdmissionConfig, ServingFrontend
 from svoc_torch.sim import prng
 from svoc_torch.sim.generators import claim_seed
+from svoc_torch.utils.events import resolve_journal
+from svoc_torch.utils.metrics import stage_span
+from svoc_torch.utils.slo import REQUEST_LATENCY_HISTOGRAM, SLOEvaluator, serving_slos
 
 
 class ClaimGroup(NamedTuple):
@@ -223,3 +253,322 @@ class ClaimServingStep:
             return []
         vectors = self.forward(self.pack(requests))
         return self.consensus(self.fleets(requests, vectors))
+
+
+class ServingTier:
+    """Continuous-batching serving over a
+    :class:`~svoc_torch.fabric.session.MultiSession`.
+
+    ``vectorizer`` is the cross-claim vectorizer (None: the first claim
+    session's, built on demand).  ``cost_plane`` resolves once here: the
+    argument, then ``SVOC_COST_PLANE``, then the committed decision; the
+    router shares the plane for its dispatch costs."""
+
+    def __init__(
+        self,
+        multi,
+        *,
+        vectorizer=None,
+        admission: Optional[AdmissionConfig] = None,
+        cache: Optional[ResultCache] = None,
+        cache_capacity: int = 4096,
+        max_requests_per_step: int = 64,
+        max_segments: int = 8,
+        clock=None,
+        slos: Optional[Sequence] = None,
+        slo_clock=None,
+        prewarmer=None,
+        cost_plane=None,
+    ):
+        if prewarmer is not None:
+            raise NotImplementedError(
+                "prewarmer: the compile plane's prewarm worker is not ported yet (ROADMAP A10b)"
+            )
+        self.multi = multi
+        self._metrics = multi.metrics
+        self._journal = resolve_journal(multi.journal)
+        self._clock = clock if clock is not None else time.monotonic
+        if cache is None:
+            cache = ResultCache(cache_capacity, metrics=self._metrics)
+        self.cost_plane = (
+            cost_plane if cost_plane is not None
+            else resolve_cost_plane(clock=self._clock, metrics=self._metrics)
+        )
+        self.multi.router.cost_plane = self.cost_plane
+        self.frontend = ServingFrontend(
+            multi, admission=admission, cache=cache, metrics=self._metrics,
+            journal=self._journal, clock=self._clock, cold_gate=self._claim_cold,
+            cost_plane=self.cost_plane,
+        )
+        self._vectorizer = vectorizer
+        self.batcher = MicroBatcher(self.frontend, vectorizer, max_requests=max_requests_per_step,
+                                    max_segments=max_segments, metrics=self._metrics)
+        #: The serving SLOs (request_latency drives admission), on the
+        #: tier's clock unless ``slo_clock`` says otherwise.
+        self._evaluator = SLOEvaluator(
+            slos if slos is not None else serving_slos(self._metrics),
+            registry=self._metrics,
+            journal=self._journal,
+            clock=slo_clock if slo_clock is not None else self._clock,
+        )
+        self.steps = 0
+        #: End-of-step hooks, called with the step report once every
+        #: request is accounted; an exception is counted
+        #: (``serving_hook_errors``) and never stops serving.
+        self.post_step_hooks: List[Any] = []
+        self._loop_thread: Optional[threading.Thread] = None
+        self._loop_stop: Optional[threading.Event] = None
+
+    @property
+    def cache(self) -> ResultCache:
+        return self.frontend.cache
+
+    @property
+    def prewarmer(self):
+        """The prewarm worker: the router's, None in the port."""
+        return self.multi.router.prewarmer
+
+    def _claim_cold(self, claim_id: str) -> bool:
+        """The frontend's cold-shape gate: no worker defers nothing."""
+        worker = self.prewarmer
+        if worker is None or not worker.active:
+            return False
+        return worker.claim_cold(self.multi.get(claim_id).spec)
+
+    def _resolve_vectorizer(self):
+        if self._vectorizer is None:
+            states = self.multi.registry.states()
+            if not states:
+                raise RuntimeError("serving tier has no claims to serve")
+            self._vectorizer = states[0].session.vectorizer
+            self.batcher.vectorizer = self._vectorizer
+        return self._vectorizer
+
+    # -- the ingestion edge ---------------------------------------------------
+
+    def submit(self, claim_id: str, text: str) -> Dict[str, Any]:
+        """One request through cache and admission.  The claim is looked
+        up first (``KeyError`` for an unknown one), so no counter is made
+        for an arbitrary client string."""
+        state = self.multi.get(claim_id)
+        self._metrics.counter("serving_submitted", labels={"claim": claim_id}).add(1)
+        return self.frontend.submit(claim_id, text, state=state)
+
+    # -- the continuous-batching cycle ----------------------------------------
+
+    def step(self) -> Dict[str, Any]:
+        """One serving cycle; returns the step report (requests drained,
+        claims fed, the fabric's served and skipped claims, dropped
+        requests, completion latencies)."""
+        report = self._step_inner()
+        for hook in list(self.post_step_hooks):
+            try:
+                hook(report)
+            except Exception:  # noqa: BLE001 — a hook must not stop serving
+                self._metrics.counter("serving_hook_errors").add(1)
+        return report
+
+    def _step_inner(self) -> Dict[str, Any]:
+        self.steps += 1
+        plane = self.cost_plane
+        report: Dict[str, Any] = {"step": self.steps, "requests": 0, "claims": 0, "served": [],
+                                  "skipped": {}, "dropped": 0, "latencies_s": []}
+        with stage_span("serving_step"):
+            dropped = self._purge_removed_claims()
+            report["dropped"] = dropped
+            requests = self.batcher.assemble()
+            if not requests:
+                # An idle tick still refreshes the burn gauges.
+                self._evaluator.evaluate()
+                return report
+            plane.mark_requests(requests, "assembled")
+            self._resolve_vectorizer()
+            drained = len(requests)
+            # Every drained request ends this step completed or dropped,
+            # even when the step raises: `pending` holds the ones not yet
+            # accounted, and the handler below drops them.
+            pending = set(requests)
+
+            def drop(request) -> None:
+                nonlocal dropped
+                self._metrics.counter("serving_dropped", labels={"claim": request.claim}).add(1)
+                plane.complete(request, self._clock(), outcome="dropped")
+                pending.discard(request)
+                dropped += 1
+
+            try:
+                with stage_span("serving_batch"):
+                    try:
+                        vectors = self.batcher.vectorize_requests(requests)
+                    except Exception:  # noqa: BLE001 — counted below, then per request
+                        vectors = None
+                if vectors is None:
+                    # One poisoned text must not lose the whole micro-batch:
+                    # vectorize request by request and drop only those
+                    # that fail.
+                    self._metrics.counter("serving_vectorize_errors").add(1)
+                    survivors: List[Any] = []
+                    vecs: List[np.ndarray] = []
+                    for request in requests:
+                        try:
+                            vecs.append(self.batcher.vectorize([request.text])[0])
+                            survivors.append(request)
+                        except Exception:  # noqa: BLE001 — drop() accounts it
+                            drop(request)
+                    requests, vectors = survivors, vecs
+                plane.mark_requests(requests, "vectorized")
+                for request, vector in zip(requests, vectors):
+                    request.vector = np.asarray(vector, dtype=np.float64)
+                    self.cache.put(request.key, request.vector)
+                if requests:
+                    feeds = self.batcher.group_by_claim(requests)
+                    fabric_report = self.multi.step(feeds=feeds)
+                else:
+                    feeds = {}
+                    fabric_report = {"served": [], "skipped": {}}
+                served_claims = set(fabric_report["served"])
+                now = self._clock()
+                latencies: List[float] = []
+                for request in requests:
+                    if request.claim not in served_claims:
+                        # The fabric skipped the claim (paused, malformed
+                        # feed, fetch error): its requests did not
+                        # complete, and count against serving_admission.
+                        drop(request)
+                        continue
+                    latency = max(0.0, now - request.t_submit)
+                    latencies.append(latency)
+                    self._metrics.histogram(REQUEST_LATENCY_HISTOGRAM).observe(latency)
+                    self._metrics.counter("serving_completed", labels={"claim": request.claim}).add(1)
+                    # Closed at the same `now` the histogram saw: the
+                    # stages sum to the observed latency.
+                    plane.complete(request, now)
+                    pending.discard(request)
+            except BaseException:
+                for request in list(pending):
+                    drop(request)
+                raise
+            finally:
+                plane.end_step()
+            report.update(requests=drained, claims=len(feeds), served=fabric_report["served"],
+                          skipped=fabric_report["skipped"], dropped=dropped,
+                          latencies_s=latencies)
+            # Counts only: deterministic under a virtual clock.
+            self._journal.emit("serving.step", step=self.steps, requests=drained,
+                               claims=len(feeds), served=len(fabric_report["served"]))
+            self._evaluator.evaluate()
+        return report
+
+    def _purge_removed_claims(self) -> int:
+        """Purge the queues of claims that left the fabric and count every
+        stranded request as dropped."""
+        live = set(self.multi.claim_ids())
+        n = 0
+        for cid in [c for c in self.frontend.depths() if c not in live]:
+            for request in self.frontend.purge(cid):
+                self._metrics.counter("serving_dropped", labels={"claim": request.claim}).add(1)
+                n += 1
+        return n
+
+    # -- the graceful drain ----------------------------------------------------
+
+    def drain(self, max_steps: int = 16) -> Dict[str, Any]:
+        """Stop admission (new misses shed with ``reason="draining"``),
+        run up to ``max_steps`` cycles over the admitted queues, then
+        purge what is left, each request journaled as
+        ``serving.deferred{reason="draining"}``: every admitted request
+        ends answered or deferred.  Idempotent."""
+        self.frontend.set_draining(True)
+        deferred = 0
+
+        def defer(request) -> None:
+            nonlocal deferred
+            self._metrics.counter("serving_dropped", labels={"claim": request.claim}).add(1)
+            self._journal.emit("serving.deferred", lineage=request.lineage, claim=request.claim,
+                               seq=request.seq, reason="draining")
+            deferred += 1
+
+        # Paused claims first: the flush cannot serve them.
+        for state in self.multi.registry.states():
+            if state.paused:
+                for request in self.frontend.purge(state.spec.claim_id):
+                    defer(request)
+        flushed_steps = 0
+        while flushed_steps < max_steps and any(self.frontend.depths().values()):
+            self.step()
+            flushed_steps += 1
+        for cid in list(self.frontend.depths()):
+            for request in self.frontend.purge(cid):
+                defer(request)
+        return {"flush_steps": flushed_steps, "deferred": deferred,
+                "queues_empty": not any(self.frontend.depths().values())}
+
+    def serving_state_dict(self) -> Dict[str, Any]:
+        """The tier's durable slice: queued requests, seq cursors and the
+        step cursor."""
+        return {"steps": self.steps, **self.frontend.state_dict()}
+
+    def restore_serving_state(self, state: Dict[str, Any]) -> int:
+        self.steps = max(self.steps, int(state.get("steps", 0)))
+        return self.frontend.restore_state(state)
+
+    # -- the background loop ---------------------------------------------------
+
+    def run_loop(self, period_s: float = 0.05) -> threading.Event:
+        """Drive :meth:`step` on a daemon thread every ``period_s``;
+        returns the stop event.  A live loop is reused.  A raising step is
+        counted (``serving_step_errors``) and the loop goes on."""
+        if self._loop_thread is not None and self._loop_thread.is_alive():
+            return self._loop_stop
+        stop = threading.Event()
+
+        def loop():
+            while not stop.is_set():
+                try:
+                    self.step()
+                except Exception:  # noqa: BLE001 — counted, the loop goes on
+                    self._metrics.counter("serving_step_errors").add(1)
+                stop.wait(period_s)
+
+        self._loop_stop = stop
+        self._loop_thread = threading.Thread(target=loop, daemon=True)
+        self._loop_thread.start()
+        return stop
+
+    def stop_loop(self) -> None:
+        if self._loop_stop is not None:
+            self._loop_stop.set()
+
+    # -- views ------------------------------------------------------------------
+
+    def slo_snapshot(self) -> Dict[str, Any]:
+        """Evaluate the serving SLOs."""
+        return self._evaluator.evaluate()
+
+    def snapshot(self) -> Dict[str, Any]:
+        """Queues, admission counts, cache, latency and costs."""
+        reg = self._metrics
+        router = self.multi.router
+        return {
+            "steps": self.steps,
+            "consensus_impl": router.consensus_impl,
+            "mesh": router.mesh_spec,
+            "warmup_mode": router.warmup_mode,
+            "prewarm": self.prewarmer.stats() if self.prewarmer is not None else None,
+            "deferred": reg.family_total("serving_deferred"),
+            "queues": self.frontend.depths(),
+            "submitted": reg.family_total("serving_submitted"),
+            "admitted": reg.family_total("serving_admitted"),
+            "cached": reg.family_total("serving_cached"),
+            "shed": reg.family_total("serving_shed"),
+            "completed": reg.family_total("serving_completed"),
+            "dropped": reg.family_total("serving_dropped"),
+            "cache": self.cache.stats(),
+            "burn_rate": self.frontend.controller.burn_rate(),
+            "latency": reg.histogram(REQUEST_LATENCY_HISTOGRAM).snapshot(),
+            "costs": self.cost_plane.snapshot(),
+        }
+
+    def attach(self, console) -> None:
+        """The console (``apps/commands.py``) is not ported yet (ROADMAP A12)."""
+        raise NotImplementedError("attach(console): the console is not ported yet (ROADMAP A12)")

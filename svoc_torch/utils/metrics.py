@@ -21,7 +21,7 @@ events rotate as one file.
 
 Not ported with this core: the compile listener, the runtime and MFU gauges and
   ``profile_trace`` (``metrics.py:756-974``), which read JAX's runtime
-  (ROADMAP A10).
+  (ROADMAP A10b).
 """
 
 from __future__ import annotations

@@ -1,8 +1,7 @@
 """Declarative SLOs evaluated as multi-window burn rates.
 
-Mirrors :mod:`svoc_tpu.utils.slo` (``slo.py:1-479``) but for the serving
-tier's and the fleet plane's objectives (``serving_slos``, ``fleet_slos``),
-which come with ROADMAP A10 and A11.
+Mirrors :mod:`svoc_tpu.utils.slo` (``slo.py:1-479``) but for the fleet
+plane's objectives (``fleet_slos``), which come with ROADMAP A11.
 
 An SLO here is a **good/total ratio objective** (the SRE-workbook
 shape): commit success ratio, the fraction of ``consensus`` stage
@@ -197,6 +196,66 @@ def claim_slos(
             description=f"claim {claim}: fleet slots admitted by the gate",
             objective=admission_objective,
             sample=admission_sample,
+        ),
+    ]
+
+
+#: The histogram family the serving tier observes end-to-end request
+#: latency (submit → completed consensus) into: the ``request_latency``
+#: SLO below reads it (``slo.py:149``).
+REQUEST_LATENCY_HISTOGRAM = "request_latency_seconds"
+
+
+def serving_slos(
+    registry: Optional[MetricsRegistry] = None,
+    *,
+    latency_objective: float = 0.99,
+    latency_target_s: float = 0.25,
+    admission_objective: float = 0.95,
+    fast_window_s: float = 300.0,
+    slow_window_s: float = 3600.0,
+) -> List[SLODefinition]:
+    """The serving tier's objectives (``slo.py:152-218``):
+
+    - ``request_latency``: at least 99 % of completed requests finish
+      within the latency target (a cumulative-bucket ratio over
+      :data:`REQUEST_LATENCY_HISTOGRAM`).  The admission controller
+      reads its fast burn rate and sheds above a threshold.
+    - ``serving_admission``: at least 95 % of submitted requests are
+      served (admitted or answered from the cache) rather than shed;
+      admitted requests that were dropped count against it.
+
+    The windows are arguments because seeded scenarios run in virtual
+    seconds and need the burn to react within the run."""
+    reg = registry or _default_registry
+
+    def latency_sample() -> Tuple[float, float]:
+        return _bucket_ratio(reg.histogram(REQUEST_LATENCY_HISTOGRAM), latency_target_s)
+
+    def admission_sample() -> Tuple[float, float]:
+        served = float(reg.family_total("serving_admitted")) + float(
+            reg.family_total("serving_cached")
+        )
+        shed = float(reg.family_total("serving_shed"))
+        dropped = float(reg.family_total("serving_dropped"))
+        return max(0.0, served - dropped), served + shed
+
+    return [
+        SLODefinition(
+            name="request_latency",
+            description=f"serving requests completed within {latency_target_s * 1e3:.0f} ms",
+            objective=latency_objective,
+            sample=latency_sample,
+            fast_window_s=fast_window_s,
+            slow_window_s=slow_window_s,
+        ),
+        SLODefinition(
+            name="serving_admission",
+            description="submitted requests served rather than shed",
+            objective=admission_objective,
+            sample=admission_sample,
+            fast_window_s=fast_window_s,
+            slow_window_s=slow_window_s,
         ),
     ]
 

@@ -64,7 +64,12 @@ def test_every_module_imports_without_jax_or_svoc_tpu():
                  "svoc_torch.utils.slo", "svoc_torch.resilience.breaker",
                  "svoc_torch.resilience.retry", "svoc_torch.resilience.supervisor",
                  "svoc_torch.fabric.session", "svoc_torch.fabric.scenario",
-                 "svoc_torch.tools.fabric_smoke"):
+                 "svoc_torch.tools.fabric_smoke", "svoc_torch.obsplane",
+                 "svoc_torch.obsplane.timeline", "svoc_torch.obsplane.ledger",
+                 "svoc_torch.obsplane.plane", "svoc_torch.compile",
+                 "svoc_torch.compile.universe", "svoc_torch.serving",
+                 "svoc_torch.serving.cache", "svoc_torch.serving.frontend",
+                 "svoc_torch.serving.scenario", "svoc_torch.tools.serving_smoke"):
         assert name in names
     code = (
         "import importlib, sys\n"
@@ -87,11 +92,18 @@ def test_no_source_mentions_jax_imports():
 
 
 def test_default_device_raises_without_cuda(monkeypatch):
+    from svoc_torch.serving.scenario import run_serving_scenario
+    from svoc_torch.tools import serving_smoke
+
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         resolve_device(None)
     with pytest.raises(RuntimeError, match="CUDA"):
         FlagshipStep()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_serving_scenario(0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serving_smoke.main([])
     assert resolve_device("cpu") == torch.device("cpu")
 
 
