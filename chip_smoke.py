@@ -255,6 +255,36 @@ Phases:
    the commit plane), requests/s, the request latency's p50 and p99,
    the cache hit rate, the ``packing_fill_ratio`` gauges and peak device
    memory, and the comments vectorized a second beside 9b's.
+11. The durability plane (``durability/*``, ``resilience/{faults,chaos}.py``,
+   ``utils/{checkpoint,postmortem}.py``). (a) ``run_chaos_scenario(4)``
+   twice: the chaos smoke's checks and the JAX package's fingerprint
+   (host work). (b) ``svoc_torch.tools.crash_smoke`` with every child on
+   CUDA: five kill legs (a torn WAL intent, a kill between a tx and its
+   landed record, a kill before a snapshot, a kill mid-way through a
+   batched commit's log, and a second kill during recovery), two matrix
+   runs in waves of child processes; zero duplicate txs, zero unknown
+   and unaccounted WAL slots and requests, zero open cycles, each leg's
+   point in its fired log, identical recovered fingerprints across the
+   runs, and every leg's recovered per-claim fingerprints equal to the
+   JAX package's (the constants of the tool); then one uninterrupted
+   ``run_durable_scenario(0)`` in this process on the card, against the
+   same run on the CPU, with B3 once a step that served a claim and
+   threefry 6-8 a claim served. (c) 10b's tier made durable: a
+   ``CommitIntentWAL``, a ``DurableLocalBackend`` chain log for each of
+   the 64 claims, ``RecoveryManager`` snapshots every 2 steps and the
+   journal's trace fsynced on every event; a first child process
+   (``chip_smoke.py --durable-child DIR crash``) is SIGKILLed at the
+   228th ``chain.batch.mid_fleet`` firing of step 4 (mid-way through
+   the 33rd claim's batch), a second (``... recover``) recovers and runs
+   to step 6 (cut: steps only). Checks: the kill where it was scheduled;
+   the invariants of (b) over all 64 chain logs; one open cycle whose
+   durable prefix is landed and whose suffix alone is resent; 12 flash
+   launches a forward, B3 once a step, threefry 6-8 a claim served, in
+   both children. It prints the step with durability on beside 10b's,
+   the fsyncs a step and their time, the WAL records a step, each
+   snapshot's ms and bytes, and the recovery's seconds split into the
+   chain-log replay, the snapshot restore, the journal roll-forward and
+   the WAL reconcile.
 
 It then prints one JSON line of per-kernel numbers, the card's
 ``nvidia-smi`` name and power limit, and last
@@ -3071,6 +3101,371 @@ def serving_width_phase(torch, launches, fabric):
           f"({requests / vec_s:.1f} requests) through one cross-claim forward a step, beside 9b's "
           f"per-claim forwards {nine_b}")
     print("  serving per step: " + json.dumps(rows))
+    return {"step_ms": mean("step_ms")}
+
+
+@phase("11a. chaos: the seeded fault-injection scenario, twice, against the reference's fingerprint")
+def chaos_phase(torch):
+    from svoc_torch.resilience.chaos import run_chaos_scenario
+    from svoc_torch.tools import chaos_smoke
+
+    t0 = time.perf_counter()
+    first, second = run_chaos_scenario(4), run_chaos_scenario(4)
+    secs = time.perf_counter() - t0
+    gates = chaos_smoke.checks(first, second)
+    check(all(gates.values()), f"the chaos smoke's checks {gates}")
+    check(first["fingerprint"] == chaos_smoke.REFERENCE_FINGERPRINT,
+          f"fingerprint {first['fingerprint'][:16]} == the JAX package's "
+          f"{chaos_smoke.REFERENCE_FINGERPRINT[:16]} ({first['faults_fired']} faults fired, "
+          f"{first['replacements']} replacement, host work, {secs:.3f} s for two runs)")
+
+
+def served_steps(trace_path: str) -> list:
+    """Each ``serving.step`` event's count of served claims in a journal trace."""
+    from svoc_torch.utils.events import read_trace_events
+
+    return [e["data"]["served"] for e in read_trace_events(trace_path) if e["event"] == "serving.step"]
+
+
+@phase("11b. the crash matrix on the card: five kill legs, two matrix runs, children on CUDA")
+def crash_matrix_phase(torch, launches):
+    import tempfile
+
+    from svoc_torch.durability.scenario import run_durable_scenario
+    from svoc_torch.ops.flash_attention import flash_attention_cuda
+    from svoc_torch.ops.fused_consensus import fused_consensus_cuda, fused_consensus_gated_claims_cuda
+    from svoc_torch.ops.threefry import threefry_cuda
+    from svoc_torch.tools import crash_smoke
+
+    card = nvidia_smi()
+    t0 = time.perf_counter()
+    artifact = crash_smoke.run(0)  # device None: every child on CUDA
+    secs = time.perf_counter() - t0
+    failed = sorted(k for k, v in artifact["all_checks"].items() if not v)
+    notes = {leg: c["notes"] for leg, c in artifact["checks"].items() if c["notes"]}
+    check(not failed, f"the crash smoke's {len(artifact['all_checks'])} checks over 5 legs x 2 matrix runs "
+          f"(zero duplicate txs, zero unknown and unaccounted WAL slots and requests, zero open cycles, each "
+          f"leg's point fired, identical recovered fingerprints): failed {failed}, notes {notes}")
+    check(not artifact["reference_mismatches"],
+          f"every leg's recovered per-claim fingerprints == the JAX package's "
+          f"(mismatches {artifact['reference_mismatches']})")
+    for leg, entry in artifact["matrix"].items():
+        rec = (entry["result"] or {}).get("recovery") or {}
+        counts = crash_smoke.reconcile_counts(rec.get("reconcile") or {})
+        print(f"  {leg}: killed {entry['killed']}, reconcile {counts}, "
+              f"resent {(rec.get('reconcile') or {}).get('resent')}, lost requests {rec.get('lost_requests')}")
+    print(f"  [{card}] crash matrix: {secs:.3f} s for 2 x 11 child processes in waves of 5, 5, 1")
+
+    # One uninterrupted run in this process, counted from 0.
+    counted = {"gated_claims_consensus": fused_consensus_gated_claims_cuda, "threefry": threefry_cuda,
+               "flash_attention": flash_attention_cuda, "fused_consensus": fused_consensus_cuda}
+    cpu = run_durable_scenario(tempfile.mkdtemp(prefix="durable-cpu-"), 0, device="cpu")
+    workdir = tempfile.mkdtemp(prefix="durable-cuda-")
+    torch.cuda.synchronize()
+    for wrapper in counted.values():
+        wrapper.launches = 0
+    t0 = time.perf_counter()
+    result = run_durable_scenario(workdir, 0)  # device None: CUDA
+    secs = time.perf_counter() - t0
+    counts = {k: w.launches for k, w in counted.items()}
+    for k in ("gated_claims_consensus", "threefry"):
+        launches[k] = launches.get(k, 0) + counts[k]
+    served = served_steps(f"{workdir}/trace.jsonl")
+    check(counts["gated_claims_consensus"] == sum(n > 0 for n in served)
+          and counts["flash_attention"] == counts["fused_consensus"] == 0
+          and 6 * sum(served) <= counts["threefry"] <= 8 * sum(served),
+          f"uninterrupted run_durable_scenario(0) on the card: B3 once a step that served a claim "
+          f"({sum(n > 0 for n in served)} of {len(served)} steps), threefry 6-8 a claim served "
+          f"({sum(served)}): {counts}")
+    same = {c: result["claims"][c]["fingerprint"] == cpu["claims"][c]["fingerprint"] for c in result["claims"]}
+    check(all(same.values()) and result["journal_events"] == cpu["journal_events"]
+          and result["duplicate_txs"] == 0 and not result["wal_open_cycles"]
+          and result["requests"]["unaccounted"] == 0,
+          f"its per-claim fingerprints == the CPU run's in this process {same}, "
+          f"{result['journal_events']} events, 0 duplicate txs, 0 open cycles, every request accounted")
+    print(f"  [{card}] uninterrupted durable scenario: {secs:.3f} s, {result['steps']} steps, "
+          f"chain {result['chain']}")
+
+
+#: Phase 11c: steps of the durable serving tier (cut from the open-ended
+#: serving loop: steps only), the step in which the first child dies, and
+#: the mid_fleet firing it dies at within that step (7 records a claim's
+#: batch: mid-way through the 33rd claim's).
+DURABLE_STEPS, DURABLE_KILL_STEP, DURABLE_KILL_NTH = 6, 4, 7 * 32 + 4
+DURABLE_SNAPSHOT_EVERY = 2
+
+
+def durable_width_run(torch, workdir: str, role: str, device=None, cfg=None, claims: int = SERVING_CLAIMS,
+                      arrivals: int = SERVING_ARRIVALS, steps: int = DURABLE_STEPS,
+                      kill_step: int = DURABLE_KILL_STEP, kill_nth: int = DURABLE_KILL_NTH,
+                      comments: int = 256) -> None:
+    """One child of phase 11c: 10b's serving tier made durable in
+    ``workdir`` (a WAL, a chain log a claim, snapshots every two steps,
+    the journal's trace fsynced). ``role`` "crash" arms the fault
+    controller at the start of step ``kill_step`` and is SIGKILLed at
+    its ``kill_nth`` ``chain.batch.mid_fleet`` firing; "recover" recovers
+    from the directory, runs to ``steps`` and writes ``result.json``.
+    Each step appends its row to ``rows-<role>.jsonl`` as it ends."""
+    import collections
+    import dataclasses
+    import os
+
+    import numpy as np
+
+    from svoc_torch.durability import faultspace
+    from svoc_torch.durability import recovery as recovery_mod
+    from svoc_torch.durability.chainlog import (DurableLocalBackend, duplicate_predictions, read_chain_log,
+                                                replay_chain_log)
+    from svoc_torch.durability.reconcile import wal_cycles
+    from svoc_torch.durability.recovery import GracefulDrain, RecoveryManager
+    from svoc_torch.durability.scenario import _spec_contract
+    from svoc_torch.durability.wal import CommitIntentWAL
+    from svoc_torch.fabric import ClaimSpec, MultiSession
+    from svoc_torch.fabric.scenario import _claim_names, _injection_schedule
+    from svoc_torch.io.chain import ChainAdapter
+    from svoc_torch.io.scraper import SyntheticSource
+    from svoc_torch.models.configs import ROBERTA_GO_EMOTIONS
+    from svoc_torch.models.sentiment import SentimentPipeline
+    from svoc_torch.ops.flash_attention import flash_attention_cuda
+    from svoc_torch.ops.fused_consensus import fused_consensus_cuda, fused_consensus_gated_claims_cuda
+    from svoc_torch.ops.threefry import threefry_cuda
+    from svoc_torch.serving.frontend import AdmissionConfig
+    from svoc_torch.serving.tier import ServingTier
+    from svoc_torch.sim.generators import claim_seed
+    from svoc_torch.utils import events
+    from svoc_torch.utils.metrics import MetricsRegistry
+    from svoc_torch.utils.slo import serving_slos
+
+    t_start = time.perf_counter()
+    # Every fsync of the process (WAL, chain logs, journal trace, snapshot), counted and timed.
+    fsyncs = collections.Counter()
+    real_fsync = os.fsync
+
+    def timed_fsync(fd):
+        t0 = time.perf_counter()
+        real_fsync(fd)
+        fsyncs["s"] += time.perf_counter() - t0
+        fsyncs["n"] += 1
+
+    os.fsync = timed_fsync
+    names = _claim_names(claims)
+    offender = names[-1]
+    kinds = _injection_schedule(0, offender, 1 + steps)
+    pipe = SentimentPipeline(dataclasses.replace(cfg or ROBERTA_GO_EMOTIONS, attention="flash"), seq_len=128,
+                             batch_size=256, params_dtype=torch.bfloat16, packed=True, max_segments=8,
+                             device=device or "cuda")
+    calibrate_head(torch, pipe, comments=comments)
+    forwards = []
+    packed_forward = pipe.packed_forward
+
+    def counted_forward(*arrays):
+        forwards.append(1)
+        return packed_forward(*arrays)
+
+    pipe.packed_forward = counted_forward
+    timer = collections.Counter()
+
+    def timed(name, fn):
+        def run(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                timer[name] += time.perf_counter() - t0
+        return run
+
+    def adapter_factory(spec):
+        contract = _spec_contract(spec, device=device)
+        path = os.path.join(workdir, f"chain-{spec.claim_id}.jsonl")
+        timed("chain_log_replay", replay_chain_log)(path, contract)
+        return ChainAdapter(DurableLocalBackend(contract, path))
+
+    trace_path = os.path.join(workdir, "trace.jsonl")
+    metrics = MetricsRegistry()
+    journal = events.EventJournal(registry=metrics)
+    events.shared_writer(trace_path).fsync = True  # as the durable scenario forces it
+    journal.set_trace_file(trace_path)
+    wal = CommitIntentWAL(os.path.join(workdir, "wal.jsonl"))
+    appended = collections.Counter()
+    wal_append = wal._append
+
+    def counted_append(record):
+        appended[record["kind"]] += 1
+        wal_append(record)
+
+    wal._append = counted_append
+    multi = MultiSession(base_seed=0, vectorizer=pipe, journal=journal, metrics=metrics, lineage_scope="dur",
+                         sanitized_dispatch=True, max_claims_per_batch=claims, adapter_factory=adapter_factory,
+                         commit_mode="batched", device=device)
+    tamper = fabric_tamper(kinds, 6)
+    for cid in names:
+        multi.add_claim(ClaimSpec(claim_id=cid, tamper=tamper if cid == offender else None))
+    multi.attach_wal(wal)
+    tier = ServingTier(multi, vectorizer=pipe, admission=AdmissionConfig(queue_capacity=64),
+                       max_requests_per_step=claims * arrivals,
+                       slos=serving_slos(metrics, latency_target_s=SERVING_LATENCY_TARGET_S))
+    manager = RecoveryManager(multi, out_dir=workdir, wal=wal, tier=tier)  # compilation_cache None: off
+    snapshots = []
+    snapshot = manager.snapshot
+
+    def timed_snapshot():
+        t0 = time.perf_counter()
+        path = snapshot()
+        snapshots.append(((time.perf_counter() - t0) * 1e3, os.path.getsize(path), tier.steps))
+        return path
+
+    manager.snapshot = timed_snapshot
+    for name in ("load_snapshot", "restore_multi_session", "roll_forward_journal", "reconcile_wal"):
+        setattr(recovery_mod, name, timed(name, getattr(recovery_mod, name)))
+    built_s = time.perf_counter() - t_start
+
+    report, recover_s = None, 0.0
+    if role == "recover":
+        t0 = time.perf_counter()
+        report = manager.recover(adapters={cid: multi.get(cid).session.adapter for cid in names},
+                                 trace_path=trace_path)
+        recover_s = time.perf_counter() - t0
+    manager.install_cadence(DURABLE_SNAPSHOT_EVERY)
+
+    counted = {"flash_attention": flash_attention_cuda, "gated_claims_consensus": fused_consensus_gated_claims_cuda,
+               "fused_consensus": fused_consensus_cuda, "threefry": threefry_cuda}
+    pool = SyntheticSource(batch=10, seed=777)()
+    rows_path = os.path.join(workdir, f"rows-{role}.jsonl")
+    while tier.steps < steps:
+        step_no = tier.steps  # continues across the restart (restored)
+        if role == "crash" and step_no + 1 == kill_step:
+            faultspace.arm(faultspace.FaultController(
+                [faultspace.FaultEvent("chain.batch.mid_fleet", nth=kill_nth)],
+                log_path=os.path.join(workdir, "fired.jsonl")))
+        rng = np.random.default_rng(claim_seed(0, f"arrivals{step_no}"))
+        fresh = iter(SyntheticSource(batch=claims * arrivals, seed=1000 + step_no)())
+        for cid in names:
+            for _ in range(arrivals):
+                tier.submit(cid, pool[int(rng.integers(0, len(pool)))] if rng.random() < 0.35 else next(fresh))
+        if device is None:
+            torch.cuda.synchronize()
+        for wrapper in counted.values():
+            wrapper.launches = 0
+        forwards.clear()
+        fs0, ap0, n_snap = dict(fsyncs), dict(appended), len(snapshots)
+        t0 = time.perf_counter()
+        out = tier.step()
+        step_ms = (time.perf_counter() - t0) * 1e3
+        snap = snapshots[n_snap:]
+        row = dict(step=tier.steps, step_ms=step_ms - sum(s[0] for s in snap), snapshot_ms=[s[0] for s in snap],
+                   snapshot_bytes=[s[1] for s in snap], served=len(out["served"]), forwards=len(forwards),
+                   launches={k: w.launches for k, w in counted.items()},
+                   fsyncs=fsyncs["n"] - fs0.get("n", 0), fsync_ms=(fsyncs["s"] - fs0.get("s", 0.0)) * 1e3,
+                   wal_records={k: appended[k] - ap0.get(k, 0) for k in appended if appended[k] - ap0.get(k, 0)})
+        with open(rows_path, "a") as f:
+            f.write(json.dumps(row) + "\n")
+    if role == "crash":
+        raise RuntimeError(f"the crash child reached step {tier.steps} without its kill")
+    drain = GracefulDrain(manager=manager, journal=journal).drain(reason="durable_width_end")
+    dups = {cid: len(duplicate_predictions(os.path.join(workdir, f"chain-{cid}.jsonl"))) for cid in names}
+    txs = {cid: len(read_chain_log(os.path.join(workdir, f"chain-{cid}.jsonl"))) for cid in names}
+    admitted, completed, dropped = (metrics.family_total(f"serving_{k}") for k in ("admitted", "completed",
+                                                                                    "dropped"))
+    with open(os.path.join(workdir, "result.json"), "w") as f:
+        json.dump(dict(
+            steps=tier.steps, built_s=built_s, recover_s=recover_s, timer=dict(timer), recovery=report,
+            snapshots=snapshots, drain_deferred=drain.get("flush", {}).get("deferred"),
+            duplicate_txs=sum(dups.values()), txs=sum(txs.values()),
+            wal_open_cycles=[lin for lin, c in wal_cycles(wal.records()).items() if not c["done"]],
+            requests=dict(admitted=admitted, completed=completed, dropped=dropped,
+                          unaccounted=max(0.0, admitted - completed - dropped)),
+            fingerprints={cid: multi.claim_fingerprint(cid) for cid in names[:2]},
+        ), f)
+
+
+@phase("11c. the serving tier made durable at full width: killed mid-batch, recovered in a second process")
+def durable_width_phase(torch, launches, serving):
+    import collections
+    import os
+    import tempfile
+
+    from svoc_torch.durability.faultspace import read_fired_log
+    from svoc_torch.tools.crash_smoke import reconcile_counts
+
+    card = nvidia_smi()
+    workdir = tempfile.mkdtemp(prefix="durable-width-")
+    me = str(Path(__file__).resolve())
+    children = {}
+    for role in ("crash", "recover"):
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, me, "--durable-child", workdir, role], capture_output=True,
+                              text=True, timeout=600, cwd=str(Path(me).parent))
+        children[role] = (proc, time.perf_counter() - t0)
+        if proc.returncode not in (0, -9):
+            print(proc.stderr[-3000:])
+
+    def rows(role):
+        path = os.path.join(workdir, f"rows-{role}.jsonl")
+        return [json.loads(line) for line in open(path)] if os.path.exists(path) else []
+
+    crash_rows, rec_rows = rows("crash"), rows("recover")
+    fired = read_fired_log(os.path.join(workdir, "fired.jsonl"))
+    action = fired["actions"][-1] if fired["actions"] else {}
+    check(children["crash"][0].returncode == -9 and "chain.batch.mid_fleet" in fired["fired"]
+          and action.get("action") == "kill" and action.get("n") == DURABLE_KILL_NTH
+          and [r["step"] for r in crash_rows] == list(range(1, DURABLE_KILL_STEP)),
+          f"the first child died by SIGKILL (exit {children['crash'][0].returncode}) at the "
+          f"{DURABLE_KILL_NTH}th chain.batch.mid_fleet firing of step {DURABLE_KILL_STEP}, "
+          f"after steps {[r['step'] for r in crash_rows]}")
+    if children["recover"][0].returncode != 0 or not os.path.exists(os.path.join(workdir, "result.json")):
+        check(False, f"the recovery child exited {children['recover'][0].returncode}")
+        return
+    result = json.load(open(os.path.join(workdir, "result.json")))
+    rep = result["recovery"] or {}
+    rec = rep.get("reconcile") or {}
+    counts = reconcile_counts(rec)
+    landed = counts.get("landed_chain", 0) + counts.get("landed_batch", 0) + counts.get("landed_durable", 0)
+    check(result["steps"] == DURABLE_STEPS and result["duplicate_txs"] == 0 and not result["wal_open_cycles"]
+          and rec.get("unknown") == 0 and rec.get("unaccounted") == 0
+          and result["requests"]["unaccounted"] == 0,
+          f"recovered and ran to step {result['steps']}: {result['duplicate_txs']} duplicate txs over "
+          f"{SERVING_CLAIMS} chain logs ({result['txs']} txs), open cycles {result['wal_open_cycles']}, "
+          f"unknown {rec.get('unknown')} and unaccounted {rec.get('unaccounted')} WAL slots, requests "
+          f"{result['requests']}")
+    check(rec.get("open_cycles") == 1 and landed >= 1 and rec.get("resent", 0) >= 1
+          and rec.get("resent") == counts.get("stranded", 0) and landed + counts.get("stranded", 0)
+          + counts.get("skipped", 0) + counts.get("superseded", 0) == 7,
+          f"the WAL's resent suffix and nothing more: one open cycle, {landed} slots landed, "
+          f"{rec.get('resent')} resent of {counts.get('stranded', 0)} stranded ({counts})")
+    n_layers = 12
+    bad = [r for r in crash_rows + rec_rows
+           if not (r["forwards"] >= 1 and r["launches"]["flash_attention"] == n_layers * r["forwards"]
+                   and r["launches"]["gated_claims_consensus"] == 1 and r["launches"]["fused_consensus"] == 0
+                   and 6 * r["served"] <= r["launches"]["threefry"] <= 8 * r["served"])]
+    check(not bad and crash_rows and rec_rows,
+          f"every step of both children: {n_layers} flash launches a forward, 1 claim-cube, 0 B2, threefry "
+          f"6-8 a claim served ({len(crash_rows)} + {len(rec_rows)} steps; failing {bad[:2]})")
+    for r in crash_rows + rec_rows:
+        for k in ("flash_attention", "gated_claims_consensus", "threefry"):
+            launches[k] = launches.get(k, 0) + r["launches"][k]
+
+    timed_rows = crash_rows[1:] + rec_rows[1:]  # each child's first step warms its process
+    mean = lambda k: sum(r[k] for r in timed_rows) / len(timed_rows)  # noqa: E731
+    ten_b = f"{serving['step_ms']:.3f} ms" if serving else "not measured"
+    wal_per_step = sum((collections.Counter(r["wal_records"]) for r in timed_rows), collections.Counter())
+    print(f"  [{card}] step with durability on: {mean('step_ms'):.3f} ms over {len(timed_rows)} steps "
+          f"(snapshots excluded), beside 10b's {ten_b} in this run; fsyncs {mean('fsyncs'):.1f} a step taking "
+          f"{mean('fsync_ms'):.3f} ms; WAL records a step "
+          f"{ {k: v / len(timed_rows) for k, v in wal_per_step.items()} }")
+    snaps = result["snapshots"]
+    crash_snaps = [(ms, b) for r in crash_rows for ms, b in zip(r["snapshot_ms"], r["snapshot_bytes"])]
+    print(f"  [{card}] snapshots (ms, bytes): first child {crash_snaps}, second child "
+          f"{[(round(s[0], 3), s[1]) for s in snaps]}")
+    timer = result["timer"]
+    print(f"  [{card}] recovery {result['recover_s']:.3f} s: chain-log replay {timer.get('chain_log_replay', 0):.3f} s "
+          f"({SERVING_CLAIMS} logs, at construction), snapshot restore "
+          f"{timer.get('load_snapshot', 0) + timer.get('restore_multi_session', 0):.3f} s (load "
+          f"{timer.get('load_snapshot', 0):.3f}), journal roll-forward {timer.get('roll_forward_journal', 0):.3f} s "
+          f"({rep.get('journal_events')} ring + {rep.get('tail_events')} tail events), WAL reconcile "
+          f"{timer.get('reconcile_wal', 0):.3f} s; requeued {rep.get('requeued')}, lost requests "
+          f"{rep.get('lost_requests')}; children {children['crash'][1]:.1f} s and {children['recover'][1]:.1f} s "
+          f"(build {result['built_s']:.1f} s in the second)")
+    print("  durable per step: " + json.dumps({"crash": crash_rows, "recover": rec_rows}))
 
 
 def main() -> int:
@@ -3083,8 +3478,11 @@ def main() -> int:
         print("FAIL: no CUDA device; the port's kernels run only on the card", file=sys.stderr)
         return 2
     global PARENT
+    child = None
     if sys.argv[1:2] == ["--parent"] and len(sys.argv) == 3:
         PARENT = str(Path(sys.argv[2]).resolve())
+    elif sys.argv[1:2] == ["--durable-child"] and len(sys.argv) == 4:
+        child = sys.argv[2:4]
     elif len(sys.argv) > 1:
         print("usage: python3 chip_smoke.py [--parent DIR]", file=sys.stderr)
         return 2
@@ -3094,6 +3492,9 @@ def main() -> int:
     except ImportError:
         print("FAIL: the svoc_torch package is not beside chip_smoke.py", file=sys.stderr)
         return 2
+    if child is not None:  # one process of phase 11c, started by the phase itself
+        durable_width_run(torch, *child)
+        return 0
 
     results, launches = {}, {}
     if environment(torch):
@@ -3123,11 +3524,15 @@ def main() -> int:
         session_loop_phase(torch, launches)
         fabricked = dict(launches)
         serving_scenario_phase(torch, launches)
-        serving_width_phase(torch, launches, fabric)
+        tier = serving_width_phase(torch, launches, fabric)
+        tiered = dict(launches)
+        chaos_phase(torch)
+        crash_matrix_phase(torch, launches)
+        durable_width_phase(torch, launches, tier)
         print(f"  launches: serving paths {serving}; with the train path {trained}; "
               f"with the multi-claim path {claimed}; with the probe path {probed}; "
               f"with the commit path {committed}; with the fabric paths {fabricked}; "
-              f"with the serving tier {launches}")
+              f"with the serving tier {tiered}; with the durable paths {launches}")
     check(all(launches.get(name, 0) > 0 for name in KERNEL_ROWS),
           f"every kernel launched on its path: { {k: launches.get(k, 0) for k in KERNEL_ROWS} }")
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "svoc_tpu"))

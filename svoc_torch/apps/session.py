@@ -34,8 +34,10 @@ Where the port departs from the reference:
   ``models/quant.py``, ROADMAP A12), and there is one device, so the
   default vectorizer has no data mesh.
 - The WAL (``attach_wal``) is duck-typed, as the chain adapter's hooks
-  are; the restart reconcile of an open WAL cycle raises
-  ``NotImplementedError`` (``durability/reconcile``, ROADMAP A11).
+  are: :class:`svoc_torch.durability.wal.CommitIntentWAL` is the one the
+  durable scenario attaches.  A commit on a lineage whose WAL cycle is
+  still open reconciles it first, under the commit lock, as the
+  reference does (``durability/reconcile``).
 - ``commit_mode=None`` resolves ``SVOC_COMMIT_MODE``, then the port's
   constant default (:func:`svoc_torch.resilience.retry.resolve_commit_mode`).
 
@@ -828,18 +830,52 @@ class Session:
             lineage = self.last_lineage
             source = self._block_source
         if self.wal is not None and lineage is not None:
-            # An OPEN cycle for this lineage: a previous life died
-            # mid-commit, and its txs may be durably on chain.  Blind
-            # re-execution would double-send them; only the restart
-            # reconcile resolves the cycle from the WAL's evidence
-            # (checked under the commit lock, as the reference does).
+            # Under the commit lock: the reconciler resends chain txs,
+            # and two concurrent commits racing this guard would both
+            # classify the same slot stranded and double-send it — the
+            # exact duplicate the guard exists to prevent.  Re-checked
+            # inside the lock; the block completes (and releases)
+            # before the commit section re-acquires below, and a loser
+            # of the race then sees the cycle closed.
             with self._commit_lock:
-                if lineage in self.wal.open_lineages():
-                    raise NotImplementedError(
-                        f"lineage {lineage!r} has an open WAL cycle: its "
-                        "restart reconcile (durability/reconcile) is not "
-                        "ported yet (ROADMAP A11)"
+                open_here = lineage in self.wal.open_lineages()
+                if open_here:
+                    from svoc_torch.durability.reconcile import reconcile_wal
+
+                    # An OPEN cycle for this lineage: a previous life
+                    # died mid-commit and the recovery reconcile could
+                    # not close it (a faulted resend, missing
+                    # evidence).  Its txs may be durably on chain —
+                    # blind re-execution would double-send them — so
+                    # resolve the cycle through the reconciler's
+                    # evidence columns instead; on success the
+                    # replayed-lineage path below dedups exactly as for
+                    # a cleanly-closed cycle.
+                    reconcile_wal(
+                        self.wal,
+                        lambda _claim: self.adapter,
+                        journal=self.journal,
+                        lineages={lineage},
                     )
+            if open_here and lineage not in self.wal.completed_lineages():
+                metrics.counter("chain_commit_failures").add(1)
+                self.journal.emit(
+                    "commit.failed",
+                    lineage=lineage,
+                    reason="open_cycle_unresolved",
+                    sent=0,
+                )
+                raise ChainCommitError(
+                    committed=0,
+                    total=len(predictions),
+                    failed_oracle=None,
+                    cause=RuntimeError(
+                        "open WAL cycle unresolved — refusing to "
+                        "blind re-commit a lineage whose txs may "
+                        "already be on chain"
+                    ),
+                    sent_count=0,
+                )
         if (
             self.wal is not None
             and lineage is not None
@@ -982,8 +1018,8 @@ class Session:
         """Wire a commit-intent WAL into the resilient commit path
         (docs/RESILIENCE.md §durability).  Duck-typed: anything with the
         reference ``CommitIntentWAL``'s ``cycle``, ``open_lineages``,
-        ``completed_lineages`` and ``records`` (the WAL itself comes
-        with ROADMAP A11)."""
+        ``completed_lineages`` and ``records``
+        (:class:`svoc_torch.durability.wal.CommitIntentWAL`)."""
         self.wal = wal
 
     def _open_wal_cycle(self, predictions, lineage, skip, oracles):

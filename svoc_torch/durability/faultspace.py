@@ -1,32 +1,72 @@
-"""Named fault points: the hook the chain adapter fires at its RPC
-boundaries.
+"""Named fault points: the durable plane's fault surface, enumerated.
 
-Mirrors the hook of :mod:`svoc_tpu.durability.faultspace`
-(``faultspace.py:526-562``: ``_CONTROLLER``, :func:`arm`,
-:func:`disarm`, :func:`armed`, :func:`fault_point`), the declaration
-registry (``:81-158``: :class:`FaultPointSpec`, :func:`declare`,
-:func:`surface`) and the declarations of the two points that
-:mod:`svoc_torch.io.chain` fires (``:187-206``):
+Mirrors :mod:`svoc_tpu.durability.faultspace` (``faultspace.py:1-586``):
+the declaration registry (:class:`FaultPointSpec`, :func:`declare`,
+:func:`surface`, ``SURFACE_MODULES``/:func:`load_surface` ``:151-165``,
+naming the port's modules), the points declared here for owners that
+cannot import this module at their own import (``serving.step.post``
+``:177``, the chain adapter's two RPC boundaries, the snapshot's two
+rename boundaries), :class:`FaultEvent` (``:338``),
+:func:`torn_line_write` (``:383``), the armed :class:`FaultController`
+(``:396``: schedules keyed on the Nth matching firing, the ``kill``,
+``torn`` and ``error`` actions, the durable fired log), the process hook
+(:func:`arm`, :func:`disarm`, :func:`armed`, :func:`fault_point`) and
+:func:`read_fired_log` (``:565``).  The reference's cluster and
+reconfiguration points (``:239-336``) belong to ``cluster/*``, which
+the port does not have yet (ROADMAP A11b); they are not declared here.
 
-- ``chain.tx.pre_invoke``, before every signed per-oracle tx;
-- ``chain.batch.pre_rpc``, before the batched commit's one RPC.
+Mechanics:
 
-With no controller armed a firing is one global load and a ``None``
-check.  An armed controller is duck-typed: it needs ``fire(name, *,
-payload, torn)`` and ``close()``.  The reference's ``FaultController``
-(schedules keyed on the Nth firing, kill/torn/error actions, the
-durable fired log) and the crash harness come with ROADMAP A11.
+- Durable/RPC boundaries **declare themselves** at module import
+  (:func:`declare`) with owner, threatened invariant, valid actions,
+  reaching smoke(s), and stage.
+- The same call sites **fire** :func:`fault_point` at runtime.  With no
+  controller armed (production, every test) that is one global load and
+  a ``None`` check.  With a controller armed (the crash harness), each
+  firing is counted per point — schedules key on (point, Nth matching
+  firing), never on wall time — and the scheduled :class:`FaultEvent`\\ s
+  execute at their Nth matching firing:
+
+  ========  ==============================================================
+  action    semantics
+  ========  ==============================================================
+  kill      SIGKILL *now*.  Bytes already written are durable (process
+            death does not empty the page cache) — this is the
+            "kill between instructions" fault.
+  torn      write *half* of the pending record (no newline), fsync it,
+            then SIGKILL — the mid-append power-cut fault.  Valid only
+            at points whose call site passes a ``torn=`` writer.
+  error     raise :class:`svoc_torch.resilience.faults.InjectedFault` out
+            of the boundary — the injected-RPC-fault lane, composing
+            with the retry/resume/breaker machinery exactly like a
+            :class:`~svoc_torch.resilience.faults.FaultInjectingBackend`.
+  ========  ==============================================================
+
+- Every firing is journaled to a **durable fired log** (first firing
+  per point + every executed action, fsynced) so a SIGKILLed child
+  still witnesses its coverage.
+
+The controller deliberately does NOT emit journal events at fire time:
+fault points fire under the WAL/adapter locks, and the journal lock is
+a leaf — the ``chaos.*`` events are emitted by the *harness* at
+arm/summary time, never mid-fire.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import json
+import os
+import signal
 import threading
-from typing import Any, Callable, Dict, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
-#: The harness that reaches and asserts a chain point (the reference's
-#: ``tools/chaos_fuzz.py``).
-SMOKE_FUZZ = "fuzz"
+from svoc_torch.resilience.faults import InjectedFault
+
+#: The harnesses a point may name as its witness (``smokes``).
+SMOKE_FUZZ = "fuzz"    # the reference's tools/chaos_fuzz.py (not ported yet)
+SMOKE_CRASH = "crash"  # svoc_torch/tools/crash_smoke.py — the kill/restart matrix
 
 ACTIONS = ("kill", "torn", "error")
 STAGES = ("run", "recovery")
@@ -34,12 +74,12 @@ STAGES = ("run", "recovery")
 
 @dataclasses.dataclass(frozen=True)
 class FaultPointSpec:
-    """One declared point of the fault surface."""
+    """One declared point of the fault surface (the inventory row)."""
 
     name: str
-    owner: str           # owning module path
+    owner: str           # owning module path, e.g. "svoc_torch/durability/wal.py"
     invariant: str       # the durability invariant a fault here threatens
-    actions: Tuple[str, ...]      # valid actions at this point
+    actions: Tuple[str, ...]      # valid FaultEvent actions at this point
     smokes: Tuple[str, ...]       # which harness(es) reach + assert it
     modes: Tuple[str, ...] = ("per_tx", "batched")  # commit modes reaching it
     stage: str = "run"   # "run" fires in the serving loop, "recovery" on restart
@@ -49,6 +89,9 @@ class FaultPointSpec:
             raise ValueError(f"{self.name}: invalid actions {self.actions}")
         if self.stage not in STAGES:
             raise ValueError(f"{self.name}: invalid stage {self.stage!r}")
+        for s in self.smokes:
+            if s not in (SMOKE_FUZZ, SMOKE_CRASH):
+                raise ValueError(f"{self.name}: unknown smoke {s!r}")
 
 
 _REGISTRY: Dict[str, FaultPointSpec] = {}
@@ -65,8 +108,10 @@ def declare(
     modes: Sequence[str] = ("per_tx", "batched"),
     stage: str = "run",
 ) -> str:
-    """Register one fault point and return its name.  Declaring the same
-    spec again is a no-op; a different spec under the same name raises."""
+    """Register one fault point; returns ``name`` so call sites can bind
+    it to a module constant.  Idempotent for identical re-declaration
+    (module reloads); a CONFLICTING re-declaration raises — two
+    boundaries must never share a name."""
     spec = FaultPointSpec(
         name=name,
         owner=owner,
@@ -87,13 +132,51 @@ def declare(
 
 
 def surface() -> Dict[str, FaultPointSpec]:
-    """The declared fault points, sorted by name."""
+    """The declared fault surface, name-sorted — import
+    :data:`SURFACE_MODULES` first for the full inventory."""
     with _REGISTRY_LOCK:
         return {name: _REGISTRY[name] for name in sorted(_REGISTRY)}
 
 
-# The chain adapter's RPC boundaries (it binds fault_point lazily, as
-# the reference's does, so the declarations live here).
+#: Importing these modules declares the whole surface.  The io/chain
+#: and utils/checkpoint points are declared below in THIS module
+#: (circular-import notes there), so the list is durability-only.
+SURFACE_MODULES = (
+    "svoc_torch.durability.wal",
+    "svoc_torch.durability.chainlog",
+    "svoc_torch.durability.reconcile",
+    "svoc_torch.durability.recovery",
+)
+
+
+def load_surface() -> Dict[str, FaultPointSpec]:
+    """Import every surface-owning module, then return :func:`surface`."""
+    import importlib
+
+    for module in SURFACE_MODULES:
+        importlib.import_module(module)
+    return surface()
+
+
+# -- points whose owners cannot import this module at their own import ----
+# The serving scenario's step boundary (the ``pre_snapshot`` kill
+# point) fires from ``durability/scenario.py``, which imports the full
+# fabric/serving stack — declaring it here keeps surface enumeration
+# light.  The chain adapter's RPC boundaries fire from
+# ``svoc_torch/io/chain.py``, which ``durability/chainlog.py`` imports —
+# a top-level import back into this package would be circular, so
+# io/chain.py binds :func:`fault_point` lazily and the declarations
+# live here.  Every OTHER point is declared by its owning module.
+SERVING_STEP_POST = declare(
+    "serving.step.post",
+    owner="svoc_torch/durability/scenario.py",
+    invariant="post-commit pre-snapshot state is recoverable from the "
+    "journal tail + WAL alone",
+    actions=("kill",),
+    smokes=(SMOKE_CRASH,),
+    stage="run",
+)
+
 CHAIN_TX_PRE_INVOKE = declare(
     "chain.tx.pre_invoke",
     owner="svoc_torch/io/chain.py",
@@ -115,13 +198,223 @@ CHAIN_BATCH_PRE_RPC = declare(
     modes=("batched",),
 )
 
+# ``utils/checkpoint.save_snapshot`` fires these (same circularity:
+# ``durability/__init__`` → ``recovery`` → ``checkpoint``, so the
+# declarations live here and checkpoint imports lazily at call time).
+SNAPSHOT_PRE_RENAME = declare(
+    "snapshot.pre_rename",
+    owner="svoc_torch/utils/checkpoint.py",
+    invariant="a kill before the rename leaves the previous snapshot "
+    "authoritative — recovery rolls forward from it on the journal "
+    "tail + WAL, never reads the .tmp",
+    actions=("kill",),
+    smokes=(SMOKE_FUZZ,),
+)
+SNAPSHOT_POST_RENAME = declare(
+    "snapshot.post_rename",
+    owner="svoc_torch/utils/checkpoint.py",
+    invariant="a snapshot durable before its WAL rotation must not "
+    "re-execute or double-dedup the cycles it covers",
+    actions=("kill",),
+    smokes=(SMOKE_FUZZ,),
+)
 
-_CONTROLLER: Optional[Any] = None
+@dataclasses.dataclass(frozen=True)
+class FaultEvent:
+    """One scheduled fault: execute ``action`` at the ``nth`` firing of
+    ``point`` whose payload contains ``match`` (subset test), during
+    child ``phase`` (0 = the initial run, 1 = the first restart, …)."""
+
+    point: str
+    nth: int = 1
+    action: str = "kill"
+    match: Optional[Dict[str, Any]] = None
+    phase: int = 0
+
+    def __post_init__(self):
+        if self.nth < 1:
+            raise ValueError(f"nth must be >= 1, got {self.nth}")
+        if self.action not in ACTIONS:
+            raise ValueError(f"unknown action {self.action!r}")
+        if self.phase < 0:
+            raise ValueError(f"phase must be >= 0, got {self.phase}")
+
+    def as_dict(self) -> Dict[str, Any]:
+        d: Dict[str, Any] = {
+            "point": self.point,
+            "nth": self.nth,
+            "action": self.action,
+            "phase": self.phase,
+        }
+        if self.match is not None:
+            d["match"] = dict(self.match)
+        return d
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "FaultEvent":
+        return cls(
+            point=d["point"],
+            nth=int(d.get("nth", 1)),
+            action=d.get("action", "kill"),
+            match=d.get("match"),
+            phase=int(d.get("phase", 0)),
+        )
 
 
-def arm(controller):
-    """Install ``controller`` as the process's fault controller; raises
-    if one is already armed."""
+def _default_die() -> None:  # pragma: no cover — harness children only
+    os.kill(os.getpid(), signal.SIGKILL)
+
+
+def torn_line_write(fileobj, record: Dict[str, Any]) -> None:
+    """The ONE torn-write fault primitive (the ``torn`` action's
+    writer): half of the record's JSONL line — no newline — flushed and
+    fsynced, exactly what a mid-append power cut leaves for
+    ``seal_jsonl`` to repair.  Shared by the WAL and the chain log so
+    the two torn faults can never drift into simulating different
+    power-cut shapes."""
+    line = json.dumps(record, sort_keys=True)
+    fileobj.write(line[: max(1, len(line) // 2)])
+    fileobj.flush()
+    os.fsync(fileobj.fileno())
+
+
+class FaultController:
+    """The armed half of the registry: counts firings, executes the
+    scheduled events, and keeps the durable fired log.  One controller
+    per harness child; production never constructs one."""
+
+    def __init__(
+        self,
+        events: Sequence[FaultEvent] = (),
+        *,
+        log_path: Optional[str] = None,
+        die: Callable[[], None] = _default_die,
+    ):
+        for ev in events:
+            spec = _REGISTRY.get(ev.point)
+            if spec is None:
+                raise KeyError(f"fault event targets undeclared point "
+                               f"{ev.point!r}")
+            if ev.action not in spec.actions:
+                raise ValueError(
+                    f"action {ev.action!r} invalid at {ev.point!r} "
+                    f"(allowed: {spec.actions})"
+                )
+        self.events = tuple(events)
+        self.log_path = log_path
+        self._die = die
+        self._lock = threading.Lock()
+        self._counts: Dict[str, int] = {}
+        #: per-event matching-firing counts / executed flags.
+        self._event_counts: List[int] = [0] * len(self.events)
+        self._executed: List[bool] = [False] * len(self.events)
+        self._log_f = None
+
+    # -- durable fired log ---------------------------------------------------
+
+    def _log(self, record: Dict[str, Any]) -> None:
+        if self.log_path is None:
+            return
+        if self._log_f is None:
+            self._log_f = open(self.log_path, "a")
+        self._log_f.write(json.dumps(record, sort_keys=True) + "\n")
+        self._log_f.flush()
+        os.fsync(self._log_f.fileno())
+
+    def close(self) -> None:
+        with self._lock:
+            if self._log_f is not None:
+                with contextlib.suppress(OSError):
+                    self._log_f.close()
+                self._log_f = None
+
+    # -- firing --------------------------------------------------------------
+
+    @staticmethod
+    def _matches(match: Optional[Dict[str, Any]],
+                 payload: Optional[Dict[str, Any]]) -> bool:
+        if not match:
+            return True
+        if not payload:
+            return False
+        return all(payload.get(k) == v for k, v in match.items())
+
+    def fire(
+        self,
+        name: str,
+        *,
+        payload: Optional[Dict[str, Any]] = None,
+        torn: Optional[Callable[[], None]] = None,
+    ) -> None:
+        if name not in _REGISTRY:
+            raise KeyError(f"undeclared fault point {name!r} fired")
+        pending: Optional[FaultEvent] = None
+        with self._lock:
+            count = self._counts.get(name, 0) + 1
+            self._counts[name] = count
+            if count == 1:
+                self._log({"kind": "fired", "point": name})
+            for i, ev in enumerate(self.events):
+                if ev.point != name or self._executed[i]:
+                    continue
+                if not self._matches(ev.match, payload):
+                    continue
+                self._event_counts[i] += 1
+                # ``>=``: when two same-point events share an nth, the
+                # loser of that firing executes at the NEXT eligible
+                # firing instead of being silently lost (only one event
+                # can act per firing — a kill ends the process).
+                if self._event_counts[i] >= ev.nth and pending is None:
+                    self._executed[i] = True
+                    pending = ev
+            if pending is not None:
+                self._log(
+                    {
+                        "kind": "action",
+                        "point": name,
+                        "action": pending.action,
+                        "n": count,
+                    }
+                )
+        if pending is None:
+            return
+        if pending.action == "error":
+            raise InjectedFault(f"chaos: injected fault at {name}")
+        if pending.action == "torn":
+            if torn is None:
+                raise RuntimeError(
+                    f"torn action scheduled at {name!r} but the call site "
+                    f"provides no torn writer"
+                )
+            torn()
+        self._die()
+
+    # -- views ---------------------------------------------------------------
+
+    def counts(self) -> Dict[str, int]:
+        with self._lock:
+            return dict(self._counts)
+
+    def fired_points(self) -> List[str]:
+        with self._lock:
+            return sorted(self._counts)
+
+    def unfired_events(self) -> List[FaultEvent]:
+        """Scheduled events whose nth firing never came (the run ended
+        first) — recorded by the harness, never silently dropped."""
+        with self._lock:
+            return [
+                ev for i, ev in enumerate(self.events) if not self._executed[i]
+            ]
+
+
+_CONTROLLER: Optional[FaultController] = None
+
+
+def arm(controller: FaultController) -> FaultController:
+    """Install ``controller`` as the process's fault controller.  Chaos
+    harness children only; raises if one is already armed (two harnesses
+    in one process would corrupt each other's schedules)."""
     global _CONTROLLER
     if _CONTROLLER is not None:
         raise RuntimeError("a fault controller is already armed")
@@ -146,9 +439,33 @@ def fault_point(
     payload: Optional[Dict[str, Any]] = None,
     torn: Optional[Callable[[], None]] = None,
 ) -> None:
-    """The boundary hook: hands the firing to the armed controller, if
-    any."""
+    """The boundary hook.  Near-zero cost unless a harness armed a
+    controller; see the module docstring for action semantics."""
     ctl = _CONTROLLER
     if ctl is None:
         return
     ctl.fire(name, payload=payload, torn=torn)
+
+
+def read_fired_log(path: str) -> Dict[str, Any]:
+    """Parse a controller's durable fired log (torn-tail tolerant —
+    the child usually died by SIGKILL): the set of points that fired
+    and the executed actions, what the parent harness unions into its
+    coverage table."""
+    fired: List[str] = []
+    actions: List[Dict[str, Any]] = []
+    if os.path.exists(path):
+        with open(path) as f:
+            for line in f:
+                line = line.strip()
+                if not line:
+                    continue
+                try:
+                    record = json.loads(line)
+                except ValueError:
+                    continue  # torn tail — the firing before it counted
+                if record.get("kind") == "fired":
+                    fired.append(record["point"])
+                elif record.get("kind") == "action":
+                    actions.append(record)
+    return {"fired": sorted(set(fired)), "actions": actions}

@@ -86,7 +86,7 @@ class MultiSession:
         self._adapter_factory = adapter_factory
         #: Commit-intent WAL shared by every claim session once
         #: :meth:`attach_wal` is called (claim-tagged records; duck-typed,
-        #: the WAL comes with ROADMAP A11).
+        #: :class:`svoc_torch.durability.wal.CommitIntentWAL` in practice).
         self._wal = None
         self._journal = journal
         self._metrics = metrics or _default_metrics

@@ -23,8 +23,9 @@ module.  Reference: ``client/contract.py``, its felt252↔float codec
   replacement vote and ``resume``.
 
 The WAL hooks (``on_intent``/``on_landed``, and ``wal`` with its
-``intent_batch``/``landed_batch``) are duck-typed: the WAL itself comes
-with ROADMAP A11.  Addresses are plain ints (the felt address space).
+``intent_batch``/``landed_batch``) are duck-typed; the WAL is
+:class:`svoc_torch.durability.wal.CommitIntentWAL`.  Addresses are plain
+ints (the felt address space).
 """
 
 from __future__ import annotations
@@ -57,10 +58,8 @@ def _fire_fault_point(name: str, **kwargs) -> None:
     """Fire a named fault point (docs/RESILIENCE.md §fault-surface).
 
     The adapter's RPC boundaries are part of the chaos fuzzer's
-    surface, but ``durability/chainlog.py`` (ROADMAP A11) imports this
-    module — a
-    top-level import back into the durability package would be
-    circular, so the hook binds lazily (the declarations live in
+    surface, but ``durability/chainlog.py`` imports this module — a
+    top-level import back into the durability package would be circular, so the hook binds lazily (the declarations live in
     :mod:`svoc_torch.durability.faultspace`).  One cached-global check
     per signed tx when disarmed."""
     global _fault_point
@@ -820,7 +819,7 @@ class ChainAdapter:
         caller range).  The caller counts the fallback
         (``commit_batch_fallback{reason=}``) and reruns per tx.
 
-        ``wal`` (duck-typed as the reference's ``durability/wal.py::WALCycle``, ROADMAP A11): the
+        ``wal`` (duck-typed as :class:`svoc_torch.durability.wal.WALCycle`): the
         cycle-open record already carries the full payload matrix, so
         ONE fsynced ``intent_batch`` covers the whole attempt before
         the RPC and one ``landed_batch`` records it after — on a

@@ -1,1 +1,2 @@
-"""The port's on-card probe tools (the JAX package's live in ``tools/``)."""
+"""The port's tools: the on-card probes and the smoke gates (twins of the
+JAX package's ``tools/``)."""

@@ -1,7 +1,7 @@
 """Declarative SLOs evaluated as multi-window burn rates.
 
 Mirrors :mod:`svoc_tpu.utils.slo` (``slo.py:1-479``) but for the fleet
-plane's objectives (``fleet_slos``), which come with ROADMAP A11.
+plane's objectives (``fleet_slos``), which come with ROADMAP A11b.
 
 An SLO here is a **good/total ratio objective** (the SRE-workbook
 shape): commit success ratio, the fraction of ``consensus`` stage

@@ -200,15 +200,16 @@ def test_parts_that_wait_raise_not_implemented():
     with pytest.raises(NotImplementedError, match="A12"):
         s.vectorizer
 
-    class OpenWal:
-        def open_lineages(self):
-            return {port.last_lineage}
+    # A commit on an open WAL cycle now reconciles it, as the reference
+    # does (tests/test_torch_durable.py); what still waits is the compile
+    # plane's persistent cache and recovery prewarm (ROADMAP A10b).
+    from svoc_torch.durability.recovery import RecoveryManager
 
-    _, port = _pair("per_tx")
-    port.fetch()
-    port.attach_wal(OpenWal())
-    with pytest.raises(NotImplementedError, match="A11"):
-        port.commit_resilient()
+    multi = MultiSession(device="cpu")
+    with pytest.raises(NotImplementedError, match="A10b"):
+        RecoveryManager(multi, out_dir="unused", compilation_cache="persistent")
+    with pytest.raises(NotImplementedError, match="A10b"):
+        RecoveryManager(multi, out_dir="unused").recover(prewarm=True)
 
 
 def test_slo_snapshot_after_cycles():
