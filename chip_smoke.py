@@ -140,7 +140,15 @@ Phases:
    launch counts set to 0 before and read after; every parameter must
    move, including the 36 query, key and value projections, the loss on
    the fixed batch must fall, and a saved and restored state must equal
-   the original. One profiled step follows (informational).
+   the original. One profiled step follows (informational). Then (5c)
+   the twin of ``tools/finetune_demo.py`` (``svoc_torch.tools.finetune_demo``):
+   TINY_TEST with flash, the reference's CLI defaults (240 steps of 32,
+   AdamW(3e-3), target macro-F1 0.9), a checkpoint at step 120 and a
+   same-device replay of the rest: macro-F1 >= 0.9, a replay delta of
+   exactly 0.0, and 2 B1, 2 B4 and 2 B5 launches a train step (2 B1 an
+   evaluation); then at ROBERTA_GO_EMOTIONS width (bf16 matmuls, flash,
+   batch 32, the same task; cut: 40 steps) the loss must fall and stay
+   finite, and the F1, the step's ms and trained comments/s are printed.
 6. The multi-claim serving step at full width: 64 claims of 1024
    oracles (128 failing, constrained), ROBERTA_GO_EMOTIONS with bf16
    weights; each step takes 8 new comments per claim (512), assembled
@@ -285,6 +293,34 @@ Phases:
    snapshot's ms and bytes, and the recovery's seconds split into the
    chain-log replay, the snapshot restore, the journal roll-forward and
    the WAL reconcile.
+
+12. Cold start (``compile/*``, ``obsplane/profiler.py``, the runtime end
+   of ``utils/metrics.py``). (a) ``svoc_torch.tools.coldstart_smoke`` with
+   every child on CUDA and its kernel cache under a fresh temporary
+   directory: ``control``, ``warm_first`` (the persistent cache, a
+   synchronous prewarm, then SIGKILLed) and ``warm_restart``; the
+   fingerprints of the three legs equal the JAX package's (the tool's
+   constants), the first warm leg builds, the restart builds nothing and
+   loads from the cache, and this process builds nothing into it. (b)
+   10b's tier (every arrival a fresh text) with
+   ``RecoveryManager(compilation_cache="persistent")`` on one fresh
+   durable directory, in two children (``chip_smoke.py --coldstart-child
+   DIR ROLE T``): ``cold`` (an empty cache, no prewarm, 3 steps, a
+   snapshot, a SIGKILL) and ``warm`` (``recover(prewarm=True)`` before its
+   first forward, steps 4-6). It prints each child's seconds from its start to its first
+   served step, the first step's ms beside the steady step's, the builds
+   and their seconds, the cache hits, the prewarm walk and
+   ``consensus_dispatch{warmth=}``; checks: the restart builds nothing,
+   and after its recovery loads nothing either (its prewarm loaded every
+   library its forward, fetch and consensus launch), its walk's outcomes are ``compiled`` or ``primed``, its first dispatch
+   counts ``prewarmed``, no ``compile_cache_errors``, 12 B1 launches a
+   forward and B3 once a step, and its per-claim consensus equals an
+   uninterrupted 6-step run's in this process. (c) ``ProfileCapture``
+   around one more step of that run: the Chrome trace exists and its
+   device operations name the flash, B3 and threefry kernels (the top
+   five by device time printed); ``sample_runtime_gauges`` reads a
+   nonzero ``device_live_bytes`` for ``cuda:0``; ``set_mfu_gauge`` on
+   4b's forward (``bench.py``'s FLOP model against 989 TFLOP/s).
 
 It then prints one JSON line of per-kernel numbers, the card's
 ``nvidia-smi`` name and power limit, and last
@@ -2925,35 +2961,53 @@ def serving_scenario_phase(torch, launches):
         check(runs[0]["cost_plane"].enabled == (plane == "on"), f"the cost plane is {plane}")
 
 
+def width_pipeline(torch, cfg=None, device="cuda"):
+    """10b's vectorizer: one shared packed pipeline (ROBERTA_GO_EMOTIONS
+    unless ``cfg``), flash attention and bf16 weights, 256 rows of 128
+    tokens with up to 8 comments a row; its head is not calibrated yet."""
+    import dataclasses
+
+    from svoc_torch.models.configs import ROBERTA_GO_EMOTIONS
+    from svoc_torch.models.sentiment import SentimentPipeline
+
+    return SentimentPipeline(dataclasses.replace(cfg or ROBERTA_GO_EMOTIONS, attention="flash"), seq_len=128,
+                             batch_size=256, params_dtype=torch.bfloat16, packed=True, max_segments=8,
+                             device=device)
+
+
+def width_tier(multi, pipe, metrics, claims: int = SERVING_CLAIMS, arrivals: int = SERVING_ARRIVALS):
+    """10b's ``ServingTier`` over ``multi``: queues of 64, a step drains
+    every arrival, 10b's latency target."""
+    from svoc_torch.serving.frontend import AdmissionConfig
+    from svoc_torch.serving.tier import ServingTier
+    from svoc_torch.utils.slo import serving_slos
+
+    return ServingTier(multi, vectorizer=pipe, admission=AdmissionConfig(queue_capacity=64),
+                       max_requests_per_step=claims * arrivals,
+                       slos=serving_slos(metrics, latency_target_s=SERVING_LATENCY_TARGET_S))
+
+
 @phase("10b. the serving tier at full width: 64 claims x 7 oracles, one packed flash forward a step")
 def serving_width_phase(torch, launches, fabric):
     import collections
-    import dataclasses
 
     import numpy as np
 
     from svoc_torch.fabric import ClaimSpec, MultiSession
     from svoc_torch.fabric.scenario import _claim_names, _injection_schedule
     from svoc_torch.io.scraper import SyntheticSource
-    from svoc_torch.models.configs import ROBERTA_GO_EMOTIONS
-    from svoc_torch.models.sentiment import SentimentPipeline
     from svoc_torch.ops.flash_attention import flash_attention_cuda
     from svoc_torch.ops.fused_consensus import fused_consensus_cuda, fused_consensus_gated_claims_cuda
     from svoc_torch.ops.threefry import threefry_cuda
-    from svoc_torch.serving.frontend import AdmissionConfig
-    from svoc_torch.serving.tier import ServingTier
     from svoc_torch.utils.events import EventJournal
     from svoc_torch.utils.metrics import MetricsRegistry
     from svoc_torch.utils.metrics import registry as process_registry
-    from svoc_torch.utils.slo import serving_slos
 
     card = nvidia_smi()
     names = _claim_names(SERVING_CLAIMS)
     offender = names[-1]
     kinds = _injection_schedule(0, offender, 1 + SERVING_STEPS)
-    pipe = SentimentPipeline(dataclasses.replace(ROBERTA_GO_EMOTIONS, attention="flash"), seq_len=128,
-                             batch_size=256, params_dtype=torch.bfloat16, packed=True, max_segments=8,
-                             device="cuda")
+    pipe = width_pipeline(torch)
     scale = calibrate_head(torch, pipe)
     print(f"  vectorizer: {pipe.cfg.n_layers} layers, hidden {pipe.cfg.hidden}, attention "
           f"{pipe.cfg.attention}, bf16, 256 rows x 128 tokens, head calibrated (scale {scale:.3f}); "
@@ -2978,9 +3032,7 @@ def serving_width_phase(torch, launches, fabric):
     tamper = fabric_tamper(kinds, 6)
     for cid in names:
         multi.add_claim(ClaimSpec(claim_id=cid, tamper=tamper if cid == offender else None))
-    tier = ServingTier(multi, vectorizer=pipe, admission=AdmissionConfig(queue_capacity=64),
-                       max_requests_per_step=SERVING_CLAIMS * SERVING_ARRIVALS,
-                       slos=serving_slos(metrics, latency_target_s=SERVING_LATENCY_TARGET_S))
+    tier = width_tier(multi, pipe, metrics)
 
     def timed(name, fn):
         def run(*args):
@@ -3207,7 +3259,6 @@ def durable_width_run(torch, workdir: str, role: str, device=None, cfg=None, cla
     from the directory, runs to ``steps`` and writes ``result.json``.
     Each step appends its row to ``rows-<role>.jsonl`` as it ends."""
     import collections
-    import dataclasses
     import os
 
     import numpy as np
@@ -3224,17 +3275,12 @@ def durable_width_run(torch, workdir: str, role: str, device=None, cfg=None, cla
     from svoc_torch.fabric.scenario import _claim_names, _injection_schedule
     from svoc_torch.io.chain import ChainAdapter
     from svoc_torch.io.scraper import SyntheticSource
-    from svoc_torch.models.configs import ROBERTA_GO_EMOTIONS
-    from svoc_torch.models.sentiment import SentimentPipeline
     from svoc_torch.ops.flash_attention import flash_attention_cuda
     from svoc_torch.ops.fused_consensus import fused_consensus_cuda, fused_consensus_gated_claims_cuda
     from svoc_torch.ops.threefry import threefry_cuda
-    from svoc_torch.serving.frontend import AdmissionConfig
-    from svoc_torch.serving.tier import ServingTier
     from svoc_torch.sim.generators import claim_seed
     from svoc_torch.utils import events
     from svoc_torch.utils.metrics import MetricsRegistry
-    from svoc_torch.utils.slo import serving_slos
 
     t_start = time.perf_counter()
     # Every fsync of the process (WAL, chain logs, journal trace, snapshot), counted and timed.
@@ -3251,9 +3297,7 @@ def durable_width_run(torch, workdir: str, role: str, device=None, cfg=None, cla
     names = _claim_names(claims)
     offender = names[-1]
     kinds = _injection_schedule(0, offender, 1 + steps)
-    pipe = SentimentPipeline(dataclasses.replace(cfg or ROBERTA_GO_EMOTIONS, attention="flash"), seq_len=128,
-                             batch_size=256, params_dtype=torch.bfloat16, packed=True, max_segments=8,
-                             device=device or "cuda")
+    pipe = width_pipeline(torch, cfg, device or "cuda")
     calibrate_head(torch, pipe, comments=comments)
     forwards = []
     packed_forward = pipe.packed_forward
@@ -3301,10 +3345,8 @@ def durable_width_run(torch, workdir: str, role: str, device=None, cfg=None, cla
     for cid in names:
         multi.add_claim(ClaimSpec(claim_id=cid, tamper=tamper if cid == offender else None))
     multi.attach_wal(wal)
-    tier = ServingTier(multi, vectorizer=pipe, admission=AdmissionConfig(queue_capacity=64),
-                       max_requests_per_step=claims * arrivals,
-                       slos=serving_slos(metrics, latency_target_s=SERVING_LATENCY_TARGET_S))
-    manager = RecoveryManager(multi, out_dir=workdir, wal=wal, tier=tier)  # compilation_cache None: off
+    tier = width_tier(multi, pipe, metrics, claims, arrivals)
+    manager = RecoveryManager(multi, out_dir=workdir, wal=wal, tier=tier, compilation_cache="off")
     snapshots = []
     snapshot = manager.snapshot
 
@@ -3468,6 +3510,388 @@ def durable_width_phase(torch, launches, serving):
     print("  durable per step: " + json.dumps({"crash": crash_rows, "recover": rec_rows}))
 
 
+#: Phase 5c's full-width fine-tune (cut from the TINY run's 240: steps only).
+FINETUNE_ROBERTA_STEPS = 40
+
+
+@phase("5c. the fine-tune twin (tools/finetune_demo.py): TINY to the target, then at full width")
+def finetune_phase(torch, launches):
+    import numpy as np
+
+    from svoc_torch.ops.flash_attention import flash_attention_cuda, flash_dkv_cuda, flash_dq_cuda
+    from svoc_torch.tools import finetune_demo
+
+    card = nvidia_smi()
+    counted = {"flash_attention": flash_attention_cuda, "flash_dq": flash_dq_cuda, "flash_dkv": flash_dkv_cuda}
+    seen = []
+
+    def on_step(_i):
+        seen.append({k: w.launches for k, w in counted.items()})
+
+    torch.cuda.synchronize()
+    for wrapper in counted.values():
+        wrapper.launches = 0
+    t0 = time.perf_counter()
+    tiny = finetune_demo.run(config="tiny", attention="flash", device="cuda", on_step=on_step)
+    secs = time.perf_counter() - t0
+    totals = {k: w.launches for k, w in counted.items()}
+    for k, n in totals.items():
+        launches[k] = launches.get(k, 0) + n
+    n_layers, steps = 2, tiny["steps"]
+    replayed = steps - steps // 2
+    per_step = [{k: b[k] - a[k] for k in b} for a, b in zip(seen, seen[1:])]
+    want = {"flash_attention": n_layers * (steps + replayed + 2), "flash_dq": n_layers * (steps + replayed),
+            "flash_dkv": n_layers * (steps + replayed)}
+    check(all(d == dict.fromkeys(counted, n_layers) for d in per_step) and totals == want,
+          f"TINY flash fine-tune: {n_layers} B1, {n_layers} B4 and {n_layers} B5 launches a train step "
+          f"({len(per_step)} steps read), in all {totals} == {want} (2 evaluations, {steps} steps, "
+          f"{replayed} replayed)")
+    check(tiny["macro_f1_after"] >= tiny["target_f1"] and tiny["same_mesh_replay_max_abs_param_delta"] == 0.0
+          and tiny["losses_finite"],
+          f"TINY (240 steps of 32, the reference's CLI defaults): macro-F1 {tiny['macro_f1_before']} -> "
+          f"{tiny['macro_f1_after']} (target {tiny['target_f1']}), same-device replay max|dparams| "
+          f"{tiny['same_mesh_replay_max_abs_param_delta']}")
+    print(f"  [{card}] TINY: loss {tiny['loss_curve'][0]} -> {tiny['loss_curve'][-1]}, train step "
+          f"{tiny['step_ms']:.3f} ms ({tiny['comments_per_s']:.1f} comments/s), {secs:.1f} s with the "
+          f"evaluations and the replay")
+
+    for wrapper in counted.values():
+        wrapper.launches = 0
+    t0 = time.perf_counter()
+    full = finetune_demo.run(config="roberta", attention="flash", device="cuda", steps=FINETUNE_ROBERTA_STEPS)
+    secs = time.perf_counter() - t0
+    for k, w in counted.items():
+        launches[k] = launches.get(k, 0) + w.launches
+    losses = full["loss_curve"]
+    check(full["losses_finite"] and losses[-1] < losses[0] and np.isfinite(losses).all(),
+          f"ROBERTA_GO_EMOTIONS width (bf16 matmuls, flash, batch 32, {FINETUNE_ROBERTA_STEPS} steps: cut from "
+          f"240, steps only): the loss falls and stays finite ({losses[0]} -> {losses[-1]})")
+    print(f"  [{card}] full width: loss {losses[:3]} ... {losses[-3:]}, macro-F1 {full['macro_f1_before']} -> "
+          f"{full['macro_f1_after']} (target {full['target_f1']}, read, not demanded), train step "
+          f"{full['step_ms']:.3f} ms, {full['comments_per_s']:.1f} trained comments/s, same-device replay "
+          f"max|dparams| {full['same_mesh_replay_max_abs_param_delta']}, {secs:.1f} s in all; launches "
+          f"{ {k: w.launches for k, w in counted.items()} }")
+
+
+@phase("12a. the cold-start smoke on the card: prewarm, SIGKILL, warm restart, children on CUDA")
+def coldstart_smoke_phase(torch):
+    import tempfile
+
+    from svoc_torch.ops import _build
+    from svoc_torch.tools import coldstart_smoke
+
+    card = nvidia_smi()
+    parent_dir = _build.build_dir()
+    with tempfile.TemporaryDirectory(prefix="coldstart-") as base:
+        t0 = time.perf_counter()
+        artifact = coldstart_smoke.run(0, base=base)  # device None: every child on CUDA
+        secs = time.perf_counter() - t0
+    legs = artifact["legs"]
+    failed = sorted(k for k, v in artifact["checks"].items() if not v)
+    check(not failed and not artifact["not_run"],
+          f"the cold-start smoke's {len(artifact['checks'])} checks (fingerprints of the three legs equal, "
+          f"warm_first SIGKILLed and built, warm_restart built nothing and hit): failed {failed}")
+    check(artifact["reference_mismatches"] == {},
+          f"every leg's per-claim and journal fingerprints == the JAX package's "
+          f"(mismatches {artifact['reference_mismatches']})")
+    restart = legs["warm_restart"]["prewarm_outcomes"]
+    check(restart["compiled"] > 0 and restart["error"] == restart["budget_exhausted"] == 0
+          and _build.build_dir() == parent_dir,
+          f"warm_restart's walk finished its universe on the card ({restart}); this process built nothing "
+          f"into the cache (its build directory stays {parent_dir.name})")
+    for leg, r in legs.items():
+        print(f"  [{card}] {leg}: {r['process_s']:.3f} s in its process, scenario {r['scenario_s']:.3f} s, "
+              f"builds {r['cache_misses']:g} ({r['build_seconds']:.3f} s), cache hits {r['cache_hits']:g}, "
+              f"prewarm {r['prewarm_outcomes']}")
+    print(f"  [{card}] cold-start smoke: {secs:.3f} s for three children")
+
+
+#: Phase 12b: steps each child serves (cut from the open-ended serving
+#: loop: steps only).
+COLDSTART_STEPS = 3
+WARMTHS = ("cold", "prewarmed", "warm")
+
+
+def coldstart_width_run(torch, workdir: str, role: str, t_launch=None, device=None, cfg=None,
+                        claims: int = SERVING_CLAIMS, arrivals: int = SERVING_ARRIVALS, comments: int = 256):
+    """One run of phase 12b: 10b's tier with a ``RecoveryManager`` on
+    ``workdir``.  ``role`` "cold": the persistent kernel cache (empty),
+    no prewarm, 3 steps, a snapshot, then a SIGKILL of this process;
+    "warm": the same cache, ``recover(prewarm=True)``, steps 4-6;
+    "uninterrupted": in this process with the cache off, steps 1-6,
+    returning the tier and its per-claim consensus.  Every arrival is a
+    fresh text (no cache hit), so that both sides vectorize the same
+    batches.  A child writes ``result-<role>.json``.  ``t_launch`` is the
+    ``time.time()`` at which the parent started the process; ``device``
+    ``cfg``, ``claims``, ``arrivals`` and ``comments`` shrink the run
+    for a CPU rehearsal (``device="cpu"``: nothing is built there)."""
+    import os
+    import signal
+
+    from svoc_torch.utils.metrics import compile_snapshot, install_compile_listener
+    from svoc_torch.utils.metrics import registry as process_registry
+
+    t_start = time.time()
+    t_launch = t_start if t_launch is None else float(t_launch)
+    install_compile_listener()
+    from svoc_torch.durability.recovery import RecoveryManager
+    from svoc_torch.fabric import ClaimSpec, MultiSession
+    from svoc_torch.fabric.scenario import _claim_names, _injection_schedule
+    from svoc_torch.io.scraper import SyntheticSource
+    from svoc_torch.ops.flash_attention import flash_attention_cuda
+    from svoc_torch.ops.fused_consensus import fused_consensus_gated_claims_cuda
+    from svoc_torch.ops.threefry import threefry_cuda
+    from svoc_torch.utils.events import EventJournal
+    from svoc_torch.utils.metrics import MetricsRegistry
+
+    def sync():
+        if device is None:
+            torch.cuda.synchronize()
+
+    from svoc_torch.models import sentiment
+
+    if device is None:
+        torch.cuda.init()
+    t_imported = time.time()
+    names = _claim_names(claims)
+    offender = names[-1]
+    kinds = _injection_schedule(0, offender, 1 + 2 * COLDSTART_STEPS)
+    # The pipeline's construction, split: the seeded draws, the two
+    # modules taking the weights, the native tokenizer's load.
+    parts = {}
+
+    def timed(name, fn):
+        def run(*args, **kwargs):
+            t0 = time.time()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                sync()
+                parts[name] = parts.get(name, 0.0) + time.time() - t0
+        return run
+
+    if role != "uninterrupted":  # a child: nothing else in its process builds a pipeline
+        for name in ("init_params", "load_encoder", "load_tokenizer"):
+            setattr(sentiment, name, timed(name, getattr(sentiment, name)))
+    pipe = width_pipeline(torch, cfg, device or "cuda")
+    sync()
+    t_pipeline = time.time()
+    forwards = []
+    packed_forward = pipe.packed_forward
+
+    def counted_forward(*arrays):
+        forwards.append(1)
+        return packed_forward(*arrays)
+
+    pipe.packed_forward = counted_forward
+    metrics = MetricsRegistry()
+    journal = EventJournal(capacity=1 << 17)
+    multi = MultiSession(base_seed=0, vectorizer=pipe, journal=journal, metrics=metrics, lineage_scope="cst",
+                         sanitized_dispatch=True, max_claims_per_batch=claims, warmup_mode="prewarm",
+                         device=device)
+    tamper = fabric_tamper(kinds, 6)
+    for cid in names:
+        multi.add_claim(ClaimSpec(claim_id=cid, tamper=tamper if cid == offender else None))
+    tier = width_tier(multi, pipe, metrics, claims, arrivals)
+    manager = RecoveryManager(multi, out_dir=workdir, tier=tier,
+                              compilation_cache="off" if role == "uninterrupted" else "persistent")
+    t_built = time.time()
+    # The restart recovers before its first forward, so that a library
+    # its prewarm left out would load or build inline, where 12b sees it.
+    report = manager.recover(prewarm=True) if role == "warm" else None
+    t_recovered = time.time()
+    compile_recovered = compile_snapshot(process_registry)
+    calibrate_head(torch, pipe, comments=comments)  # the first forward: B1's build or load when cold
+    t_calibrated = time.time()
+    counted = {"flash_attention": flash_attention_cuda, "gated_claims_consensus": fused_consensus_gated_claims_cuda,
+               "threefry": threefry_cuda}
+
+    def serve(step_no: int) -> dict:
+        texts = iter(SyntheticSource(batch=claims * arrivals, seed=2000 + step_no)())
+        for cid in names:
+            for j in range(arrivals):
+                tier.submit(cid, f"{next(texts)} #{step_no}-{cid}-{j}")
+        sync()
+        for wrapper in counted.values():
+            wrapper.launches = 0
+        forwards.clear()
+        warmth0 = {w: metrics.counter("consensus_dispatch", labels={"warmth": w}).count for w in WARMTHS}
+        t0 = time.perf_counter()
+        out = tier.step()
+        return dict(step=tier.steps, step_ms=(time.perf_counter() - t0) * 1e3, served=len(out["served"]),
+                    forwards=len(forwards), launches={k: w.launches for k, w in counted.items()},
+                    warmth={w: metrics.counter("consensus_dispatch", labels={"warmth": w}).count - warmth0[w]
+                            for w in WARMTHS},
+                    at_s=time.time() - t_launch)
+
+    rows = []
+    end = COLDSTART_STEPS if role == "cold" else 2 * COLDSTART_STEPS
+    while tier.steps < end:
+        rows.append(serve(tier.steps))
+    consensus = {cid: multi.get(cid).last_consensus for cid in names}
+    result = dict(
+        role=role, rows=rows, first_served_s=next((r["at_s"] for r in rows if r["served"]), None),
+        imported_s=t_imported - t_launch, pipeline_s=t_pipeline - t_launch, pipeline_parts=parts,
+        built_s=t_built - t_launch,
+        calibrated_s=t_calibrated - t_launch, recovered_s=t_recovered - t_launch,
+        compile=compile_snapshot(process_registry), compile_recovered=compile_recovered,
+        prewarm=(report or {}).get("prewarm"),
+        cache_errors=metrics.family_total("compile_cache_errors"), cache_dir=manager.compile_cache_dir,
+        cache=manager.status()["compile_cache"], consensus=consensus,
+    )
+    if role == "uninterrupted":
+        return dict(result, tier=tier, serve=serve)
+    if role == "cold":
+        manager.snapshot()
+        result["cache"] = manager.status()["compile_cache"]
+    with open(os.path.join(workdir, f"result-{role}.json"), "w") as f:
+        json.dump(result, f)
+    if role == "cold":
+        os.kill(os.getpid(), signal.SIGKILL)  # the crash: after the snapshot, before anything else
+    return None
+
+
+@phase("12b. cold start at full width: 10b's tier, a cold child killed, a warm restart from the kernel cache")
+def coldstart_width_phase(torch, launches, serving_main):
+    import os
+    import tempfile
+
+    card = nvidia_smi()
+    workdir = tempfile.mkdtemp(prefix="coldstart-width-")
+    me = str(Path(__file__).resolve())
+    children = {}
+    for role in ("cold", "warm"):
+        t_launch = time.time()
+        proc = subprocess.run([sys.executable, me, "--coldstart-child", workdir, role, repr(t_launch)],
+                              capture_output=True, text=True, timeout=600, cwd=str(Path(me).parent))
+        children[role] = proc
+        if proc.returncode not in (0, -9):
+            print(proc.stderr[-3000:])
+    results = {}
+    for role in ("cold", "warm"):
+        path = os.path.join(workdir, f"result-{role}.json")
+        results[role] = json.load(open(path)) if os.path.exists(path) else None
+    cold, warm = results["cold"], results["warm"]
+    check(children["cold"].returncode == -9 and children["warm"].returncode == 0 and cold and warm,
+          f"the cold child died by SIGKILL after its snapshot (exit {children['cold'].returncode}), the warm "
+          f"child ran to its end (exit {children['warm'].returncode})")
+    if not (cold and warm):
+        return None
+    t0 = time.perf_counter()
+    ref = coldstart_width_run(torch, tempfile.mkdtemp(prefix="coldstart-uninterrupted-"), "uninterrupted")
+    uninterrupted_s = time.perf_counter() - t0
+    n_layers = 12
+    rows = cold["rows"] + warm["rows"]
+    bad = [r for r in rows if not (r["forwards"] >= 1 and r["served"] == SERVING_CLAIMS
+                                   and r["launches"]["flash_attention"] == n_layers * r["forwards"]
+                                   and r["launches"]["gated_claims_consensus"] == 1)]
+    check(not bad and [r["step"] for r in rows] == list(range(1, 2 * COLDSTART_STEPS + 1)),
+          f"steps 1-{COLDSTART_STEPS} cold and {COLDSTART_STEPS + 1}-{2 * COLDSTART_STEPS} after the restart: "
+          f"{SERVING_CLAIMS} claims served, {n_layers} B1 launches a forward, B3 once a step (failing {bad[:2]})")
+    for r in rows:
+        for k in ("flash_attention", "gated_claims_consensus", "threefry"):
+            launches[k] = launches.get(k, 0) + r["launches"][k]
+    prewarm = warm["prewarm"] or {}
+    outcomes = (prewarm.get("report") or {}).get("outcomes", {})
+    check(cold["compile"]["cache_misses"] > 0 and warm["compile"]["cache_misses"] == 0
+          and warm["compile"]["cache_hits"] > 0 and warm["compile"]["kernel_builds_total"] == 0,
+          f"the cold child built into the empty cache ({cold['compile']['cache_misses']:g} builds); the restart "
+          f"built nothing ({warm['compile']['cache_misses']:g} builds, {warm['compile']['cache_hits']:g} hits)")
+    inline = {k: warm["compile"][k] - warm["compile_recovered"][k] for k in ("cache_misses", "cache_hits")}
+    check(inline == {"cache_misses": 0, "cache_hits": 0},
+          f"the restart's prewarm built or loaded every library its forward, fetch and consensus launch: "
+          f"none built or loaded after the recovery ({inline})")
+    check(bool(outcomes) and set(outcomes) <= {"compiled", "primed"} and cold["cache_errors"] == 0
+          and warm["cache_errors"] == 0,
+          f"the restart's prewarm walk: every outcome compiled or primed ({outcomes}), compile_cache_errors "
+          f"{cold['cache_errors']:g} and {warm['cache_errors']:g}")
+    first = warm["rows"][0]["warmth"]
+    check(first["prewarmed"] == 1 and first["cold"] == 0,
+          f"the restart's first dispatch counts prewarmed ({first}); the cold child's first "
+          f"{cold['rows'][0]['warmth']}")
+    ref_consensus = json.loads(json.dumps(ref["consensus"]))  # as the child's went through its file
+    same = {cid: warm["consensus"][cid] == ref_consensus[cid] for cid in ref_consensus}
+    check(all(same.values()),
+          f"per-claim consensus after the recovery == an uninterrupted run's in this process "
+          f"({sum(same.values())} of {len(same)} claims equal)")
+
+    def steady(result):
+        ms = [r["step_ms"] for r in result["rows"][1:]]
+        return sum(ms) / len(ms)
+
+    for result in (cold, warm):
+        c = result["compile"]
+        walk = (result["prewarm"] or {}).get("report") or {}
+        print(f"  [{card}] {result['role']}: first step served {result['first_served_s']:.3f} s after the "
+              f"process started (torch, CUDA and the package imported {result['imported_s']:.3f} s, the "
+              f"encoder's weights on the card {result['pipeline_s']:.3f} s "
+              f"{ {k: round(v, 3) for k, v in result['pipeline_parts'].items()} }, the {SERVING_CLAIMS} claims' "
+              f"tier and its recovery manager {result['built_s']:.3f} s, recovered "
+              f"{result['recovered_s']:.3f} s, first forward done {result['calibrated_s']:.3f} s); first step "
+              f"{result['rows'][0]['step_ms']:.3f} ms beside the steady {steady(result):.3f} ms; builds "
+              f"{c['kernel_builds_total']:g} taking {c['kernel_build_seconds_sum']:.3f} s, cache hits "
+              f"{c['cache_hits']:g}; prewarm walk {walk.get('universe', {}).get('keys')} keys in "
+              f"{walk.get('elapsed_s')} s, outcomes {walk.get('outcomes')}; consensus_dispatch "
+              f"{ {w: sum(r['warmth'][w] for r in result['rows']) for w in WARMTHS} }; cache {result['cache']}")
+    print(f"  [{card}] uninterrupted run in this process: {uninterrupted_s:.3f} s, steady step "
+          f"{steady(ref):.3f} ms")
+    print("  cold start per step: " + json.dumps({"cold": cold["rows"], "warm": warm["rows"]}))
+    return ref
+
+
+@phase("12c. the profiler and the runtime gauges")
+def profiler_phase(torch, launches, uninterrupted, serving_main):
+    import os
+    import tempfile
+
+    from torch.autograd import DeviceType
+
+    from svoc_torch.models.configs import ROBERTA_GO_EMOTIONS
+    from svoc_torch.obsplane import ProfileCapture
+    from svoc_torch.utils.events import EventJournal
+    from svoc_torch.utils.metrics import (MetricsRegistry, encoder_matmul_flops_per_token, sample_runtime_gauges,
+                                          set_mfu_gauge)
+
+    card = nvidia_smi()
+    if uninterrupted is None:
+        check(False, "12b's tier is missing: nothing to capture")
+        return
+    journal = EventJournal()
+    capture = ProfileCapture(tempfile.mkdtemp(prefix="profiles-"), journal=journal, metrics=MetricsRegistry())
+    started = capture.start(trigger="manual")
+    row = uninterrupted["serve"](uninterrupted["tier"].steps)
+    torch.cuda.synchronize()
+    stopped = capture.stop()
+    for k in ("flash_attention", "gated_claims_consensus", "threefry"):
+        launches[k] = launches.get(k, 0) + row["launches"][k]
+    trace = os.path.join(stopped.get("path", ""), "trace.json")
+    device = [e for e in capture.last.key_averages() if e.device_type == DeviceType.CUDA] if capture.last else []
+    names = {"flash": "flash_fwd", "B3": "gated_claims_kernel", "threefry": "threefry_kernel"}
+    named = {k: any(v in e.key for e in device) for k, v in names.items()}
+    check(started["status"] == "started" and stopped["status"] == "captured" and os.path.exists(trace)
+          and all(named.values()) and len(journal.recent(type="profile.captured")) == 1,
+          f"ProfileCapture of one 10b step: {stopped['status']}, trace {os.path.getsize(trace) if os.path.exists(trace) else 0} "
+          f"bytes, its device operations name {named}")
+    top = sorted(device, key=device_us, reverse=True)[:5]
+    print(f"  [{card}] the captured step's top five by device time: "
+          + "; ".join(f"{e.key[:60]} {device_us(e) / 1e3:.3f} ms x{e.count}" for e in top))
+    gauges = sample_runtime_gauges(MetricsRegistry())
+    live = gauges.get('device_live_bytes{device="cuda:0"}', 0.0)
+    check(live > 0, f"sample_runtime_gauges: device_live_bytes for cuda:0 {live:g} bytes, "
+                    f"device_live_arrays {gauges.get('device_live_arrays')}")
+    if serving_main is None:
+        check(False, "4b's device step is missing: no MFU")
+        return
+    forward_ms = [r["forward_ms"] for r in serving_main["rows"]]
+    step_s = sum(forward_ms) / len(forward_ms) / 1e3
+    tokens = 256 * 128
+    flops = encoder_matmul_flops_per_token(ROBERTA_GO_EMOTIONS, 128) * tokens
+    mfu = set_mfu_gauge(step_s, flops, reg=MetricsRegistry())
+    check(mfu is not None and 0 < mfu < 1, f"set_mfu_gauge on 4b's forward: {mfu}")
+    print(f"  [{card}] MFU of 4b's forward ({step_s * 1e3:.3f} ms by CUDA events for {tokens} token positions, "
+          f"{flops / 1e12:.3f} TFLOP by bench.py's model) against the H100's dense bf16 989 TFLOP/s: {mfu:.4f}")
+
+
 def main() -> int:
     try:
         import torch
@@ -3483,6 +3907,8 @@ def main() -> int:
         PARENT = str(Path(sys.argv[2]).resolve())
     elif sys.argv[1:2] == ["--durable-child"] and len(sys.argv) == 4:
         child = sys.argv[2:4]
+    elif sys.argv[1:2] == ["--coldstart-child"] and len(sys.argv) == 5:
+        child = sys.argv[2:5]
     elif len(sys.argv) > 1:
         print("usage: python3 chip_smoke.py [--parent DIR]", file=sys.stderr)
         return 2
@@ -3492,8 +3918,11 @@ def main() -> int:
     except ImportError:
         print("FAIL: the svoc_torch package is not beside chip_smoke.py", file=sys.stderr)
         return 2
-    if child is not None:  # one process of phase 11c, started by the phase itself
-        durable_width_run(torch, *child)
+    if child is not None:  # one process of phase 11c or 12b, started by the phase itself
+        if len(child) == 3:
+            coldstart_width_run(torch, *child)
+        else:
+            durable_width_run(torch, *child)
         return 0
 
     results, launches = {}, {}
@@ -3512,6 +3941,7 @@ def main() -> int:
         serving = dict(launches)
         small_train_phase(torch)
         train_path_phase(torch, launches)
+        finetune_phase(torch, launches)
         trained = dict(launches)
         claims_path_phase(torch, launches)
         claimed = dict(launches)
@@ -3529,10 +3959,15 @@ def main() -> int:
         chaos_phase(torch)
         crash_matrix_phase(torch, launches)
         durable_width_phase(torch, launches, tier)
-        print(f"  launches: serving paths {serving}; with the train path {trained}; "
+        durable = dict(launches)
+        coldstart_smoke_phase(torch)
+        uninterrupted = coldstart_width_phase(torch, launches, serving_main)
+        profiler_phase(torch, launches, uninterrupted, serving_main)
+        print(f"  launches: serving paths {serving}; with the train paths {trained}; "
               f"with the multi-claim path {claimed}; with the probe path {probed}; "
               f"with the commit path {committed}; with the fabric paths {fabricked}; "
-              f"with the serving tier {tiered}; with the durable paths {launches}")
+              f"with the serving tier {tiered}; with the durable paths {durable}; "
+              f"with the cold-start paths {launches}")
     check(all(launches.get(name, 0) > 0 for name in KERNEL_ROWS),
           f"every kernel launched on its path: { {k: launches.get(k, 0) for k in KERNEL_ROWS} }")
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "svoc_tpu"))

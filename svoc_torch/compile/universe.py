@@ -1,21 +1,37 @@
-"""The identity of one claim-cube dispatch.
+"""The identity of one claim-cube dispatch, and the universe of them.
 
-Mirrors the key half of :mod:`svoc_tpu.compile.universe`
-(``universe.py:35-112``: ``KINDS``, ``CompileKey``, ``dispatch_key``).  A
-dispatch is keyed on its claim bucket, its ``(n_oracles, dimension,
-consensus config)`` group, its kind, the donate twin, the impl and the
-mesh; everything else the router varies a cycle is data.  The router's
-warmth accounting (``consensus_dispatch{warmth=}``) and the cost
-ledger's cells both key on it.  The enumeration of the reachable keys
-(``registry_groups``, the universe) and the prewarm worker that walks it
-wait for ROADMAP A10b.
+Mirrors :mod:`svoc_tpu.compile.universe` (``universe.py:1-283``:
+``KINDS``, ``CompileKey``, ``dispatch_key``, ``registry_groups``,
+``bucket_ladder``, ``enumerate_universe``, ``pending_universe``,
+``universe_summary``).  A dispatch is keyed on its claim bucket, its
+``(n_oracles, dimension, consensus config)`` group, its kind, the donate
+twin, the impl and the mesh; everything else the router varies a cycle
+is data.  The router's warmth accounting
+(``consensus_dispatch{warmth=}``), the cost ledger's cells and the
+prewarm worker (:mod:`svoc_torch.compile.prewarm`) all key on it.
+
+The enumeration derives the reachable keys from live configuration: the
+groups from the registry's unpaused claims, the buckets from every power
+of two up to the router's ``max_claims_per_batch``, the kind and impl
+from the router's construction-pinned resolution.  Order is priority:
+the bucket each group's current claim count dispatches first, then the
+rest of the ladder ascending, then the twins, so that a budgeted walk
+cuts from the tail.
+
+The port enumerates only what it can dispatch.  Its impl is the route
+(``"cuda"`` or ``"plain"``, the router's ``consensus_impl``), and its
+only twin is the other gate fusion (``gated`` beside ``sanitized``).
+The reference's donate twin (``device_resident``) and its sharded kinds
+(the claim mesh) wait for ROADMAP A12: on that subset the two
+enumerations give the same keys in the same order.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Dict, Iterable, List, Optional, Tuple
 
+from svoc_torch.consensus.batch import pow2_bucket
 from svoc_torch.consensus.kernel import ConsensusConfig
 
 #: The dispatch kinds: ``gated`` is the pull-mode router's dispatch (the
@@ -81,3 +97,110 @@ def dispatch_key(
         impl=impl,
         mesh=mesh if sharded else None,
     )
+
+
+def registry_groups(registry) -> Dict[Tuple[int, int, ConsensusConfig], int]:
+    """Live (N, M, cfg) dispatch groups → unpaused claim count, the
+    grouping ``ClaimRouter._step_inner`` builds each cycle."""
+    groups: Dict[Tuple[int, int, ConsensusConfig], int] = {}
+    for state in registry.states():
+        if state.paused:
+            continue
+        spec = state.spec
+        key = (spec.n_oracles, spec.dimension, spec.consensus_config())
+        groups[key] = groups.get(key, 0) + 1
+    return groups
+
+
+def bucket_ladder(cap: int, *, floor: int = 1, multiple_of: int = 1) -> List[int]:
+    """Every bucket the router can dispatch for up to ``cap`` claims:
+    power-of-two buckets ascending, deduplicated."""
+    if cap < 1:
+        raise ValueError("cap must be >= 1")
+    out: List[int] = []
+    n = 1
+    while True:
+        bucket = pow2_bucket(n, floor=floor, multiple_of=multiple_of)
+        if bucket not in out:
+            out.append(bucket)
+        if n >= cap:
+            break
+        n *= 2
+    return out
+
+
+def enumerate_universe(
+    groups: Dict[Tuple[int, int, ConsensusConfig], int],
+    *,
+    max_claims_per_batch: int,
+    sanitized_dispatch: bool,
+    impl: str,
+    include_twins: bool = True,
+) -> List[CompileKey]:
+    """The priority-ordered universe of one router's live configuration.
+    ``groups`` is :func:`registry_groups`' output; the flags are the
+    router's pinned resolution.  Phases: (1) per group, the bucket its
+    current claim count dispatches; (2) the rest of the ladder; (3) with
+    ``include_twins``, the other gate fusion at every bucket, so that a
+    restart that flips ``sanitized_dispatch`` restarts warm too."""
+    ordered = sorted(groups.items(), key=lambda kv: (kv[0][0], kv[0][1], repr(kv[0][2])))
+    ladder = bucket_ladder(max_claims_per_batch)
+
+    def key(group, bucket, sanitized) -> CompileKey:
+        n, m, cfg = group
+        return dispatch_key(sanitized=sanitized, sharded=False, bucket=bucket, n_oracles=n,
+                            dimension=m, cfg=cfg, donate=False, impl=impl, mesh=None)
+
+    out: List[CompileKey] = []
+    seen = set()
+
+    def push(k: CompileKey) -> None:
+        if k not in seen:
+            seen.add(k)
+            out.append(k)
+
+    for group, count in ordered:
+        push(key(group, pow2_bucket(max(1, min(count, max_claims_per_batch))), sanitized_dispatch))
+    for group, _count in ordered:
+        for bucket in ladder:
+            push(key(group, bucket, sanitized_dispatch))
+    if include_twins:
+        for group, _count in ordered:
+            for bucket in ladder:
+                push(key(group, bucket, not sanitized_dispatch))
+    return out
+
+
+def pending_universe(
+    specs,
+    *,
+    max_claims_per_batch: int,
+    sanitized_dispatch: bool,
+    impl: str,
+    include_twins: bool = False,
+) -> List[CompileKey]:
+    """The universe of a configuration that is not live yet: the groups
+    come from ``specs`` (:class:`~svoc_torch.fabric.registry.ClaimSpec`)
+    instead of a registry.  Twins default off: a transition warms the
+    configuration it goes to."""
+    groups: Dict[Tuple[int, int, ConsensusConfig], int] = {}
+    for spec in specs:
+        key = (spec.n_oracles, spec.dimension, spec.consensus_config())
+        groups[key] = groups.get(key, 0) + 1
+    return enumerate_universe(groups, max_claims_per_batch=max_claims_per_batch,
+                              sanitized_dispatch=sanitized_dispatch, impl=impl,
+                              include_twins=include_twins)
+
+
+def universe_summary(keys: Iterable[CompileKey]) -> Dict[str, object]:
+    """JSON-safe digest of a universe: its size, keys a kind, buckets and groups."""
+    keys = list(keys)
+    kinds: Dict[str, int] = {}
+    for k in keys:
+        kinds[k.kind] = kinds.get(k.kind, 0) + 1
+    return {
+        "keys": len(keys),
+        "kinds": kinds,
+        "buckets": sorted({k.bucket for k in keys}),
+        "groups": len({k.group() for k in keys}),
+    }

@@ -7,17 +7,19 @@ Mirrors :mod:`svoc_tpu.durability.recovery` (``recovery.py:1-570``):
 fault point.  Snapshots, reports and journal events are the
 reference's, field for field.
 
-Where the port departs: ``compilation_cache`` — the reference's
-persistent XLA compilation cache under the durability directory
-(``recovery.py:132-170``, resolved from ``SVOC_COMPILATION_CACHE`` or
-``PERF_DECISIONS.json``) — has nothing to persist here until the
-compile plane lands (ROADMAP A10b): the port keeps no compiled-program
-cache, and its kernel builds already persist in ``svoc_torch/_build/``.
-``None`` therefore means ``"off"``; ``"persistent"`` raises
-``NotImplementedError``.  The reference calls the mode "purely an
-execution-cost knob" (cached and fresh compiles give identical
-programs), and its durable scenario pins it off, so no fingerprint
-depends on it.  ``recover(prewarm=True)`` raises for the same reason.
+``compilation_cache`` resolves once at construction
+(:func:`svoc_torch.compile.modes.resolve_compilation_cache`:
+``SVOC_COMPILATION_CACHE``, then the committed ``"persistent"``,
+``recovery.py:132-170``).  ``"persistent"`` points the process's kernel
+builds under ``<out_dir>/kernel_cache/<salt>``
+(:func:`svoc_torch.compile.cache.enable_persistent_cache`), where the
+reference points JAX's compilation cache under ``xla_cache``.  The
+reference's snapshot-cadence eviction and its ``compile_cache_max_bytes``
+are left out: a salt directory holds one library per source, so its cap
+is never reached (:mod:`svoc_torch.compile.cache`).  ``recover(prewarm=True)``
+walks the primary universe synchronously after the restore
+(``recovery.py:361-388``); a prewarm defect is counted in
+``compile_cache_errors{op="prewarm"}`` and does not fail the recovery.
 The console hooks (``attach``) come with the console (ROADMAP A12).
 
 The WAL (:mod:`svoc_torch.durability.wal`) makes the CHAIN side of a
@@ -154,18 +156,21 @@ class RecoveryManager:
         self._metrics = multi.metrics
         self._lock = threading.Lock()
         self.snapshots = 0
-        #: The compile plane's persistent cache: "off" is the only mode
-        #: the port has until ROADMAP A10b (module docstring).
-        mode = compilation_cache if compilation_cache is not None else "off"
-        if mode == "persistent":
-            raise NotImplementedError(
-                "compilation_cache='persistent': the port has no compiled-"
-                "program cache to persist until the compile plane "
-                "(compile/cache.py, ROADMAP A10b)"
-            )
-        if mode != "off":
+        #: The persistent kernel cache under the durability directory,
+        #: resolved once here (the one constructor that knows the
+        #: directory).  Durable state, not journal state: WAL and trace
+        #: rotation never touch it.
+        from svoc_torch.compile.modes import ALLOWED_COMPILATION_CACHES, resolve_compilation_cache
+
+        mode = compilation_cache if compilation_cache is not None else resolve_compilation_cache()
+        if mode not in ALLOWED_COMPILATION_CACHES:
             raise ValueError(f"unknown compilation_cache {mode!r}")
         self.compilation_cache = mode
+        self.compile_cache_dir: Optional[str] = None
+        if mode == "persistent":
+            from svoc_torch.compile.cache import enable_persistent_cache
+
+            self.compile_cache_dir = enable_persistent_cache(out_dir, metrics=self._metrics)
         #: Orphan claim state quarantined by a restore (membership
         #: changed between snapshot and recovery).  Carried forward
         #: into every subsequent snapshot — the "never silently
@@ -288,14 +293,11 @@ class RecoveryManager:
         re-enqueue + lost-request accounting → WAL reconcile.  Safe
         with NO snapshot on disk (first-crash-before-first-snapshot:
         everything restores empty and the WAL reconcile still runs).
-        ``prewarm=True`` raises until the compile plane lands (ROADMAP
-        A10b), before anything is restored.
+        ``prewarm=True`` then walks the primary universe synchronously
+        (the pinned ``warmup_mode`` holds: ``"none"`` walks nothing), so
+        that the first request after the recovery dispatches warm; a
+        defect is counted, never fatal.
         """
-        if prewarm:
-            raise NotImplementedError(
-                "recover(prewarm=True): the compile plane's prewarm is not "
-                "ported yet (ROADMAP A10b)"
-            )
         journal = self._journal()
         report: Dict[str, Any] = {
             "snapshot": None,
@@ -351,6 +353,15 @@ class RecoveryManager:
                 registry=self._metrics,
             )
             report["reconcile"] = rec.as_dict()
+        if prewarm:
+            # Primary variants only: a blocking recovery reaches
+            # serving-ready fast; the twins land on the next background walk.
+            try:
+                worker = self.multi.start_prewarm(background=False, include_twins=False)
+                report["prewarm"] = worker.stats() if worker is not None else None
+            except Exception:  # noqa: BLE001 — counted, the recovery proceeds
+                self._metrics.counter("compile_cache_errors", labels={"op": "prewarm"}).add(1)
+                report["prewarm"] = {"error": True}
         return report
 
     # -- views ---------------------------------------------------------------
@@ -358,6 +369,8 @@ class RecoveryManager:
     def status(self) -> Dict[str, Any]:
         """The durability panel: snapshot freshness, WAL health — cheap,
         no chain I/O."""
+        from svoc_torch.compile.cache import cache_stats
+
         snap_exists = os.path.exists(self.snapshot_path)
         open_cycles: List[str] = []
         wal_records = 0
@@ -377,6 +390,13 @@ class RecoveryManager:
             "wal_records": wal_records,
             "wal_open_cycles": open_cycles,
             "compilation_cache": self.compilation_cache,
+            "compile_cache_dir": self.compile_cache_dir,
+            # Stats of the directory this manager owns only: another
+            # enabler may have pointed the process elsewhere.
+            "compile_cache": (
+                cache_stats(self.compile_cache_dir) if self.compile_cache_dir is not None
+                else {"entries": 0.0, "bytes": 0.0}
+            ),
         }
 
     def _adapter_for(self, claim: Optional[str]):

@@ -28,19 +28,23 @@ One claim's Byzantine offender, dead chain, or burning error budget
 stays in that claim's fleet, breaker, and SLO — sibling claims share
 only the device dispatch.
 
-Every dispatch is counted cold or warm under
+Every dispatch is counted ``cold``, ``prewarmed`` or ``warm`` under
 ``consensus_dispatch{warmth=}`` by its
-:class:`~svoc_torch.compile.universe.CompileKey` (``router.py:721-768``),
-and, when the serving tier sets ``cost_plane``, its host seconds feed the
-cost ledger and its claims get the ``h2d``, ``dispatched``, ``synced``
-and ``committed`` timeline marks (``router.py:553-558, 628-698,
-815-850``).  Neither reaches the journal, so the fingerprints do not
-change.  Not ported here: the claim mesh (``mesh=``, ROADMAP A12), the
-device-resident staging (``device_resident=True``, A12), and the
-compile plane's prewarmer (``warmup_mode="prewarm"``,
-:meth:`ClaimRouter.attach_prewarmer`, the ``prewarmed`` warmth; A10b):
-each raises ``NotImplementedError``.  There is no ``consensus_impl``
-routing: the route follows the device.
+:class:`~svoc_torch.compile.universe.CompileKey` (``router.py:715-768``):
+``prewarmed`` is the first dispatch of a key that the attached
+:class:`~svoc_torch.compile.prewarm.PrewarmWorker` already warmed
+(:meth:`ClaimRouter.attach_prewarmer`).  ``warmup_mode`` resolves once
+at construction (:func:`svoc_torch.compile.modes.resolve_warmup_mode`:
+``SVOC_WARMUP``, then the committed ``"prewarm"``); the router only
+records it, and ``MultiSession.start_prewarm`` and the serving loop act
+on it.  When the serving tier sets ``cost_plane``, each dispatch's host
+seconds feed the cost ledger and its claims get the ``h2d``,
+``dispatched``, ``synced`` and ``committed`` timeline marks
+(``router.py:553-558, 628-698, 815-850``).  None of this reaches the
+journal, so the fingerprints do not change.  Not ported here: the claim
+mesh (``mesh=``, ROADMAP A12) and the device-resident staging
+(``device_resident=True``, A12), which raise ``NotImplementedError``.
+There is no ``consensus_impl`` routing: the route follows the device.
 """
 
 from __future__ import annotations
@@ -54,6 +58,7 @@ import numpy as np
 import torch
 
 from svoc_torch.apps.session import DegenerateBlockError, EmptyStoreError
+from svoc_torch.compile.modes import ALLOWED_WARMUP_MODES, CompilePlaneError, resolve_warmup_mode
 from svoc_torch.compile.universe import dispatch_key
 from svoc_torch.consensus.batch import (
     _no_impl_routing,
@@ -171,10 +176,9 @@ class ClaimRouter:
                 "device_resident=True: the resident staging of the claim cube is "
                 "not ported yet (ROADMAP A12)"
             )
-        if warmup_mode not in (None, "none"):
-            raise NotImplementedError(
-                f"warmup_mode={warmup_mode!r}: the compile plane's prewarm is not "
-                "ported yet (ROADMAP A10b)"
+        if warmup_mode is not None and warmup_mode not in ALLOWED_WARMUP_MODES:
+            raise CompilePlaneError(
+                f"warmup_mode {warmup_mode!r} is not one of {ALLOWED_WARMUP_MODES}"
             )
         self.registry = registry
         self.max_claims_per_batch = max_claims_per_batch
@@ -185,9 +189,12 @@ class ClaimRouter:
         #: (:class:`~svoc_torch.obsplane.plane.CostPlane`); None: no
         #: cost accounting.
         self.cost_plane = None
-        #: The compile plane's prewarm worker (ROADMAP A10b): always None.
+        #: The compile plane's warmup routing, pinned here: cold, prewarmed
+        #: and warm dispatches must mean one thing a process.
+        self.warmup_mode = warmup_mode if warmup_mode is not None else resolve_warmup_mode()
+        #: The attached prewarm worker (None until :meth:`attach_prewarmer`
+        #: or ``MultiSession.start_prewarm``).
         self.prewarmer = None
-        self.warmup_mode = "none"
         self.mesh_spec = None
         #: The route of every claim-cube dispatch, read only: one kernel
         #: launch on CUDA, the plain forms on the CPU.
@@ -486,14 +493,14 @@ class ClaimRouter:
                              h2d_s=h2d_s, dispatch_s=dispatch_s)
 
     def _account_warmth(self, bucket: int, n: int, m: int, cfg):
-        """Count this dispatch ``cold`` (the first of its CompileKey in
-        this process) or ``warm`` (every repeat) under
-        ``consensus_dispatch{warmth=}``; returns ``(key, warmth)``.  The
-        caller marks the key seen once the dispatch returned.  On CUDA a
-        cold dispatch pays the kernel module's load, where the
-        reference's pays a compile.  The reference's ``prewarmed``
-        warmth needs the prewarm worker (ROADMAP A10b).  Metrics only:
-        the journal never sees warmth."""
+        """Count this dispatch under ``consensus_dispatch{warmth=}``:
+        ``cold`` (the first of its CompileKey in this process, and no
+        prewarmer warmed it: on CUDA it pays the kernel library's build or
+        load, where the reference's pays a compile), ``prewarmed`` (the
+        first, of a key the attached worker warmed) or ``warm`` (every
+        repeat); returns ``(key, warmth)``.  The caller marks the key seen
+        once the dispatch returned.  Metrics only: the journal never sees
+        warmth."""
         shape_key = (bucket, n, m, cfg)
         key = self._warmth_keys.get(shape_key)
         if key is None:
@@ -503,15 +510,20 @@ class ClaimRouter:
                 impl=self.consensus_impl, mesh=None,
             )
             self._warmth_keys[shape_key] = key
-        warmth = "warm" if key in self._warmth_seen else "cold"
+        if key in self._warmth_seen:
+            warmth = "warm"
+        elif self.prewarmer is not None and self.prewarmer.is_warm(key):
+            warmth = "prewarmed"
+        else:
+            warmth = "cold"
         self._metrics.counter("consensus_dispatch", labels={"warmth": warmth}).add(1)
         return key, warmth
 
     def attach_prewarmer(self, worker) -> None:
-        """The compile plane's prewarm worker (ROADMAP A10b)."""
-        raise NotImplementedError(
-            "the compile plane's prewarmer is not ported yet (ROADMAP A10b)"
-        )
+        """Wire a :class:`~svoc_torch.compile.prewarm.PrewarmWorker` into
+        the warmth accounting (and the serving tier's cold-shape gate,
+        which reads ``router.prewarmer``)."""
+        self.prewarmer = worker
 
     def _finish_group(self, pending: _PendingGroup) -> None:
         """Bring one dispatched group to the host and write each member's

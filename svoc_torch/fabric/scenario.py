@@ -3,8 +3,11 @@
 Mirrors :mod:`svoc_tpu.fabric.scenario` (``scenario.py:1-242``):
 :func:`run_fabric_scenario`, :func:`deterministic_vectorizer` and
 :func:`_injection_schedule`.  ``device=None`` means CUDA (raising
-without a card); ``mesh``, ``device_resident=True`` and
-``warmup=True`` raise ``NotImplementedError`` (ROADMAP A12, A12, A10b).
+without a card); ``mesh`` and ``device_resident=True`` raise
+``NotImplementedError`` (ROADMAP A12).  ``warmup=True`` runs a
+synchronous prewarm of the claim-cube universe before the first cycle
+(``scenario.py:183-184``); it never journals, so the fingerprints are
+the same with it or without it.
 
 N claims (default 4 × 7 oracles) multiplexed through one
 :class:`~svoc_torch.fabric.session.MultiSession`; the LAST claim carries
@@ -111,18 +114,14 @@ def run_fabric_scenario(
     ``commit_mode`` pins the commit plane; it is NOT a fingerprint
     family (the batched plane emits the per-tx plane's exact journal
     events).  ``device`` is where the fleets are drawn and the claim
-    cubes dispatched (``None``: CUDA).  ``mesh``, ``device_resident``
-    and ``warmup`` are the reference's, and raise here unless off."""
+    cubes dispatched (``None``: CUDA).  ``mesh`` and
+    ``device_resident`` are the reference's, and raise here unless off.
+    ``warmup=True`` prewarms the universe synchronously first."""
     from svoc_torch.io.comment_store import CommentStore
     from svoc_torch.io.scraper import SyntheticSource
     from svoc_torch.utils.events import EventJournal
     from svoc_torch.utils.metrics import MetricsRegistry
 
-    if warmup:
-        raise NotImplementedError(
-            "warmup=True: the compile plane's prewarm is not ported yet "
-            "(ROADMAP A10b)"
-        )
     if n_claims < 2:
         raise ValueError("isolation needs at least one sibling claim")
     journal = journal if journal is not None else EventJournal()
@@ -177,6 +176,8 @@ def run_fabric_scenario(
                 tamper=tamper if name == offender_claim else None,
             )
         )
+    if warmup:
+        multi.start_prewarm(background=False, force=True)
     reports = multi.run(cycles)
 
     claims: Dict[str, Any] = {}

@@ -3,10 +3,10 @@
 Mirrors :mod:`svoc_tpu.fabric.session` (``session.py:1-380``).  The
 port's ``MultiSession(device=None)`` resolves its device once (CUDA,
 raising without a card) and hands it to every claim's ``Session`` and to
-the router.  ``start_prewarm`` (the compile plane, ROADMAP A10b) and
-``attach(console)`` (``apps/commands.py``, A12) raise
-``NotImplementedError``; ``mesh``, ``device_resident`` and a prewarm
-``warmup_mode`` raise in the router.
+the router.  ``start_prewarm`` builds and runs the compile plane's
+prewarm worker (``session.py:272-322``).  ``attach(console)``
+(``apps/commands.py``, ROADMAP A12) raises ``NotImplementedError``, and
+``mesh`` and ``device_resident`` raise in the router.
 
 One object that owns N claims end-to-end (docs/FABRIC.md): a
 :class:`~svoc_torch.fabric.registry.ClaimRegistry` of per-claim state —
@@ -273,12 +273,32 @@ class MultiSession:
         force: bool = False,
         include_twins: bool = True,
     ):
-        """The compile plane's prewarm of the claim-cube shape universe
-        (``svoc_tpu/fabric/session.py:272-322``), not ported yet."""
-        raise NotImplementedError(
-            "start_prewarm: the compile plane (compile/prewarm.py) is not "
-            "ported yet (ROADMAP A10b)"
-        )
+        """Build (once) and run the prewarm worker over this fabric's
+        live shape universe (:class:`~svoc_torch.compile.prewarm.PrewarmWorker`).
+
+        Honors the router's pinned ``warmup_mode``: under ``"none"`` it
+        returns None unless ``force=True``.  ``background=True`` (the
+        serving default) walks on a daemon thread while the tier serves
+        and defers cold shapes; ``background=False`` blocks until the
+        universe is warm (recoveries, smokes).  Returns the worker,
+        reused on repeat calls, which re-walk the refreshed universe and
+        skip what is warm.  ``include_twins=False`` restricts this walk
+        to the variants this process can dispatch (the blocking recovery
+        walk); a later default call adds the twins."""
+        if self.router.warmup_mode == "none" and not force:
+            return None
+        worker = self.router.prewarmer
+        if worker is None:
+            from svoc_torch.compile.prewarm import PrewarmConfig, PrewarmWorker
+
+            worker = PrewarmWorker(self.router, self.registry, metrics=self._metrics,
+                                   config=PrewarmConfig(budget_s=budget_s))
+            self.router.attach_prewarmer(worker)
+        if background:
+            worker.start(budget_s=budget_s, include_twins=include_twins)
+        else:
+            worker.warm_all(budget_s=budget_s, include_twins=include_twins)
+        return worker
 
     # -- views ---------------------------------------------------------------
 
@@ -295,6 +315,10 @@ class MultiSession:
             "n_claims": len(self.registry),
             "device": str(self.device),
             "pipelined": self.router.pipelined,
+            "warmup_mode": self.router.warmup_mode,
+            "prewarm": (
+                self.router.prewarmer.stats() if self.router.prewarmer is not None else None
+            ),
             "claims": self.claims_state(),
         }
 

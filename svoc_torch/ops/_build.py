@@ -2,11 +2,28 @@
 counterpart: a Pallas kernel compiles inside ``jax.jit``).
 
 Each ``svoc_torch/csrc/<name>.cu`` has a plain C interface. ``nvcc``
-compiles it for ``sm_90a`` into ``svoc_torch/_build/lib<name>-<hash>.so``
-(git-ignored), and :func:`load` opens it with ctypes. The hash covers the
-source, the shared headers ``csrc/*.cuh`` and the flags, so an edited
-source or header builds anew and an unchanged one is reused. :func:`build` starts one ``nvcc`` per source, all at
-once, so that a cold start waits for the slowest file only.
+compiles it for ``sm_90a`` into ``<build dir>/lib<name>-<hash>.so``, and
+:func:`load` opens it with ctypes. The hash covers the source, the
+shared headers ``csrc/*.cuh`` and the flags, so an edited source or
+header builds anew and an unchanged one is reused. :func:`build` starts
+one ``nvcc`` per source, all at once, so that a cold start waits for the
+slowest file only.
+
+The build directory is ``svoc_torch/_build/`` (git-ignored) unless the
+process points it elsewhere with :func:`set_build_dir`: the compile
+plane's persistent kernel cache (:mod:`svoc_torch.compile.cache`) puts
+it under a durability directory, so that a restarted process on a fresh
+machine, or one whose package directory is read-only, loads what an
+earlier process built.  Every ``nvcc`` run is reported to the listeners
+of :func:`add_listener` as a ``"miss"`` with its seconds, and every
+first load of a library this process did not build as a ``"hit"``
+(:func:`svoc_torch.utils.metrics.install_compile_listener` counts both).
+A hit in a directory the process pointed its builds at touches the file,
+so that the cache's eviction drops the library loaded least recently; a
+hit in ``svoc_torch/_build/`` touches nothing, and a file that refuses
+the touch (a read-only directory, another owner's library) still loads.
+:func:`load_all` builds every missing library of a list in parallel and
+loads them all, as the prewarm worker does ahead of traffic.
 
 Every kernel launch goes through :func:`launch`, which makes the
 tensors' device current when it is not, so that a kernel runs on its
@@ -22,8 +39,9 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
-from typing import Callable, Dict, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
 
 import torch
 
@@ -37,6 +55,40 @@ NVCC_FLAGS = (
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
+#: The process's build directory (None: :data:`BUILD_DIR`).
+_build_dir: Optional[Path] = None
+#: Libraries this process built: their first load is no cache hit.
+_built: set = set()
+#: ``listener(event, name, seconds)``, event ``"hit"`` or ``"miss"``.
+_listeners: List[Callable[[str, str, float], None]] = []
+
+
+def build_dir() -> Path:
+    """Where this process builds and loads its kernel libraries."""
+    return BUILD_DIR if _build_dir is None else _build_dir
+
+
+def set_build_dir(path) -> Path:
+    """Point this process's builds and loads at ``path`` (None: back to
+    :data:`BUILD_DIR`); returns the previous directory.  A library
+    already loaded stays loaded."""
+    global _build_dir
+    with _lock:
+        previous = build_dir()
+        _build_dir = None if path is None else Path(path)
+        return previous
+
+
+def add_listener(fn: Callable[[str, str, float], None]) -> None:
+    """Report every later build (``"miss"``) and cache hit to ``fn``."""
+    with _lock:
+        if fn not in _listeners:
+            _listeners.append(fn)
+
+
+def _report(event: str, name: str, seconds: float) -> None:
+    for fn in list(_listeners):
+        fn(event, name, seconds)
 
 
 def _nvcc() -> str:
@@ -58,15 +110,17 @@ def library_path(name: str) -> Path:
     for header in sorted(CSRC.glob("*.cuh")):
         digest.update(header.name.encode() + header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
+    return build_dir() / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
 def build(names: Sequence[str]) -> Dict[str, str]:
     """Compile every source in ``names`` that has no current library, in
     parallel; returns each new build's compiler report (``-Xptxas=-v``:
-    registers, shared memory, spills).  Raises on a failed build."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    registers, shared memory, spills).  Raises on a failed build.  Each
+    ``nvcc`` run is reported as a miss with its seconds, a failed one too."""
+    build_dir().mkdir(parents=True, exist_ok=True)
     procs = {}
+    t0 = time.perf_counter()
     for name in names:
         out = library_path(name)
         if out.exists():
@@ -79,25 +133,57 @@ def build(names: Sequence[str]) -> Dict[str, str]:
     reports, failed = {}, []
     for name, (proc, tmp, out) in procs.items():
         report, _ = proc.communicate()
+        _report("miss", name, time.perf_counter() - t0)
         if proc.returncode != 0:
             failed.append(f"{name}.cu (exit {proc.returncode}):\n{report}")
             continue
         os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
+        _built.add(out)
         reports[name] = report
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
     return reports
 
 
+def _touch(path: Path) -> None:
+    """Make a cache hit the most recent load (the persistent cache's
+    eviction order).  Only a directory set by :func:`set_build_dir` is
+    touched, and a refused touch is no error: the library loads all the
+    same."""
+    if _build_dir is None:
+        return
+    try:
+        os.utime(path)
+    except OSError:
+        pass
+
+
 def load(name: str) -> ctypes.CDLL:
-    """The ctypes handle of ``csrc/<name>.cu``, built on first use."""
+    """The ctypes handle of ``csrc/<name>.cu``, built on first use into
+    the build directory; a library found there is a hit."""
     with _lock:
         lib = _loaded.get(name)
         if lib is None:
-            build([name])
-            lib = ctypes.CDLL(str(library_path(name)))
+            path = library_path(name)
+            if path.exists() and path not in _built:
+                _touch(path)
+                _report("hit", name, 0.0)
+            else:
+                build([name])
+            lib = ctypes.CDLL(str(path))
             _loaded[name] = lib
         return lib
+
+
+def load_all(names: Sequence[str]) -> Dict[str, ctypes.CDLL]:
+    """The handles of every source in ``names``: those with no current
+    library are built first, one ``nvcc`` each and all at once, so that
+    the caller waits for the slowest source only."""
+    with _lock:
+        missing = [n for n in names if n not in _loaded and not library_path(n).exists()]
+        if missing:
+            build(missing)
+    return {name: load(name) for name in names}
 
 
 def launch(kernel: str, fn: Callable[..., int], device: torch.device, *args) -> None:

@@ -135,8 +135,9 @@ class ServingFrontend:
     ``cold_gate(claim_id) -> bool`` says whether a claim's consensus
     shape is still being prepared: its cache-miss submissions are then
     queued but deferred (``serving.deferred{reason="cold_shape"}``) and
-    the batcher skips the claim.  None (the default, and always in the
-    port until the prewarm worker of ROADMAP A10b) defers nothing."""
+    the batcher skips the claim.  The serving tier passes its
+    ``_claim_cold``, which asks the prewarm worker while a walk is in
+    flight; None (the default) defers nothing."""
 
     def __init__(self, multi, *, admission: Optional[AdmissionConfig] = None,
                  cache: Optional[ResultCache] = None, metrics: Optional[MetricsRegistry] = None,

@@ -20,10 +20,14 @@ fabric:
   (:mod:`svoc_torch.serving.scenario`) drive virtual time, so latencies,
   burn rates and shed decisions replay byte for byte.
 
-The tier owns no thread (``run_loop`` is the daemon-thread convenience).
-Its ``prewarmer`` stays None until the compile plane (ROADMAP A10b): a
-cold gate with no worker defers nothing, as in the reference;
-``attach(console)`` waits for the console (A12).
+The tier owns no thread (``run_loop`` is the daemon-thread convenience,
+and under ``warmup_mode="prewarm"`` it starts the compile plane's
+background prewarm first, ``tier.py:424-446``).  Its ``prewarmer`` is the
+injected worker or the router's; while that worker's walk is in flight,
+a claim whose dispatch group is still cold has its cache misses queued
+and deferred (``serving.deferred{reason="cold_shape"}``); no worker, or a
+finished one, defers nothing.  ``attach(console)`` waits for the console
+(ROADMAP A12).
 
 :class:`ClaimServingStep` mirrors the device path of
 :meth:`svoc_tpu.serving.tier.ServingTier._step_inner`
@@ -280,16 +284,15 @@ class ServingTier:
         prewarmer=None,
         cost_plane=None,
     ):
-        if prewarmer is not None:
-            raise NotImplementedError(
-                "prewarmer: the compile plane's prewarm worker is not ported yet (ROADMAP A10b)"
-            )
         self.multi = multi
         self._metrics = multi.metrics
         self._journal = resolve_journal(multi.journal)
         self._clock = clock if clock is not None else time.monotonic
         if cache is None:
             cache = ResultCache(cache_capacity, metrics=self._metrics)
+        #: The worker gating cold-shape deferrals: the injected one, else
+        #: the router's (one ``MultiSession.start_prewarm`` wires both).
+        self._prewarmer = prewarmer
         self.cost_plane = (
             cost_plane if cost_plane is not None
             else resolve_cost_plane(clock=self._clock, metrics=self._metrics)
@@ -325,11 +328,14 @@ class ServingTier:
 
     @property
     def prewarmer(self):
-        """The prewarm worker: the router's, None in the port."""
-        return self.multi.router.prewarmer
+        """The active prewarm worker: the injected one, else whatever
+        ``MultiSession.start_prewarm`` attached to the router."""
+        return self._prewarmer if self._prewarmer is not None else self.multi.router.prewarmer
 
     def _claim_cold(self, claim_id: str) -> bool:
-        """The frontend's cold-shape gate: no worker defers nothing."""
+        """The frontend's cold-shape gate: True while an in-flight walk
+        has not yet warmed this claim's dispatch group; no worker, or a
+        finished one, defers nothing."""
         worker = self.prewarmer
         if worker is None or not worker.active:
             return False
@@ -517,9 +523,18 @@ class ServingTier:
     def run_loop(self, period_s: float = 0.05) -> threading.Event:
         """Drive :meth:`step` on a daemon thread every ``period_s``;
         returns the stop event.  A live loop is reused.  A raising step is
-        counted (``serving_step_errors``) and the loop goes on."""
+        counted (``serving_step_errors``) and the loop goes on.
+
+        The live deployment's entry point, so it activates the pinned
+        warmup routing: under ``warmup_mode="prewarm"`` the prewarm walk
+        starts in the background before the first tick (cold shapes defer
+        instead of loading inline).  After a recovery's primary-only walk
+        this background pass adds the twins; warm keys are skipped.  A
+        caller that drives :meth:`step` itself gets no warmup."""
         if self._loop_thread is not None and self._loop_thread.is_alive():
             return self._loop_stop
+        if self.multi.router.warmup_mode == "prewarm":
+            self.multi.start_prewarm(background=True)
         stop = threading.Event()
 
         def loop():

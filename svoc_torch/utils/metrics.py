@@ -19,9 +19,18 @@ The Tracer's JSONL file sink (``SVOC_TRACE_FILE`` or
 :func:`svoc_torch.utils.events.shared_writer`, so spans and journal
 events rotate as one file.
 
-Not ported with this core: the compile listener, the runtime and MFU gauges and
-  ``profile_trace`` (``metrics.py:756-974``), which read JAX's runtime
-  (ROADMAP A10b).
+The runtime end (``metrics.py:756-974``) reads the port's runtime
+where the reference reads JAX's: :func:`install_compile_listener` counts
+the kernel builds and cache hits that :mod:`svoc_torch.ops._build`
+reports (``kernel_builds_total``, the ``kernel_build_seconds`` histogram
+that stands where ``xla_compile_seconds`` does, and
+``kernel_cache_events{event=hit|miss}`` where ``xla_cache_events``
+does), :func:`compile_snapshot` digests them with the prewarm outcomes,
+:func:`sample_runtime_gauges` reads the CUDA caching allocator,
+:func:`set_mfu_gauge` takes the port's copy of ``bench.py``'s FLOP model
+(:func:`encoder_matmul_flops_per_token`) and the H100's dense bf16 peak,
+and :func:`profile_trace` runs ``torch.profiler``.  Only these functions
+import torch, inside their bodies.
 """
 
 from __future__ import annotations
@@ -723,3 +732,141 @@ def stage_span(name: str, lineage: Optional[str] = None):
     ``lineage=None`` inherits the enclosing span's block lineage."""
     return tracer.span(name, lineage=lineage)
 
+
+
+# ---------------------------------------------------------------------------
+# The runtime end (``svoc_tpu/utils/metrics.py:756-974``)
+# ---------------------------------------------------------------------------
+
+#: The NVIDIA H100's dense bf16 tensor-core peak (989 TFLOP/s, SXM), the
+#: denominator of :func:`set_mfu_gauge` on the card.
+H100_BF16_DENSE_PEAK_FLOPS = 989e12
+
+_compile_listener_lock = threading.Lock()
+_compile_listener_installed = False
+
+
+def _on_kernel_cache_event(event: str, name: str, seconds: float) -> None:
+    if event == "miss":
+        registry.counter("kernel_builds_total").add(1)
+        registry.histogram("kernel_build_seconds").observe(max(0.0, seconds))
+    registry.counter("kernel_cache_events", labels={"event": event}).add(1)
+
+
+def install_compile_listener() -> bool:
+    """Count every kernel build and cache hit of this process (once per
+    process) into the default :data:`registry`: builds are process-wide
+    events, as the reference's compiles are.  A miss is an ``nvcc`` run
+    this process paid (``kernel_builds_total``, ``kernel_build_seconds``,
+    ``kernel_cache_events{event="miss"}``); a hit is a first load of a
+    library found in the build directory (``kernel_cache_events{event=
+    "hit"}``).  Returns True."""
+    global _compile_listener_installed
+    with _compile_listener_lock:
+        if not _compile_listener_installed:
+            from svoc_torch.ops import _build
+
+            _build.add_listener(_on_kernel_cache_event)
+            _compile_listener_installed = True
+    return True
+
+
+def compile_snapshot(reg: Optional["MetricsRegistry"] = None) -> Dict[str, Any]:
+    """JSON-safe digest of the compile plane's series: the builds, their
+    seconds and percentiles, the cache's hits and misses, and the
+    prewarm outcomes.  Reads the default registry unless told
+    otherwise (where :func:`install_compile_listener` counts)."""
+    reg = reg or registry
+    h = reg.histogram("kernel_build_seconds")
+    outcomes = ("compiled", "primed", "skipped", "error", "budget_exhausted")
+    return {
+        "kernel_builds_total": reg.counter("kernel_builds_total").count,
+        "kernel_build_seconds_sum": round(h.sum, 6),
+        "kernel_build_p50_ms": round(h.percentile(50) * 1e3, 3),
+        "kernel_build_p99_ms": round(h.percentile(99) * 1e3, 3),
+        "cache_hits": reg.counter("kernel_cache_events", labels={"event": "hit"}).count,
+        "cache_misses": reg.counter("kernel_cache_events", labels={"event": "miss"}).count,
+        "prewarm_outcomes": {
+            o: reg.counter("compile_prewarm", labels={"outcome": o}).count for o in outcomes
+        },
+    }
+
+
+def sample_runtime_gauges(reg: Optional[MetricsRegistry] = None) -> Dict[str, float]:
+    """Refresh the device gauges; returns ``{series_key: value}``.
+
+    ``device_live_bytes{device="cuda:<i>"}`` is
+    ``torch.cuda.memory_allocated(i)``, the bytes of live tensors in the
+    caching allocator, and ``device_live_arrays`` the allocator's count of
+    active blocks over every card (``memory_stats()["active.all.current"]``),
+    where the reference counts ``jax.live_arrays()``.  Installs the
+    compile listener.  On demand only, never on the serving path; before
+    this process first touches CUDA it returns nothing (the reference's
+    gauges wait for the backend the same way)."""
+    reg = reg or registry
+    out: Dict[str, float] = {}
+    install_compile_listener()
+    import torch
+
+    if not torch.cuda.is_initialized():
+        return out
+    blocks = 0
+    for index in range(torch.cuda.device_count()):
+        dev = f"cuda:{index}"
+        nbytes = float(torch.cuda.memory_allocated(index))
+        reg.gauge("device_live_bytes", labels={"device": dev}).set(nbytes)
+        out[_series_key("device_live_bytes", {"device": dev})] = nbytes
+        blocks += int(torch.cuda.memory_stats(index).get("active.all.current", 0))
+    reg.gauge("device_live_arrays").set(float(blocks))
+    out["device_live_arrays"] = float(blocks)
+    return out
+
+
+def encoder_matmul_flops_per_token(cfg, seq_len: int) -> float:
+    """``bench.py``'s analytic forward matmul FLOPs a token: per layer
+    the QKV and output projections (4·h²), the MLP (2·h·i) and the two
+    attention products (2·seq·h each); a multiply-add is 2 FLOPs."""
+    per_layer = 2 * (4 * cfg.hidden * cfg.hidden + 2 * cfg.hidden * cfg.intermediate)
+    per_layer += 4 * seq_len * cfg.hidden
+    return float(cfg.n_layers * per_layer)
+
+
+def set_mfu_gauge(
+    step_seconds: float,
+    flops_per_step: float,
+    peak_flops: Optional[float] = H100_BF16_DENSE_PEAK_FLOPS,
+    reg: Optional[MetricsRegistry] = None,
+) -> Optional[float]:
+    """The step-time MFU gauge: ``flops_per_step`` (from
+    :func:`encoder_matmul_flops_per_token` × tokens) over the step's
+    seconds and ``peak_flops`` (default the H100's dense bf16 peak).
+    Sets ``mfu_estimate`` and ``step_seconds``; returns the MFU, or None
+    when the peak is unknown (None or 0) or the step took no time."""
+    reg = reg or registry
+    if not peak_flops or step_seconds <= 0:
+        return None
+    mfu = flops_per_step / step_seconds / peak_flops
+    reg.gauge("mfu_estimate").set(mfu)
+    reg.gauge("step_seconds").set(step_seconds)
+    return mfu
+
+
+@contextlib.contextmanager
+def profile_trace(log_dir: str) -> Iterator[Any]:
+    """``torch.profiler`` around a block (CUDA activity too when a card
+    is present), its Chrome trace written to ``log_dir/trace.json``;
+    yields the profiler, whose ``key_averages()`` the caller may read."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    prof = profile(activities=activities)
+    prof.start()
+    try:
+        yield prof
+    finally:
+        prof.stop()
+        prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))

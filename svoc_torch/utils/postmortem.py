@@ -2,9 +2,10 @@
 
 Mirrors :mod:`svoc_tpu.utils.postmortem` (``postmortem.py:1-450``):
 :class:`SignalChain`, :func:`build_bundle` and
-:class:`PostmortemMonitor`.  ``profiler=`` stays duck-typed (an object
-with ``maybe_capture(reason)``): the port's ``obsplane/profiler.py``
-comes with the compile plane (ROADMAP A10b).
+:class:`PostmortemMonitor`.  ``profiler=`` takes a
+:class:`~svoc_torch.obsplane.profiler.ProfileCapture` (any object with
+``maybe_capture(reason)``): breaker-open and SLO-burn events start a
+bounded, rate-limited capture (``postmortem.py:261-277, 384-391``).
 
 When something breaks at 2 a.m. the evidence is spread over four
 subsystems — the event journal, the span ring, the metrics registry,

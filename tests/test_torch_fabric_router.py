@@ -109,19 +109,27 @@ def test_weighted_rotation_pause_and_a_raising_tamper():
 
 
 def test_options_that_wait_raise():
+    """The claim mesh, the resident staging and the console still wait
+    (ROADMAP A12); the compile plane's options now run: the prewarm
+    routing, the worker, its attachment and the scenario's warmup, which
+    leaves the journal as it was."""
     reg = registry.ClaimRegistry()
-    for kw, item in ((dict(mesh="2x1"), "A12"), (dict(device_resident=True), "A12"),
-                     (dict(warmup_mode="prewarm"), "A10")):
-        with pytest.raises(NotImplementedError, match=item):
+    for kw in (dict(mesh="2x1"), dict(device_resident=True)):
+        with pytest.raises(NotImplementedError, match="A12"):
             ClaimRouter(reg, device="cpu", **kw)
     with pytest.raises(ValueError):
         ClaimRouter(reg, device="cpu", consensus_impl="pallas")
+    assert ClaimRouter(reg, device="cpu", warmup_mode="prewarm").warmup_mode == "prewarm"
+    with pytest.raises(ValueError, match="warmup_mode"):
+        ClaimRouter(reg, device="cpu", warmup_mode="eager")
     multi = fabric_session.MultiSession(device="cpu")
-    with pytest.raises(NotImplementedError, match="A10"):
-        multi.start_prewarm()
-    with pytest.raises(NotImplementedError, match="A10"):
-        multi.router.attach_prewarmer(object())
+    worker = multi.start_prewarm(background=False, force=True)
+    assert multi.router.prewarmer is worker and worker.stats()["universe"] == 0
+    other = object()
+    multi.router.attach_prewarmer(other)
+    assert multi.router.prewarmer is other
     with pytest.raises(NotImplementedError, match="A12"):
         multi.attach(object())
-    with pytest.raises(NotImplementedError, match="A10"):
-        scenario.run_fabric_scenario(0, cycles=1, warmup=True, device="cpu")
+    warmed = scenario.run_fabric_scenario(0, cycles=1, warmup=True, device="cpu")
+    plain = scenario.run_fabric_scenario(0, cycles=1, device="cpu")
+    assert warmed["journal_fingerprint"] == plain["journal_fingerprint"]

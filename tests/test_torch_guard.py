@@ -69,7 +69,10 @@ def test_every_module_imports_without_jax_or_svoc_tpu():
                  "svoc_torch.obsplane.plane", "svoc_torch.compile",
                  "svoc_torch.compile.universe", "svoc_torch.serving",
                  "svoc_torch.serving.cache", "svoc_torch.serving.frontend",
-                 "svoc_torch.serving.scenario", "svoc_torch.tools.serving_smoke"):
+                 "svoc_torch.serving.scenario", "svoc_torch.tools.serving_smoke",
+                 "svoc_torch.compile.cache", "svoc_torch.compile.modes", "svoc_torch.compile.prewarm",
+                 "svoc_torch.obsplane.profiler", "svoc_torch.models.convert",
+                 "svoc_torch.tools.finetune_demo", "svoc_torch.tools.coldstart_smoke"):
         assert name in names
     code = (
         "import importlib, sys\n"
@@ -104,7 +107,21 @@ def test_default_device_raises_without_cuda(monkeypatch):
         run_serving_scenario(0)
     with pytest.raises(RuntimeError, match="CUDA"):
         serving_smoke.main([])
+    from svoc_torch.tools import coldstart_smoke, finetune_demo
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        coldstart_smoke.run(0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        finetune_demo.run(steps=2)
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_the_compile_plane_waits_for_nothing():
+    """No entry point of the port refuses for the compile plane (ROADMAP
+    A10b) any longer."""
+    for path in (REPO / "svoc_torch").rglob("*.py"):
+        text = path.read_text()
+        assert "A10b" not in text, path
 
 
 def _qkv(d=16, dtype=torch.float32):

@@ -195,21 +195,28 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card():
         fabric_smoke.main(["--cycles", "1"])
 
 
-def test_parts_that_wait_raise_not_implemented():
+def test_parts_that_wait_raise_not_implemented(tmp_path):
     s = session.Session(session.SessionConfig(quant_inference="int8"), device="cpu")
     with pytest.raises(NotImplementedError, match="A12"):
         s.vectorizer
 
     # A commit on an open WAL cycle now reconciles it, as the reference
-    # does (tests/test_torch_durable.py); what still waits is the compile
-    # plane's persistent cache and recovery prewarm (ROADMAP A10b).
+    # does (tests/test_torch_durable.py); the compile plane's persistent
+    # cache and recovery prewarm now run (tests/test_torch_compile_plane.py).
+    from svoc_torch.compile import cache
     from svoc_torch.durability.recovery import RecoveryManager
+    from svoc_torch.ops import _build
 
-    multi = MultiSession(device="cpu")
-    with pytest.raises(NotImplementedError, match="A10b"):
-        RecoveryManager(multi, out_dir="unused", compilation_cache="persistent")
-    with pytest.raises(NotImplementedError, match="A10b"):
-        RecoveryManager(multi, out_dir="unused").recover(prewarm=True)
+    multi = MultiSession(device="cpu", warmup_mode="prewarm")
+    previous = _build.build_dir()
+    try:
+        manager = RecoveryManager(multi, out_dir=str(tmp_path), compilation_cache="persistent")
+        assert manager.compile_cache_dir == cache.persistent_cache_dir(str(tmp_path))
+        assert str(_build.build_dir()) == manager.compile_cache_dir
+        assert manager.recover(prewarm=True)["prewarm"]["report"]["universe"]["keys"] == 0
+    finally:
+        cache.disable_persistent_cache()
+        _build.set_build_dir(previous)
 
 
 def test_slo_snapshot_after_cycles():

@@ -308,16 +308,38 @@ def test_round_trip_preserves_predictions_toggles_and_cursors(tmp_path):
     assert port[4] == "blkt-alpha-000003"
 
 
-def test_recovery_refusals():
+def test_recovery_refusals(tmp_path, monkeypatch):
+    """An unknown cache mode still raises.  The cache mode follows
+    ``SVOC_COMPILATION_CACHE`` (the tests pin it off), else the committed
+    ``"persistent"``, which points the kernel builds under the durability
+    directory; ``recover(prewarm=True)`` honors the router's pinned
+    warmup mode and otherwise walks the primary universe."""
+    from svoc_torch.compile import cache
+    from svoc_torch.ops import _build
+
     multi = make_multi(PORT, ["alpha"])
-    with pytest.raises(NotImplementedError, match="A10b"):
-        recovery.RecoveryManager(multi, out_dir="unused", compilation_cache="persistent")
     with pytest.raises(ValueError, match="unknown compilation_cache"):
-        recovery.RecoveryManager(multi, out_dir="unused", compilation_cache="disk")
-    manager = recovery.RecoveryManager(multi, out_dir="unused")
-    assert manager.compilation_cache == manager.status()["compilation_cache"] == "off"
-    with pytest.raises(NotImplementedError, match="A10b"):
-        manager.recover(prewarm=True)
+        recovery.RecoveryManager(multi, out_dir=str(tmp_path), compilation_cache="disk")
+    off = recovery.RecoveryManager(multi, out_dir=str(tmp_path / "off"))
+    assert off.compilation_cache == "off"
+    assert off.status()["compile_cache"] == {"entries": 0.0, "bytes": 0.0}
+    previous = _build.build_dir()
+    try:
+        monkeypatch.delenv("SVOC_COMPILATION_CACHE", raising=False)
+        manager = recovery.RecoveryManager(multi, out_dir=str(tmp_path))
+        status = manager.status()
+        assert manager.compilation_cache == status["compilation_cache"] == "persistent"
+        assert status["compile_cache_dir"].startswith(str(tmp_path / "kernel_cache"))
+        assert multi.router.warmup_mode == "none"  # SVOC_WARMUP in the tests
+        assert manager.recover(prewarm=True)["prewarm"] is None
+        monkeypatch.delenv("SVOC_WARMUP", raising=False)
+        warm = make_multi(PORT, ["alpha"])
+        assert warm.router.warmup_mode == "prewarm"
+        report = recovery.RecoveryManager(warm, out_dir=str(tmp_path / "warm")).recover(prewarm=True)
+        assert report["prewarm"]["report"]["outcomes"] == {"primed": 1}  # bucket 1, the router's variant
+    finally:
+        cache.disable_persistent_cache()
+        _build.set_build_dir(previous)
 
 
 # ---------------------------------------------------------------------------
