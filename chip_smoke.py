@@ -321,6 +321,47 @@ Phases:
    five by device time printed); ``sample_runtime_gauges`` reads a
    nonzero ``device_live_bytes`` for ``cuda:0``; ``set_mfu_gauge`` on
    4b's forward (``bench.py``'s FLOP model against 989 TFLOP/s).
+13. The multi-replica fleet (``cluster/*``, ``obsplane/{fleet,hopchain,
+   anomaly}.py``, ``utils/slo.py::fleet_slos``). (a)
+   ``svoc_torch.tools.cluster_smoke`` on CUDA at seed 0 (3 replicas, 6
+   claims, 10 steps, r1 killed at step 4 and failed over at 6, one
+   injected forwarding fault): the reference's 13 checks, the per-claim
+   and fleet fingerprints equal the JAX package's (the tool's
+   constants), no ``forward_error`` shed, and B3 once a replica step
+   that served and threefry 8 a claim served. (b)
+   ``svoc_torch.tools.fleet_obs_smoke`` on CUDA at seed 0: the
+   reference's 10 checks and its fingerprint, and the sustained
+   anomaly's ``torch.profiler`` trace holds the card's kernels. (c) A
+   fleet at full width: 3 replicas over one shared chain directory, 64
+   claims x 7 oracles placed by rendezvous (one tampered offender), each
+   replica 10b's tier (queues of 64, 512 requests and 64 claims a step,
+   batched commits, snapshots every 2 steps, the fsynced trace, its
+   WAL), all sharing one packed calibrated flash bf16 pipeline through a
+   ``Replica`` subclass defined here; 512 arrivals a cluster step (35 %
+   from a hot pool of 10) for 10 steps; at step 3 r1's claims are
+   filled to their queues' capacity, so that the snapshot after r1's
+   step holds a backlog; r1 is killed at step 4, after the step's
+   submits and before its ``step_all``, through ``replica.kill``, and
+   failed over at 6; one operator migration at 8; the fleet plane on
+   (cut: steps only). It prints each step's ms split by replica into
+   forward, fetches, fabric consensus and commit plane, requests/s over
+   the whole window (submits, steps, failover and migration; over the
+   steps alone beside it), latency p50/p99 before the kill, in the outage and after
+   the failover, the outage's sheds by reason, fsyncs a step,
+   ``fail_over``'s seconds by part (the recovery: stack build, chain-log
+   replay, snapshot restore, roll-forward, WAL reconcile; each claim's
+   drain, ship and adopt), the migration's ms and peak memory; checks:
+   zero duplicate txs, zero unaccounted admitted requests, a recovered
+   backlog whose every request the failover's drains answer or defer,
+   every failed-over claim adopted with continuity and its chain growing, no
+   claim on r1, the epoch advanced, every shed typed, counted and
+   journaled, no ``forward_error`` shed, hop chains fully classified,
+   the merged exposition equal to the scrapes' sum (before the kill),
+   12 flash launches a forward, B3 once a dispatched group, threefry 8 a
+   claim served. (d) The same 64 claims and 512 arrivals for 4 steps
+   with no kill, on 1 and on 3 replicas: requests/s over the whole
+   window (submits and steps; over the steps alone beside it) and step
+   ms of each (the ratio is read, not demanded), with (c)'s invariants.
 
 It then prints one JSON line of per-kernel numbers, the card's
 ``nvidia-smi`` name and power limit, and last
@@ -431,12 +472,15 @@ def phase(title: str):
     def wrap(fn):
         def run(*args, **kwargs):
             print(f"== {title}", flush=True)
+            t0 = time.perf_counter()
             try:
                 return fn(*args, **kwargs)
             except Exception:  # a phase that raises is a failed phase; the next may still run
                 traceback.print_exc()
                 failures.append(f"{title}: raised")
                 return None
+            finally:
+                print(f"  (phase {title.split('.')[0]}: {time.perf_counter() - t0:.1f} s)", flush=True)
         return run
     return wrap
 
@@ -3892,6 +3936,668 @@ def profiler_phase(torch, launches, uninterrupted, serving_main):
           f"{flops / 1e12:.3f} TFLOP by bench.py's model) against the H100's dense bf16 989 TFLOP/s: {mfu:.4f}")
 
 
+#: Phase 13c/13d: the fleet's replicas, steps, kill, failover and migration steps.
+FLEET_REPLICAS, FLEET_STEPS, FLEET_KILL_STEP, FLEET_FAILOVER_STEP, FLEET_MIGRATE_STEP = 3, 10, 4, 6, 8
+FLEET_BENCH_STEPS = 4  # phase 13d, on 1 and on 3 replicas
+#: A replica's queue capacity, per claim (10b's).
+FLEET_QUEUE_CAPACITY = 64
+#: A cluster step's latency target (5 s, 10b's) is ``2.5 * step_period_s`` in ``Replica``.
+FLEET_STEP_PERIOD_S = SERVING_LATENCY_TARGET_S / 2.5
+
+
+class TierSteps:
+    """Every ``ServingTier.step`` of a run (replica steps, migration and
+    graceful drains alike): the claims it served and the claim-cube
+    groups they make at ``batch`` claims a group, from which the run's
+    B3 and threefry launches are predicted."""
+
+    def __init__(self, batch: int):
+        self.batch, self.steps, self.served, self.groups = batch, 0, 0, 0
+
+    def __enter__(self):
+        from svoc_torch.serving.tier import ServingTier
+
+        self._tier, self._step = ServingTier, ServingTier.step
+        counter = self
+
+        def step(tier, *args, **kwargs):
+            report = counter._step(tier, *args, **kwargs)
+            counter.steps += 1
+            counter.served += len(report["served"])
+            counter.groups += math.ceil(len(report["served"]) / counter.batch)
+            return report
+
+        ServingTier.step = step
+        return self
+
+    def __exit__(self, *exc):
+        self._tier.step = self._step
+
+    def predicted(self) -> dict:
+        """B3 once a dispatched group, threefry 8 a claim served (the
+        fleet's keyed draws: one split, three of ``draw_fleet``'s, the
+        failing draw, the bootstrap's choice and the shuffle)."""
+        return {"gated_claims_consensus": self.groups, "threefry": 8 * self.served}
+
+
+def counted_wrappers():
+    from svoc_torch.ops.flash_attention import flash_attention_cuda
+    from svoc_torch.ops.fused_consensus import fused_consensus_cuda, fused_consensus_gated_claims_cuda
+    from svoc_torch.ops.threefry import threefry_cuda
+
+    return {"flash_attention": flash_attention_cuda, "gated_claims_consensus": fused_consensus_gated_claims_cuda,
+            "fused_consensus": fused_consensus_cuda, "threefry": threefry_cuda}
+
+
+def shed_reasons(trace_path: str) -> dict:
+    """``cluster.unavailable`` events of a cluster journal's trace, by reason."""
+    import collections
+
+    from svoc_torch.utils.events import read_trace_events
+
+    return dict(collections.Counter(e["data"].get("reason") for e in read_trace_events(trace_path)
+                                    if e["event"] == "cluster.unavailable"))
+
+
+@phase("13a. the cluster smoke on the card: 3 replicas, a kill and a failover, against the reference")
+def cluster_smoke_phase(torch, launches):
+    import os
+    import tempfile
+
+    from svoc_torch.tools import cluster_smoke
+
+    base = tempfile.mkdtemp(prefix="cluster-smoke-")
+    wrappers = counted_wrappers()
+    torch.cuda.synchronize()
+    for w in wrappers.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    with TierSteps(cluster_smoke.N_CLAIMS) as steps:
+        artifact = cluster_smoke.run(0, None, base)  # device None: CUDA
+    seconds = time.perf_counter() - t0
+    counts = {k: w.launches for k, w in wrappers.items()}
+    for c in artifact["checks"]:
+        check(c["ok"], f"cluster smoke: {c['check']}" + (f" ({c['detail']})" if c["detail"] else ""))
+    check(artifact["reference_mismatches"] == {},
+          f"the per-claim and fleet fingerprints equal the JAX package's: fleet "
+          f"{artifact['fleet_fingerprint'][:16]}, mismatches {artifact['reference_mismatches']}")
+    reasons = [shed_reasons(os.path.join(r["workdir"], "cluster-trace.jsonl")) for r in artifact["runs"]]
+    check(all(set(r) == {"replica_down"} for r in reasons),
+          f"every shed of both runs is the outage's replica_down, no forward_error: {reasons}")
+    predicted = steps.predicted()
+    check(counts["gated_claims_consensus"] > 0 and counts["threefry"] > 0
+          and {k: counts[k] for k in predicted} == predicted and counts["flash_attention"] == 0
+          and counts["fused_consensus"] == 0,
+          f"launches {counts} == predicted {predicted} ({steps.steps} tier steps served "
+          f"{steps.served} claims in {steps.groups} groups; no encoder, no B2)")
+    for k in ("gated_claims_consensus", "threefry"):
+        launches[k] = launches.get(k, 0) + counts[k]
+    print(f"  [{nvidia_smi()}] two runs {seconds:.3f} s; requests {artifact['requests']}; "
+          f"cluster counters {artifact['cluster_counters']}; epoch {artifact['epoch']}")
+
+
+@phase("13b. the fleet-obs smoke on the card: replay invisibility, merge identity, anomaly -> profile")
+def fleet_obs_smoke_phase(torch, launches):
+    import glob
+    import os
+    import tempfile
+
+    from svoc_torch.tools import fleet_obs_smoke
+
+    base = tempfile.mkdtemp(prefix="fleet-obs-smoke-")
+    wrappers = counted_wrappers()
+    torch.cuda.synchronize()
+    for w in wrappers.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    with TierSteps(max(fleet_obs_smoke.KILL_PLAN["n_claims"], fleet_obs_smoke.DEGRADATION_PLAN["n_claims"])) \
+            as steps:
+        artifact = fleet_obs_smoke.run(0, None, base)
+    seconds = time.perf_counter() - t0
+    counts = {k: w.launches for k, w in wrappers.items()}
+    for name, ok in artifact["checks"].items():
+        check(ok, f"fleet-obs smoke: {name}")
+    check(artifact["fleet_fingerprint"] == fleet_obs_smoke.REFERENCE_FLEET_FINGERPRINTS[0],
+          f"the fleet fingerprint equals the JAX package's in all four runs: {artifact['fingerprints']}")
+    reasons = {leg: shed_reasons(os.path.join(base, leg, "cluster-trace.jsonl"))
+               for leg in ("on_a", "on_b", "off_a", "off_b", "quiet", "degraded")}
+    check(all(set(r) <= {"replica_down"} for r in reasons.values()),
+          f"no forward_error shed in any leg: {reasons}")
+    traces = sorted(glob.glob(os.path.join(base, "degraded", "profiles", "profile-*", "trace.json")))
+    kernels = set()
+    for path in traces:
+        with open(path) as f:
+            events = json.load(f).get("traceEvents", [])
+        kernels |= {e.get("name", "") for e in events if e.get("cat") == "kernel"}
+    named = {k: any(k in n for n in kernels) for k in ("gated_claims_kernel", "threefry_kernel")}
+    check(len(traces) == 1 and (artifact["profiler"] or {}).get("active") is None and all(named.values()),
+          f"the sustained anomaly's capture stopped and wrote {len(traces)} trace(s) whose CUDA kernels "
+          f"name {named} ({len(kernels)} distinct kernels)")
+    predicted = steps.predicted()
+    check({k: counts[k] for k in predicted} == predicted and counts["flash_attention"] == 0,
+          f"launches {counts} == predicted {predicted}")
+    for k in ("gated_claims_consensus", "threefry"):
+        launches[k] = launches.get(k, 0) + counts[k]
+    stats = artifact["hop_coverage"]["stats"]
+    print(f"  [{nvidia_smi()}] six runs {seconds:.3f} s; {stats['chains']} hop chains "
+          f"{stats['by_classification']}; anomalies {len(artifact['anomalies'])}, bundles "
+          f"{len(artifact['bundles'])}")
+
+
+def fleet_width_run(torch, pipe, n_replicas: int, steps: int, *, kill_step=None, failover_step=None,
+                    migrate_step=None, device=None, claims: int = SERVING_CLAIMS,
+                    arrivals: int = SERVING_ARRIVALS, base_dir=None,
+                    step_period_s: float = FLEET_STEP_PERIOD_S) -> dict:
+    """One fleet of 10b's tiers over ``pipe`` in a fresh directory (under
+    ``base_dir``, else the temporary directory): every replica a
+    ``Replica`` whose tier and fabric vectorize through ``pipe``, placed
+    by rendezvous, the fleet plane on, the latency target
+    ``2.5 * step_period_s``.  With ``kill_step``, r1's claims
+    are filled to their queues' capacity in the step before it (the
+    backlog its post-step snapshot keeps), and r1 dies after the kill
+    step's submits, before its ``step_all``.  Returns the per-step rows,
+    the failover's and the migration's reports with their times, and
+    what the checks read."""
+    import collections
+    import os
+    import tempfile
+
+    import numpy as np
+
+    from svoc_torch.cluster import ClusterRouter, PlacementDirectory, Replica
+    from svoc_torch.cluster.replica import lineage_cursor
+    from svoc_torch.cluster.scenario import LINEAGE_SCOPE
+    from svoc_torch.durability import faultspace
+    from svoc_torch.durability import recovery as recovery_mod
+    from svoc_torch.durability.chainlog import duplicate_predictions, read_chain_log
+    from svoc_torch.fabric import ClaimSpec
+    from svoc_torch.fabric.scenario import _claim_names, _injection_schedule
+    from svoc_torch.io.scraper import SyntheticSource
+    from svoc_torch.obsplane.fleet import FleetPlane
+    from svoc_torch.resilience.retry import RetryPolicy
+    from svoc_torch.utils.events import EventJournal
+    from svoc_torch.utils.metrics import MetricsRegistry
+    from svoc_torch.utils.metrics import registry as process_registry
+
+    cuda = (device or "cuda") != "cpu"
+    workdir = tempfile.mkdtemp(prefix=f"fleet-width-{n_replicas}-", dir=base_dir)
+    chain_dir = os.path.join(workdir, "chain")
+    names = _claim_names(claims)
+    offender = names[-1]
+    kinds = _injection_schedule(0, offender, 1 + steps)
+    timer = collections.defaultdict(float)
+    per_claim = collections.defaultdict(dict)
+    forward_ev, current = [], {}
+    packed_forward = pipe.packed_forward
+
+    def timed_forward(*arrays):
+        if not cuda:
+            forward_ev.append(None)
+            return packed_forward(*arrays)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        out = packed_forward(*arrays)
+        ev[1].record()
+        forward_ev.append(ev)
+        return out
+
+    stages = ("fetch", "fabric_consensus")
+
+    class WidthReplica(Replica):
+        """A replica whose fabric and tier vectorize through ``pipe``;
+        its steps, recovery and migration boundaries are timed."""
+
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            self.multi._vectorizer = pipe
+            self.tier._vectorizer = pipe
+            self.tier.batcher.vectorizer = pipe
+
+        def step(self):
+            n_fwd = len(forward_ev)
+            span0 = {s: process_registry.histogram("stage_seconds", labels={"stage": s}).sum for s in stages}
+            commit0 = process_registry.timer("commit_latency").total_s
+            t0 = time.perf_counter()
+            report = super().step()
+            row = current.setdefault(self.replica_id, collections.defaultdict(float))
+            row["ms"] += (time.perf_counter() - t0) * 1e3
+            row["forward_events"] = row.get("forward_events", []) + forward_ev[n_fwd:]
+            for s in stages:
+                row[f"{s}_ms"] += (process_registry.histogram("stage_seconds", labels={"stage": s}).sum
+                                   - span0[s]) * 1e3
+            row["commit_ms"] += (process_registry.timer("commit_latency").total_s - commit0) * 1e3
+            row["served"] += len(report["served"])
+            row["requests"] += report["requests"]
+            row["completed"] += len(report["latencies_s"])
+            row["dropped"] += report["dropped"]
+            row["latencies"] = row.get("latencies", []) + list(report["latencies_s"])
+            return report
+
+        def add_claim(self, spec):
+            t0 = time.perf_counter()
+            try:
+                return super().add_claim(spec)
+            finally:
+                timer["add_claim"] += time.perf_counter() - t0
+
+        def recover(self):
+            t0 = time.perf_counter()
+            try:
+                return super().recover()
+            finally:
+                timer["recover"] += time.perf_counter() - t0
+
+        def drain_claim(self, claim_id, max_steps=8):
+            row = current.get(self.replica_id, {})
+            before = {k: row.get(k, 0.0) for k in ("completed", "dropped")}
+            t0 = time.perf_counter()
+            report = super().drain_claim(claim_id, max_steps)
+            row = current.get(self.replica_id, {})
+            per_claim[claim_id].update(
+                drain_s=time.perf_counter() - t0, flush_steps=report["flush_steps"],
+                deferred=report["deferred"], **{f"drain_{k}": row.get(k, 0.0) - v for k, v in before.items()})
+            return report
+
+        def ship_claim(self, claim_id):
+            t0 = time.perf_counter()
+            cursor = lineage_cursor(self.multi.get(claim_id).session)
+            entry = super().ship_claim(claim_id)
+            per_claim[claim_id]["ship_s"] = time.perf_counter() - t0
+            # Landed cycles the shipped cursor skips, each one PRNG split burned.
+            per_claim[claim_id]["burned"] = entry["session"]["fetch_claim"] - cursor
+            return entry
+
+        def adopt_claim(self, claim_id, entry):
+            t0 = time.perf_counter()
+            try:
+                return super().adopt_claim(claim_id, entry)
+            finally:
+                per_claim[claim_id]["adopt_s"] = time.perf_counter() - t0
+
+    def replica_factory(rid):
+        t0 = time.perf_counter()
+        replica = WidthReplica(rid, os.path.join(workdir, f"replica-{rid}"), chain_dir=chain_dir, seed=0,
+                               clock=WallClock(), lineage_scope=LINEAGE_SCOPE, commit_mode="batched",
+                               step_period_s=step_period_s, queue_capacity=FLEET_QUEUE_CAPACITY,
+                               max_requests_per_step=claims * arrivals, max_claims_per_batch=claims,
+                               device=device)
+        timer["build"] += time.perf_counter() - t0
+        return replica
+
+    # Every fsync of the run (the replicas' WALs, chain logs, traces and
+    # snapshots, the cluster journal and placement), counted and timed,
+    # and counted by the kind of file.
+    fsyncs = collections.Counter()
+    real_fsync = os.fsync
+    kinds_of = (("trace", "trace"), ("wal", "wal"), ("chain-", "chain"), ("snapshot", "snapshot"),
+                ("placement", "placement"), ("fired", "fired"))
+
+    def timed_fsync(fd):
+        t0 = time.perf_counter()
+        real_fsync(fd)
+        fsyncs["s"] += time.perf_counter() - t0
+        fsyncs["n"] += 1
+        try:
+            name = os.path.basename(os.readlink(f"/proc/self/fd/{fd}"))
+        except OSError:
+            name = ""
+        fsyncs[next((kind for key, kind in kinds_of if key in name), "other")] += 1
+
+    recovery_parts = ("load_snapshot", "restore_multi_session", "roll_forward_journal", "reconcile_wal")
+    real_parts = {name: getattr(recovery_mod, name) for name in recovery_parts}
+
+    def timed_part(name):
+        def run(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return real_parts[name](*args, **kwargs)
+            finally:
+                timer[name] += time.perf_counter() - t0
+        return run
+
+    metrics, journal = MetricsRegistry(), EventJournal(capacity=1 << 17)
+    trace_path = os.path.join(workdir, "cluster-trace.jsonl")
+    journal.set_trace_file(trace_path)
+    plane = FleetPlane(enabled=True, clock=time.monotonic, journal=journal,
+                       trace_path=os.path.join(workdir, "fleet-obs.jsonl"),
+                       profile_dir=os.path.join(workdir, "profiles"), bundle_dir=workdir,
+                       slo_latency_target_s=2.5 * step_period_s,
+                       slo_fast_window_s=10 * step_period_s, slo_slow_window_s=50 * step_period_s)
+    placement = PlacementDirectory([], path=os.path.join(workdir, "placement.json"))
+    router = ClusterRouter(placement, journal=journal, metrics=metrics, clock=time.monotonic,
+                           retry=RetryPolicy(max_attempts=2, base_s=0.0, cap_s=0.0, jitter_seed=0),
+                           replica_factory=replica_factory, lineage_scope=LINEAGE_SCOPE,
+                           unclaimed_path=os.path.join(workdir, "unclaimed.json"), fleet_plane=plane)
+    obs_paths = [os.path.join(workdir, "fleet-obs.jsonl")]
+    for i in range(n_replicas):
+        replica = replica_factory(f"r{i}")
+        replica.install_cadence(DURABLE_SNAPSHOT_EVERY)
+        router.add_replica(replica)
+        obs_paths.append(replica.obs_path)
+    tamper = fabric_tamper(kinds, 6)
+    for cid in names:
+        router.add_claim(ClaimSpec(claim_id=cid, tamper=tamper if cid == offender else None))
+    setup = dict(timer)
+    timer.clear()
+
+    pipe.packed_forward = timed_forward
+    os.fsync = timed_fsync
+    for name in recovery_parts:
+        setattr(recovery_mod, name, timed_part(name))
+    wrappers = counted_wrappers()
+    controller = faultspace.arm(faultspace.FaultController([], log_path=os.path.join(workdir, "fired.jsonl")))
+    rows, events = [], {}
+    rng = np.random.default_rng(11)
+    pool = SyntheticSource(batch=10, seed=777)()
+    fresh = iter(SyntheticSource(batch=claims * FLEET_QUEUE_CAPACITY * steps, seed=778)())
+
+    def arrival():
+        return pool[int(rng.integers(0, len(pool)))] if rng.random() < 0.35 else next(fresh)
+
+    try:
+        if cuda:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        for w in wrappers.values():
+            w.launches = 0
+        with TierSteps(claims) as tier_steps:
+            for step_no in range(steps):
+                current.clear()
+                statuses = collections.Counter()
+                f0 = dict(fsyncs)
+                t0 = time.perf_counter()
+                for cid in names:
+                    # The step before the kill fills r1's queues: the load
+                    # the replica dies under, kept by its post-step snapshot.
+                    burst = kill_step is not None and step_no == kill_step - 1 and placement.owner(cid) == "r1"
+                    for _ in range(FLEET_QUEUE_CAPACITY if burst else arrivals):
+                        statuses[router.submit(cid, arrival())["status"]] += 1
+                t1 = time.perf_counter()
+                f1 = dict(fsyncs)
+                if step_no == kill_step:
+                    faultspace.fault_point(faultspace.REPLICA_KILL, payload={"replica": "r1", "step": step_no})
+                    router.replica("r1").kill()
+                    events["epoch_at_kill"] = placement.epoch
+                router.step_all()
+                if cuda:
+                    torch.cuda.synchronize()
+                t2 = time.perf_counter()
+                if step_no == failover_step:
+                    timer.clear()
+                    per_claim.clear()
+                    t_f = time.perf_counter()
+                    report = router.fail_over("r1")
+                    if cuda:
+                        torch.cuda.synchronize()
+                    events["failover"] = report
+                    events["failover_s"] = time.perf_counter() - t_f
+                    events["failover_parts"] = dict(timer)
+                    events["failover_claims"] = {c: dict(per_claim[c]) for c in report["claims"]}
+                    events["predictions_at_failover"] = {
+                        c: sum(t["fn"] == "update_prediction"
+                               for t in read_chain_log(os.path.join(chain_dir, f"chain-{c}.jsonl")))
+                        for c in report["claims"]}
+                if step_no == migrate_step:
+                    cid = names[0]
+                    owner = placement.owner(cid)
+                    target = next(r for r in router.replica_ids() if r != owner)
+                    t_m = time.perf_counter()
+                    events["migration"] = router.migrate(cid, target, reason="operator")
+                    if cuda:
+                        torch.cuda.synchronize()
+                    events["migration_ms"] = (time.perf_counter() - t_m) * 1e3
+                    events["migration_parts"] = dict(per_claim[cid])
+                t3 = time.perf_counter()
+                if kill_step is not None and step_no == kill_step - 1:  # read outside the timed window
+                    events["exposition_before_kill"] = plane.render_prometheus_fleet()
+                    events["scrapes_before_kill"] = [router.replica(r).metrics.counters_snapshot()
+                                                     for r in router.replica_ids()] + [
+                        metrics.counters_snapshot(), plane.registry.counters_snapshot()]
+                per_replica = {}
+                for rid, r in sorted(current.items()):
+                    fwd = r.pop("forward_events", [])
+                    lat = r.pop("latencies", [])
+                    per_replica[rid] = dict(r, forwards=len(fwd),
+                                            forward_ms=sum(a.elapsed_time(b) for a, b in fwd) if cuda else 0.0,
+                                            p50_ms=float(np.percentile(lat, 50)) * 1e3 if lat else None)
+                    r["latencies"] = lat
+                rows.append(dict(step=step_no, submit_ms=(t1 - t0) * 1e3, step_ms=(t2 - t1) * 1e3,
+                                 events_ms=(t3 - t2) * 1e3, wall_ms=(t3 - t0) * 1e3,
+                                 requests=sum(r["requests"] for r in current.values()),
+                                 latencies=[x for r in current.values() for x in r["latencies"]],
+                                 statuses=dict(statuses), fsyncs=fsyncs["n"] - f0.get("n", 0),
+                                 fsync_ms=(fsyncs["s"] - f0.get("s", 0.0)) * 1e3,
+                                 submit_fsyncs=f1.get("n", 0) - f0.get("n", 0),
+                                 fsync_kinds={k: v - f0.get(k, 0) for k, v in fsyncs.items()
+                                              if k not in ("n", "s") and v - f0.get(k, 0)},
+                                 replicas=per_replica, epoch=placement.epoch))
+            for rid in router.replica_ids():  # the graceful end: every admitted request answered
+                if router.replica(rid).alive:
+                    router.replica(rid).tier.drain()
+            if cuda:
+                torch.cuda.synchronize()
+        counts = {k: w.launches for k, w in wrappers.items()}
+        peak = torch.cuda.max_memory_allocated() if cuda else 0
+    finally:
+        faultspace.disarm()
+        pipe.packed_forward = packed_forward
+        os.fsync = real_fsync
+        for name, fn in real_parts.items():
+            setattr(recovery_mod, name, fn)
+    chain = {cid: {"predictions": sum(t["fn"] == "update_prediction"
+                                      for t in read_chain_log(os.path.join(chain_dir, f"chain-{cid}.jsonl"))),
+                   "duplicates": len(duplicate_predictions(os.path.join(chain_dir, f"chain-{cid}.jsonl")))}
+             for cid in names}
+    return dict(rows=rows, events=events, setup=setup, counts=counts, predicted=tier_steps.predicted(),
+                forwards=len(forward_ev), peak=peak, chain=chain,
+                accounting=router.fleet_accounting(), placement=placement, router=router, plane=plane,
+                journal=journal, metrics=metrics, trace_path=trace_path, obs_paths=obs_paths,
+                fired=controller.counts(), names=names, n_layers=pipe.cfg.n_layers)
+
+
+class WallClock:
+    """A replica's clock on the host's monotonic time.  ``Replica.recover``
+    sets ``now`` to a snapshot's virtual time, which a real clock ignores."""
+
+    now = None
+
+    def __call__(self) -> float:
+        return time.monotonic()
+
+
+def fleet_invariants(run: dict, what: str) -> None:
+    """The invariants (c) and (d) hold their fleets to."""
+    from svoc_torch.obsplane.hopchain import chain_stats, join_hop_chains
+    from svoc_torch.obsplane.timeline import read_observations
+    from svoc_torch.tools.fleet_obs_smoke import monotonic
+
+    dups = {c: v["duplicates"] for c, v in run["chain"].items() if v["duplicates"]}
+    check(not dups, f"{what}: zero duplicate txs across the {len(run['chain'])} shared chain logs ({dups})")
+    acct = run["accounting"]
+    check(acct["unaccounted"] == 0 and acct["admitted"] > 0,
+          f"{what}: zero unaccounted admitted requests fleet-wide (admitted {acct['admitted']:g}, completed "
+          f"{acct['completed']:g}, dropped {acct['dropped']:g})")
+    journaled = run["journal"].recent(type="cluster.unavailable")
+    reasons = {}
+    for e in journaled:
+        reasons[e.data.get("reason")] = reasons.get(e.data.get("reason"), 0) + 1
+    counted = run["metrics"].family_total("cluster_unavailable")
+    killed = "failover" in run["events"]
+    check(len(journaled) == counted and set(reasons) <= ({"replica_down"} if killed else set()),
+          f"{what}: every shed typed, counted ({counted:g}) and journaled ({len(journaled)}), "
+          f"none a forward_error: {reasons}")
+    records = [r for path in run["obs_paths"] for r in read_observations(path)]
+    chains = join_hop_chains(records)
+    stats = chain_stats(chains)
+    forwarded = run["metrics"].family_total("cluster_forwarded")
+    complete = sum(1 for c in chains.values() if c["reason"] == "forward" and c["classification"] == "complete")
+    check(bool(chains) and sum(stats["by_classification"].values()) == stats["chains"]
+          and "died_mid_hop" not in stats["by_classification"] and complete == forwarded,
+          f"{what}: {stats['chains']} hop chains fully classified {stats['by_classification']}, "
+          f"{complete} complete forwards == cluster_forwarded {forwarded:g}")
+    history = {"fleet_obs": {"accounting_history": run["plane"].accounting_history()}}
+    check(not monotonic(history)["regressions"], f"{what}: the fleet's accounting totals never step backward")
+
+
+def fleet_launches(run: dict, what: str) -> None:
+    """(c)'s and (d)'s kernel launches against what the run's forwards and
+    dispatches predict."""
+    counts, predicted = run["counts"], run["predicted"]
+    check(counts["flash_attention"] == run["n_layers"] * run["forwards"] and run["forwards"] > 0
+          and {k: counts[k] for k in predicted} == predicted and counts["fused_consensus"] == 0,
+          f"{what}: launches {counts}: {run['n_layers']} flash a forward ({run['forwards']} forwards), B3 once a "
+          f"dispatched group and threefry 8 a claim served ({predicted}), no B2")
+
+
+def failover_checks(run: dict, what: str) -> None:
+    """What (c) holds its kill, failover and migration to: the recovered
+    backlog answered or deferred by the failover's drains, every moved
+    claim adopted with continuity and growing, r1 gone from placement,
+    the migration's continuity, the kill fired once, and the merged
+    exposition equal to the scrapes' sum before the kill."""
+    from svoc_torch.tools.fleet_obs_smoke import exposition_totals
+
+    ev, placement = run["events"], run["placement"]
+    claims_t = ev["failover_claims"]
+    requeued = ev["failover"]["recovery"]["requeued"]
+    answered = sum(c["drain_completed"] for c in claims_t.values())
+    deferred = sum(c["deferred"] for c in claims_t.values())
+    dropped = sum(c["drain_dropped"] for c in claims_t.values())
+    check(requeued > 0 and answered + deferred == requeued and dropped == 0,
+          f"{what}: the failover recovered a backlog of {requeued} queued requests, and its drains answered "
+          f"{answered} and deferred {deferred} of them ({dropped} dropped) in "
+          f"{sum(c['flush_steps'] for c in claims_t.values())} flush steps")
+    moved = ev["failover"]["claims"]
+    growing = {c: (ev["predictions_at_failover"][c], run["chain"][c]["predictions"]) for c in moved}
+    check(bool(moved) and all(m["status"] == "migrated" and m["continuity"] for m in moved.values())
+          and all(after > before for before, after in growing.values()),
+          f"{what}: {len(moved)} failed-over claims adopted with lineage continuity, each chain growing after "
+          f"(predictions at the failover -> at the end, first 4: {dict(list(growing.items())[:4])})")
+    owners = {c: placement.owner(c) for c in run["names"]}
+    check("r1" not in owners.values() and placement.epoch > ev["epoch_at_kill"],
+          f"{what}: no claim placed on r1 ({sorted(set(owners.values()))}); epoch {ev['epoch_at_kill']} at the "
+          f"kill -> {placement.epoch}")
+    check(ev["migration"]["status"] == "migrated" and ev["migration"]["continuity"],
+          f"{what}: the operator migration of {ev['migration']['claim']} {ev['migration']['source']} -> "
+          f"{ev['migration']['target']} kept continuity")
+    check(run["fired"].get("replica.kill") == 1, f"{what}: replica.kill fired once ({run['fired']})")
+    merged = exposition_totals(ev["exposition_before_kill"])
+    scraped = {}
+    for scrape in ev["scrapes_before_kill"]:
+        for e in scrape:
+            scraped[f"svoc_{e['name']}_total"] = scraped.get(f"svoc_{e['name']}_total", 0.0) + e["count"]
+    off = {k for k in set(merged) | set(scraped) if abs(merged.get(k, 0.0) - scraped.get(k, 0.0)) > 1e-9}
+    check(bool(merged) and not off,
+          f"{what}: before the kill, the merged exposition's {len(merged)} counter families equal the sum of the "
+          f"scrapes (differing: {sorted(off)})")
+
+
+@phase("13c. a fleet at full width: 3 replicas x 64 claims, r1 killed and failed over, one migration")
+def fleet_width_phase(torch, launches):
+    import numpy as np
+
+    card = nvidia_smi()
+    pipe = width_pipeline(torch)
+    scale = calibrate_head(torch, pipe)
+    run = fleet_width_run(torch, pipe, FLEET_REPLICAS, FLEET_STEPS, kill_step=FLEET_KILL_STEP,
+                          failover_step=FLEET_FAILOVER_STEP, migrate_step=FLEET_MIGRATE_STEP)
+    for k in ("flash_attention", "gated_claims_consensus", "threefry"):
+        launches[k] = launches.get(k, 0) + run["counts"][k]
+    fleet_invariants(run, "13c")
+    fleet_launches(run, "13c")
+    failover_checks(run, "13c")
+    ev = run["events"]
+    rows = run["rows"]
+    timed = rows[1:]  # the first step warms the stacks
+    step_s, wall_s = (sum(r[k] for r in timed) / 1e3 for k in ("step_ms", "wall_ms"))
+    requests = sum(r["requests"] for r in timed)
+
+    def pct(rs):
+        lat = [x for r in rs for x in r["latencies"]]
+        return (f"p50 {np.percentile(lat, 50) * 1e3:.3f} ms, p99 {np.percentile(lat, 99) * 1e3:.3f} ms "
+                f"({len(lat)} requests)") if lat else "no requests"
+
+    before = rows[1:FLEET_KILL_STEP]
+    outage = rows[FLEET_KILL_STEP:FLEET_FAILOVER_STEP + 1]
+    after = rows[FLEET_FAILOVER_STEP + 1:]
+    by_reason = {}
+    for e in run["journal"].recent(type="cluster.unavailable"):
+        by_reason[e.data.get("reason")] = by_reason.get(e.data.get("reason"), 0) + 1
+    serving_shed = {rid: run["router"].replica(rid).metrics.family_series("serving_shed")
+                    for rid in run["router"].replica_ids()}
+    print(f"  [{card}] vectorizer: {pipe.cfg.n_layers} layers, hidden {pipe.cfg.hidden}, flash bf16, head "
+          f"calibrated (scale {scale:.3f}); setup {run['setup']}")
+    for r in rows:
+        split = "; ".join(
+            f"{rid} {x['ms']:.1f} ms (forward {x['forward_ms']:.3f} in {x['forwards']}, fetch {x['fetch_ms']:.1f}, "
+            f"fabric consensus {x['fabric_consensus_ms']:.2f}, commit {x['commit_ms']:.1f}; {x['served']:g} claims)"
+            for rid, x in r["replicas"].items())
+        print(f"  step {r['step']}: {r['wall_ms']:.3f} ms (submit {r['submit_ms']:.3f}, step_all {r['step_ms']:.3f}, "
+              f"kill, failover and migration {r['events_ms']:.3f}), {r['requests']} requests, "
+              f"{r['fsyncs']} fsyncs ({r['submit_fsyncs']} in the submits) {r['fsync_ms']:.1f} ms "
+              f"{r['fsync_kinds']}, epoch {r['epoch']}, {r['statuses']}: {split}")
+    print(f"  [{card}] {len(timed)} timed cluster steps: {requests} requests in {wall_s:.3f} s, "
+          f"{requests / wall_s:.1f} requests/s over the whole window (submits, step_all, failover, migration); "
+          f"step_all alone {step_s * 1e3 / len(timed):.3f} ms a step, {requests / step_s:.1f} requests/s; "
+          f"fsyncs {sum(r['fsyncs'] for r in timed) / len(timed):.1f} a step ("
+          f"{sum(r['submit_fsyncs'] for r in timed) / len(timed):.1f} of them in the submits) taking "
+          f"{sum(r['fsync_ms'] for r in timed) / len(timed):.3f} ms; peak memory {run['peak'] / 2**20:.1f} MiB")
+    snap = run["plane"].snapshot()
+    print(f"  [{card}] the fleet plane: anomalies {[(a['source'], a['family'], a['step'], a['sustained']) for a in snap['recent_anomalies']]}, "
+          f"bundles {len(snap['bundles'])}, profiler {snap.get('profiler')} (a capture runs from the plane step "
+          f"of its sustained anomaly to the next, whose cluster step holds its trace's export)")
+    print(f"  [{card}] request latency: before the kill (steps 1-{FLEET_KILL_STEP - 1}) {pct(before)}; outage "
+          f"(steps {FLEET_KILL_STEP}-{FLEET_FAILOVER_STEP}) {pct(outage)}; after the failover "
+          f"(steps {FLEET_FAILOVER_STEP + 1}-{FLEET_STEPS - 1}) {pct(after)}")
+    print(f"  [{card}] the outage's sheds by reason: router {by_reason}; the tiers' serving_shed {serving_shed}")
+    parts = ev["failover_parts"]
+    claims_t = ev["failover_claims"]
+    total = lambda k: sum(c.get(k, 0.0) for c in claims_t.values())  # noqa: E731
+    print(f"  [{card}] fail_over {ev['failover_s']:.3f} s for {len(claims_t)} claims: the recovery stack's build "
+          f"{parts.get('build', 0):.3f} s and its claims' chain-log replay {parts.get('add_claim', 0):.3f} s; "
+          f"recover {parts.get('recover', 0):.3f} s (snapshot restore "
+          f"{parts.get('load_snapshot', 0) + parts.get('restore_multi_session', 0):.3f}, roll-forward "
+          f"{parts.get('roll_forward_journal', 0):.3f}, WAL reconcile {parts.get('reconcile_wal', 0):.3f}); "
+          f"drains {total('drain_s'):.3f} s ({ev['failover']['recovery']['requeued']} requests recovered queued, "
+          f"{total('drain_completed'):g} answered and {total('deferred'):g} deferred in {total('flush_steps'):g} "
+          f"flush steps), ships {total('ship_s'):.3f} s, adopts {total('adopt_s'):.3f} s; "
+          f"{sum(c.get('burned', 0) > 0 for c in claims_t.values())} claims shipped past "
+          f"{total('burned'):g} landed cycles (one split burned each)")
+    print("  failover per claim (s): " + json.dumps(claims_t))
+    print(f"  [{card}] operator migration of {ev['migration']['claim']}: {ev['migration_ms']:.3f} ms "
+          f"(s: {ev['migration_parts']})")
+    return {"pipe": pipe}
+
+
+@phase("13d. replicas on one card: 64 claims, 512 arrivals a step, 4 steps, on 1 and on 3 replicas")
+def replicas_phase(torch, launches, fleet):
+    card = nvidia_smi()
+    pipe = fleet["pipe"] if fleet else None
+    if pipe is None:
+        pipe = width_pipeline(torch)
+        calibrate_head(torch, pipe)
+    figures = {}
+    for n in (1, 3):
+        run = fleet_width_run(torch, pipe, n, FLEET_BENCH_STEPS)
+        for k in ("flash_attention", "gated_claims_consensus", "threefry"):
+            launches[k] = launches.get(k, 0) + run["counts"][k]
+        fleet_invariants(run, f"13d, {n} replica(s)")
+        fleet_launches(run, f"13d, {n} replica(s)")
+        timed = run["rows"][1:]
+        step_s, wall_s = (sum(r[k] for r in timed) / 1e3 for k in ("step_ms", "wall_ms"))
+        requests = sum(r["requests"] for r in timed)
+        figures[n] = (wall_s * 1e3 / len(timed), requests / wall_s, step_s * 1e3 / len(timed), requests / step_s)
+        print(f"  [{card}] {n} replica(s): {figures[n][1]:.1f} requests/s over the whole window (submits and "
+              f"step_all), {figures[n][0]:.3f} ms a cluster step; step_all alone {figures[n][2]:.3f} ms, "
+              f"{figures[n][3]:.1f} requests/s; over {len(timed)} timed steps; per step " + json.dumps(
+                  [{"wall_ms": round(r["wall_ms"], 3), "submit_ms": round(r["submit_ms"], 3),
+                    "step_ms": round(r["step_ms"], 3), "forwards": sum(x["forwards"] for x in r["replicas"].values()),
+                    "fsyncs": r["fsyncs"]} for r in run["rows"]]))
+    print(f"  [{card}] 3 replicas against 1, over the whole window: requests/s x{figures[3][1] / figures[1][1]:.3f}, "
+          f"cluster step x{figures[3][0] / figures[1][0]:.3f}; step_all alone: requests/s "
+          f"x{figures[3][3] / figures[1][3]:.3f} (read, not demanded)")
+
+
 def main() -> int:
     try:
         import torch
@@ -3963,11 +4669,16 @@ def main() -> int:
         coldstart_smoke_phase(torch)
         uninterrupted = coldstart_width_phase(torch, launches, serving_main)
         profiler_phase(torch, launches, uninterrupted, serving_main)
+        started = dict(launches)
+        cluster_smoke_phase(torch, launches)
+        fleet_obs_smoke_phase(torch, launches)
+        fleet = fleet_width_phase(torch, launches)
+        replicas_phase(torch, launches, fleet)
         print(f"  launches: serving paths {serving}; with the train paths {trained}; "
               f"with the multi-claim path {claimed}; with the probe path {probed}; "
               f"with the commit path {committed}; with the fabric paths {fabricked}; "
               f"with the serving tier {tiered}; with the durable paths {durable}; "
-              f"with the cold-start paths {launches}")
+              f"with the cold-start paths {started}; with the cluster paths {launches}")
     check(all(launches.get(name, 0) > 0 for name in KERNEL_ROWS),
           f"every kernel launched on its path: { {k: launches.get(k, 0) for k in KERNEL_ROWS} }")
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "svoc_tpu"))

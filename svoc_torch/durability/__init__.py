@@ -20,7 +20,8 @@ exports what it exports:
   scenario behind :mod:`svoc_torch.tools.crash_smoke`.
 
 The reference's chaos-fuzz harness (``durability/fuzz.py``) is not
-ported yet (ROADMAP A11b).
+ported yet (ROADMAP A11c).  The multi-replica fleet that fires the
+cluster points is :mod:`svoc_torch.cluster`.
 """
 
 from svoc_torch.durability.chainlog import (

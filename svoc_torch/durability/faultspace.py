@@ -11,9 +11,12 @@ rename boundaries), :class:`FaultEvent` (``:338``),
 (``:396``: schedules keyed on the Nth matching firing, the ``kill``,
 ``torn`` and ``error`` actions, the durable fired log), the process hook
 (:func:`arm`, :func:`disarm`, :func:`armed`, :func:`fault_point`) and
-:func:`read_fired_log` (``:565``).  The reference's cluster and
-reconfiguration points (``:239-336``) belong to ``cluster/*``, which
-the port does not have yet (ROADMAP A11b); they are not declared here.
+:func:`read_fired_log` (``:565``), and the five cluster points
+(``:229-270``, ``:326-334``: ``cluster.forward.pre_send``, the three
+``cluster.migrate.*`` boundaries and ``replica.kill``), which
+:mod:`svoc_torch.cluster` fires.  The five ``reconfig.*`` points
+(``:271-325``) come with the live reconfiguration plane
+(``cluster/reconfig.py``, ROADMAP A11c) and are not declared here.
 
 Mechanics:
 
@@ -67,6 +70,7 @@ from svoc_torch.resilience.faults import InjectedFault
 #: The harnesses a point may name as its witness (``smokes``).
 SMOKE_FUZZ = "fuzz"    # the reference's tools/chaos_fuzz.py (not ported yet)
 SMOKE_CRASH = "crash"  # svoc_torch/tools/crash_smoke.py — the kill/restart matrix
+SMOKE_CLUSTER = "cluster"  # svoc_torch/tools/cluster_smoke.py — the multi-replica fleet
 
 ACTIONS = ("kill", "torn", "error")
 STAGES = ("run", "recovery")
@@ -90,7 +94,7 @@ class FaultPointSpec:
         if self.stage not in STAGES:
             raise ValueError(f"{self.name}: invalid stage {self.stage!r}")
         for s in self.smokes:
-            if s not in (SMOKE_FUZZ, SMOKE_CRASH):
+            if s not in (SMOKE_FUZZ, SMOKE_CRASH, SMOKE_CLUSTER):
                 raise ValueError(f"{self.name}: unknown smoke {s!r}")
 
 
@@ -138,14 +142,17 @@ def surface() -> Dict[str, FaultPointSpec]:
         return {name: _REGISTRY[name] for name in sorted(_REGISTRY)}
 
 
-#: Importing these modules declares the whole surface.  The io/chain
-#: and utils/checkpoint points are declared below in THIS module
-#: (circular-import notes there), so the list is durability-only.
+#: Importing these modules declares the whole surface, and names every
+#: module that fires a point.  The io/chain, utils/checkpoint and
+#: cluster points are declared below in THIS module (circular-import
+#: notes there); the cluster modules fire them.
 SURFACE_MODULES = (
     "svoc_torch.durability.wal",
     "svoc_torch.durability.chainlog",
     "svoc_torch.durability.reconcile",
     "svoc_torch.durability.recovery",
+    "svoc_torch.cluster.router",
+    "svoc_torch.cluster.scenario",
 )
 
 
@@ -217,6 +224,57 @@ SNAPSHOT_POST_RENAME = declare(
     "re-execute or double-dedup the cycles it covers",
     actions=("kill",),
     smokes=(SMOKE_FUZZ,),
+)
+
+# The cluster plane.  ``cluster/router.py`` imports the recovery stack
+# (``durability/__init__`` → ``recovery`` → ``checkpoint``), so the
+# declarations live here like the serving/snapshot points above.  They
+# name ONLY the cluster smoke: the crash harness's point set is pinned
+# exact, and the durable-plane fuzzer's coverage denominator must not
+# grow points its single-process scenario can never reach.
+CLUSTER_FORWARD_PRE_SEND = declare(
+    "cluster.forward.pre_send",
+    owner="svoc_torch/cluster/router.py",
+    invariant="a forwarding fault surfaces as a retry, a breaker "
+    "transition, or a counted cluster.unavailable shed — never a "
+    "silently dropped admitted request",
+    actions=("error", "kill"),
+    smokes=(SMOKE_CLUSTER,),
+)
+CLUSTER_MIGRATE_PRE_DRAIN = declare(
+    "cluster.migrate.pre_drain",
+    owner="svoc_torch/cluster/router.py",
+    invariant="a migration aborted before the drain leaves the claim "
+    "fully owned and serving on the source — no half-moved state",
+    actions=("error",),
+    smokes=(SMOKE_CLUSTER,),
+)
+CLUSTER_MIGRATE_POST_SHIP = declare(
+    "cluster.migrate.post_ship",
+    owner="svoc_torch/cluster/router.py",
+    invariant="a fault after the slice is shipped but before adoption "
+    "must quarantine the slice (orphan path), never drop it or leave "
+    "two live owners",
+    actions=("error",),
+    smokes=(SMOKE_CLUSTER,),
+)
+CLUSTER_MIGRATE_PRE_ADOPT = declare(
+    "cluster.migrate.pre_adopt",
+    owner="svoc_torch/cluster/router.py",
+    invariant="adoption replays the shared chain log before restoring "
+    "the slice — a fault here must not mint duplicate txs or rewind "
+    "the lineage cursor",
+    actions=("error",),
+    smokes=(SMOKE_CLUSTER,),
+)
+REPLICA_KILL = declare(
+    "replica.kill",
+    owner="svoc_torch/cluster/scenario.py",
+    invariant="a replica death loses no admitted request: its durable "
+    "dirs recover on the failover path and its claims re-serve on the "
+    "survivors with exactly-once lineages and zero duplicate txs",
+    actions=("kill",),
+    smokes=(SMOKE_CLUSTER,),
 )
 
 @dataclasses.dataclass(frozen=True)

@@ -1,7 +1,7 @@
 """Declarative SLOs evaluated as multi-window burn rates.
 
-Mirrors :mod:`svoc_tpu.utils.slo` (``slo.py:1-479``) but for the fleet
-plane's objectives (``fleet_slos``), which come with ROADMAP A11b.
+Mirrors :mod:`svoc_tpu.utils.slo` (``slo.py:1-479``), the fleet plane's
+objectives (:func:`fleet_slos`, ``:221-301``) included.
 
 An SLO here is a **good/total ratio objective** (the SRE-workbook
 shape): commit success ratio, the fraction of ``consensus`` stage
@@ -252,6 +252,84 @@ def serving_slos(
         SLODefinition(
             name="serving_admission",
             description="submitted requests served rather than shed",
+            objective=admission_objective,
+            sample=admission_sample,
+            fast_window_s=fast_window_s,
+            slow_window_s=slow_window_s,
+        ),
+    ]
+
+
+def fleet_slos(
+    merged: Callable[[], MetricsRegistry],
+    *,
+    commit_objective: float = 0.99,
+    latency_objective: float = 0.99,
+    latency_target_s: float = 0.25,
+    admission_objective: float = 0.95,
+    fast_window_s: float = 300.0,
+    slow_window_s: float = 3600.0,
+) -> List[SLODefinition]:
+    """Fleet-wide objectives over MERGED telemetry (``slo.py:221-301``):
+    the user experiences the FLEET, not a replica, so the burn rates
+    that matter difference counters summed across every replica (live +
+    retired — the fleet plane's merge keeps them monotone through a
+    failover, so the window differencing here never reads a replica
+    swap as recovery).
+
+    ``merged`` is a CALLABLE returning the current fleet merge (the
+    :class:`~svoc_torch.obsplane.fleet.FleetPlane` provides one that
+    reuses a single merge per evaluation pass) — the samples are taken
+    at evaluation time, like every other evaluator here.
+
+    - ``commit_success`` — fleet commit cycles without a recorded
+      failure (``commit_latency`` attempts vs ``chain_commit_failures``
+      summed across replicas);
+    - ``request_latency`` — completed requests within the target,
+      cumulative-bucket ratio over the MERGED
+      :data:`REQUEST_LATENCY_HISTOGRAM`;
+    - ``serving_admission`` — the serving-tier admission ratio over
+      fleet-summed counters (same formula as :func:`serving_slos`).
+    """
+
+    def commit_sample() -> Tuple[float, float]:
+        reg = merged()
+        total = float(reg.timer("commit_latency").n)
+        bad = float(reg.family_total("chain_commit_failures"))
+        return max(0.0, total - bad), total
+
+    def latency_sample() -> Tuple[float, float]:
+        return _bucket_ratio(merged().histogram(REQUEST_LATENCY_HISTOGRAM), latency_target_s)
+
+    def admission_sample() -> Tuple[float, float]:
+        reg = merged()
+        served = float(reg.family_total("serving_admitted")) + float(
+            reg.family_total("serving_cached")
+        )
+        shed = float(reg.family_total("serving_shed"))
+        dropped = float(reg.family_total("serving_dropped"))
+        return max(0.0, served - dropped), served + shed
+
+    return [
+        SLODefinition(
+            name="commit_success",
+            description="fleet commit cycles without a recorded failure",
+            objective=commit_objective,
+            sample=commit_sample,
+            fast_window_s=fast_window_s,
+            slow_window_s=slow_window_s,
+        ),
+        SLODefinition(
+            name="request_latency",
+            description=f"fleet requests completed within {latency_target_s * 1e3:.0f} ms",
+            objective=latency_objective,
+            sample=latency_sample,
+            fast_window_s=fast_window_s,
+            slow_window_s=slow_window_s,
+        ),
+        SLODefinition(
+            name="serving_admission",
+            description="fleet submissions served rather than shed",
             objective=admission_objective,
             sample=admission_sample,
             fast_window_s=fast_window_s,

@@ -72,7 +72,12 @@ def test_every_module_imports_without_jax_or_svoc_tpu():
                  "svoc_torch.serving.scenario", "svoc_torch.tools.serving_smoke",
                  "svoc_torch.compile.cache", "svoc_torch.compile.modes", "svoc_torch.compile.prewarm",
                  "svoc_torch.obsplane.profiler", "svoc_torch.models.convert",
-                 "svoc_torch.tools.finetune_demo", "svoc_torch.tools.coldstart_smoke"):
+                 "svoc_torch.tools.finetune_demo", "svoc_torch.tools.coldstart_smoke",
+                 "svoc_torch.cluster", "svoc_torch.cluster.placement", "svoc_torch.cluster.replica",
+                 "svoc_torch.cluster.router", "svoc_torch.cluster.scenario",
+                 "svoc_torch.obsplane.fleet", "svoc_torch.obsplane.hopchain",
+                 "svoc_torch.obsplane.anomaly", "svoc_torch.tools.cluster_smoke",
+                 "svoc_torch.tools.fleet_obs_smoke"):
         assert name in names
     code = (
         "import importlib, sys\n"
@@ -114,6 +119,28 @@ def test_default_device_raises_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         finetune_demo.run(steps=2)
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_the_cluster_and_the_fleet_plane_wait_for_nothing():
+    """No docstring of the port says the cluster tier or the fleet plane
+    waits for ROADMAP A11b any longer."""
+    for path in (REPO / "svoc_torch").rglob("*.py"):
+        assert "A11b" not in path.read_text(), path
+
+
+def test_the_cluster_defaults_to_cuda(monkeypatch, tmp_path):
+    from svoc_torch.cluster import Replica
+    from svoc_torch.cluster.scenario import run_cluster_scenario
+    from svoc_torch.serving.scenario import VirtualClock
+    from svoc_torch.tools import cluster_smoke, fleet_obs_smoke
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (lambda: run_cluster_scenario(str(tmp_path / "s")),
+                 lambda: Replica("r0", str(tmp_path / "r0"), chain_dir=str(tmp_path / "c"), seed=0,
+                                 clock=VirtualClock()),
+                 lambda: cluster_smoke.main([]), lambda: fleet_obs_smoke.main([])):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
 
 
 def test_the_compile_plane_waits_for_nothing():
