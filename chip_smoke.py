@@ -334,7 +334,7 @@ Phases:
    anomaly's ``torch.profiler`` trace holds the card's kernels. (c) A
    fleet at full width: 3 replicas over one shared chain directory, 64
    claims x 7 oracles placed by rendezvous (one tampered offender), each
-   replica 10b's tier (queues of 64, 512 requests and 64 claims a step,
+   replica 10b's tier (queues of 64, a 30 s latency target, 512 requests and 64 claims a step,
    batched commits, snapshots every 2 steps, the fsynced trace, its
    WAL), all sharing one packed calibrated flash bf16 pipeline through a
    ``Replica`` subclass defined here; 512 arrivals a cluster step (35 %
@@ -362,6 +362,39 @@ Phases:
    with no kill, on 1 and on 3 replicas: requests/s over the whole
    window (submits and steps; over the steps alone beside it) and step
    ms of each (the ratio is read, not demanded), with (c)'s invariants.
+14. Live reconfiguration and the fault-space fuzzer (``cluster/reconfig.py``,
+   ``cluster/reconfig_scenario.py``, ``durability/fuzz.py``). (a)
+   ``svoc_torch.tools.reconfig_smoke`` on CUDA at seed 0 (a committed
+   rolling re-pin twice, 3 replicas x 6 claims, ``commit_mode="batched"``
+   and ``c0`` re-specced to 9 oracles at step 4; one abort run per
+   ``reconfig.*`` point against its baseline): the reference's 18 checks,
+   the committed run's and the abort baselines' fingerprints equal the JAX
+   package's (the tool's constants), no probe shed, all five points fired,
+   B3 once a dispatched group plus one a group PREPARE primed, threefry 8
+   a claim served; the seconds of each run. (b)
+   ``svoc_torch.tools.chaos_fuzz`` with its children on CUDA over the
+   directed pass (one seed a ``fuzz`` point, 18, ``--jobs 3``, each rerun)
+   and the felt soak, and beside them every tier-1 corpus entry twice: zero
+   violations, every point fired, reruns identical, every recovered
+   fingerprint the JAX package's (the tool's constants); a surviving
+   child's seconds split into its start (the interpreter and torch's
+   import), CUDA's initialisation and the workload. (c) 13c's fleet with
+   no kill for 9 steps: after step 3 the smoke's plan aborted by an
+   ``error`` at ``reconfig.pre_resume`` (every replica has built its new
+   stack), with no traffic during it; after step 5 the same plan committed,
+   rolling, with one arrival a claim at every stage boundary. It prints
+   each apply's seconds by phase and replica (prepare with its keys,
+   builds, hits and primed groups; drain, ship, re-pin; resume), the
+   stack builds, the commit's and the rollback's seconds, the deferred
+   requests and how long each was held, requests/s over the whole window
+   and over ``step_all``, latency before, during and after the commit,
+   and the dispatch warmth; checks: the abort leaves the fleet
+   fingerprint, the journals, the accounting and the epoch as they were
+   and no epoch file; the commit re-pins every replica under epoch 1, every
+   claim with continuity, the re-specced one carried; every deferred
+   request released in arrival order; zero shed, duplicate txs and
+   unaccounted requests; every re-pinned stack's first dispatches
+   ``prewarmed``; 13c's launch counts with the two primes.
 
 It then prints one JSON line of per-kernel numbers, the card's
 ``nvidia-smi`` name and power limit, and last
@@ -376,6 +409,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -3941,14 +3975,21 @@ FLEET_REPLICAS, FLEET_STEPS, FLEET_KILL_STEP, FLEET_FAILOVER_STEP, FLEET_MIGRATE
 FLEET_BENCH_STEPS = 4  # phase 13d, on 1 and on 3 replicas
 #: A replica's queue capacity, per claim (10b's).
 FLEET_QUEUE_CAPACITY = 64
-#: A cluster step's latency target (5 s, 10b's) is ``2.5 * step_period_s`` in ``Replica``.
-FLEET_STEP_PERIOD_S = SERVING_LATENCY_TARGET_S / 2.5
+#: A replica's request-latency target (``2.5 * step_period_s`` in ``Replica``).  A request
+#: waits for a whole cluster step (one host thread steps the replicas in turn: 1.2-4.7 s on
+#: the card's hosts) and a failed-over backlog for three (6.7-9.6 s).  At 10b's 5 s the
+#: survivors' tiers shed by ``slo_burn`` on most hosts, and on a slow disk r1's own tier shed
+#: its burst before the kill, leaving its failover nothing to drain; the fleet's target is
+#: well above both, so that its tiers shed only under real overload.
+FLEET_LATENCY_TARGET_S = 30.0
+FLEET_STEP_PERIOD_S = FLEET_LATENCY_TARGET_S / 2.5
 
 
 class TierSteps:
     """Every ``ServingTier.step`` of a run (replica steps, migration and
     graceful drains alike): the claims it served and the claim-cube
-    groups they make at ``batch`` claims a group, from which the run's
+    groups they make (``batch`` claims a fabric cycle, one group per
+    (oracles, dimension, config) shape among them), from which the run's
     B3 and threefry launches are predicted."""
 
     def __init__(self, batch: int):
@@ -3964,7 +4005,10 @@ class TierSteps:
             report = counter._step(tier, *args, **kwargs)
             counter.steps += 1
             counter.served += len(report["served"])
-            counter.groups += math.ceil(len(report["served"]) / counter.batch)
+            served = report["served"]
+            for i in range(0, len(served), counter.batch):
+                counter.groups += len({(spec.n_oracles, spec.dimension, spec.consensus_config())
+                                       for spec in (tier.multi.get(c).spec for c in served[i:i + counter.batch])})
             return report
 
         ServingTier.step = step
@@ -4087,7 +4131,7 @@ def fleet_obs_smoke_phase(torch, launches):
 def fleet_width_run(torch, pipe, n_replicas: int, steps: int, *, kill_step=None, failover_step=None,
                     migrate_step=None, device=None, claims: int = SERVING_CLAIMS,
                     arrivals: int = SERVING_ARRIVALS, base_dir=None,
-                    step_period_s: float = FLEET_STEP_PERIOD_S) -> dict:
+                    step_period_s: float = FLEET_STEP_PERIOD_S, reconfig=None, faults=()) -> dict:
     """One fleet of 10b's tiers over ``pipe`` in a fresh directory (under
     ``base_dir``, else the temporary directory): every replica a
     ``Replica`` whose tier and fabric vectorize through ``pipe``, placed
@@ -4095,17 +4139,22 @@ def fleet_width_run(torch, pipe, n_replicas: int, steps: int, *, kill_step=None,
     ``2.5 * step_period_s``.  With ``kill_step``, r1's claims
     are filled to their queues' capacity in the step before it (the
     backlog its post-step snapshot keeps), and r1 dies after the kill
-    step's submits, before its ``step_all``.  Returns the per-step rows,
-    the failover's and the migration's reports with their times, and
-    what the checks read."""
+    step's submits, before its ``step_all``.  ``reconfig`` maps a step to
+    ``dict(plan=ReconfigPlan, traffic=bool)``: after that step's
+    ``step_all`` a ``ReconfigController`` applies the plan (rolling), with
+    one arrival for every claim at each stage boundary when ``traffic``;
+    ``faults`` are armed with the run (``FaultEvent``s).  Returns the
+    per-step rows, the failover's, the migration's and the transitions'
+    reports with their times, and what the checks read."""
     import collections
     import os
     import tempfile
 
     import numpy as np
 
-    from svoc_torch.cluster import ClusterRouter, PlacementDirectory, Replica
+    from svoc_torch.cluster import ClusterRouter, PlacementDirectory, ReconfigController, Replica
     from svoc_torch.cluster.replica import lineage_cursor
+    from svoc_torch.compile import prewarm as prewarm_mod
     from svoc_torch.cluster.scenario import LINEAGE_SCOPE
     from svoc_torch.durability import faultspace
     from svoc_torch.durability import recovery as recovery_mod
@@ -4214,15 +4263,69 @@ def fleet_width_run(torch, pipe, n_replicas: int, steps: int, *, kill_step=None,
             finally:
                 per_claim[claim_id]["adopt_s"] = time.perf_counter() - t0
 
+    def make_replica(rid, *, fingerprint_epoch=0, consensus_impl=None, mesh=None, commit_mode="batched"):
+        return WidthReplica(rid, os.path.join(workdir, f"replica-{rid}"), chain_dir=chain_dir, seed=0,
+                            clock=WallClock(), lineage_scope=LINEAGE_SCOPE, commit_mode=commit_mode,
+                            consensus_impl=consensus_impl, mesh=mesh, fingerprint_epoch=fingerprint_epoch,
+                            step_period_s=step_period_s, queue_capacity=FLEET_QUEUE_CAPACITY,
+                            max_requests_per_step=claims * arrivals, max_claims_per_batch=claims,
+                            device=device)
+
     def replica_factory(rid):
         t0 = time.perf_counter()
-        replica = WidthReplica(rid, os.path.join(workdir, f"replica-{rid}"), chain_dir=chain_dir, seed=0,
-                               clock=WallClock(), lineage_scope=LINEAGE_SCOPE, commit_mode="batched",
-                               step_period_s=step_period_s, queue_capacity=FLEET_QUEUE_CAPACITY,
-                               max_requests_per_step=claims * arrivals, max_claims_per_batch=claims,
-                               device=device)
+        replica = make_replica(rid)
         timer["build"] += time.perf_counter() - t0
         return replica
+
+    # The transition in flight: phase marks, the stack builds, prepare,
+    # rollback and commit seconds.
+    transition = {}
+
+    def builder(rid, **knobs):
+        """The reconfiguration plane's builder: a re-pinned stack snapshots
+        on the fleet's cadence."""
+        t0 = time.perf_counter()
+        replica = make_replica(rid, **knobs)
+        replica.install_cadence(DURABLE_SNAPSHOT_EVERY)
+        transition["stack_build"][rid] = time.perf_counter() - t0
+        return replica
+
+    class TimedController(ReconfigController):
+        """Marks each phase's start (by replica), and times PREPARE, the
+        rollback and the commit."""
+
+        def _enter(self, phase):
+            label = phase if phase in ("prepare", "resume") else f"{phase} {self._rid}"
+            transition["marks"].append((label, time.perf_counter()))
+            super()._enter(phase)
+
+        def _transition_one(self, rid, *args):
+            self._rid = rid
+            return super()._transition_one(rid, *args)
+
+        def _timed(self, name, fn, *args):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args)
+            finally:
+                transition[f"{name}_s"] = time.perf_counter() - t0
+
+        def _prepare(self, plan):
+            transition["prepare"] = self._timed("prepare", super()._prepare, plan)
+            return transition["prepare"]
+
+        def _rollback(self, staged):
+            return self._timed("rollback", super()._rollback, staged)
+
+        def _commit(self, *args):
+            return self._timed("commit", super()._commit, *args)
+
+    primes = [0]
+    real_prime = prewarm_mod.prime_key
+
+    def counted_prime(key, dev):
+        primes[0] += 1
+        return real_prime(key, dev)
 
     # Every fsync of the run (the replicas' WALs, chain logs, traces and
     # snapshots, the cluster journal and placement), counted and timed,
@@ -4268,6 +4371,8 @@ def fleet_width_run(torch, pipe, n_replicas: int, steps: int, *, kill_step=None,
                            retry=RetryPolicy(max_attempts=2, base_s=0.0, cap_s=0.0, jitter_seed=0),
                            replica_factory=replica_factory, lineage_scope=LINEAGE_SCOPE,
                            unclaimed_path=os.path.join(workdir, "unclaimed.json"), fleet_plane=plane)
+    controller = TimedController(router, builder=builder, journal=journal, metrics=metrics, clock=time.monotonic,
+                                 prewarm_budget_s=60.0)
     obs_paths = [os.path.join(workdir, "fleet-obs.jsonl")]
     for i in range(n_replicas):
         replica = replica_factory(f"r{i}")
@@ -4285,7 +4390,9 @@ def fleet_width_run(torch, pipe, n_replicas: int, steps: int, *, kill_step=None,
     for name in recovery_parts:
         setattr(recovery_mod, name, timed_part(name))
     wrappers = counted_wrappers()
-    controller = faultspace.arm(faultspace.FaultController([], log_path=os.path.join(workdir, "fired.jsonl")))
+    prewarm_mod.prime_key = counted_prime
+    fault_controller = faultspace.arm(faultspace.FaultController(list(faults),
+                                                                 log_path=os.path.join(workdir, "fired.jsonl")))
     rows, events = [], {}
     rng = np.random.default_rng(11)
     pool = SyntheticSource(batch=10, seed=777)()
@@ -4293,6 +4400,62 @@ def fleet_width_run(torch, pipe, n_replicas: int, steps: int, *, kill_step=None,
 
     def arrival():
         return pool[int(rng.integers(0, len(pool)))] if rng.random() < 0.35 else next(fresh)
+
+    def state():
+        return dict(fleet=router.fleet_fingerprint(), epoch=router.reconfig_epoch, journal=journal.last_seq(),
+                    replicas={r: router.replica(r).journal.last_seq() for r in router.replica_ids()},
+                    accounting={k: v for k, v in router.fleet_accounting().items() if k != "observations"},
+                    epoch_files=sorted(
+                        os.path.relpath(os.path.join(d, f), workdir) for d, _, fs in os.walk(workdir) for f in fs
+                        if re.search(r"-e[0-9]+\.jsonl$", f)))
+
+    def reconfigure(plan, traffic):
+        """One ``apply`` under the submit log: returns its report, its
+        seconds by phase, the deferred requests and their release."""
+        transition.clear()
+        transition.update(marks=[], stack_build={})
+        before, primed = state(), primes[0]
+        log = []
+        real_submit = router.submit
+
+        def logged_submit(cid, text, **kwargs):
+            response = real_submit(cid, text, **kwargs)
+            log.append((cid, text, response["status"], time.perf_counter()))
+            return response
+
+        def probe(stage, rid):
+            for cid in names:
+                router.submit(cid, arrival())
+
+        released = []
+        real_release = router.release_holds
+
+        def logged_release():
+            start = len(log)
+            out = real_release()
+            released.extend(log[start:])
+            return out
+
+        router.submit, router.release_holds = logged_submit, logged_release
+        t0 = time.perf_counter()
+        try:
+            report = controller.apply(plan, rolling=True, traffic=probe if traffic else None)
+            if cuda:
+                torch.cuda.synchronize()
+        finally:
+            end = time.perf_counter()
+            del router.submit, router.release_holds
+        marks = transition["marks"] + [("end", end)]
+        deferred = [(c, t, at) for c, t, status, at in log if status == "deferred"]
+        return dict(report=report, seconds=end - t0, phases=[(label, b - a) for (label, a), (_, b)
+                                                             in zip(marks, marks[1:])],
+                    prepare=transition.get("prepare"), stack_build=dict(transition["stack_build"]),
+                    **{k: transition.get(k) for k in ("prepare_s", "rollback_s", "commit_s")},
+                    before=before, after=state(), primed=primes[0] - primed, submits=len(log),
+                    deferred=len(deferred),
+                    released_in_order=[(c, t) for c, t, _, _ in released] == [(c, t) for c, t, _ in deferred],
+                    released_statuses=sorted({status for _, _, status, _ in released}),
+                    hold_s=[r[3] - d[2] for d, r in zip(deferred, released)])
 
     try:
         if cuda:
@@ -4347,6 +4510,8 @@ def fleet_width_run(torch, pipe, n_replicas: int, steps: int, *, kill_step=None,
                         torch.cuda.synchronize()
                     events["migration_ms"] = (time.perf_counter() - t_m) * 1e3
                     events["migration_parts"] = dict(per_claim[cid])
+                if reconfig is not None and step_no in reconfig:
+                    events.setdefault("reconfig", {})[step_no] = reconfigure(**reconfig[step_no])
                 t3 = time.perf_counter()
                 if kill_step is not None and step_no == kill_step - 1:  # read outside the timed window
                     events["exposition_before_kill"] = plane.render_prometheus_fleet()
@@ -4380,6 +4545,7 @@ def fleet_width_run(torch, pipe, n_replicas: int, steps: int, *, kill_step=None,
         peak = torch.cuda.max_memory_allocated() if cuda else 0
     finally:
         faultspace.disarm()
+        prewarm_mod.prime_key = real_prime
         pipe.packed_forward = packed_forward
         os.fsync = real_fsync
         for name, fn in real_parts.items():
@@ -4388,11 +4554,17 @@ def fleet_width_run(torch, pipe, n_replicas: int, steps: int, *, kill_step=None,
                                       for t in read_chain_log(os.path.join(chain_dir, f"chain-{cid}.jsonl"))),
                    "duplicates": len(duplicate_predictions(os.path.join(chain_dir, f"chain-{cid}.jsonl")))}
              for cid in names}
-    return dict(rows=rows, events=events, setup=setup, counts=counts, predicted=tier_steps.predicted(),
+    predicted = tier_steps.predicted()
+    predicted["gated_claims_consensus"] += primes[0]  # one B3 launch a group PREPARE primed
+    warmth = {rid: {w: router.replica(rid).metrics.counter("consensus_dispatch", labels={"warmth": w}).count
+                    for w in WARMTHS} for rid in router.replica_ids()}
+    return dict(rows=rows, events=events, setup=setup, counts=counts, predicted=predicted, primed=primes[0],
                 forwards=len(forward_ev), peak=peak, chain=chain,
                 accounting=router.fleet_accounting(), placement=placement, router=router, plane=plane,
-                journal=journal, metrics=metrics, trace_path=trace_path, obs_paths=obs_paths,
-                fired=controller.counts(), names=names, n_layers=pipe.cfg.n_layers)
+                journal=journal, metrics=metrics, trace_path=trace_path,
+                obs_paths=obs_paths + [router.replica(r).obs_path for r in router.replica_ids()
+                                       if router.replica(r).obs_path not in obs_paths],
+                fired=fault_controller.counts(), names=names, n_layers=pipe.cfg.n_layers, warmth=warmth)
 
 
 class WallClock:
@@ -4598,6 +4770,264 @@ def replicas_phase(torch, launches, fleet):
           f"x{figures[3][3] / figures[1][3]:.3f} (read, not demanded)")
 
 
+def shed_free_probes(probes) -> bool:
+    """Every probe of a committed smoke run deferred when its owner was
+    held (rolling: the replicas transitioned so far), admitted otherwise."""
+    held = set()
+    for p in probes:
+        if p["replica"] is not None:
+            held.add(p["replica"])
+        status, owner = p["response"].get("status"), p["response"].get("replica")
+        if status != ("deferred" if owner in held else "admitted"):
+            return False
+    return True
+
+
+@phase("14a. the reconfig smoke on the card: a committed re-pin twice, an abort at every point, against the reference")
+def reconfig_smoke_phase(torch, launches):
+    import tempfile
+
+    from svoc_torch.compile import prewarm as prewarm_mod
+    from svoc_torch.tools import reconfig_smoke
+
+    base = tempfile.mkdtemp(prefix="reconfig-smoke-")
+    wrappers = counted_wrappers()
+    torch.cuda.synchronize()
+    for w in wrappers.values():
+        w.launches = 0
+    primes, real_prime = [0], prewarm_mod.prime_key
+
+    def counted_prime(key, dev):
+        primes[0] += 1
+        return real_prime(key, dev)
+
+    prewarm_mod.prime_key = counted_prime
+    t0 = time.perf_counter()
+    try:
+        with TierSteps(reconfig_smoke.N_CLAIMS) as steps:
+            artifact = reconfig_smoke.run(0, None, base)  # device None: CUDA
+        torch.cuda.synchronize()
+    finally:
+        prewarm_mod.prime_key = real_prime
+    seconds = time.perf_counter() - t0
+    counts = {k: w.launches for k, w in wrappers.items()}
+    for c in artifact["checks"]:
+        check(c["ok"], f"reconfig smoke: {c['check']}" + (f" ({c['detail']})" if c["detail"] else ""))
+    check(artifact["reference_mismatches"] == {},
+          f"the committed run's fleet and per-claim fingerprints and epoch chain, and the five abort baselines, "
+          f"equal the JAX package's: fleet {artifact['fleet_fingerprint'][:16]}, mismatches "
+          f"{artifact['reference_mismatches']}")
+    committed = artifact["runs"][:2]
+    check(all(shed_free_probes(r["probes"]) and r["cluster_counters"]["cluster_unavailable"] == 0 for r in committed),
+          "zero shed in both committed runs: every probe to a held replica deferred, every other admitted, "
+          f"cluster_unavailable 0 ({[[p['response']['status'] for p in r['probes']] for r in committed]})")
+    runs = artifact["runs"]
+    check(all(r["duplicate_txs"] == 0 and r["requests"]["unaccounted"] == 0 for r in runs),
+          f"zero duplicate txs and zero unaccounted requests in all {len(runs)} runs")
+    fired = set()
+    for r in runs:
+        fired |= set(r["fired_log"]["fired"])
+    check(set(reconfig_smoke.RECONFIG_POINTS) <= fired, f"all five reconfig points fired ({sorted(fired)})")
+    predicted = steps.predicted()
+    predicted["gated_claims_consensus"] += primes[0]
+    check(counts["gated_claims_consensus"] > 0 and counts["threefry"] > 0
+          and {k: counts[k] for k in predicted} == predicted and counts["flash_attention"] == 0
+          and counts["fused_consensus"] == 0,
+          f"launches {counts} == predicted {predicted} ({steps.steps} tier steps served {steps.served} claims in "
+          f"{steps.groups} groups, {primes[0]} groups primed in PREPARE; no encoder, no B2)")
+    for k in ("gated_claims_consensus", "threefry"):
+        launches[k] = launches.get(k, 0) + counts[k]
+    print(f"  [{nvidia_smi()}] {len(runs)} runs {seconds:.3f} s: committed "
+          f"{[round(x, 3) for x in artifact['seconds']['committed']]} s, abort pairs (baseline, aborted) "
+          f"{ {p: [round(x, 3) for x in v] for p, v in artifact['seconds']['aborts'].items()} } s; "
+          f"prewarm {artifact['reconfig']['prewarm']}; deferred released {artifact['reconfig']['deferred_released']}")
+
+
+@phase("14b. the fault-space fuzzer on the card: the directed pass, its reruns, the felt soak and the corpus")
+def chaos_fuzz_phase(torch):
+    import concurrent.futures
+    import os
+    import statistics
+    import tempfile
+
+    from svoc_torch.durability import faultspace, fuzz
+    from svoc_torch.tools import chaos_fuzz
+
+    base = tempfile.mkdtemp(prefix="chaos-fuzz-")
+    out = os.path.join(base, "CHAOS_FUZZ.json")
+    seeds = len(fuzz.fuzz_points(faultspace.load_surface()))  # the directed pass: one seed a fuzz point
+    corpus = [e for e in fuzz.load_corpus(str(Path(__file__).resolve().parent / "tests" / "fixtures" / "chaos_corpus"))
+              if e.get("tier1", True)]
+
+    def replay(entry):
+        t = time.perf_counter()
+        checked = fuzz.run_and_check(fuzz.FuzzPlan.from_dict(entry["plan"]), os.path.join(base, "corpus", entry["name"]))
+        return checked, time.perf_counter() - t
+
+    # The corpus replays run beside the directed pass (every child is its
+    # own interpreter): the pass's 3 jobs leave the host's other cores idle.
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(len(corpus)) as pool:
+        futures = {e["name"]: pool.submit(replay, e) for e in corpus}
+        chaos_fuzz.main(["--seeds", str(seeds), "--jobs", "3", "--base-dir", os.path.join(base, "fuzz"),
+                         "--out", out])
+        fuzz_s = time.perf_counter() - t0
+        replays = {name: f.result() for name, f in futures.items()}
+    corpus_s = max(s for _, s in replays.values())
+    replays = {name: checked for name, (checked, _) in replays.items()}
+    with open(out) as f:
+        artifact = json.load(f)
+    checks = artifact["checks"]
+    for name in ("declared_fuzz_points_all_fired", "zero_invariant_violations", "zero_duplicate_txs",
+                 "same_seed_rerun_fingerprints_identical", "felt_segment_zero_codec_divergences",
+                 "recovered_fingerprints_equal_the_jax_package"):
+        check(checks[name], f"chaos fuzz, {seeds} directed seeds on CUDA: {name}"
+              + ("" if checks[name] else f" (violations {artifact['violations']}, never fired "
+                                         f"{artifact['coverage_never_fired']}, mismatches "
+                                         f"{artifact['reference_mismatches']})"))
+    devices = {r["device"] for r in artifact["runs"]}
+    check(devices == {"cuda"} and len(artifact["runs"]) == seeds,
+          f"every seed's surviving child ran on {devices}; 32-seed bar not demanded "
+          f"(seeds_explored_at_least_32: {checks['seeds_explored_at_least_32']})")
+    for name, checked in replays.items():
+        result = checked["run"]["result"] or {}
+        ref = chaos_fuzz.REFERENCE_FINGERPRINTS["corpus"][name]
+        check(checked["violations"] == [] and checked["replay_identical"] is True
+              and result.get("fingerprint") == ref and result.get("device") == "cuda",
+              f"corpus entry {name} replays green on {result.get('device')}, rerun identical, fingerprint "
+              f"{str(result.get('fingerprint'))[:16]} == the JAX package's {ref[:16]} ({checked['violations']})")
+    children = [r["child_seconds"] for r in artifact["runs"]] + [
+        c["run"]["result"]["child_seconds"] for c in replays.values() if c["run"]["result"]]
+    spawned = sum(len(r["phases"]) for r in artifact["runs"])
+
+    def med(key):
+        return statistics.median(c[key] for c in children)
+
+    print(f"  [{nvidia_smi()}] directed pass ({seeds} seeds, each run twice, --jobs 3) and felt soak "
+          f"{fuzz_s:.3f} s, {spawned} children in the first runs; beside it the corpus ({len(corpus)} entries, "
+          f"twice each) {corpus_s:.3f} s; a surviving child's seconds, median of {len(children)}: start (interpreter and "
+          f"imports, torch among them) {med('start_s'):.3f}, CUDA initialisation {med('cuda_init_s'):.3f}, "
+          f"workload {med('workload_s'):.3f}; {sum(len(s['actions']) for s in artifact['runs'])} fault actions")
+    return artifact
+
+
+RECONFIG_STEPS, RECONFIG_ABORT_STEP, RECONFIG_COMMIT_STEP = 9, 3, 5
+
+
+def reconfig_width_run(torch, pipe, *, device=None, claims: int = SERVING_CLAIMS,
+                       arrivals: int = SERVING_ARRIVALS, base_dir=None,
+                       step_period_s: float = FLEET_STEP_PERIOD_S) -> dict:
+    """13c's fleet with no kill: at ``RECONFIG_ABORT_STEP`` the smoke's plan
+    (batched commits, the first claim re-specced to 9 oracles) aborted by
+    an ``error`` at ``reconfig.pre_resume`` (every replica has built its
+    new stack by then) with no traffic during it; at
+    ``RECONFIG_COMMIT_STEP`` the same plan committed, rolling, with one
+    arrival a claim at every stage boundary."""
+    from svoc_torch.cluster import ReconfigPlan
+    from svoc_torch.durability.faultspace import FaultEvent
+    from svoc_torch.fabric import ClaimSpec
+    from svoc_torch.fabric.scenario import _claim_names
+
+    plan = ReconfigPlan(commit_mode="batched",
+                        claims={_claim_names(claims)[0]: ClaimSpec(claim_id=_claim_names(claims)[0], n_oracles=9,
+                                                                   dimension=6)})
+    return fleet_width_run(torch, pipe, FLEET_REPLICAS, RECONFIG_STEPS, device=device, claims=claims,
+                           arrivals=arrivals, base_dir=base_dir, step_period_s=step_period_s,
+                           reconfig={RECONFIG_ABORT_STEP: dict(plan=plan, traffic=False),
+                                     RECONFIG_COMMIT_STEP: dict(plan=plan, traffic=True)},
+                           faults=[FaultEvent(point="reconfig.pre_resume", nth=1, action="error")])
+
+
+def reconfig_checks(run: dict, what: str, cuda: bool = True) -> None:
+    """What 14c holds its abort and its commit to."""
+    ev = run["events"]["reconfig"]
+    abort, commit = ev[RECONFIG_ABORT_STEP], ev[RECONFIG_COMMIT_STEP]
+    rep, before, after = abort["report"], abort["before"], abort["after"]
+    check(rep["status"] == "aborted" and rep["phase"] == "resume" and rep["cause"] == "InjectedFault"
+          and sorted(abort["stack_build"]) == sorted(run["router"].replica_ids()),
+          f"{what}: the abort at reconfig.pre_resume rolled back after every replica built its new stack "
+          f"({rep}, stacks built {sorted(abort['stack_build'])})")
+    check(after["fleet"] == before["fleet"] and after["epoch"] == 0 and not after["epoch_files"]
+          and after["journal"] == before["journal"] and after["replicas"] == before["replicas"],
+          f"{what}: the abort left the fleet fingerprint ({after['fleet'][:16]}), the epoch ({after['epoch']}), "
+          f"the cluster and replica journals ({after['journal']} events) as before, and no epoch file "
+          f"({after['epoch_files']})")
+    check(after["accounting"] == before["accounting"] and after["accounting"]["dropped"] == 0,
+          f"{what}: the abort dropped no request ({after['accounting']})")
+    rep = commit["report"]
+    claims = [c for r in rep.get("replicas", {}).values() for c in r["claims"].values()]
+    respecced = run["names"][0]
+    check(rep["status"] == "committed" and rep["epoch"] == 1 and run["router"].reconfig_epoch == 1
+          and len(rep["replicas"]) == FLEET_REPLICAS and len(claims) == len(run["names"])
+          and all(c["continuity"] for c in claims)
+          and any(r["claims"].get(respecced, {}).get("carried") for r in rep["replicas"].values()),
+          f"{what}: the commit re-pinned {len(rep.get('replicas', {}))} replicas under epoch {rep.get('epoch')}, "
+          f"{len(claims)} claims with continuity, {respecced} carried at 9 oracles")
+    check(commit["deferred"] > 0 and rep["deferred_released"] == commit["deferred"] and commit["released_in_order"]
+          and set(commit["released_statuses"]) <= {"admitted", "cached"},
+          f"{what}: {commit['deferred']} requests deferred during the transition, all released at the commit in "
+          f"arrival order, each admitted or answered from the cache ({commit['released_statuses']})")
+    check(run["metrics"].family_total("cluster_unavailable") == 0,
+          f"{what}: zero shed ({run['metrics'].family_total('cluster_unavailable'):g} cluster.unavailable)")
+    epochs = {r: run["router"].replica(r).fingerprint_epoch for r in run["router"].replica_ids()}
+    check(set(epochs.values()) == {1}, f"{what}: every replica serves epoch 1 ({epochs})")
+    if cuda:
+        warmth = run["warmth"]
+        check(all(w["cold"] == 0 and w["prewarmed"] > 0 for w in warmth.values())
+              and commit["prepare"]["primed"] == 1 and abort["prepare"]["primed"] == 1,
+              f"{what}: every re-pinned stack's first dispatches count prewarmed, none cold ({warmth}); PREPARE "
+              f"primed the new group once an apply")
+
+
+@phase("14c. a live re-pin at full width: 3 replicas x 64 claims under traffic, an abort at step 3, a commit at 5")
+def reconfig_width_phase(torch, launches, fleet):
+    import numpy as np
+
+    card = nvidia_smi()
+    pipe = fleet["pipe"] if fleet else None
+    if pipe is None:
+        pipe = width_pipeline(torch)
+        calibrate_head(torch, pipe)
+    run = reconfig_width_run(torch, pipe)
+    for k in ("flash_attention", "gated_claims_consensus", "threefry"):
+        launches[k] = launches.get(k, 0) + run["counts"][k]
+    fleet_invariants(run, "14c")
+    fleet_launches(run, "14c")
+    reconfig_checks(run, "14c")
+    rows = run["rows"]
+    timed = rows[1:]
+    step_s, wall_s = (sum(r[k] for r in timed) / 1e3 for k in ("step_ms", "wall_ms"))
+    requests = sum(r["requests"] for r in timed)
+
+    def pct(rs):
+        lat = [x for r in rs for x in r["latencies"]]
+        return (f"p50 {np.percentile(lat, 50) * 1e3:.3f} ms, p99 {np.percentile(lat, 99) * 1e3:.3f} ms "
+                f"({len(lat)} requests)") if lat else "no requests"
+
+    for r in rows:
+        print(f"  step {r['step']}: {r['wall_ms']:.3f} ms (submit {r['submit_ms']:.3f}, step_all {r['step_ms']:.3f}, "
+              f"transition {r['events_ms']:.3f}), {r['requests']} requests, {r['statuses']}")
+    for step, ev in sorted(run["events"]["reconfig"].items()):
+        hold = ev["hold_s"]
+        print(f"  [{card}] apply at step {step}: {ev['report']['status']} in {ev['seconds']:.3f} s; phases (s) "
+              + json.dumps([(label, round(s, 4)) for label, s in ev["phases"]])
+              + f"; prepare {ev['prepare_s']:.3f} s {ev['prepare']}; stack builds (s) "
+              + json.dumps({k: round(v, 4) for k, v in ev["stack_build"].items()})
+              + f"; commit {ev['commit_s'] or 0:.3f} s; rollback {ev['rollback_s'] or 0:.3f} s; "
+              f"{ev['deferred']} deferred, held "
+              + (f"{min(hold):.3f}-{max(hold):.3f} s (median {float(np.median(hold)):.3f})" if hold else "-"))
+    print(f"  [{card}] {len(timed)} timed cluster steps: {requests} requests in {wall_s:.3f} s, "
+          f"{requests / wall_s:.1f} requests/s over the whole window (submits, step_all, the two applies); "
+          f"step_all alone {step_s * 1e3 / len(timed):.3f} ms a step, {requests / step_s:.1f} requests/s; "
+          f"peak memory {run['peak'] / 2**20:.1f} MiB")
+    print(f"  [{card}] request latency: before the commit (steps 1-{RECONFIG_COMMIT_STEP - 1}, the abort at "
+          f"{RECONFIG_ABORT_STEP}) {pct(rows[1:RECONFIG_COMMIT_STEP])}; during (steps {RECONFIG_COMMIT_STEP}-"
+          f"{RECONFIG_COMMIT_STEP + 1}) {pct(rows[RECONFIG_COMMIT_STEP:RECONFIG_COMMIT_STEP + 2])}; after "
+          f"(steps {RECONFIG_COMMIT_STEP + 2}-{RECONFIG_STEPS - 1}) {pct(rows[RECONFIG_COMMIT_STEP + 2:])}")
+    print(f"  [{card}] launches {run['counts']} (predicted {run['predicted']}, {run['forwards']} forwards of "
+          f"{run['n_layers']} flash launches); dispatch warmth by replica {run['warmth']}")
+
+
 def main() -> int:
     try:
         import torch
@@ -4674,11 +5104,16 @@ def main() -> int:
         fleet_obs_smoke_phase(torch, launches)
         fleet = fleet_width_phase(torch, launches)
         replicas_phase(torch, launches, fleet)
+        clustered = dict(launches)
+        reconfig_smoke_phase(torch, launches)
+        chaos_fuzz_phase(torch)
+        reconfig_width_phase(torch, launches, fleet)
         print(f"  launches: serving paths {serving}; with the train paths {trained}; "
               f"with the multi-claim path {claimed}; with the probe path {probed}; "
               f"with the commit path {committed}; with the fabric paths {fabricked}; "
               f"with the serving tier {tiered}; with the durable paths {durable}; "
-              f"with the cold-start paths {started}; with the cluster paths {launches}")
+              f"with the cold-start paths {started}; with the cluster paths {clustered}; "
+              f"with the reconfiguration paths {launches}")
     check(all(launches.get(name, 0) > 0 for name in KERNEL_ROWS),
           f"every kernel launched on its path: { {k: launches.get(k, 0) for k in KERNEL_ROWS} }")
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "svoc_tpu"))

@@ -6,14 +6,14 @@ stacks — :mod:`placement` maps claims to replicas deterministically,
 :mod:`replica` packages one MultiSession/ServingTier per durable base
 dir, :mod:`router` forwards, migrates, and fails over, and
 :mod:`scenario` is the seeded kill/failover workload behind
-:mod:`svoc_torch.tools.cluster_smoke`.  It exports what the reference
-exports except ``ReconfigController``, ``ReconfigError`` and
-``ReconfigPlan``: the live reconfiguration plane (``cluster/reconfig.py``,
-``cluster/reconfig_scenario.py``) comes with the next slice (ROADMAP
-A11c).
+:mod:`svoc_torch.tools.cluster_smoke`, :mod:`reconfig` re-pins a running
+fleet transactionally and :mod:`reconfig_scenario` is the seeded workload
+behind :mod:`svoc_torch.tools.reconfig_smoke`.  It exports what the
+reference exports.
 """
 
 from svoc_torch.cluster.placement import PlacementDirectory, PlacementError
+from svoc_torch.cluster.reconfig import ReconfigController, ReconfigError, ReconfigPlan
 from svoc_torch.cluster.replica import Replica, ReplicaDeadError
 from svoc_torch.cluster.router import ClusterRouter, MigrationContinuityError
 
@@ -24,4 +24,7 @@ __all__ = [
     "ReplicaDeadError",
     "ClusterRouter",
     "MigrationContinuityError",
+    "ReconfigController",
+    "ReconfigError",
+    "ReconfigPlan",
 ]

@@ -12,9 +12,8 @@ Where the port departs:
   for bit ``jax.random.split``; the key is host data there, so the few
   hashes run on the CPU and launch nothing;
 - ``compilation_cache`` stays pinned ``"off"``, as at ``:178-186``;
-- the reconfiguration plane's knobs (``mesh=``, ``fingerprint_epoch=``
-  with its ``-e<N>`` file names, ``adopt_claim_fresh``) are left out:
-  they come with the slice that ports their caller (ROADMAP A11c).
+- ``mesh=`` takes only ``None`` and ``"off"``: a claim mesh raises
+  ``NotImplementedError`` in the fabric's router (ROADMAP A12).
 
 A replica is exactly the stack ``run_durable_scenario`` builds — one
 :class:`~svoc_torch.fabric.session.MultiSession` under one
@@ -71,6 +70,7 @@ from svoc_torch.sim import prng
 from svoc_torch.utils.checkpoint import (
     claim_spec_from_dict,
     claim_spec_to_dict,
+    restore_durable_session,
     restore_multi_session,
     session_durable_dict,
 )
@@ -102,6 +102,8 @@ class Replica:
         queue_capacity: int = 32,
         max_requests_per_step: int = 16,
         max_claims_per_batch: int = 8,
+        mesh=None,
+        fingerprint_epoch: int = 0,
         device=None,
     ):
         from svoc_torch.fabric.session import MultiSession
@@ -121,6 +123,13 @@ class Replica:
         self.step_period_s = step_period_s
         self.commit_mode = commit_mode
         self.consensus_impl = consensus_impl
+        #: Fingerprint epoch (the reconfiguration plane's): a re-pinned
+        #: stack over the same durable dirs starts a NEW journal/WAL
+        #: lineage — ``trace-e<N>.jsonl``/``wal-e<N>.jsonl`` — so the old
+        #: epoch's durable history is immutable and the epoch-0
+        #: continuity record is literally the first event of the new
+        #: trace.  Epoch 0 keeps the plain names.
+        self.fingerprint_epoch = int(fingerprint_epoch)
         #: Where the stack draws its fleets, runs its claim cube and
         #: sweeps its contracts' batched commits.
         self.device = resolve_device(device)
@@ -128,12 +137,13 @@ class Replica:
         os.makedirs(base_dir, exist_ok=True)
         os.makedirs(chain_dir, exist_ok=True)
 
-        self.trace_path = os.path.join(base_dir, "trace.jsonl")
-        self.wal_path = os.path.join(base_dir, "wal.jsonl")
+        suffix = "" if self.fingerprint_epoch == 0 else f"-e{self.fingerprint_epoch}"
+        self.trace_path = os.path.join(base_dir, f"trace{suffix}.jsonl")
+        self.wal_path = os.path.join(base_dir, f"wal{suffix}.jsonl")
         #: Observation-channel sidecar (the fleet plane's).  Deliberately NOT the fsynced trace file: hop
         #: records are derived telemetry with no durability contract,
         #: and the trace writer fsyncs per line.
-        self.obs_path = os.path.join(base_dir, "obs.jsonl")
+        self.obs_path = os.path.join(base_dir, f"obs{suffix}.jsonl")
         self.metrics = MetricsRegistry()
         self.journal = EventJournal(registry=self.metrics)
         # The trace is a durability artifact (the failover replays its
@@ -169,6 +179,7 @@ class Replica:
             adapter_factory=adapter_factory,
             commit_mode=commit_mode,
             consensus_impl=consensus_impl,
+            mesh=mesh,
             device=self.device,
         )
         self.multi.attach_wal(self.wal)
@@ -367,6 +378,40 @@ class Replica:
         report["cursor"] = lineage_cursor(state.session)
         return report
 
+    def adopt_claim_fresh(
+        self, claim_id: str, spec: ClaimSpec, entry: Dict[str, Any]
+    ) -> Dict[str, Any]:
+        """Adopt a shipped slice under a DIFFERENT :class:`ClaimSpec`
+        (the reconfiguration plane's per-claim spec diff): state whose
+        shape depends on the fleet (supervisor scores sized
+        ``n_oracles``, the request window's vector dimension) cannot
+        restore across an N/M change, so the session is built FRESH from
+        the new spec and only the lineage continuity fields carry over —
+        the minted-lineage cursors, the last lineage id, the simulation
+        step, and the PRNG key (the stream continues; a reset key could
+        re-draw a landed cycle's bootstrap noise and mint a chain
+        duplicate).  The shared chain log replays through the adapter
+        factory as usual — dedup is contract state, not session state."""
+        state = self.multi.add_claim(spec)
+        shipped = entry["session"]
+        fresh = session_durable_dict(state.session)
+        for field in (
+            "fetch_claim",
+            "fetch_published",
+            "last_lineage",
+            "simulation_step",
+            "prng_key",
+        ):
+            fresh[field] = shipped.get(field, fresh.get(field))
+        restore_durable_session(fresh, state.session, adapter=state.session.adapter)
+        return {
+            "restored": [claim_id],
+            "unclaimed": [],
+            "fresh": [],
+            "cursor": lineage_cursor(state.session),
+            "carried": True,
+        }
+
     # -- accounting / identity ----------------------------------------------
 
     def request_accounting(self) -> Dict[str, float]:
@@ -401,13 +446,15 @@ class Replica:
 
     def pinned_config(self) -> Dict[str, Any]:
         """The replay-relevant knobs this stack was constructed under
-        (SVOC011: resolved once, never re-read).  The port's
-        ``consensus_impl`` is the route its device gives (``"cuda"`` or
-        ``"plain"``); the reference's ``mesh`` and ``fingerprint_epoch``
-        wait for the reconfiguration plane (ROADMAP A11c)."""
+        (SVOC011: resolved once, never re-read) — what a
+        :class:`~svoc_torch.cluster.reconfig.ReconfigPlan` diffs against.
+        The port's ``consensus_impl`` is the route its device gives
+        (``"cuda"`` or ``"plain"``); its ``mesh`` is always None."""
         return {
             "consensus_impl": self.multi.router.consensus_impl,
+            "mesh": self.multi.router.mesh_spec,
             "commit_mode": self.commit_mode,
+            "fingerprint_epoch": self.fingerprint_epoch,
         }
 
     def snapshot(self) -> Dict[str, Any]:

@@ -3,10 +3,11 @@
 Mirrors :mod:`svoc_tpu.cluster.router` (``router.py:1-1058``):
 :class:`MigrationContinuityError` and the whole :class:`ClusterRouter` —
 submit with the epoch/redirect protocol, the breaker and retry, the
-holds (the reconfiguration plane's deferral, ROADMAP A11c),
-``step_all``, migrate (drain → ship → adopt with the continuity check),
-the orphan quarantine, ``fail_over`` with the harvest, ``grow``,
-``retire_replica``, ``adopt_orphans``, the epoch chain (``:944-975``,
+holds (the reconfiguration plane's deferral), ``replace_replica`` (its
+commit's stack swap), ``step_all``, migrate (drain → ship → adopt with
+the continuity check), the orphan quarantine, ``fail_over`` with the
+harvest, ``grow``, ``retire_replica``, ``adopt_orphans``, the epoch
+chain (``:944-975``,
 folded into :meth:`ClusterRouter.fleet_fingerprint` even while empty),
 ``fleet_accounting`` and ``snapshot``.  The router is host code: every
 kernel launch happens inside a replica's ``ServingTier.step``.
@@ -144,7 +145,7 @@ class ClusterRouter:
         #: recovered durable counters are the authority for the dead
         #: process (the durability plane's convention) — fleet totals
         #: fold these in.  Reconfiguration harvests superseded stacks
-        #: here too, keyed ``<rid>@e<epoch>`` (ROADMAP A11c).
+        #: here too, keyed ``<rid>@e<epoch>`` (:mod:`~svoc_torch.cluster.reconfig`).
         self._retired: Dict[str, Dict[str, Any]] = {}
         #: Replicas whose traffic is currently DEFERRED at the router
         #: (a live-reconfig transition holds the owner; requests queue
@@ -152,7 +153,7 @@ class ClusterRouter:
         #: submissions — released in original order on commit or abort.
         self._holds: set = set()
         self._deferred: List[tuple] = []
-        #: The fleet's reconfiguration epoch chain (ROADMAP A11c): one
+        #: The fleet's reconfiguration epoch chain (:mod:`~svoc_torch.cluster.reconfig`): one
         #: committed entry per transition — the plan fingerprint and
         #: the PRE-transition fleet fingerprint — folded into
         #: :meth:`fleet_fingerprint`, so the transition itself is part
@@ -202,6 +203,26 @@ class ClusterRouter:
     @property
     def fleet_plane(self) -> FleetPlane:
         return self._fleet
+
+    def replace_replica(
+        self,
+        replica_id: str,
+        replica: Replica,
+        *,
+        retire_key: Optional[str] = None,
+    ) -> Replica:
+        """Swap a NEW stack in under an existing roster slot — the
+        reconfiguration commit.  The old stack is harvested under
+        ``retire_key`` (its recovered durable counters and journal
+        fingerprints stay authoritative for the superseded epoch); the
+        slot's breaker survives — transport health is a property of the
+        slot, not the stack behind it."""
+        old = self._replicas[replica_id]
+        if retire_key is not None:
+            self._harvest(retire_key, old)
+        self._replicas[replica_id] = replica
+        self._register_obs_source(replica)
+        return old
 
     def replica(self, replica_id: str) -> Replica:
         return self._replicas[replica_id]
@@ -271,7 +292,7 @@ class ClusterRouter:
         owner = self._placement.owner(claim_id)
         if owner in self._holds:
             # Live-reconfig transition in flight on the owner: DEFER,
-            # never shed (ROADMAP A11c).  Deliberately NOT journaled — an aborted transition must leave every
+            # never shed (the reconfiguration plane's hold).  Deliberately NOT journaled — an aborted transition must leave every
             # fingerprint byte-identical to never-attempted, and the
             # held request replays through this very method on release,
             # producing exactly the journal the direct path would have.

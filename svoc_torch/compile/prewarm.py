@@ -220,29 +220,14 @@ class PrewarmWorker:
         return "primed"
 
     def _prime(self, key: CompileKey) -> None:
-        """One dispatch of an all-padding cube through the public
-        wrappers, on the router's device; its outputs are discarded once
-        they are on the host.  No journal, no state."""
-        import torch
+        prime_key(key, self.router.device)
 
-        from svoc_torch.consensus.batch import (
-            _PAD_VALUE,
-            claims_consensus_gated,
-            claims_consensus_sanitized,
-        )
-        from svoc_torch.robustness.sanitize import SanitizeConfig
-
-        device = self.router.device
-        values = torch.full((key.bucket, key.n_oracles, key.dimension), _PAD_VALUE,
-                            dtype=torch.float32, device=device)
-        mask = torch.zeros(key.bucket, dtype=torch.bool, device=device)
-        if key.kind == "sanitized":
-            bounds = SanitizeConfig.for_consensus(key.cfg.constrained)
-            out, _ok = claims_consensus_sanitized(values, mask, key.cfg, bounds.lo, bounds.hi)
-        else:
-            ok = torch.ones(key.bucket, key.n_oracles, dtype=torch.bool, device=device)
-            out = claims_consensus_gated(values, ok, mask, key.cfg)
-        out.interval_valid.cpu()  # waits for the launch
+    def mark_warm(self, keys) -> None:
+        """Count ``keys`` as warmed by an earlier walk (the
+        reconfiguration plane's PREPARE warms a stack before it exists):
+        their first dispatch on this router counts ``prewarmed``."""
+        with self._lock:
+            self._warm.update(keys)
 
     # -- the walk --------------------------------------------------------------
 
@@ -323,6 +308,31 @@ class PrewarmWorker:
             "universe": len(universe) if universe is not None else None,
             "report": report,
         }
+
+
+def prime_key(key: CompileKey, device) -> None:
+    """One dispatch of an all-padding cube of ``key``'s shape through the
+    public wrappers, on ``device``; its outputs are discarded once they
+    are on the host.  No journal, no state."""
+    import torch
+
+    from svoc_torch.consensus.batch import (
+        _PAD_VALUE,
+        claims_consensus_gated,
+        claims_consensus_sanitized,
+    )
+    from svoc_torch.robustness.sanitize import SanitizeConfig
+
+    values = torch.full((key.bucket, key.n_oracles, key.dimension), _PAD_VALUE,
+                        dtype=torch.float32, device=device)
+    mask = torch.zeros(key.bucket, dtype=torch.bool, device=device)
+    if key.kind == "sanitized":
+        bounds = SanitizeConfig.for_consensus(key.cfg.constrained)
+        out, _ok = claims_consensus_sanitized(values, mask, key.cfg, bounds.lo, bounds.hi)
+    else:
+        ok = torch.ones(key.bucket, key.n_oracles, dtype=torch.bool, device=device)
+        out = claims_consensus_gated(values, ok, mask, key.cfg)
+    out.interval_valid.cpu()  # waits for the launch
 
 
 def warm_keys(keys, *, budget_s: float = 0.0, clock=None, metrics=None) -> Dict[str, int]:

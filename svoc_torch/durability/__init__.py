@@ -17,11 +17,12 @@ exports what it exports:
 - :mod:`~svoc_torch.durability.recovery` — snapshot + journal-replay
   recovery manager and the SIGTERM graceful-drain handler;
 - :mod:`~svoc_torch.durability.scenario` — the seeded kill/restart
-  scenario behind :mod:`svoc_torch.tools.crash_smoke`.
+  scenario behind :mod:`svoc_torch.tools.crash_smoke`;
+- :mod:`~svoc_torch.durability.fuzz` — the seed-driven fault-space
+  fuzzer behind :mod:`svoc_torch.tools.chaos_fuzz`.
 
-The reference's chaos-fuzz harness (``durability/fuzz.py``) is not
-ported yet (ROADMAP A11c).  The multi-replica fleet that fires the
-cluster points is :mod:`svoc_torch.cluster`.
+The multi-replica fleet that fires the cluster and reconfiguration
+points is :mod:`svoc_torch.cluster`.
 """
 
 from svoc_torch.durability.chainlog import (

@@ -14,9 +14,9 @@ rename boundaries), :class:`FaultEvent` (``:338``),
 :func:`read_fired_log` (``:565``), and the five cluster points
 (``:229-270``, ``:326-334``: ``cluster.forward.pre_send``, the three
 ``cluster.migrate.*`` boundaries and ``replica.kill``), which
-:mod:`svoc_torch.cluster` fires.  The five ``reconfig.*`` points
-(``:271-325``) come with the live reconfiguration plane
-(``cluster/reconfig.py``, ROADMAP A11c) and are not declared here.
+:mod:`svoc_torch.cluster` fires, and the five ``reconfig.*`` points
+(``:271-325``), which the live reconfiguration plane
+(:mod:`svoc_torch.cluster.reconfig`) fires.
 
 Mechanics:
 
@@ -68,9 +68,10 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 from svoc_torch.resilience.faults import InjectedFault
 
 #: The harnesses a point may name as its witness (``smokes``).
-SMOKE_FUZZ = "fuzz"    # the reference's tools/chaos_fuzz.py (not ported yet)
+SMOKE_FUZZ = "fuzz"    # svoc_torch/tools/chaos_fuzz.py — the light durable-plane harness
 SMOKE_CRASH = "crash"  # svoc_torch/tools/crash_smoke.py — the kill/restart matrix
 SMOKE_CLUSTER = "cluster"  # svoc_torch/tools/cluster_smoke.py — the multi-replica fleet
+SMOKE_RECONFIG = "reconfig"  # svoc_torch/tools/reconfig_smoke.py — live reconfiguration
 
 ACTIONS = ("kill", "torn", "error")
 STAGES = ("run", "recovery")
@@ -94,7 +95,7 @@ class FaultPointSpec:
         if self.stage not in STAGES:
             raise ValueError(f"{self.name}: invalid stage {self.stage!r}")
         for s in self.smokes:
-            if s not in (SMOKE_FUZZ, SMOKE_CRASH, SMOKE_CLUSTER):
+            if s not in (SMOKE_FUZZ, SMOKE_CRASH, SMOKE_CLUSTER, SMOKE_RECONFIG):
                 raise ValueError(f"{self.name}: unknown smoke {s!r}")
 
 
@@ -266,6 +267,60 @@ CLUSTER_MIGRATE_PRE_ADOPT = declare(
     "the lineage cursor",
     actions=("error",),
     smokes=(SMOKE_CLUSTER,),
+)
+# The live-reconfiguration plane.  Same circularity note as the cluster
+# points: ``cluster/reconfig.py`` binds :func:`fault_point` at call time,
+# the declarations live here.  Every point is an ABORT boundary: an
+# ``error`` action injected at any of them must roll the transition back
+# to a fleet fingerprint byte-identical to never having attempted it
+# (the transaction's all-or-nothing witness, asserted by
+# ``svoc_torch/tools/reconfig_smoke.py``).
+RECONFIG_PREPARE = declare(
+    "reconfig.prepare",
+    owner="svoc_torch/cluster/reconfig.py",
+    invariant="a fault during plan validation / pending-universe "
+    "prewarm aborts before any replica is touched — the fleet "
+    "fingerprint is byte-identical to never-attempted",
+    actions=("error",),
+    smokes=(SMOKE_RECONFIG,),
+)
+RECONFIG_POST_DRAIN = declare(
+    "reconfig.post_drain",
+    owner="svoc_torch/cluster/reconfig.py",
+    invariant="a fault after a replica's drain (queues empty, new "
+    "arrivals deferred at the router — never shed) releases the hold "
+    "and replays every deferred request in order; no journal record "
+    "of the attempt survives",
+    actions=("error",),
+    smokes=(SMOKE_RECONFIG,),
+)
+RECONFIG_POST_SHIP = declare(
+    "reconfig.post_ship",
+    owner="svoc_torch/cluster/reconfig.py",
+    invariant="a fault after the claim slices are shipped re-adopts "
+    "every slice onto the SAME source stack with lineage-cursor "
+    "continuity — no half-moved state, no cursor rewind",
+    actions=("error",),
+    smokes=(SMOKE_RECONFIG,),
+)
+RECONFIG_PRE_REPIN = declare(
+    "reconfig.pre_repin",
+    owner="svoc_torch/cluster/reconfig.py",
+    invariant="a fault before the re-pinned stack is constructed "
+    "rolls back exactly like post_ship — the new fingerprint epoch "
+    "was never minted, its journal files never referenced",
+    actions=("error",),
+    smokes=(SMOKE_RECONFIG,),
+)
+RECONFIG_PRE_RESUME = declare(
+    "reconfig.pre_resume",
+    owner="svoc_torch/cluster/reconfig.py",
+    invariant="a fault after the new stacks are built but before the "
+    "swap discards them (no epoch record was emitted, no cadence "
+    "installed, no placement mutation) and re-adopts every slice onto "
+    "the old stacks — abort is invisible to every fingerprint",
+    actions=("error",),
+    smokes=(SMOKE_RECONFIG,),
 )
 REPLICA_KILL = declare(
     "replica.kill",

@@ -19,8 +19,9 @@ the port to the reference in the same test.
   ``run_cluster_scenario`` at seeds 0 and 1) give the reference's
   per-claim and fleet fingerprints, byte for byte.
 
-The reference's ``test_corpus_entry_invisible_to_durable_fuzzer`` waits
-for the fuzzer's slice (``durability/fuzz.py``, ROADMAP A11c).
+The reference's ``test_corpus_entry_invisible_to_durable_fuzzer`` has
+its twin in ``tests/test_torch_reconfig_smoke.py``, beside the port's
+``load_corpus``.
 """
 
 import json
@@ -156,7 +157,14 @@ def test_cluster_fault_points_declared_with_the_reference_specs():
         assert spec.owner == r.owner.replace("svoc_tpu/", "svoc_torch/")
         assert (spec.invariant, spec.actions, spec.modes, spec.stage) == (
             r.invariant, r.actions, r.modes, r.stage)
-    assert not [n for n in port if n.startswith("reconfig.")]
+    reconfig = sorted(n for n in port if n.startswith("reconfig."))
+    assert reconfig == sorted(n for n in ref if n.startswith("reconfig.")) and len(reconfig) == 5
+    for point in reconfig:
+        spec, r = port[point], ref[point]
+        assert spec.smokes == (faultspace.SMOKE_RECONFIG,) and r.smokes == (ref_faultspace.SMOKE_RECONFIG,)
+        assert spec.owner == r.owner.replace("svoc_tpu/", "svoc_torch/") == "svoc_torch/cluster/reconfig.py"
+        assert (spec.invariant, spec.actions, spec.modes, spec.stage) == (
+            r.invariant, r.actions, r.modes, r.stage)
     assert set(faultspace.SURFACE_MODULES) >= {"svoc_torch.cluster.router",
                                                 "svoc_torch.cluster.scenario"}
 
@@ -298,16 +306,13 @@ def test_migrate_roundtrip_preserves_lineage_cursor(tmp_path):
 
 def test_console_hooks_wait_for_the_console(tmp_path):
     """``attach`` raises (the console is ROADMAP A12); the router's
-    ``/api/state`` view equals the reference's but for the pinned route
-    and the two knobs that wait for the reconfiguration plane (A11c)."""
+    ``/api/state`` view equals the reference's but for the pinned route,
+    ``mesh`` and ``fingerprint_epoch`` included."""
     def run(p, d):
         router, placement, _, _ = build_fleet(p, d)
         snap = router.snapshot()
         for row in snap["replicas"].values():
             row["config"].pop("consensus_impl")
-            if p is not PORT:
-                assert row["config"].pop("mesh") is None
-                assert row["config"].pop("fingerprint_epoch") == 0
         return snap
 
     ref, port = both(tmp_path, run)

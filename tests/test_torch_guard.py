@@ -5,6 +5,7 @@ take before anything is built or launched."""
 
 import dataclasses
 import functools
+import json
 import pkgutil
 import subprocess
 import sys
@@ -141,6 +142,30 @@ def test_the_cluster_defaults_to_cuda(monkeypatch, tmp_path):
                  lambda: cluster_smoke.main([]), lambda: fleet_obs_smoke.main([])):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
+
+
+def test_the_reconfiguration_plane_and_the_fuzzer_wait_for_nothing():
+    """No docstring of the port says the reconfiguration plane or the
+    fuzzer waits for ROADMAP A11c any longer."""
+    for path in (REPO / "svoc_torch").rglob("*.py"):
+        assert "A11c" not in path.read_text(), path
+
+
+def test_the_reconfiguration_plane_and_the_fuzzer_default_to_cuda(monkeypatch, tmp_path):
+    from svoc_torch.cluster.reconfig_scenario import run_reconfig_scenario
+    from svoc_torch.durability import fuzz
+    from svoc_torch.tools import chaos_fuzz, reconfig_smoke
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    plan = tmp_path / "plan.json"
+    plan.write_text(json.dumps(fuzz.FuzzPlan(seed=0, cycles=1).as_dict()))
+    for call in (lambda: run_reconfig_scenario(str(tmp_path / "s")),
+                 lambda: reconfig_smoke.main([]),
+                 lambda: fuzz.run_fuzz_child(str(tmp_path / "f"), fuzz.FuzzPlan(seed=0, cycles=1), 0),
+                 lambda: chaos_fuzz.main(["--child", str(tmp_path / "c"), "--plan", str(plan)])):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    assert "--device" not in fuzz.default_child_argv("p", "w", 0)
 
 
 def test_the_compile_plane_waits_for_nothing():
