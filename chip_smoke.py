@@ -372,29 +372,50 @@ Phases:
    package's (the tool's constants), no probe shed, all five points fired,
    B3 once a dispatched group plus one a group PREPARE primed, threefry 8
    a claim served; the seconds of each run. (b)
-   ``svoc_torch.tools.chaos_fuzz`` with its children on CUDA over the
-   directed pass (one seed a ``fuzz`` point, 18, ``--jobs 3``, each rerun)
-   and the felt soak, and beside them every tier-1 corpus entry twice: zero
-   violations, every point fired, reruns identical, every recovered
-   fingerprint the JAX package's (the tool's constants); a surviving
-   child's seconds split into its start (the interpreter and torch's
-   import), CUDA's initialisation and the workload. (c) 13c's fleet with
-   no kill for 9 steps: after step 3 the smoke's plan aborted by an
-   ``error`` at ``reconfig.pre_resume`` (every replica has built its new
-   stack), with no traffic during it; after step 5 the same plan committed,
-   rolling, with one arrival a claim at every stage boundary. It prints
-   each apply's seconds by phase and replica (prepare with its keys,
-   builds, hits and primed groups; drain, ship, re-pin; resume), the
-   stack builds, the commit's and the rollback's seconds, the deferred
-   requests and how long each was held, requests/s over the whole window
-   and over ``step_all``, latency before, during and after the commit,
-   and the dispatch warmth; checks: the abort leaves the fleet
-   fingerprint, the journals, the accounting and the epoch as they were
-   and no epoch file; the commit re-pins every replica under epoch 1, every
-   claim with continuity, the re-specced one carried; every deferred
-   request released in arrival order; zero shed, duplicate txs and
-   unaccounted requests; every re-pinned stack's first dispatches
-   ``prewarmed``; 13c's launch counts with the two primes.
+   ``svoc_torch.tools.chaos_fuzz`` at its default 32 seeds, each rerun,
+   with its children on CUDA forked from ``FUZZ_JOBS`` fork servers, and
+   the felt soak, and beside them every tier-1 corpus entry twice with
+   spawned children: every one of the tool's checks
+   (``seeds_explored_at_least_32`` included), every recovered fingerprint
+   the JAX package's (the tool's constants); a surviving child's start
+   split into the interpreter, torch's import, the port's imports (or the
+   fork), CUDA's initialisation and the workload, spawned beside forked.
+   (c) 13c's fleet with no kill for 10 steps: after step 3 the smoke's
+   plan aborted by an ``error`` at ``reconfig.pre_resume`` (every replica
+   has built its new stack) with no traffic; after step 4 the same abort
+   with one arrival a claim at every stage boundary; after step 6 the
+   same plan committed, rolling, with the arrivals; then a second fleet
+   through step 5, the never-attempted baseline, that attempts nothing at
+   3 and replays the second abort's holds, arrivals, flushes and release
+   at 4. It prints each apply's seconds by phase and replica (prepare
+   with its keys, builds, hits and primed groups; drain, ship, re-pin;
+   resume), the stack builds, the commit's, the rollback's and the
+   release's seconds, the deferred requests and how long each was held,
+   requests/s over the whole window and over ``step_all``, latency
+   before, during and after the commit, and the dispatch warmth; checks:
+   the abort with no traffic leaves the fleet fingerprint, the journals,
+   the accounting and the epoch as they were and no epoch file; the abort
+   under traffic drops nothing, releases its deferred requests into the
+   old stacks in arrival order, and equals the baseline in every
+   per-claim fingerprint and the router's snapshot after steps 3, 4 and
+   5; the commit re-pins every replica under epoch 1, every claim with
+   continuity, the re-specced one carried; every deferred request
+   released in arrival order; zero shed, duplicate txs and unaccounted
+   requests; every re-pinned stack's first dispatches ``prewarmed``;
+   13c's launch counts with the three primes.
+15. The flight-recorder and cost-plane gates, the certificate and the
+   estimator sweeps (``tools/{obs_smoke,obs_cost_smoke,robustness_cert}.py``,
+   ``sim/{montecarlo,multimodal}.py``, ``robustness/certify.py``). (a)
+   both obs twins on CUDA at seed 0: every check, the JAX package's
+   journal fingerprints, a journal emit's and a span's µs. (b)
+   ``robustness_cert`` in full mode on CUDA: its 10 checks and the
+   reference's certificates. (c) ``fleet_breakdown_curve`` at its
+   defaults (1024 oracles, one [100, 1024, 6] B3 launch a fraction, the
+   cliff at N/2), an 80-cell constrained ``breakdown_sweep`` of [64,
+   1024, 6] cubes and ``benchmark_multimodal`` at its defaults, each on
+   the card, under the profiler and as its plain version on the host's
+   CPU; B3 against its plain version on the sweep's cube at the
+   consensus bars; B3's and threefry's launches counted.
 
 It then prints one JSON line of per-kernel numbers, the card's
 ``nvidia-smi`` name and power limit, and last
@@ -4131,7 +4152,8 @@ def fleet_obs_smoke_phase(torch, launches):
 def fleet_width_run(torch, pipe, n_replicas: int, steps: int, *, kill_step=None, failover_step=None,
                     migrate_step=None, device=None, claims: int = SERVING_CLAIMS,
                     arrivals: int = SERVING_ARRIVALS, base_dir=None,
-                    step_period_s: float = FLEET_STEP_PERIOD_S, reconfig=None, faults=()) -> dict:
+                    step_period_s: float = FLEET_STEP_PERIOD_S, reconfig=None, faults=(),
+                    read_steps=()) -> dict:
     """One fleet of 10b's tiers over ``pipe`` in a fresh directory (under
     ``base_dir``, else the temporary directory): every replica a
     ``Replica`` whose tier and fabric vectorize through ``pipe``, placed
@@ -4143,7 +4165,12 @@ def fleet_width_run(torch, pipe, n_replicas: int, steps: int, *, kill_step=None,
     ``dict(plan=ReconfigPlan, traffic=bool)``: after that step's
     ``step_all`` a ``ReconfigController`` applies the plan (rolling), with
     one arrival for every claim at each stage boundary when ``traffic``;
-    ``faults`` are armed with the run (``FaultEvent``s).  Returns the
+    with ``plan=None`` and ``script=`` (an apply's ``script``: its holds,
+    probes, drains and release, in order) the same router-level work runs
+    with no apply, the never-attempted baseline of an abort.  ``faults``
+    are armed with the run (``FaultEvent``s); the per-claim fingerprints
+    and the router's snapshot with its epoch chain are read after each
+    step of ``read_steps``.  Returns the
     per-step rows, the failover's, the migration's and the transitions'
     reports with their times, and what the checks read."""
     import collections
@@ -4256,10 +4283,10 @@ def fleet_width_run(torch, pipe, n_replicas: int, steps: int, *, kill_step=None,
             per_claim[claim_id]["burned"] = entry["session"]["fetch_claim"] - cursor
             return entry
 
-        def adopt_claim(self, claim_id, entry):
+        def adopt_claim(self, claim_id, entry, spec=None):
             t0 = time.perf_counter()
             try:
-                return super().adopt_claim(claim_id, entry)
+                return super().adopt_claim(claim_id, entry, spec=spec)
             finally:
                 per_claim[claim_id]["adopt_s"] = time.perf_counter() - t0
 
@@ -4316,6 +4343,10 @@ def fleet_width_run(torch, pipe, n_replicas: int, steps: int, *, kill_step=None,
 
         def _rollback(self, staged):
             return self._timed("rollback", super()._rollback, staged)
+
+        def _drain(self, replica):
+            transition["script"].append(("drain", replica.replica_id))
+            return super()._drain(replica)
 
         def _commit(self, *args):
             return self._timed("commit", super()._commit, *args)
@@ -4409,21 +4440,34 @@ def fleet_width_run(torch, pipe, n_replicas: int, steps: int, *, kill_step=None,
                         os.path.relpath(os.path.join(d, f), workdir) for d, _, fs in os.walk(workdir) for f in fs
                         if re.search(r"-e[0-9]+\.jsonl$", f)))
 
-    def reconfigure(plan, traffic):
+    def flush(replica):
+        """What the controller's DRAIN does to a replica: its queues served
+        to empty."""
+        while sum(replica.tier.frontend.depths().values()) > 0:
+            replica.step()
+
+    def reconfigure(plan, traffic, script=None):
         """One ``apply`` under the submit log: returns its report, its
-        seconds by phase, the deferred requests and their release."""
+        seconds by phase, the deferred requests, their release (timed) and
+        the apply's ``script`` of router-level work.  With ``plan=None``,
+        ``script`` is replayed instead of an apply."""
         transition.clear()
-        transition.update(marks=[], stack_build={})
+        transition.update(marks=[], stack_build={}, script=[])
         before, primed = state(), primes[0]
         log = []
-        real_submit = router.submit
+        real_submit, real_hold = router.submit, router.hold_replica
 
         def logged_submit(cid, text, **kwargs):
             response = real_submit(cid, text, **kwargs)
             log.append((cid, text, response["status"], time.perf_counter()))
             return response
 
+        def logged_hold(rid, *args, **kwargs):
+            transition["script"].append(("hold", rid))
+            return real_hold(rid, *args, **kwargs)
+
         def probe(stage, rid):
+            transition["script"].append(("probe",))
             for cid in names:
                 router.submit(cid, arrival())
 
@@ -4431,26 +4475,45 @@ def fleet_width_run(torch, pipe, n_replicas: int, steps: int, *, kill_step=None,
         real_release = router.release_holds
 
         def logged_release():
+            transition["script"].append(("release",))
             start = len(log)
+            t = time.perf_counter()
             out = real_release()
+            if cuda:
+                torch.cuda.synchronize()
+            transition["release_s"] = time.perf_counter() - t
             released.extend(log[start:])
             return out
 
-        router.submit, router.release_holds = logged_submit, logged_release
+        router.submit, router.release_holds, router.hold_replica = logged_submit, logged_release, logged_hold
         t0 = time.perf_counter()
         try:
-            report = controller.apply(plan, rolling=True, traffic=probe if traffic else None)
+            if plan is None:  # the never-attempted baseline: the apply's router-level work, no apply
+                for op in script:
+                    if op[0] == "hold":
+                        router.hold_replica(op[1])
+                    elif op[0] == "probe":
+                        probe(None, None)
+                    elif op[0] == "drain":
+                        transition["script"].append(op)
+                        flush(router.replica(op[1]))
+                    else:
+                        router.release_holds()
+                report = {"status": "not attempted"}
+            else:
+                report = controller.apply(plan, rolling=True, traffic=probe if traffic else None)
             if cuda:
                 torch.cuda.synchronize()
         finally:
             end = time.perf_counter()
-            del router.submit, router.release_holds
+            del router.submit, router.release_holds, router.hold_replica
         marks = transition["marks"] + [("end", end)]
         deferred = [(c, t, at) for c, t, status, at in log if status == "deferred"]
         return dict(report=report, seconds=end - t0, phases=[(label, b - a) for (label, a), (_, b)
                                                              in zip(marks, marks[1:])],
                     prepare=transition.get("prepare"), stack_build=dict(transition["stack_build"]),
-                    **{k: transition.get(k) for k in ("prepare_s", "rollback_s", "commit_s")},
+                    **{k: transition.get(k) for k in ("prepare_s", "rollback_s", "commit_s", "release_s")},
+                    script=list(transition["script"]),
                     before=before, after=state(), primed=primes[0] - primed, submits=len(log),
                     deferred=len(deferred),
                     released_in_order=[(c, t) for c, t, _, _ in released] == [(c, t) for c, t, _ in deferred],
@@ -4513,6 +4576,11 @@ def fleet_width_run(torch, pipe, n_replicas: int, steps: int, *, kill_step=None,
                 if reconfig is not None and step_no in reconfig:
                     events.setdefault("reconfig", {})[step_no] = reconfigure(**reconfig[step_no])
                 t3 = time.perf_counter()
+                if step_no in read_steps:  # read outside the timed window
+                    events.setdefault("claim_fingerprints", {})[step_no] = {
+                        cid: router.claim_fingerprint(cid) for cid in names}
+                    events.setdefault("snapshots", {})[step_no] = dict(router.snapshot(),
+                                                                       epoch_chain=router.epoch_chain())
                 if kill_step is not None and step_no == kill_step - 1:  # read outside the timed window
                     events["exposition_before_kill"] = plane.render_prometheus_fleet()
                     events["scrapes_before_kill"] = [router.replica(r).metrics.counters_snapshot()
@@ -4843,52 +4911,56 @@ def reconfig_smoke_phase(torch, launches):
           f"prewarm {artifact['reconfig']['prewarm']}; deferred released {artifact['reconfig']['deferred_released']}")
 
 
-@phase("14b. the fault-space fuzzer on the card: the directed pass, its reruns, the felt soak and the corpus")
+#: Fork servers of phase 14b's pass (its corpus replays spawn beside it):
+#: ``chaos_fuzz --seeds 8`` forked took least wall time at 3 jobs of 3, 4
+#: and 6 on the card's 8-core host (``PERF.md`` §6).
+FUZZ_JOBS = 3
+
+
+@phase("14b. the fault-space fuzzer on the card: 32 seeds forked, each rerun, the felt soak; the corpus spawned")
 def chaos_fuzz_phase(torch):
     import concurrent.futures
     import os
     import statistics
     import tempfile
 
-    from svoc_torch.durability import faultspace, fuzz
+    from svoc_torch.durability import fuzz
     from svoc_torch.tools import chaos_fuzz
 
     base = tempfile.mkdtemp(prefix="chaos-fuzz-")
     out = os.path.join(base, "CHAOS_FUZZ.json")
-    seeds = len(fuzz.fuzz_points(faultspace.load_surface()))  # the directed pass: one seed a fuzz point
+    seeds = chaos_fuzz.DEFAULT_SEEDS
     corpus = [e for e in fuzz.load_corpus(str(Path(__file__).resolve().parent / "tests" / "fixtures" / "chaos_corpus"))
               if e.get("tier1", True)]
 
     def replay(entry):
         t = time.perf_counter()
-        checked = fuzz.run_and_check(fuzz.FuzzPlan.from_dict(entry["plan"]), os.path.join(base, "corpus", entry["name"]))
+        checked = fuzz.run_and_check(fuzz.FuzzPlan.from_dict(entry["plan"]), os.path.join(base, "corpus", entry["name"]),
+                                     launcher=fuzz.spawn_child)
         return checked, time.perf_counter() - t
 
-    # The corpus replays run beside the directed pass (every child is its
-    # own interpreter): the pass's 3 jobs leave the host's other cores idle.
+    # The corpus replays spawn a fresh interpreter a child (the old start,
+    # measured beside the cut) while the pass forks its children from
+    # fork servers; every child is its own process either way.
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(corpus)) as pool:
         futures = {e["name"]: pool.submit(replay, e) for e in corpus}
-        chaos_fuzz.main(["--seeds", str(seeds), "--jobs", "3", "--base-dir", os.path.join(base, "fuzz"),
-                         "--out", out])
+        chaos_fuzz.main(["--seeds", str(seeds), "--jobs", str(FUZZ_JOBS),
+                         "--base-dir", os.path.join(base, "fuzz"), "--out", out])
         fuzz_s = time.perf_counter() - t0
         replays = {name: f.result() for name, f in futures.items()}
     corpus_s = max(s for _, s in replays.values())
     replays = {name: checked for name, (checked, _) in replays.items()}
     with open(out) as f:
         artifact = json.load(f)
-    checks = artifact["checks"]
-    for name in ("declared_fuzz_points_all_fired", "zero_invariant_violations", "zero_duplicate_txs",
-                 "same_seed_rerun_fingerprints_identical", "felt_segment_zero_codec_divergences",
-                 "recovered_fingerprints_equal_the_jax_package"):
-        check(checks[name], f"chaos fuzz, {seeds} directed seeds on CUDA: {name}"
-              + ("" if checks[name] else f" (violations {artifact['violations']}, never fired "
-                                         f"{artifact['coverage_never_fired']}, mismatches "
-                                         f"{artifact['reference_mismatches']})"))
+    for name, passed in artifact["checks"].items():
+        check(passed, f"chaos fuzz, {seeds} seeds on CUDA, each rerun: {name}"
+              + ("" if passed else f" (violations {artifact['violations']}, never fired "
+                                   f"{artifact['coverage_never_fired']}, mismatches {artifact['reference_mismatches']})"))
     devices = {r["device"] for r in artifact["runs"]}
-    check(devices == {"cuda"} and len(artifact["runs"]) == seeds,
-          f"every seed's surviving child ran on {devices}; 32-seed bar not demanded "
-          f"(seeds_explored_at_least_32: {checks['seeds_explored_at_least_32']})")
+    forked = {r["child_seconds"]["forked"] for r in artifact["runs"]}
+    check(devices == {"cuda"} and forked == {True} and len(artifact["runs"]) == seeds,
+          f"every seed's surviving child ran on {devices}, forked {forked}, {len(artifact['runs'])} seeds")
     for name, checked in replays.items():
         result = checked["run"]["result"] or {}
         ref = chaos_fuzz.REFERENCE_FINGERPRINTS["corpus"][name]
@@ -4896,33 +4968,49 @@ def chaos_fuzz_phase(torch):
               and result.get("fingerprint") == ref and result.get("device") == "cuda",
               f"corpus entry {name} replays green on {result.get('device')}, rerun identical, fingerprint "
               f"{str(result.get('fingerprint'))[:16]} == the JAX package's {ref[:16]} ({checked['violations']})")
-    children = [r["child_seconds"] for r in artifact["runs"]] + [
-        c["run"]["result"]["child_seconds"] for c in replays.values() if c["run"]["result"]]
-    spawned = sum(len(r["phases"]) for r in artifact["runs"])
+    forks = [r["child_seconds"] for r in artifact["runs"]]
+    spawns = [c["run"]["result"]["child_seconds"] for c in replays.values() if c["run"]["result"]]
+    servers = artifact["fork_server_start_seconds"]
+    children = sum(len(r["phases"]) for r in artifact["runs"])
 
-    def med(key):
-        return statistics.median(c[key] for c in children)
+    def med(rows, key):
+        return statistics.median(c[key] for c in rows) if rows else float("nan")
 
-    print(f"  [{nvidia_smi()}] directed pass ({seeds} seeds, each run twice, --jobs 3) and felt soak "
-          f"{fuzz_s:.3f} s, {spawned} children in the first runs; beside it the corpus ({len(corpus)} entries, "
-          f"twice each) {corpus_s:.3f} s; a surviving child's seconds, median of {len(children)}: start (interpreter and "
-          f"imports, torch among them) {med('start_s'):.3f}, CUDA initialisation {med('cuda_init_s'):.3f}, "
-          f"workload {med('workload_s'):.3f}; {sum(len(s['actions']) for s in artifact['runs'])} fault actions")
+    card = nvidia_smi()
+    print(f"  [{card}] {seeds} seeds, each run twice, --jobs {FUZZ_JOBS} forked, and the felt soak: {fuzz_s:.3f} s, "
+          f"{children} children in the first runs, {sum(len(s['actions']) for s in artifact['runs'])} fault actions; "
+          f"beside it the corpus ({len(corpus)} entries, twice each, spawned) {corpus_s:.3f} s")
+    print(f"  [{card}] a surviving child's start, median (s): spawned ({len(spawns)}): interpreter "
+          f"{med(spawns, 'interpreter_s'):.3f}, torch's import {med(spawns, 'torch_import_s'):.3f}, the port's imports "
+          f"{med(spawns, 'port_import_s'):.3f}, CUDA's initialisation {med(spawns, 'cuda_init_s'):.3f}, workload "
+          f"{med(spawns, 'workload_s'):.3f}; forked ({len(forks)}): the fork {med(forks, 'start_s'):.3f}, CUDA's "
+          f"initialisation {med(forks, 'cuda_init_s'):.3f}, workload {med(forks, 'workload_s'):.3f}; "
+          f"{len(servers)} fork servers' own start (interpreter, torch, port): "
+          + json.dumps([[round(v["interpreter_s"] or 0, 3), round(v["torch_import_s"], 3),
+                         round(v["port_import_s"], 3)] for v in servers]))
     return artifact
 
 
-RECONFIG_STEPS, RECONFIG_ABORT_STEP, RECONFIG_COMMIT_STEP = 9, 3, 5
+RECONFIG_STEPS, RECONFIG_QUIET_ABORT_STEP, RECONFIG_ABORT_STEP, RECONFIG_COMMIT_STEP = 10, 3, 4, 6
 
 
 def reconfig_width_run(torch, pipe, *, device=None, claims: int = SERVING_CLAIMS,
                        arrivals: int = SERVING_ARRIVALS, base_dir=None,
                        step_period_s: float = FLEET_STEP_PERIOD_S) -> dict:
-    """13c's fleet with no kill: at ``RECONFIG_ABORT_STEP`` the smoke's plan
-    (batched commits, the first claim re-specced to 9 oracles) aborted by
-    an ``error`` at ``reconfig.pre_resume`` (every replica has built its
-    new stack by then) with no traffic during it; at
-    ``RECONFIG_COMMIT_STEP`` the same plan committed, rolling, with one
-    arrival a claim at every stage boundary."""
+    """13c's fleet with no kill: at ``RECONFIG_QUIET_ABORT_STEP`` the
+    smoke's plan (batched commits, the first claim re-specced to 9
+    oracles) aborted by an ``error`` at ``reconfig.pre_resume`` (every
+    replica has built its new stack by then) with no traffic; at
+    ``RECONFIG_ABORT_STEP`` the same abort with one arrival a claim at
+    every stage boundary; at ``RECONFIG_COMMIT_STEP`` the same plan
+    committed, rolling, with the arrivals.  Then the never-attempted
+    baseline: a second fleet through step ``RECONFIG_ABORT_STEP + 1``
+    that attempts nothing at the quiet abort's step and does the abort
+    under traffic's router-level work (its holds, the same arrivals, the
+    flushes its drains did, the release) with no apply.  The per-claim
+    fingerprints and the router's snapshot are read after the two aborts'
+    steps and the next in both fleets; the baseline's are
+    ``run["baseline"]``."""
     from svoc_torch.cluster import ReconfigPlan
     from svoc_torch.durability.faultspace import FaultEvent
     from svoc_torch.fabric import ClaimSpec
@@ -4931,29 +5019,68 @@ def reconfig_width_run(torch, pipe, *, device=None, claims: int = SERVING_CLAIMS
     plan = ReconfigPlan(commit_mode="batched",
                         claims={_claim_names(claims)[0]: ClaimSpec(claim_id=_claim_names(claims)[0], n_oracles=9,
                                                                    dimension=6)})
-    return fleet_width_run(torch, pipe, FLEET_REPLICAS, RECONFIG_STEPS, device=device, claims=claims,
-                           arrivals=arrivals, base_dir=base_dir, step_period_s=step_period_s,
-                           reconfig={RECONFIG_ABORT_STEP: dict(plan=plan, traffic=False),
-                                     RECONFIG_COMMIT_STEP: dict(plan=plan, traffic=True)},
-                           faults=[FaultEvent(point="reconfig.pre_resume", nth=1, action="error")])
+    faults = [FaultEvent(point="reconfig.pre_resume", nth=n, action="error") for n in (1, 2)]
+    read_at = (RECONFIG_QUIET_ABORT_STEP, RECONFIG_ABORT_STEP, RECONFIG_ABORT_STEP + 1)
+    run = fleet_width_run(torch, pipe, FLEET_REPLICAS, RECONFIG_STEPS, device=device, claims=claims,
+                          arrivals=arrivals, base_dir=base_dir, step_period_s=step_period_s,
+                          reconfig={RECONFIG_QUIET_ABORT_STEP: dict(plan=plan, traffic=False),
+                                    RECONFIG_ABORT_STEP: dict(plan=plan, traffic=True),
+                                    RECONFIG_COMMIT_STEP: dict(plan=plan, traffic=True)},
+                          faults=faults, read_steps=read_at)
+    script = run["events"]["reconfig"][RECONFIG_ABORT_STEP]["script"]
+    baseline = fleet_width_run(torch, pipe, FLEET_REPLICAS, RECONFIG_ABORT_STEP + 2, device=device, claims=claims,
+                               arrivals=arrivals, base_dir=base_dir, step_period_s=step_period_s,
+                               reconfig={RECONFIG_ABORT_STEP: dict(plan=None, traffic=True, script=script)},
+                               faults=faults, read_steps=read_at)
+    run["baseline"] = dict(claim_fingerprints=baseline["events"]["claim_fingerprints"],
+                           snapshots=baseline["events"]["snapshots"],
+                           reconfig=baseline["events"]["reconfig"][RECONFIG_ABORT_STEP],
+                           counts=baseline["counts"], rows=baseline["rows"])
+    return run
 
 
 def reconfig_checks(run: dict, what: str, cuda: bool = True) -> None:
-    """What 14c holds its abort and its commit to."""
+    """What 14c holds its two aborts and its commit to."""
     ev = run["events"]["reconfig"]
-    abort, commit = ev[RECONFIG_ABORT_STEP], ev[RECONFIG_COMMIT_STEP]
-    rep, before, after = abort["report"], abort["before"], abort["after"]
-    check(rep["status"] == "aborted" and rep["phase"] == "resume" and rep["cause"] == "InjectedFault"
-          and sorted(abort["stack_build"]) == sorted(run["router"].replica_ids()),
-          f"{what}: the abort at reconfig.pre_resume rolled back after every replica built its new stack "
-          f"({rep}, stacks built {sorted(abort['stack_build'])})")
+    abort, quiet, commit = ev[RECONFIG_ABORT_STEP], ev[RECONFIG_QUIET_ABORT_STEP], ev[RECONFIG_COMMIT_STEP]
+    for label, ab in (("with no traffic", quiet), ("under traffic", abort)):
+        rep = ab["report"]
+        check(rep["status"] == "aborted" and rep["phase"] == "resume" and rep["cause"] == "InjectedFault"
+              and sorted(ab["stack_build"]) == sorted(run["router"].replica_ids()),
+              f"{what}: the abort {label} at reconfig.pre_resume rolled back after every replica built its new "
+              f"stack ({rep}, stacks built {sorted(ab['stack_build'])})")
+    before, after = quiet["before"], quiet["after"]
     check(after["fleet"] == before["fleet"] and after["epoch"] == 0 and not after["epoch_files"]
           and after["journal"] == before["journal"] and after["replicas"] == before["replicas"],
-          f"{what}: the abort left the fleet fingerprint ({after['fleet'][:16]}), the epoch ({after['epoch']}), "
-          f"the cluster and replica journals ({after['journal']} events) as before, and no epoch file "
-          f"({after['epoch_files']})")
+          f"{what}: the abort with no traffic left the fleet fingerprint ({after['fleet'][:16]}), the epoch "
+          f"({after['epoch']}), the cluster and replica journals ({after['journal']} events) as before, and no "
+          f"epoch file ({after['epoch_files']})")
     check(after["accounting"] == before["accounting"] and after["accounting"]["dropped"] == 0,
-          f"{what}: the abort dropped no request ({after['accounting']})")
+          f"{what}: the abort with no traffic left the accounting as before ({after['accounting']})")
+    before, after = abort["before"], abort["after"]
+    check(after["epoch"] == 0 and not after["epoch_files"],
+          f"{what}: the abort under traffic left the epoch at {after['epoch']} and no epoch file "
+          f"({after['epoch_files']})")
+    check(after["accounting"]["dropped"] == before["accounting"]["dropped"] == 0,
+          f"{what}: the abort under traffic dropped no request ({after['accounting']})")
+    check(abort["deferred"] > 0 and abort["released_in_order"]
+          and set(abort["released_statuses"]) <= {"admitted", "cached"},
+          f"{what}: under traffic the abort deferred {abort['deferred']} requests and its rollback released them "
+          f"into the old stacks in arrival order, each admitted or answered from the cache "
+          f"({abort['released_statuses']}, release {abort['release_s'] or 0:.4f} s)")
+    base = run["baseline"]
+    mine, theirs = run["events"]["claim_fingerprints"], base["claim_fingerprints"]
+    differ = {step: sorted(c for c in mine[step] if mine[step][c] != theirs[step].get(c)) for step in sorted(mine)}
+    check(base["reconfig"]["report"]["status"] == "not attempted" and sorted(mine) == sorted(theirs)
+          and not any(differ.values()),
+          f"{what}: every per-claim fingerprint after the two aborts' steps and after the next equals the "
+          f"never-attempted baseline's (the same holds, arrivals, flushes and release, no apply; "
+          f"{len(run['names'])} claims, differing {differ})")
+    mine, theirs = run["events"]["snapshots"], base["snapshots"]
+    differ = {step: sorted(k for k in mine[step] if mine[step][k] != theirs[step].get(k)) for step in sorted(mine)}
+    check(sorted(mine) == sorted(theirs) and not any(differ.values()),
+          f"{what}: after the two aborts' steps and after the next the placement, the claims' owners, every replica's "
+          f"snapshot and breaker, and the epoch chain equal the never-attempted baseline's (differing {differ})")
     rep = commit["report"]
     claims = [c for r in rep.get("replicas", {}).values() for c in r["claims"].values()]
     respecced = run["names"][0]
@@ -4974,12 +5101,13 @@ def reconfig_checks(run: dict, what: str, cuda: bool = True) -> None:
     if cuda:
         warmth = run["warmth"]
         check(all(w["cold"] == 0 and w["prewarmed"] > 0 for w in warmth.values())
-              and commit["prepare"]["primed"] == 1 and abort["prepare"]["primed"] == 1,
+              and all(e["prepare"]["primed"] == 1 for e in (abort, quiet, commit)),
               f"{what}: every re-pinned stack's first dispatches count prewarmed, none cold ({warmth}); PREPARE "
               f"primed the new group once an apply")
 
 
-@phase("14c. a live re-pin at full width: 3 replicas x 64 claims under traffic, an abort at step 3, a commit at 5")
+@phase("14c. a live re-pin at full width: 3 replicas x 64 claims, an abort with no traffic at step 3, one under "
+       "traffic at 4, a commit at 6")
 def reconfig_width_phase(torch, launches, fleet):
     import numpy as np
 
@@ -5017,15 +5145,229 @@ def reconfig_width_phase(torch, launches, fleet):
               f"{ev['deferred']} deferred, held "
               + (f"{min(hold):.3f}-{max(hold):.3f} s (median {float(np.median(hold)):.3f})" if hold else "-"))
     print(f"  [{card}] {len(timed)} timed cluster steps: {requests} requests in {wall_s:.3f} s, "
-          f"{requests / wall_s:.1f} requests/s over the whole window (submits, step_all, the two applies); "
+          f"{requests / wall_s:.1f} requests/s over the whole window (submits, step_all, the three applies); "
           f"step_all alone {step_s * 1e3 / len(timed):.3f} ms a step, {requests / step_s:.1f} requests/s; "
           f"peak memory {run['peak'] / 2**20:.1f} MiB")
-    print(f"  [{card}] request latency: before the commit (steps 1-{RECONFIG_COMMIT_STEP - 1}, the abort at "
-          f"{RECONFIG_ABORT_STEP}) {pct(rows[1:RECONFIG_COMMIT_STEP])}; during (steps {RECONFIG_COMMIT_STEP}-"
+    print(f"  [{card}] request latency: before the commit (steps 1-{RECONFIG_COMMIT_STEP - 1}, the aborts at "
+          f"{RECONFIG_QUIET_ABORT_STEP} and {RECONFIG_ABORT_STEP}) {pct(rows[1:RECONFIG_COMMIT_STEP])}; "
+          f"during (steps {RECONFIG_COMMIT_STEP}-"
           f"{RECONFIG_COMMIT_STEP + 1}) {pct(rows[RECONFIG_COMMIT_STEP:RECONFIG_COMMIT_STEP + 2])}; after "
           f"(steps {RECONFIG_COMMIT_STEP + 2}-{RECONFIG_STEPS - 1}) {pct(rows[RECONFIG_COMMIT_STEP + 2:])}")
     print(f"  [{card}] launches {run['counts']} (predicted {run['predicted']}, {run['forwards']} forwards of "
           f"{run['n_layers']} flash launches); dispatch warmth by replica {run['warmth']}")
+
+
+def zero_counts():
+    """Every counted wrapper's count set to 0 (after a sync); returns them."""
+    import torch
+
+    wrappers = counted_wrappers()
+    torch.cuda.synchronize()
+    for w in wrappers.values():
+        w.launches = 0
+    return wrappers
+
+
+def read_counts(wrappers) -> dict:
+    import torch
+
+    torch.cuda.synchronize()
+    return {k: w.launches for k, w in wrappers.items()}
+
+
+def add_launches(launches: dict, counts: dict) -> None:
+    for k, n in counts.items():
+        launches[k] = launches.get(k, 0) + n
+
+
+@phase("15a. the flight-recorder and cost-plane gates on the card: obs_smoke and obs_cost_smoke twins")
+def obs_gates_phase(torch, launches):
+    from svoc_torch.tools import obs_cost_smoke, obs_smoke
+
+    card = nvidia_smi()
+    wrappers = zero_counts()
+    t0 = time.perf_counter()
+    obs = obs_smoke.run(0, None)  # device None: CUDA
+    obs_s = time.perf_counter() - t0
+    counts = read_counts(wrappers)
+    for name, passed in obs["checks"].items():
+        check(passed, f"obs smoke on {obs['device']}: {name}")
+    check(obs["journal_fingerprint"] == obs_smoke.REFERENCE_JOURNAL_FINGERPRINTS[0],
+          f"obs smoke: the journal fingerprint {obs['journal_fingerprint'][:16]} equals the JAX package's "
+          f"{obs_smoke.REFERENCE_JOURNAL_FINGERPRINTS[0][:16]} at seed 0")
+    check(obs["session"]["device"].startswith("cuda") and counts["threefry"] > 0,
+          f"obs smoke: the session leg drew its fleet on {obs['session']['device']} ({counts})")
+    add_launches(launches, counts)
+    over = obs["overhead"]
+    print(f"  [{card}] obs smoke {obs_s:.3f} s, launches {counts}; overhead: journal emit {over['emit_us_mean']} us, "
+          f"span {over['span_us_mean']} us, span with lineage {over['span_lineage_us_mean']} us (means of 5000)")
+
+    wrappers = zero_counts()
+    t0 = time.perf_counter()
+    cost = obs_cost_smoke.run(0, None)
+    cost_s = time.perf_counter() - t0
+    counts = read_counts(wrappers)
+    for name, passed in cost["checks"].items():
+        check(passed, f"obs cost smoke on {cost['device']}: {name}")
+    check(cost["journal_fingerprint"] == obs_cost_smoke.REFERENCE_JOURNAL_FINGERPRINTS[0],
+          f"obs cost smoke: all four journal fingerprints {cost['journal_fingerprint'][:16]} equal the JAX "
+          f"package's {obs_cost_smoke.REFERENCE_JOURNAL_FINGERPRINTS[0][:16]} at seed 0")
+    check(counts["gated_claims_consensus"] > 0 and counts["threefry"] > 0 and counts["flash_attention"] == 0,
+          f"obs cost smoke: every dispatch a B3 launch and every fleet threefry's ({counts})")
+    add_launches(launches, counts)
+    print(f"  [{card}] obs cost smoke (4 serving scenarios and the JSONL rebuild in its own interpreter) "
+          f"{cost_s:.3f} s, launches {counts}; {cost['timelines_checked']} timelines, {cost['ledger']['samples']} "
+          f"ledger samples over {cost['ledger']['keys']} keys, {cost['coverage']['estimated']}/"
+          f"{cost['coverage']['universe']['keys']} universe keys priced")
+
+
+@phase("15b. the breakdown certificate on the card: robustness_cert in full mode")
+def robustness_cert_phase(torch, launches):
+    from svoc_torch.tools import robustness_cert
+
+    card = nvidia_smi()
+    wrappers = zero_counts()
+    t0 = time.perf_counter()
+    art = robustness_cert.run(0, smoke=False, device=None)
+    seconds = time.perf_counter() - t0
+    counts = read_counts(wrappers)
+    for name, passed in art["checks"].items():
+        check(passed, f"robustness cert (full) on {art['device']}: {name}")
+    check(art["reference_mismatches"] == {} and art["certificate_summary"] == robustness_cert.REFERENCE["full"],
+          f"robustness cert: the Byzantine fingerprint and each certificate's certified and tolerated colluders "
+          f"equal the JAX package's ({art['certificate_summary']}, mismatches {art['reference_mismatches']})")
+    cells = sum(len(sw["cells"]) + len(sw["benign_deviation"]) for sw in art["sweeps"].values())
+    check(counts["gated_claims_consensus"] == cells + len(art["sweeps"]),
+          f"robustness cert: one B3 launch a cell and one for each sweep's reference consensus "
+          f"({counts['gated_claims_consensus']} == {cells} + {len(art['sweeps'])}), the plain loop never on the card")
+    add_launches(launches, counts)
+    print(f"  [{card}] robustness cert (8 oracles, 64 trials, 0-4 colluders at 3 magnitudes a config) "
+          f"{seconds:.3f} s; launches {counts}")
+
+
+#: Phase 15c's constrained sweep at the flagship's fleet (bench.py:682).
+SWEEP_ORACLES, SWEEP_FAILING = 1024, 128
+SWEEP_COUNTS, SWEEP_MAGNITUDES, SWEEP_TRIALS = (0, 64, 128, 256, 512), (0.2, 0.45, 0.9), 64
+MULTIMODAL_POLES, MULTIMODAL_SIGMA = [[0.2, 0.2], [0.8, 0.7]], 0.03  # tests/test_multimodal.py:19, :123
+
+
+def device_busy_ms(torch, fn):
+    """``fn()``'s result and the device time of everything it ran, by
+    ``torch.profiler`` (None when the profiler shows none: informational)."""
+    try:
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            out = fn()
+            torch.cuda.synchronize()
+        busy = sum(device_us(e) for e in prof.key_averages() if e.device_type == DeviceType.CUDA) / 1e3
+        return out, (busy or None)
+    except Exception:  # the profiler is an observation, not a check
+        traceback.print_exc()
+        return None, None
+
+
+@phase("15c. the estimator sweeps at full width on the card: the breakdown curve, an 80-cell sweep, multimodal")
+def sweeps_phase(torch, launches):
+    from svoc_torch.consensus.kernel import ConsensusConfig
+    from svoc_torch.ops.fused_consensus import fused_consensus_gated_claims_cuda, fused_consensus_gated_claims_plain
+    from svoc_torch.robustness.certify import breakdown_sweep
+    from svoc_torch.sim import montecarlo, multimodal, prng
+    from svoc_torch.sim.generators import generate_beta_oracles
+
+    card = nvidia_smi()
+    cfg = ConsensusConfig(n_failing=SWEEP_FAILING, constrained=True)
+    runs = {
+        "fleet_breakdown_curve": lambda dev: montecarlo.fleet_breakdown_curve(prng.PRNGKey(0, dev),
+                                                                               print_fn=lambda _: None),
+        "breakdown_sweep": lambda dev: breakdown_sweep(prng.PRNGKey(1, dev), cfg, n_oracles=SWEEP_ORACLES,
+                                                       colluder_counts=SWEEP_COUNTS, magnitudes=SWEEP_MAGNITUDES,
+                                                       n_trials=SWEEP_TRIALS),
+        "benchmark_multimodal": lambda dev: multimodal.benchmark_multimodal(prng.PRNGKey(2, dev), MULTIMODAL_POLES,
+                                                                             MULTIMODAL_SIGMA, weights=[0.5, 0.5]),
+    }
+    out, times, counts = {}, {}, {}
+    for name, fn in runs.items():
+        wrappers = zero_counts()
+        t0 = time.perf_counter()
+        out[name] = fn("cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts[name] = read_counts(wrappers)
+        add_launches(launches, counts[name])
+        _, busy = device_busy_ms(torch, lambda: fn("cuda"))  # a second, profiled run: device time only
+        t0 = time.perf_counter()
+        cpu = fn("cpu")
+        times[name] = dict(wall_s=wall, device_ms=busy, cpu_s=time.perf_counter() - t0)
+        out[name + " (cpu)"] = cpu
+
+    curve = out["fleet_breakdown_curve"]
+    fractions = sorted(curve)
+    below = [f for f in fractions if f <= 0.45]
+    above = [f for f in fractions if f > 0.5]
+    check(all(curve[f]["misclassified_rate_pct"] <= 0.5 and curve[f]["reliability_pct"] >= 99.0 for f in below)
+          and curve[0.49]["misclassified_rate_pct"] < 50.0
+          and all(curve[f]["misclassified_rate_pct"] >= 60.0 and curve[f]["reliability_pct"] <= 0.0 for f in above),
+          "the breakdown cliff at N/2 on 1024 oracles: detection holds below N/2 (misflags <= 0.5 %, reliability "
+          ">= 99 % to 45 %; 49 % not inverted) and inverts above it (misflags >= 60 %, reliability <= 0): "
+          + json.dumps({f: [round(curve[f]["misclassified_rate_pct"], 3), round(curve[f]["reliability_pct"], 3)]
+                        for f in fractions}))
+    cpu_curve = out["fleet_breakdown_curve (cpu)"]
+    check(all(abs(curve[f]["misclassified_rate_pct"] - cpu_curve[f]["misclassified_rate_pct"]) <= 0.1
+              for f in fractions),
+          "the curve on the card (B3) and on the host (consensus_step a trial) flag within 0.1 % of each other: "
+          + json.dumps({f: round(cpu_curve[f]["misclassified_rate_pct"], 3) for f in fractions}))
+    check(counts["fleet_breakdown_curve"]["gated_claims_consensus"] == len(fractions),
+          f"the curve: one [100, 1024, 6] B3 launch a fraction ({counts['fleet_breakdown_curve']})")
+    sweep = out["breakdown_sweep"]
+    n_cells = len(sweep["cells"]) + len(sweep["benign_deviation"])
+    check(n_cells == 80 and counts["breakdown_sweep"]["gated_claims_consensus"] == n_cells + 1,
+          f"the sweep: {n_cells} cells of [64, 1024, 6], one B3 launch each and one for the reference consensus "
+          f"({counts['breakdown_sweep']})")
+    dev = max(abs(a.mean_deviation - b.mean_deviation) for a, b in zip(sweep["cells"],
+                                                                         out["breakdown_sweep (cpu)"]["cells"]))
+    check(dev <= 1e-4, f"the sweep's mean deviations on the card and on the host agree within 1e-4 ({dev:.3g})")
+    mm = out["benchmark_multimodal"]
+    check(mm["mixture_nearest_pole_error"] < 0.02 and mm["unimodal_nearest_pole_error"]
+          > 3.0 * mm["mixture_nearest_pole_error"] and mm["pole_recovery_error"] < 0.05
+          and counts["benchmark_multimodal"]["gated_claims_consensus"] == 1,
+          f"multimodal at 64 oracles, 300 trials: the mixture stays on a pole, the unimodal estimator between them "
+          f"(tests/test_multimodal.py's bars), its 300 unimodal fleets one B3 launch: {mm}, "
+          f"{counts['benchmark_multimodal']}")
+
+    # B3 against its plain version on one of the sweep's cubes: the honest fleets.
+    keys = prng.split(prng.split(prng.PRNGKey(1, "cuda"), 4)[0], SWEEP_TRIALS)
+    honest = generate_beta_oracles(keys, SWEEP_ORACLES, 0, 20.0, 20.0, dim=6)[0].contiguous()
+    ok = torch.ones(honest.shape[:2], dtype=torch.bool, device="cuda")
+    mask = ok[:, 0].contiguous()
+    got = fused_consensus_gated_claims_cuda(honest, ok, mask, cfg)
+    want = fused_consensus_gated_claims_plain(honest, ok, mask, cfg)
+    good, errs, _ = gated_errors(torch, got, want)
+    check(good, f"B3 equals its plain version on the sweep's [64, 1024, 6] honest cube at the consensus bars {errs}")
+    cube_times = {}
+    curve_cube = generate_beta_oracles(prng.split(prng.PRNGKey(0, "cuda"), 100), SWEEP_ORACLES, 0, 20.0, 20.0,
+                                       dim=6)[0].contiguous()  # a curve trial's shape, [100, 1024, 6]
+    for cube in (honest, curve_cube):
+        okc = torch.ones(cube.shape[:2], dtype=torch.bool, device="cuda")
+        maskc = okc[:, 0].contiguous()
+        c, n, m = cube.shape
+        out = fused_consensus_gated_claims_cuda(cube, okc, maskc, cfg)
+        bytes_moved = sum(t.numel() * t.element_size() for t in (cube, okc, maskc, *out))
+        ops = c * ((2 * m + 1) * n * math.ceil(math.log2(n)) + 12 * n * m)  # as phase 3b counts them
+        cube_times[c] = dict(
+            ms=cuda_ms(torch, lambda: fused_consensus_gated_claims_cuda(cube, okc, maskc, cfg), iters=20),
+            plain_ms=cuda_ms(torch, lambda: fused_consensus_gated_claims_plain(cube, okc, maskc, cfg), iters=5),
+            bound=bound(bytes_moved, ops, FP32_FLOPS))
+    for name, t in times.items():
+        print(f"  [{card}] {name}: {t['wall_s']:.3f} s wall on the card, device time "
+              f"{t['device_ms'] if t['device_ms'] is None else round(t['device_ms'], 3)} ms (profiler, a second "
+              f"run), its plain version on the host's CPU {t['cpu_s']:.3f} s; launches {counts[name]}")
+    for c, t in cube_times.items():
+        print(f"  [{card}] B3 at [{c}, 1024, 6] (a sweep's Beta cube): {t['ms']:.4f} ms (CUDA events, 20 launches), "
+              f"its plain version {t['plain_ms']:.4f} ms, bound {t['bound'][0]:.6f} ms ({t['bound'][1]})")
+    print("  the curve: " + json.dumps({f: {k: round(v, 3) for k, v in curve[f].items()} for f in fractions}))
+    print(f"  multimodal: {json.dumps({k: round(v, 4) for k, v in mm.items()})}")
 
 
 def main() -> int:
@@ -5108,12 +5450,17 @@ def main() -> int:
         reconfig_smoke_phase(torch, launches)
         chaos_fuzz_phase(torch)
         reconfig_width_phase(torch, launches, fleet)
+        reconfigured = dict(launches)
+        obs_gates_phase(torch, launches)
+        robustness_cert_phase(torch, launches)
+        sweeps_phase(torch, launches)
         print(f"  launches: serving paths {serving}; with the train paths {trained}; "
               f"with the multi-claim path {claimed}; with the probe path {probed}; "
               f"with the commit path {committed}; with the fabric paths {fabricked}; "
               f"with the serving tier {tiered}; with the durable paths {durable}; "
               f"with the cold-start paths {started}; with the cluster paths {clustered}; "
-              f"with the reconfiguration paths {launches}")
+              f"with the reconfiguration paths {reconfigured}; with the obs gates, the certificate and the "
+              f"sweeps {launches}")
     check(all(launches.get(name, 0) > 0 for name in KERNEL_ROWS),
           f"every kernel launched on its path: { {k: launches.get(k, 0) for k in KERNEL_ROWS} }")
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "svoc_tpu"))

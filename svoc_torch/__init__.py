@@ -12,6 +12,14 @@ the CPU, as the tests pass them; on a CUDA tensor a wrapper launches its
 hand-written kernel (``svoc_torch/csrc``) or raises.
 """
 
-from svoc_torch.device import resolve_device
-
 __all__ = ["resolve_device"]
+
+
+def __getattr__(name):
+    # Lazy, so that ``import svoc_torch`` does not import torch: a fuzz
+    # child times its interpreter start and torch's import apart.
+    if name == "resolve_device":
+        from svoc_torch.device import resolve_device
+
+        return resolve_device
+    raise AttributeError(f"module 'svoc_torch' has no attribute {name!r}")

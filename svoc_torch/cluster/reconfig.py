@@ -39,6 +39,18 @@ Where the port departs:
   release of held requests raises ``KeyError`` there, against the
   invariant the two points declare.  Where the reference rolls back,
   the port gives its result;
+- the rollback re-adopts a replica's shipped claims in the order they
+  sat in its registry and with their own spec objects, where the
+  reference re-adopts them sorted (``reconfig.py:568``) and rebuilds
+  each spec from the slice's dict.  The registry's order is the order a
+  stack serves its claims in, and journal seqs are global to a stack, so
+  after the reference's rollback a replica whose claims were not
+  registered in sorted order serves them in another order than before;
+  and a spec's ``tamper`` hook (a callable, which the dict cannot carry)
+  is gone.  Either way every per-claim fingerprint (which carries the
+  seqs) leaves the never-attempted run's at the next step; the port's
+  equal it.  Where the orders agree and no claim has a hook (the
+  reconfig smoke's fleets), so do the results;
 - :meth:`ReconfigController.attach` raises: the operator console is
   ROADMAP A12.
 
@@ -243,6 +255,10 @@ class _Staged:
     entries: Dict[str, Dict[str, Any]]
     new: Optional[Replica] = None
     claims: Dict[str, Dict[str, Any]] = dataclasses.field(default_factory=dict)
+    #: The shipped claims in the old stack's registry order (its serving
+    #: order) and their spec objects, which the rollback restores.
+    order: List[str] = dataclasses.field(default_factory=list)
+    specs: Dict[str, Any] = dataclasses.field(default_factory=dict)
 
 
 #: Builder protocol: ``builder(replica_id, *, fingerprint_epoch,
@@ -488,6 +504,8 @@ class ReconfigController:
         self._gate(faultspace.RECONFIG_POST_DRAIN, {"replica": rid, "flushed": flushed})
         self._enter("ship")
         owned = sorted(cid for cid in router.claim_ids() if replica.has_claim(cid))
+        st.order = [cid for cid in replica.multi.claim_ids() if cid in set(owned)]
+        st.specs = {cid: replica.multi.get(cid).spec for cid in owned}
         for cid in owned:
             st.entries[cid] = replica.ship_claim(cid)
         if traffic is not None:
@@ -566,10 +584,14 @@ class ReconfigController:
                         _events.release_writer(path)
                         os.unlink(path)
                 st.new = None
-            for cid in sorted(st.entries):
+            # In the old registry's order, where the reference re-adopts
+            # sorted: the old stack then serves its claims in the order it
+            # did before the attempt (ROADMAP C5).  A fault mid-ship leaves
+            # in ``entries`` only the claims shipped so far.
+            for cid in (c for c in st.order if c in st.entries):
                 entry = st.entries[cid]
                 shipped_cursor = int(entry["session"]["fetch_claim"])
-                report = st.old.adopt_claim(cid, dict(entry))
+                report = st.old.adopt_claim(cid, dict(entry), spec=st.specs.get(cid))
                 if cid not in report["restored"] or report["cursor"] != shipped_cursor:
                     raise MigrationContinuityError(
                         f"rollback {st.replica_id!r}/{cid!r}: cursor "

@@ -355,13 +355,16 @@ class Replica:
         self._backends.pop(claim_id, None)
         return entry
 
-    def adopt_claim(self, claim_id: str, entry: Dict[str, Any]) -> Dict[str, Any]:
+    def adopt_claim(self, claim_id: str, entry: Dict[str, Any], spec: Optional[ClaimSpec] = None) -> Dict[str, Any]:
         """Adopt a shipped slice: register the claim (the adapter
         factory replays the shared chain log — strictly newer than the
         slice's embedded contract), then restore through
         :func:`restore_multi_session` so membership-change handling is
-        the one documented code path, not a fork of it."""
-        spec = claim_spec_from_dict(entry["spec"])
+        the one documented code path, not a fork of it.  ``spec`` (a
+        rollback's: the claim's own spec object before it shipped) keeps
+        what the slice's dict cannot carry, its ``tamper`` hook."""
+        if spec is None:
+            spec = claim_spec_from_dict(entry["spec"])
         state = self.multi.add_claim(spec)
         payload = {
             "version": 1,

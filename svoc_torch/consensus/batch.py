@@ -99,7 +99,7 @@ def _one_prefix_margins(values: torch.Tensor, cfg: ConsensusConfig) -> PrefixMar
     mean_qr1 = qr.mean(dim=1)
     rel1 = reliability(cfg, mean_qr1, dim)
 
-    reliable = sort_ops.reliability_mask(qr.T, cfg.n_failing).T  # [K, N]
+    reliable = sort_ops.reliability_mask(qr, cfg.n_failing)  # [K, N]
     thr = n - cfg.n_failing
     # Exact-int ties at the cut can order differently than the float
     # sort; a healthy gap certifies both select the same reliable set.

@@ -676,13 +676,17 @@ def _child_result(
 _ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
+#: The module every child runs (``python -m``).
+CHILD_MODULE = "svoc_torch.tools.chaos_fuzz"
+
+
 def default_child_argv(
     plan_path: str, workdir: str, phase: int, device=None
 ) -> List[str]:
     """``python -m svoc_torch.tools.chaos_fuzz --child ...``, with
     ``--device`` when one is named (the child's default is CUDA)."""
     argv = [
-        sys.executable, "-m", "svoc_torch.tools.chaos_fuzz",
+        sys.executable, "-m", CHILD_MODULE,
         "--child", workdir, "--plan", plan_path, "--phase", str(phase),
     ]
     if device is not None:
@@ -701,6 +705,71 @@ def _child_env() -> Dict[str, str]:
                 **{SPAWNED_ENV: repr(time.time())})
 
 
+def spawn_child(argv: List[str], timeout_s: float) -> Tuple[int, str, str]:
+    """A child in a fresh interpreter, stamped with its spawn time
+    (:data:`SPAWNED_ENV`): ``(returncode, stdout, stderr)``."""
+    proc = subprocess.run(argv, capture_output=True, text=True, timeout=timeout_s, env=_child_env(), cwd=_ROOT)
+    return proc.returncode, proc.stdout, proc.stderr
+
+
+class ForkServer:
+    """One long-lived ``python -m svoc_torch.tools.chaos_fuzz
+    --fork-server`` that has imported torch and the child's modules, and
+    never initialised CUDA, forks one child a phase.  Each child is still
+    its own process, SIGKILLed at its fault point and reaped by the
+    server, whose return code (``-9``) and output files come back over
+    the server's pipes; it initialises CUDA itself, after the fork.  One
+    server serves one caller thread at a time; :meth:`close` ends it."""
+
+    def __init__(self, work_dir: str):
+        self.work_dir = work_dir
+        os.makedirs(work_dir, exist_ok=True)
+        self._n = 0
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", CHILD_MODULE, "--fork-server"],
+            stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True, env=_child_env(), cwd=_ROOT,
+        )
+        ready = self.proc.stdout.readline()
+        if not ready:
+            raise RuntimeError(f"the fork server exited before it was ready (rc {self.proc.wait()})")
+        #: The server's own start, split as a spawned child's is.
+        self.start_seconds = json.loads(ready)["seconds"]
+
+    def launch(self, argv: List[str], timeout_s: float) -> Tuple[int, str, str]:
+        """Run the child ``argv`` (``python -m`` :data:`CHILD_MODULE`
+        ``--child ...``) as a fork: ``(returncode, stdout, stderr)``."""
+        if argv[1:3] != ["-m", CHILD_MODULE]:
+            raise ValueError(f"the fork server runs {CHILD_MODULE} children only, got {argv[:3]}")
+        self._n += 1
+        out = os.path.join(self.work_dir, f"child-{self._n}.out")
+        err = os.path.join(self.work_dir, f"child-{self._n}.err")
+        request = {"args": argv[3:], "spawned": time.time(), "timeout_s": timeout_s, "out": out, "err": err}
+        self.proc.stdin.write(json.dumps(request) + "\n")
+        self.proc.stdin.flush()
+        line = self.proc.stdout.readline()
+        if not line:
+            raise RuntimeError(f"the fork server died (rc {self.proc.wait()})")
+        reply = json.loads(line)
+        texts = []
+        for path in (out, err):
+            with open(path, encoding="utf-8", errors="replace") as f:
+                texts.append(f.read())
+            os.remove(path)
+        if reply["timeout"]:
+            raise subprocess.TimeoutExpired(argv, timeout_s, texts[0], texts[1])
+        return reply["rc"], texts[0], texts[1]
+
+    def close(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.stdin.close()
+            try:
+                self.proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                self.proc.wait()
+        self.proc.stdout.close()
+
+
 def run_plan(
     plan: FuzzPlan,
     workdir: str,
@@ -708,6 +777,7 @@ def run_plan(
     child_argv: Optional[Callable[[str, str, int], List[str]]] = None,
     timeout_s: float = 120.0,
     device=None,
+    launcher: Optional[Callable[[List[str], float], Tuple[int, str, str]]] = None,
 ) -> Dict[str, Any]:
     """Execute one plan: crash+recover child phases in ``workdir``
     until a child survives to the end (or :data:`MAX_PHASES`).  Returns
@@ -722,9 +792,13 @@ def run_plan(
     fired log grant coverage credit for points that no longer fire.
 
     ``child_argv`` defaults to :func:`default_child_argv` on ``device``
-    (``None``: the child's CUDA).  Each child is its own interpreter run
-    from the package's parent directory; the timeout covers its torch
-    import."""
+    (``None``: the child's CUDA).  Each child is its own process:
+    ``launcher(argv, timeout_s) -> (returncode, stdout, stderr)`` runs it
+    (raising ``subprocess.TimeoutExpired``); the default,
+    :func:`spawn_child`, starts a fresh interpreter from the package's
+    parent directory, and :meth:`ForkServer.launch` forks one from an
+    interpreter that has imported everything already.  The timeout
+    covers the child's start."""
     if child_argv is None:
         def child_argv(plan_path, workdir, phase):
             return default_child_argv(plan_path, workdir, phase, device)
@@ -743,11 +817,7 @@ def run_plan(
         if os.path.exists(result_path):
             os.remove(result_path)
         try:
-            proc = subprocess.run(
-                child_argv(plan_path, workdir, phase),
-                capture_output=True, text=True, timeout=timeout_s,
-                env=_child_env(), cwd=_ROOT,
-            )
+            returncode, _, stderr = (launcher or spawn_child)(child_argv(plan_path, workdir, phase), timeout_s)
         except subprocess.TimeoutExpired:
             # A hung child is the fuzzer's own finding class — record
             # it as this plan's violation, never abort the whole gate.
@@ -757,19 +827,19 @@ def run_plan(
                 f"harness_error: phase {phase} hung past {timeout_s}s"
             )
             break
-        killed = proc.returncode == -signal.SIGKILL
+        killed = returncode == -signal.SIGKILL
         entry: Dict[str, Any] = {
             "phase": phase,
-            "returncode": proc.returncode,
+            "returncode": returncode,
             "killed": killed,
         }
         phases.append(entry)
         if killed:
             continue  # the scheduled fault fired — next phase recovers
-        if proc.returncode != 0:
+        if returncode != 0:
             violations.append(
                 f"harness_error: phase {phase} exited "
-                f"{proc.returncode}; stderr tail: {proc.stderr[-400:]}"
+                f"{returncode}; stderr tail: {stderr[-400:]}"
             )
             break
         if not os.path.exists(result_path):
@@ -859,18 +929,20 @@ def run_and_check(
     replay: bool = True,
     child_argv: Optional[Callable[[str, str, int], List[str]]] = None,
     device=None,
+    launcher: Optional[Callable[[List[str], float], Tuple[int, str, str]]] = None,
 ) -> Dict[str, Any]:
     """One plan end-to-end: execute, check invariants, and (default)
     re-execute in a fresh directory asserting byte-identical recovered
     fingerprints — the same-seed-rerun oracle.  The children run on
-    ``device`` (``None``: CUDA)."""
+    ``device`` (``None``: CUDA), started by ``launcher`` (see
+    :func:`run_plan`)."""
     first = run_plan(plan, os.path.join(base_dir, "run1"),
-                     child_argv=child_argv, device=device)
+                     child_argv=child_argv, device=device, launcher=launcher)
     violations = check_invariants(first)
     replay_identical = None
     if replay and first.get("result") is not None:
         second = run_plan(plan, os.path.join(base_dir, "run2"),
-                          child_argv=child_argv, device=device)
+                          child_argv=child_argv, device=device, launcher=launcher)
         if second.get("result") is None:
             violations.append(
                 "replay_divergence: rerun failed to complete: "

@@ -38,6 +38,7 @@ from svoc_torch.consensus.kernel import (
     ConsensusConfig,
     ConsensusOutput,
     _mask_padded_claims,
+    consensus_step_batched,
     reliability,
 )
 from svoc_torch.ops import _build, stats
@@ -411,3 +412,19 @@ def fused_consensus_gated_claims(
     if values.device.type == "cpu":
         return fused_consensus_gated_claims_plain(values, ok, claim_mask, cfg)
     return fused_consensus_gated_claims_cuda(values, ok, claim_mask, cfg)
+
+
+def consensus_blocks(values: torch.Tensor, cfg: ConsensusConfig) -> ConsensusOutput:
+    """The two-pass consensus of every block of ``values [B, N, M]``: on
+    the CPU :func:`svoc_torch.consensus.kernel.consensus_step_batched`
+    (the reference's vmapped ``consensus_step``), on CUDA one launch of
+    the gated claim-cube kernel (B3) with every row admitted and every
+    block active, which computes the same function (it adds only
+    ``interval_valid``'s ``N - n_failing >= 2``, which ``consensus_step``
+    also demands).  The Monte-Carlo sweeps and the breakdown certificate
+    run their trials through it."""
+    if values.device.type == "cpu":
+        return consensus_step_batched(values, cfg)
+    b, n, _ = values.shape
+    ok = torch.ones(b, n, dtype=torch.bool, device=values.device)
+    return fused_consensus_gated_claims_cuda(values.contiguous(), ok, ok[:, 0].contiguous(), cfg)

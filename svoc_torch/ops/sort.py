@@ -76,8 +76,10 @@ def cairo_rank(values: torch.Tensor) -> torch.Tensor:
 
 def reliability_mask(risk: torch.Tensor, n_failing: int) -> torch.Tensor:
     """Oracles that pass: the first ``n - n_failing`` by ascending risk in
-    Cairo order (``contract.cairo:345-363``)."""
-    return cairo_rank(risk) < (risk.shape[0] - n_failing)
+    Cairo order (``contract.cairo:345-363``), along the last axis of
+    ``risk [..., N]``."""
+    n = risk.shape[-1]
+    return cairo_rank(risk.reshape(-1, n).T).T.reshape(risk.shape) < (n - n_failing)
 
 
 def gated_reliability_mask(

@@ -33,29 +33,32 @@ import torch
 
 
 def _take_row(sorted_vals: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """Row ``idx`` (a 0-d tensor) of ``[N, M]``, clipped into range."""
-    n = sorted_vals.shape[0]
-    return sorted_vals[idx.clamp(0, n - 1)]
+    """Row ``idx`` (a tensor of the leading shape) of ``[..., N, M]``,
+    clipped into range."""
+    n, m = sorted_vals.shape[-2:]
+    idx = idx.clamp(0, n - 1)[..., None, None].expand(*sorted_vals.shape[:-2], 1, m)
+    return sorted_vals.gather(-2, idx)[..., 0, :]
 
 
 def _masked_sorted(values: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    """Each column of ``[N, M]`` sorted, masked rows pushed to +inf."""
-    return torch.sort(torch.where(mask[:, None], values, torch.inf), dim=0).values
+    """Each column of ``[..., N, M]`` sorted, masked rows pushed to +inf."""
+    return torch.sort(torch.where(mask[..., None], values, torch.inf), dim=-2).values
 
 
 def masked_smooth_median(
     values: torch.Tensor, mask: torch.Tensor, mode: str = "cairo"
 ) -> torch.Tensor:
-    """Component-wise smooth median over the unmasked rows of ``[N, M]``."""
+    """Component-wise smooth median over the unmasked rows of
+    ``[..., N, M]`` (``mask [..., N]``, any leading axes) → ``[..., M]``."""
     if mode not in ("cairo", "true"):
         raise ValueError(f"unknown smooth median mode: {mode!r}")
     s = _masked_sorted(values, mask)
-    m = mask.sum()
+    m = mask.sum(-1)
     mid = torch.div(m, 2, rounding_mode="floor")
     pair_mean = (_take_row(s, mid - 1) + _take_row(s, mid)) / 2.0
     if mode == "cairo":
         return pair_mean
-    return torch.where(m % 2 == 1, _take_row(s, mid), pair_mean)
+    return torch.where((m % 2 == 1)[..., None], _take_row(s, mid), pair_mean)
 
 
 def quadratic_risk(values: torch.Tensor, center: torch.Tensor) -> torch.Tensor:

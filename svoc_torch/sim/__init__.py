@@ -1,1 +1,28 @@
-"""Oracle fleet model of the port (mirrors :mod:`svoc_tpu.sim`)."""
+"""Oracle fleet simulation of the port: generators, the bootstrap model and
+the Monte-Carlo benchmarks.
+
+Mirrors :mod:`svoc_tpu.sim` and exports what it exports, but for
+``claim_fleet_keys``, which goes with the claim mesh (ROADMAP A12e).
+"""
+
+from svoc_torch.sim.generators import (  # noqa: F401
+    beta_mode,
+    generate_beta_oracles,
+    generate_gaussian_oracles,
+    generate_kumaraswamy_oracles,
+    kumaraswamy_mode,
+)
+from svoc_torch.sim.montecarlo import (  # noqa: F401
+    benchmark,
+    benchmark_unconstrained,
+    launch_benchmark,
+)
+from svoc_torch.sim.multimodal import (  # noqa: F401
+    benchmark_multimodal,
+    em_mixture,
+    generate_multimodal_oracles,
+    multimodal_breakdown_curve,
+    multimodal_consensus,
+    select_k,
+)
+from svoc_torch.sim.oracle import gen_oracle_predictions  # noqa: F401

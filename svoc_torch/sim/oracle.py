@@ -7,7 +7,8 @@ draw ``uniform(0, 1)^M``, the others average a ``subset_size``-element
 sample of the window drawn without replacement, and the fleet is then
 shuffled.
 
-It is split in two: :func:`draw_fleet` makes the random numbers from a
+:func:`gen_oracle_predictions` is the reference's one call; it is split
+in two: :func:`draw_fleet` makes the random numbers from a
 key with JAX's threefry draws (:mod:`svoc_torch.sim.prng`), the same
 bits ``gen_oracle_predictions`` draws from that key, and
 :func:`assemble_fleet` builds the fleet from them deterministically.
@@ -83,3 +84,17 @@ def assemble_fleet(
     honest = torch.arange(n, device=window.device) >= n_failing
     values = values.gather(1, perm[:, :, None].expand(c, n, m))
     return values.reshape(*lead, n, m), honest[perm].reshape(*lead, n)
+
+
+def gen_oracle_predictions(
+    key: torch.Tensor,
+    window: torch.Tensor,
+    n_oracles: int,
+    n_failing: int,
+    subset_size: int = 10,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``gen_oracle_predictions(key, window [W, M], n_oracles, n_failing)``:
+    ``(values [n_oracles, M], honest [n_oracles])`` after the shuffle, the
+    draws of :func:`draw_fleet` assembled by :func:`assemble_fleet`."""
+    w, m = window.shape[-2:]
+    return assemble_fleet(window, *draw_fleet(key, w, m, n_oracles, n_failing, subset_size))

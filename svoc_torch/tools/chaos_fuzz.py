@@ -31,37 +31,79 @@ The gate FAILS when:
   one seed per ``fuzz`` point, and it fails this check honestly).
 
 Every child is ``python -m svoc_torch.tools.chaos_fuzz --child ...`` on
-``--device`` (default CUDA, raising without a card); each pays torch's
-import, and records its seconds split into its start (interpreter and
-imports), the CUDA initialisation and the workload (``child_seconds`` in each run's
-summary).
+``--device`` (default CUDA, raising without a card), its own process,
+SIGKILLed at its fault point, forked from a fork server, one a job, that
+imported torch and the child's modules once and never initialised CUDA
+(:class:`svoc_torch.durability.fuzz.ForkServer`), so a child initialises
+CUDA itself after the fork.  Each child records its seconds
+(``child_seconds`` in each run's summary): the interpreter's start, torch's
+import, the port's imports (all three 0 in a forked child, whose
+``start_s`` is the fork's; a child spawned by ``fuzz.spawn_child``, as the
+corpus replays' are, pays them), CUDA's initialisation and the workload.
+The artifact records the pass's own ``wall_seconds``.
 
 Usage::
 
-    python -m svoc_torch.tools.chaos_fuzz [--seeds 32] [--jobs 3] [--device cpu] [--out CHAOS_FUZZ.json]
+    python -m svoc_torch.tools.chaos_fuzz [--seeds 32] [--jobs 3] [--device cpu] [--out FILE]
     python -m svoc_torch.tools.chaos_fuzz --seeds 512 --base-dir DIR   # deep
     python -m svoc_torch.tools.chaos_fuzz --child DIR --plan PLAN.json --phase N [--device cpu]  # internal
+    python -m svoc_torch.tools.chaos_fuzz --fork-server  # internal
 """
 
-from __future__ import annotations
-
-import argparse
-import concurrent.futures
-import json
-import os
-import tempfile
 import time
-from typing import Any, Dict
 
-from svoc_torch.durability import faultspace, fuzz
-from svoc_torch.utils.artifacts import atomic_write_json
+#: When this module started running: the interpreter is up (the package's
+#: ``__init__`` imports nothing heavy).
+_T_ENTER = time.time()
+
+import argparse  # noqa: E402
+import concurrent.futures  # noqa: E402
+import importlib  # noqa: E402
+import json  # noqa: E402
+import os  # noqa: E402
+import signal  # noqa: E402
+import sys  # noqa: E402
+import tempfile  # noqa: E402
+import threading  # noqa: E402
+import traceback  # noqa: E402
+from typing import Any, Dict  # noqa: E402
+
+import torch  # noqa: E402, F401  (timed apart from the port's imports)
+
+_T_TORCH = time.time()
+
+from svoc_torch.durability import faultspace, fuzz  # noqa: E402
+from svoc_torch.utils.artifacts import atomic_write_json  # noqa: E402
+
+#: The modules a child's workload imports beyond this one's: a spawned
+#: child imports them before its clock for CUDA starts, a fork server
+#: before it serves.
+CHILD_MODULES = (
+    "numpy.random",
+    "sqlite3",
+    "svoc_torch.apps.session",
+    "svoc_torch.cluster.scenario",
+    "svoc_torch.consensus.batch",
+    "svoc_torch.durability.scenario",
+    "svoc_torch.io.chain",
+    "svoc_torch.ops.fused_consensus",
+    "svoc_torch.resilience.retry",
+    "svoc_torch.utils.checkpoint",
+)
+
+
+def _import_child_modules() -> float:
+    t = time.time()
+    for name in CHILD_MODULES:
+        importlib.import_module(name)
+    return time.time() - t
 
 DEFAULT_SEEDS = 32
 
 #: The JAX package's recovered fingerprints (``run_and_check``'s
-#: ``result["fingerprint"]``, identical on its rerun): the directed pass's
-#: seeds (``tools/chaos_fuzz.py --seeds 18``), the felt-wire soak, and
-#: every tier-1 entry of the committed corpus.  The card's machine has no
+#: ``result["fingerprint"]``, identical on its rerun): the tool's default
+#: seed budget (``tools/chaos_fuzz.py --seeds 32 --jobs 3``, seeds 0-31),
+#: the felt-wire soak, and every tier-1 entry of the committed corpus.  The card's machine has no
 #: JAX, so they are kept as literals (``tests/test_torch_fuzz.py``
 #: rechecks the corpus, the soak and a few seeds against a live run).
 REFERENCE_FINGERPRINTS: Dict[str, Any] = {
@@ -84,6 +126,20 @@ REFERENCE_FINGERPRINTS: Dict[str, Any] = {
         15: "0b73facd6d9a774c2f9d51638f859f5b01b70986d34f4c5e10f556bc619799ef",
         16: "e442b4c344181d23877608ea4ce704d43e22b7311a40c717850bd367914f3702",
         17: "7a78da2abdb51322b6bc79b29659d770bfb73a93f56b54ce252d2eb504251eba",
+        18: "6cb2ed67e71b89f360172a77093a9a2d7c875cd3386f8bcba87382c9a0110fba",
+        19: "d6c2b33d571f96eb2a2a7d27e87c2a8eff062b166d8e160a9c584cfce989bf35",
+        20: "5b300d2579043e9898967b2e70b39eae9574da7054c95775bd3125309db05dd0",
+        21: "feae4bd1695e1f43546dacbcb1ba50f60ef13931cbb0600bcddebb0cd6ce9ad3",
+        22: "5913566a2faced241a12ab67ecac24bca074909b232004208043649e6e234582",
+        23: "48cbe4b9b7b8abf93ec5f8e41c364d155c3e4dfb0f64086d8f4d9ca00c04a6d2",
+        24: "8bd436e7de38f3ae3d5cb44144c089aa827362c0b5bf7651542eb569e69a8691",
+        25: "01b1d4c5d672217b059ed8e36441578c77b53ef357d69093f7ddf346783a8c38",
+        26: "bc34c63884cbc2b041cc1d94c92548502761453ea9af7ec076837c716d6b51fa",
+        27: "3e39bb0f67108bf3ff5f74d647d9170fc5a647c2a83767a3ac440af6c3c0bd0d",
+        28: "66f6802fa10a0e80e37a3f9d4950a8c3d3b7eddc12d4a607fab9b69d7c241103",
+        29: "8d2c8ec5637c3b307ec825fb6679eb31bfefb649183a7ffda819b9ae6341c143",
+        30: "a630910c21d22294e40ce4e11267a222844b848b7abdbc20e879830b344676b1",
+        31: "eaa956bfc4bcdcb55970b9b65e39bf202efcfadd878a4cf8a54cdfa0fc970193",
     },
     "felt_soak": "ddaa2f1456855f2ed4628fee2e10ec2df0c5fe58c2922e0a13855bdd873e6cfd",
     "corpus": {
@@ -109,18 +165,26 @@ def reference_mismatches(runs, felt: Dict[str, Any]) -> Dict[str, Any]:
     return out
 
 
+#: Set in a forked child (``--fork-server``): its imports were the server's.
+_FORKED = False
+
+
 def child_main(args) -> int:
     """One phase of a plan.  The result also records the child's seconds:
-    from its spawn to here (``start_s``: the interpreter and its imports,
-    torch among them; None when the parent did not stamp the spawn), the
-    CUDA initialisation (``cuda_init_s``, 0 on the CPU) and the workload
-    itself (``workload_s``)."""
-    import torch
-
+    ``start_s`` from its spawn (or fork) stamp to its CUDA initialisation
+    (None when the parent stamped nothing), split into the interpreter's
+    start (``interpreter_s``), torch's import (``torch_import_s``) and the
+    port's (``port_import_s``), all 0 in a forked child; then CUDA's
+    initialisation (``cuda_init_s``, 0 on the CPU) and the workload
+    (``workload_s``)."""
     from svoc_torch.device import resolve_device
 
+    port_s = 0.0 if _FORKED else _import_child_modules() + (time.time() - _T_TORCH)
     spawned = os.environ.get(fuzz.SPAWNED_ENV)
     start_s = time.time() - float(spawned) if spawned else None
+    split = ({"interpreter_s": 0.0, "torch_import_s": 0.0, "port_import_s": 0.0} if _FORKED else {
+        "interpreter_s": _T_ENTER - float(spawned) if spawned else None,
+        "torch_import_s": _T_TORCH - _T_ENTER, "port_import_s": port_s})
     t0 = time.perf_counter()
     device = resolve_device(args.device)
     if device.type == "cuda":
@@ -131,10 +195,88 @@ def child_main(args) -> int:
         plan = fuzz.FuzzPlan.from_dict(json.load(f))
     result = fuzz.run_fuzz_child(args.child, plan, args.phase, device=device)
     result["device"] = str(device)
-    result["child_seconds"] = {"start_s": start_s, "cuda_init_s": t1 - t0,
-                               "workload_s": time.perf_counter() - t1}
+    result["child_seconds"] = {"start_s": start_s, **split, "cuda_init_s": t1 - t0,
+                               "workload_s": time.perf_counter() - t1, "forked": _FORKED}
     atomic_write_json(os.path.join(args.child, fuzz.RESULT_NAME), result)
     return 0
+
+
+def fork_server_main() -> int:
+    """``--fork-server``: import the child's modules, report ready with the
+    start's split on stdout, then for each JSON request on stdin fork a
+    child that runs :func:`main` on the request's arguments with its
+    output in the request's files, reap it (SIGKILLing it past its
+    timeout), and answer ``{"rc", "timeout"}``.  CUDA is never initialised
+    here, so each child initialises its own."""
+    global _FORKED
+    spawned = os.environ.get(fuzz.SPAWNED_ENV)
+    port_s = _import_child_modules() + (time.time() - _T_TORCH)
+    print(json.dumps({"ready": True, "seconds": {
+        "interpreter_s": _T_ENTER - float(spawned) if spawned else None,
+        "torch_import_s": _T_TORCH - _T_ENTER, "port_import_s": port_s}}), flush=True)
+    for line in sys.stdin:
+        req = json.loads(line)
+        pid = os.fork()
+        if pid == 0:  # the child
+            rc = 1
+            try:
+                for fd, path in ((1, req["out"]), (2, req["err"])):
+                    f = os.open(path, os.O_WRONLY | os.O_CREAT | os.O_TRUNC, 0o644)
+                    os.dup2(f, fd)
+                    os.close(f)
+                os.environ[fuzz.SPAWNED_ENV] = repr(req["spawned"])
+                _FORKED = True
+                rc = main(req["args"])
+            except SystemExit as e:
+                rc = e.code if isinstance(e.code, int) else 1
+            except BaseException:
+                traceback.print_exc()
+            finally:
+                sys.stdout.flush()
+                sys.stderr.flush()
+                os._exit(rc)
+        deadline = time.monotonic() + float(req["timeout_s"])
+        timed_out = False
+        while True:
+            done, status = os.waitpid(pid, os.WNOHANG)
+            if done:
+                break
+            if time.monotonic() > deadline:
+                os.kill(pid, signal.SIGKILL)
+                _, status = os.waitpid(pid, 0)
+                timed_out = True
+                break
+            time.sleep(0.002)
+        print(json.dumps({"rc": os.waitstatus_to_exitcode(status), "timeout": timed_out}), flush=True)
+    return 0
+
+
+class ForkServers:
+    """``launch(argv, timeout_s)`` for :func:`svoc_torch.durability.fuzz.run_plan`:
+    one fork server a calling thread (started at its first child, all
+    ended by :meth:`close`)."""
+
+    def __init__(self, work_dir: str):
+        self.work_dir = work_dir
+        self._local = threading.local()
+        self._servers = []
+        self._lock = threading.Lock()
+
+    def launch(self, argv, timeout_s):
+        server = getattr(self._local, "server", None)
+        if server is None:
+            with self._lock:
+                server = fuzz.ForkServer(os.path.join(self.work_dir, f"fork-server-{len(self._servers)}"))
+                self._servers.append(server)
+            self._local.server = server
+        return server.launch(argv, timeout_s)
+
+    def start_seconds(self):
+        return [s.start_seconds for s in self._servers]
+
+    def close(self) -> None:
+        for server in self._servers:
+            server.close()
 
 
 def _seed_summary(seed: int, checked: dict) -> dict:
@@ -164,7 +306,7 @@ def _seed_summary(seed: int, checked: dict) -> dict:
     }
 
 
-def felt_segment(base_dir: str, device=None) -> dict:
+def felt_segment(base_dir: str, device=None, launcher=None) -> dict:
     """A fault-free batched soak — every commit rides the one-RPC batched
     adapter, whose backend applies with ``encoding="felt"`` — asserting
     zero codec divergences on the felt wire (plus the standard oracles
@@ -173,7 +315,7 @@ def felt_segment(base_dir: str, device=None) -> dict:
         seed=9_000_000, commit_mode="batched", cycles=8,
         label="felt_soak",
     )
-    checked = fuzz.run_and_check(plan, os.path.join(base_dir, "felt-soak"), device=device)
+    checked = fuzz.run_and_check(plan, os.path.join(base_dir, "felt-soak"), device=device, launcher=launcher)
     result = checked["run"].get("result") or {}
     return {
         "plan": checked["plan"],
@@ -191,7 +333,7 @@ def felt_segment(base_dir: str, device=None) -> dict:
 
 
 def shrink_and_record(
-    seed: int, checked: dict, base_dir: str, corpus_dir: str, budget: int, device=None
+    seed: int, checked: dict, base_dir: str, corpus_dir: str, budget: int, device=None, launcher=None
 ) -> dict:
     """Auto-shrink a failing plan to a minimal repro and write it into
     ``corpus_dir`` as a regression entry (``expect="pass"`` — the entry
@@ -209,7 +351,7 @@ def shrink_and_record(
         )
         return bool(
             fuzz.run_and_check(
-                candidate, trial_dir, replay=need_replay, device=device
+                candidate, trial_dir, replay=need_replay, device=device, launcher=launcher
             )["violations"]
         )
 
@@ -223,6 +365,7 @@ def shrink_and_record(
         os.path.join(base_dir, f"shrink-s{seed}-final"),
         replay=need_replay,
         device=device,
+        launcher=launcher,
     )
     captured = final["violations"] or checked["violations"]
     path = fuzz.write_corpus_entry(
@@ -259,10 +402,14 @@ def main(argv=None) -> int:
     p.add_argument("--phase", type=int, default=0)
     p.add_argument("--device", default=None,
                    help="the children's device (default: cuda, raising without a card)")
+    p.add_argument("--fork-server", action="store_true", help="(internal) serve forked children")
     args = p.parse_args(argv)
+    if args.fork_server:
+        return fork_server_main()
     if args.child is not None:
         return child_main(args)
 
+    t0 = time.perf_counter()
     surface = faultspace.load_surface()
     fuzz_surface = fuzz.fuzz_points(surface)
     base = args.base_dir or tempfile.mkdtemp(prefix="chaos-fuzz-")
@@ -272,18 +419,25 @@ def main(argv=None) -> int:
     plans = {seed: fuzz.draw_plan(seed, surface) for seed in
              range(args.seeds)}
     summaries = {}
-    with concurrent.futures.ThreadPoolExecutor(args.jobs) as pool:
-        futures = {
-            seed: pool.submit(
-                fuzz.run_and_check, plan, os.path.join(base, f"seed-{seed}"),
-                device=args.device,
-            )
-            for seed, plan in plans.items()
-        }
-        for seed, future in futures.items():
-            summaries[seed] = _seed_summary(seed, future.result())
+    servers = ForkServers(os.path.join(base, "launch"))
+    try:
+        with concurrent.futures.ThreadPoolExecutor(args.jobs) as pool:
+            futures = {
+                seed: pool.submit(
+                    fuzz.run_and_check, plan, os.path.join(base, f"seed-{seed}"),
+                    device=args.device, launcher=servers.launch,
+                )
+                for seed, plan in plans.items()
+            }
+            for seed, future in futures.items():
+                summaries[seed] = _seed_summary(seed, future.result())
+        felt = felt_segment(base, args.device, servers.launch)
+        return _finish(args, surface, fuzz_surface, base, corpus_dir, summaries, felt, servers, t0)
+    finally:
+        servers.close()
 
-    felt = felt_segment(base, args.device)
+
+def _finish(args, surface, fuzz_surface, base, corpus_dir, summaries, felt, servers, t0) -> int:
 
     # Coverage: every "fuzz"-smoke point must have fired somewhere.
     coverage = {
@@ -302,7 +456,7 @@ def main(argv=None) -> int:
         shrunk_entries.append(
             shrink_and_record(
                 seed, s, base, corpus_dir, args.shrink_budget,
-                args.device,
+                args.device, servers.launch,
             )
         )
 
@@ -326,6 +480,9 @@ def main(argv=None) -> int:
     artifact = {
         "seeds": args.seeds,
         "device": str(args.device or "cuda"),
+        "jobs": args.jobs,
+        "fork_server_start_seconds": servers.start_seconds(),
+        "wall_seconds": time.perf_counter() - t0,
         "surface": {
             name: {
                 "owner": spec.owner,
@@ -365,8 +522,8 @@ def main(argv=None) -> int:
         f"chaos-fuzz {'OK' if ok else 'FAILED'}: {len(summaries)} seeds, "
         f"{len(fuzz_surface)} fuzz-surface points "
         f"({len(surface)} declared), {n_actions} fault actions executed, "
-        f"felt segment {'clean' if felt['ok'] else 'DIVERGED'} "
-        f"-> {args.out}"
+        f"felt segment {'clean' if felt['ok'] else 'DIVERGED'}, "
+        f"{artifact['wall_seconds']:.1f} s -> {args.out}"
     )
     return 0 if ok else 1
 

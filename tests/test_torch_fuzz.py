@@ -12,7 +12,8 @@
   --child ... --device cpu``), with byte-identical rerun fingerprints
   equal to the reference's recovered ones;
 - the fuzzer's ``REFERENCE_FINGERPRINTS`` equal live reference runs
-  (the corpus, the felt soak, three directed seeds);
+  (the corpus, the felt soak, three directed seeds and one of seeds
+  18-31), and cover the tool's default budget, seeds 0-31;
 - the codec-divergence witness counts the reference's divergences;
 - ``load_corpus`` reads the durable entries only, as the reference's.
 """
@@ -149,27 +150,30 @@ def corpus_runs(tmp_path_factory):
 
 
 #: The reference plans whose recovered fingerprints the port's fuzzer
-#: keeps as constants, beside the corpus: the felt soak and three
-#: directed seeds (a run-stage kill, a recovery-stage storm, a torn write).
+#: keeps as constants, beside the corpus: the felt soak, three directed
+#: seeds (a run-stage kill, a recovery-stage storm, a torn write) and one
+#: seed past the directed pass.
 REFERENCE_PLANS = {
     "felt_soak": ref_fuzz.FuzzPlan(seed=9_000_000, commit_mode="batched", cycles=8, label="felt_soak"),
     0: ref_fuzz.draw_plan(0),
     6: ref_fuzz.draw_plan(6),
     13: ref_fuzz.draw_plan(13),
+    24: ref_fuzz.draw_plan(24),
 }
 
 
 def test_reference_constants_equal_the_live_reference(corpus_runs):
     """``chaos_fuzz.REFERENCE_FINGERPRINTS`` (what the card's run is held
     to) against live reference runs: every tier-1 corpus entry, the felt
-    soak, and three of the directed seeds."""
+    soak, three of the directed seeds and seed 24; the seeds cover the
+    tool's default budget of 32."""
     consts = chaos_fuzz.REFERENCE_FINGERPRINTS
     assert consts["corpus"] == {name: corpus_runs[name][1]["result"]["fingerprint"] for name in consts["corpus"]}
     assert sorted(consts["corpus"]) == sorted(e["name"] for e in TIER1)
     live = corpus_runs["reference"]
     assert consts["felt_soak"] == live["felt_soak"]
-    assert {seed: consts["seeds"][seed] for seed in (0, 6, 13)} == {seed: live[seed] for seed in (0, 6, 13)}
-    assert sorted(consts["seeds"]) == list(range(18))
+    assert {seed: consts["seeds"][seed] for seed in (0, 6, 13, 24)} == {seed: live[seed] for seed in (0, 6, 13, 24)}
+    assert sorted(consts["seeds"]) == list(range(chaos_fuzz.DEFAULT_SEEDS)) == list(range(32))
 
 
 @pytest.mark.parametrize("name", [e["name"] for e in TIER1])
@@ -185,4 +189,31 @@ def test_corpus_entry_recovers_the_reference_fingerprint(corpus_runs, name):
     assert [p["killed"] for p in port["phases"]] == [p["killed"] for p in ref["phases"]]
     assert port["result"]["fingerprint"] == ref["result"]["fingerprint"]
     assert port["fired"] == ref["fired"] and port["unexecuted_events"] == ref["unexecuted_events"]
-    assert set(port["result"]["child_seconds"]) == {"start_s", "cuda_init_s", "workload_s"}
+    assert set(port["result"]["child_seconds"]) == {"start_s", "interpreter_s", "torch_import_s", "port_import_s",
+                                                    "cuda_init_s", "workload_s", "forked"}
+    assert port["result"]["child_seconds"]["forked"] is False and port["result"]["child_seconds"]["torch_import_s"] > 0
+
+
+def test_fork_server_children_recover_the_reference_fingerprint(tmp_path):
+    """A plan whose first child is SIGKILLed at its fault point, its
+    children forked from one fork server (torch and the child's modules
+    imported once, CUDA never initialised there): the kill comes back as
+    -9 through the server, the recovered fingerprint is the spawned
+    children's and the reference's, and the rerun is identical."""
+    seed = 6  # a recovery-stage restart storm: three children
+    plan = fuzz.draw_plan(seed, faultspace.load_surface())
+    server = fuzz.ForkServer(str(tmp_path / "server"))
+    try:
+        checked = fuzz.run_and_check(plan, str(tmp_path / "fork"), device="cpu", launcher=server.launch)
+        assert server.start_seconds["torch_import_s"] > 0
+    finally:
+        server.close()
+    assert server.proc.returncode == 0
+    run = checked["run"]
+    assert checked["violations"] == [] and checked["replay_identical"] is True
+    assert [p["returncode"] for p in run["phases"]][:1] == [-9] and run["phases"][-1]["returncode"] == 0
+    assert run["result"]["fingerprint"] == chaos_fuzz.REFERENCE_FINGERPRINTS["seeds"][seed]
+    seconds = run["result"]["child_seconds"]
+    assert seconds["forked"] is True and seconds["torch_import_s"] == seconds["port_import_s"] == 0.0
+    with pytest.raises(ValueError, match="children only"):
+        fuzz.ForkServer.launch(server, ["python", "-m", "elsewhere"], 1.0)

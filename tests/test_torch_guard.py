@@ -78,7 +78,11 @@ def test_every_module_imports_without_jax_or_svoc_tpu():
                  "svoc_torch.cluster.router", "svoc_torch.cluster.scenario",
                  "svoc_torch.obsplane.fleet", "svoc_torch.obsplane.hopchain",
                  "svoc_torch.obsplane.anomaly", "svoc_torch.tools.cluster_smoke",
-                 "svoc_torch.tools.fleet_obs_smoke"):
+                 "svoc_torch.tools.fleet_obs_smoke", "svoc_torch.sim.montecarlo",
+                 "svoc_torch.sim.multimodal", "svoc_torch.robustness.attacks",
+                 "svoc_torch.robustness.certify", "svoc_torch.tools.robustness_cert",
+                 "svoc_torch.tools.obs_smoke", "svoc_torch.tools.obs_cost_smoke",
+                 "svoc_torch.tools.obs_query", "svoc_torch.tools.postmortem"):
         assert name in names
     code = (
         "import importlib, sys\n"
@@ -166,6 +170,32 @@ def test_the_reconfiguration_plane_and_the_fuzzer_default_to_cuda(monkeypatch, t
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
     assert "--device" not in fuzz.default_child_argv("p", "w", 0)
+
+
+def test_the_estimators_and_the_obs_gates_default_to_cuda(monkeypatch, tmp_path):
+    """The A4 and A12a entry points resolve ``device=None`` to CUDA and
+    raise without a card, before drawing anything; ``import svoc_torch``
+    alone does not import torch (a fuzz child times the two apart)."""
+    from svoc_torch.sim import montecarlo, multimodal
+    from svoc_torch.tools import obs_cost_smoke, obs_query, obs_smoke, postmortem, robustness_cert
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    trace = tmp_path / "t.jsonl"
+    trace.write_text("")
+    for call in (lambda: robustness_cert.run(0, True),
+                 lambda: robustness_cert.main(["--smoke"]),
+                 lambda: obs_smoke.run(0),
+                 lambda: obs_cost_smoke.run(0),
+                 lambda: obs_query.main([str(trace)]),
+                 lambda: postmortem.main(["--out-dir", str(tmp_path)]),
+                 lambda: montecarlo.fleet_breakdown_curve(PRNGKey(0)),
+                 lambda: multimodal.benchmark_multimodal(PRNGKey(0), [[0.2, 0.2], [0.8, 0.7]], 0.03)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    assert not list(tmp_path.glob("*.json"))
+    code = "import sys, svoc_torch; assert 'torch' not in sys.modules; print(svoc_torch.resolve_device('cpu'))"
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, capture_output=True, text=True)
+    assert out.stdout.strip() == "cpu"
 
 
 def test_the_compile_plane_waits_for_nothing():

@@ -2,15 +2,22 @@
 
 The phase's own ``reconfig_width_run`` drives 13c's fleet (3 replicas of
 ``TINY_TEST`` weights, here over 8 claims of 4 arrivals a step) for the
-phase's 9 steps on the CPU, with no kill: after step 3 the smoke's plan
+phase's 10 steps on the CPU, with no kill: after step 3 the smoke's plan
 (batched commits, the first claim re-specced to 9 oracles) is aborted by
 an ``error`` at ``reconfig.pre_resume``, after every replica built its new
-stack; after step 5 the same plan commits, rolling, with one arrival a
-claim at every stage boundary.  The phase's checks hold, but for the
-kernels' launch counts and the dispatch warmth (nothing is built or
-primed on the CPU): the abort leaves the fleet fingerprint, the journals
-and the accounting as they were and no epoch file behind; the commit
-re-pins every replica under epoch 1 with lineage continuity and
+stack, with no traffic; after step 4 the same abort with one arrival a
+claim at every stage boundary; after step 6 the same plan commits,
+rolling, with the arrivals.  Then the never-attempted baseline runs
+through step 5: nothing at step 3, the abort under traffic's holds,
+arrivals, flushes and release with no apply at step 4.  The phase's
+checks hold, but for the kernels' launch counts and the dispatch warmth
+(nothing is built or primed on the CPU): the abort with no traffic
+leaves the fleet fingerprint, the journals and the accounting as they
+were and no epoch file; the abort under traffic leaves the epoch at 0,
+no epoch file and nothing dropped, and releases its deferred requests
+into the old stacks in arrival order; every per-claim fingerprint and
+the router's snapshot after steps 3, 4 and 5 equal the baseline's; the
+commit re-pins every replica under epoch 1 with lineage continuity and
 releases every deferred request, in arrival order; zero shed, zero
 duplicate txs, zero unaccounted requests, classified hop chains.
 
@@ -42,12 +49,15 @@ def test_phase_14c_on_the_cpu(tmp_path):
 
     rows, ev = run["rows"], run["events"]["reconfig"]
     assert [r["step"] for r in rows] == list(range(g["RECONFIG_STEPS"]))
-    abort, commit = ev[g["RECONFIG_ABORT_STEP"]], ev[g["RECONFIG_COMMIT_STEP"]]
+    abort, quiet, commit = (ev[g[k]] for k in ("RECONFIG_ABORT_STEP", "RECONFIG_QUIET_ABORT_STEP",
+                                                 "RECONFIG_COMMIT_STEP"))
     # Every phase was timed, per replica, and the transition sits inside its step's window.
     labels = [label for label, _ in commit["phases"]]
     assert labels == ["prepare"] + [f"{p} r{i}" for i in range(3) for p in ("drain", "ship", "repin")] + ["resume"]
-    assert [label for label, _ in abort["phases"]] == labels
+    assert [label for label, _ in abort["phases"]] == [label for label, _ in quiet["phases"]] == labels
     assert abort["rollback_s"] > 0 and abort["commit_s"] is None and commit["commit_s"] > 0
+    assert quiet["rollback_s"] > 0 and quiet["commit_s"] is None and quiet["submits"] == 0
+    assert abort["release_s"] > 0 and run["baseline"]["reconfig"]["script"] == abort["script"]
     assert rows[g["RECONFIG_COMMIT_STEP"]]["events_ms"] >= commit["seconds"] * 1e3
     assert len(commit["hold_s"]) == commit["deferred"] and all(h >= 0 for h in commit["hold_s"])
     # Nothing built or primed on the CPU; no kernel launched.
