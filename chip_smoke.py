@@ -114,9 +114,13 @@ Phases:
    flagship variants at the same full width, ``packed`` (packed rows,
    dense attention) and ``dense`` (256 unpacked comments, dense
    attention): one warm-up and five timed steps each on distinct batches,
-   0 flash launches and 1 fused-consensus launch a step; and on one
-   shared set of 256 comments the per-comment vectors of the three
-   variants agree (5e-3 in bf16).
+   0 flash launches and 1 fused-consensus launch a step, and the same
+   for ``packed_int8`` (``bench.py --config 10``: ``packed`` with the
+   W8A8 forward, folded from the seed-0 float32 weights); on one shared
+   set of 256 comments the per-comment vectors of the three float
+   variants agree (5e-3 in bf16), and the int8 variant's logits and
+   vectors meet the reference's bars against ``packed``'s (0.15
+   max(1, |ref|) and 0.05).
    Then (4d) the pipelined twin of 4b (``FlagshipStep.pipelined``, the
    reference's default loop): 4b's step, comments, key chain and
    overlapped feed; a priming forward of batch 0, eight steps each
@@ -238,6 +242,14 @@ Phases:
    golden recompute panics; then, calibrated, 10 cycles of ``fetch``,
    ``commit_resilient`` and ``supervisor_step``, the chain state equal
    to the golden engine's after each, threefry 8 launches a fetch.
+   (d) 9b's fabric three more times: with resident staging
+   (``device_resident=True``) serial, unstaged pipelined and staged
+   pipelined: the staged runs' per-claim fingerprints equal the unstaged
+   runs' of their mode, one staging record in pinned memory, every
+   dispatch keyed ``donate``; the fabric consensus (stage, h2d, dispatch,
+   sync) and the caching allocator's allocations a cycle, staging off and
+   on. (e) The twin of ``tools/hotpath_smoke.py`` on CUDA: its six checks
+   and the JAX package's seed-0 fingerprints.
 10. The serving tier (``serving/*``, ``obsplane/*``). (a)
    ``run_serving_scenario(0)`` (3 claims x 7 oracles, warm, overload and
    recovery phases, the deterministic vectorizer) on the card, twice with
@@ -416,6 +428,16 @@ Phases:
    the card, under the profiler and as its plain version on the host's
    CPU; B3 against its plain version on the sweep's cube at the
    consensus bars; B3's and threefry's launches counted.
+16. The operator console (``apps/{commands,cli,web}.py``). (a) A
+   ``CommandConsole`` over a CUDA ``Session`` at its defaults with 9b's
+   fabric, a 10b-shaped tier (flash) and the profiler attached: a script
+   through every command family, no ``error:`` line, each command's wall
+   ms; threefry, B1 and B3 counted. (b) ``python -m svoc_torch.apps.cli
+   --int8`` in a child, a script on its standard input: exit 0, no
+   ``error:`` line, its start split (torch's import, the port's imports,
+   the session and resume, the first fetch, the fold's span). (c)
+   ``serve(console)`` on port 0 of the loopback: query, state, one SSE
+   frame, metrics and submit, each with its code.
 
 It then prints one JSON line of per-kernel numbers, the card's
 ``nvidia-smi`` name and power limit, and last
@@ -430,6 +452,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -1717,7 +1740,7 @@ def main_path_phase(torch, launches):
     return dict(step=step, essences=essences, rel2=list(rel2s), rows=rows_run[1:], profiled=profiled)
 
 
-@phase("4c. the packed and dense flagship variants at full width")
+@phase("4c. the packed, packed_int8 and dense flagship variants at full width")
 def variants_phase(torch, launches):
     import numpy as np
 
@@ -1730,15 +1753,29 @@ def variants_phase(torch, launches):
     from svoc_torch.ops.fused_consensus import fused_consensus_cuda
     from svoc_torch.sim import prng
 
-    # One set of bf16 weights (seed 0, as phase 4b draws them) under all
-    # three variants.
-    params = {k: v.bfloat16() for k, v in
-              init_params(ROBERTA_GO_EMOTIONS, seed=0, device="cuda").items()}
+    # One set of weights (seed 0, as phase 4b draws them): bf16 under the
+    # three float variants; the int8 variant (bench.py --config 10, the
+    # packed variant's W8A8 forward) folds the float32 ones.
+    weights = init_params(ROBERTA_GO_EMOTIONS, seed=0, device="cuda")
+    params = {k: v.bfloat16() for k, v in weights.items()}
     steps = {v: FlagshipStep(variant=v, params=params, device="cuda")
              for v in ("packed_flash", "packed", "dense")}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    steps["packed_int8"] = FlagshipStep(variant="packed", quant="int8", params=weights, device="cuda")
+    torch.cuda.synchronize()
+    fold_s = time.perf_counter() - t0
+    del weights
     counted = (flash_attention_cuda, fused_consensus_cuda, flash_dq_cuda, flash_dkv_cuda)
     card = nvidia_smi()
-    for variant in ("packed", "dense"):
+    from svoc_torch.models.quant import QuantizedPackedSentimentEncoder, quantized_size_bytes
+
+    qmodel = steps["packed_int8"].pipe.packed_model
+    check(isinstance(qmodel, QuantizedPackedSentimentEncoder),
+          f"packed_int8 runs the W8A8 forward ({type(qmodel).__name__})")
+    print(f"  [{card}] packed_int8: folded from float32 in {fold_s:.3f} s (the step's build, the fold inside), "
+          f"quantized weights {quantized_size_bytes(qmodel.qparams) / 2**20:.1f} MiB")
+    for variant in ("packed", "packed_int8", "dense"):
         step = steps[variant]
         feed = step.comments(SyntheticSource(batch=256, seed=0))
         key = prng.PRNGKey(0, "cuda")
@@ -1791,6 +1828,7 @@ def variants_phase(torch, launches):
     owner = torch.from_numpy(batch.owner[valid].astype(np.int64)).to("cuda")
     arrays = [torch.from_numpy(a).to("cuda") for a in (batch.ids, batch.pos, batch.seg, batch.cls_pos)]
     vectors = {"dense": pipe.forward(*(torch.from_numpy(a).to("cuda") for a in TokenBatch(ids, mask)))}
+    vecs_packed = steps["packed"].pipe.packed_forward(*arrays)
     for variant in ("packed", "packed_flash"):
         vecs = steps[variant].pipe.packed_forward(*arrays)
         by_comment = torch.empty_like(vectors["dense"])
@@ -1801,6 +1839,24 @@ def variants_phase(torch, launches):
     check(n == 256 and all(bool(torch.isfinite(v).all()) for v in vectors.values())
           and max(diffs.values()) <= VARIANT_BAR,
           f"256 shared comments, per-comment vectors in bf16: max differences {diffs} <= {VARIANT_BAR}")
+    # The int8 variant against the packed bf16 forward on the same rows, at
+    # the reference's bars (tests/test_quant.py): logits within
+    # 0.15 max(1, |ref|), vectors within 0.05.
+    seg_valid = torch.from_numpy(valid).to("cuda")
+    with torch.inference_mode():
+        ref_logits = steps["packed"].pipe.packed_model(*arrays)[seg_valid].float()
+        int8_logits = steps["packed_int8"].pipe.packed_model(*arrays)[seg_valid].float()
+    int8_vecs = steps["packed_int8"].pipe.packed_forward(*arrays)[seg_valid]
+    logit_gap = (int8_logits - ref_logits).abs().max().item()
+    logit_bar = 0.15 * max(1.0, ref_logits.abs().max().item())
+    vec_gap = (int8_vecs.float() - vecs_packed[seg_valid].float()).abs().max().item()
+    check(bool(torch.isfinite(int8_logits).all()) and logit_gap < logit_bar and vec_gap < 0.05,
+          f"packed_int8 against packed bf16 on {int(seg_valid.sum())} segments: logits within {logit_gap:.4f} "
+          f"(bar {logit_bar:.4f}), vectors within {vec_gap:.5f} (bar 0.05)")
+    # Where the int8 forward's time goes, beside the bf16 one (informational).
+    for variant in ("packed", "packed_int8"):
+        print(f"  {variant}, one forward of the shared rows:")
+        profile_one_step(torch, lambda: steps[variant].pipe.packed_forward(*arrays).cpu())
 
 
 @phase("4d. the pipelined flagship step at full width")
@@ -2642,8 +2698,8 @@ def commit_path_phase(torch, launches):
           f"{1e3 * submit_s / CONFIG5_STEPS:.3f} ms a step, {reverted} reverted txs {causes}", flush=True)
 
 
-FABRIC_STAGES = ("fetch", "vectorize", "fleet", "consensus", "fabric_consensus", "fabric_dispatch",
-                 "fabric_sync")
+FABRIC_STAGES = ("fetch", "vectorize", "fleet", "consensus", "fabric_consensus", "fabric_stage",
+                 "fabric_h2d", "fabric_dispatch", "fabric_sync")
 
 
 def stage_seconds() -> dict:
@@ -2866,11 +2922,13 @@ def fabric_width_phase(torch, launches):
         store.save(SyntheticSource(batch=120, seed=claim_seed(0, claim_id))())
         return store
 
-    def run():
+    def run(device_resident=False, pipelined=False):
+        """One 9b run; 9d runs it staged and pipelined too."""
         journal = EventJournal()
         multi = MultiSession(base_seed=0, vectorizer=vectorizer, store_factory=store_factory,
                              journal=journal, metrics=MetricsRegistry(), lineage_scope="fab",
-                             max_claims_per_batch=FABRIC_CLAIMS)  # device=None: CUDA
+                             max_claims_per_batch=FABRIC_CLAIMS, device_resident=device_resident,
+                             pipelined=pipelined)  # device=None: CUDA
         tamper = fabric_tamper(kinds, 6)
         for cid in names:
             multi.add_claim(ClaimSpec(claim_id=cid, tamper=tamper if cid == offender else None))
@@ -2879,6 +2937,7 @@ def fabric_width_phase(torch, launches):
         for wrapper in counted.values():
             wrapper.launches = 0
         stages, routes = stage_seconds(), commit_routes()
+        allocations = torch.cuda.memory_stats().get("allocation.all.allocated", 0)
         cycle_s, per_cycle = [], []
         for _ in range(FABRIC_CYCLES):
             before = {k: w.launches for k, w in counted.items()}
@@ -2888,10 +2947,13 @@ def fabric_width_phase(torch, launches):
             per_cycle.append(({k: w.launches - before[k] for k, w in counted.items()},
                               len(report["served"])))
         multi.flush()
+        torch.cuda.synchronize()
+        allocations = torch.cuda.memory_stats().get("allocation.all.allocated", 0) - allocations
         counts = {k: w.launches for k, w in counted.items()}
         return dict(multi=multi, journal=journal, cycle_s=cycle_s, per_cycle=per_cycle, counts=counts,
                     stages=diff(stage_seconds(), stages), routes=diff(commit_routes(), routes),
-                    peak=torch.cuda.max_memory_allocated())
+                    peak=torch.cuda.max_memory_allocated(), allocations=allocations,
+                    fingerprints={c: multi.claim_fingerprint(c) for c in names})
 
     first, second = run(), run()
     for name in ("gated_claims_consensus", "threefry"):
@@ -2956,7 +3018,89 @@ def fabric_width_phase(torch, launches):
     print(f"  [{card}] the group's consensus at [64, 7, 6]: dispatch_group {group_ms:.4f} ms, "
           f"B3 alone {b3_ms:.4f} ms (CUDA events, 50 calls)")
     return dict(comments_per_s=[FABRIC_CYCLES * FABRIC_CLAIMS * 30 / r["stages"]["vectorize"]
-                                for r in (first, second)])
+                                for r in (first, second)],
+                run=run, first=first, second=second, names=names, multi=first["multi"])
+
+
+@phase("9d. resident claim-cube staging off and on: 9b's fabric, pipelined off and on")
+def staging_phase(torch, launches, fabric):
+    if not fabric:
+        check(False, "9d: 9b's fabric did not run")
+        return
+    card = nvidia_smi()
+    run, names = fabric["run"], fabric["names"]
+    runs = {("off", "serial"): fabric["second"]}  # warm: 9b's first run pays B3's first launch
+    for staged, pipelined in ((True, False), (False, True), (True, True)):
+        runs[("on" if staged else "off", "pipelined" if pipelined else "serial")] = run(
+            device_resident=staged, pipelined=pipelined)
+    for key in (("on", "serial"), ("off", "pipelined"), ("on", "pipelined")):
+        for name in ("gated_claims_consensus", "threefry"):
+            launches[name] = launches.get(name, 0) + runs[key]["counts"][name]
+    check(runs[("on", "serial")]["fingerprints"] == runs[("off", "serial")]["fingerprints"],
+          f"staged, serial: all {FABRIC_CLAIMS} per-claim fingerprints equal 9b's unstaged run")
+    check(runs[("on", "pipelined")]["fingerprints"] == runs[("off", "pipelined")]["fingerprints"],
+          f"staged, pipelined: all {FABRIC_CLAIMS} per-claim fingerprints equal the unstaged pipelined run's")
+    want = {"gated_claims_consensus": 1, "threefry": 8 * FABRIC_CLAIMS, "flash_attention": 0,
+            "fused_consensus": 0}
+    for key, r in runs.items():
+        check(all(c == (want, FABRIC_CLAIMS) for c in r["per_cycle"]),
+              f"staging {key[0]}, {key[1]}: every cycle served {FABRIC_CLAIMS} claims and launched {want}")
+    for staged in (("on", "serial"), ("on", "pipelined")):
+        router = runs[staged]["multi"].router
+        records = list(router._staging.values())
+        check(router.device_resident and len(records) == 1 and records[0].dev[0].is_cuda
+              and records[0].host[0].is_pinned() and all(k.donate for k in router._warmth_seen),
+              f"staging on, {staged[1]}: one staging record ({records[0].bucket if records else None} claims, "
+              f"pinned host buffers, persistent tensors on the card), every dispatch keyed donate")
+    # The dispatch alone (stage, copy, B3; no write-back), staging off and
+    # on, in turns, on the last cycle's 64 blocks.
+    dispatch = {}
+    for label in ("off", "on", "on", "off"):
+        multi = runs[(label, "serial")]["multi"]
+        members = multi.registry.states()
+        cfg = members[0].spec.consensus_config()
+        fn = lambda: multi.router._dispatch_group(members, cfg)  # noqa: E731
+        before = torch.cuda.memory_stats().get("allocation.all.allocated", 0)
+        ms = cuda_ms(torch, fn, iters=50)
+        allocs = (torch.cuda.memory_stats().get("allocation.all.allocated", 0) - before) / 53
+        dispatch.setdefault(label, []).append((round(ms, 4), round(allocs, 2)))
+    print(f"  [{card}] the dispatch alone at [64, 7, 6] (CUDA events, 50 calls; allocations a call), in turns off, "
+          f"on, on, off: off {dispatch['off']}, on {dispatch['on']}")
+    for (staging, mode), r in runs.items():
+        st = r["stages"]
+        print(f"  [{card}] staging {staging}, {mode}: fabric consensus "
+              f"{st.get('fabric_consensus', 0) / FABRIC_CYCLES * 1e3:.3f} ms a cycle (stage "
+              f"{st.get('fabric_stage', 0) / FABRIC_CYCLES * 1e3:.3f}, h2d "
+              f"{st.get('fabric_h2d', 0) / FABRIC_CYCLES * 1e3:.3f}, dispatch "
+              f"{st.get('fabric_dispatch', 0) / FABRIC_CYCLES * 1e3:.3f}, sync "
+              f"{st.get('fabric_sync', 0) / FABRIC_CYCLES * 1e3:.3f}); caching-allocator allocations "
+              f"{r['allocations'] / FABRIC_CYCLES:.1f} a cycle; cycle {sum(r['cycle_s']) / FABRIC_CYCLES * 1e3:.1f} "
+              f"ms; launches B3 {r['counts']['gated_claims_consensus']}, B1 {r['counts']['flash_attention']}, "
+              f"threefry {r['counts']['threefry']}", flush=True)
+
+
+@phase("9e. the hot-path gate on the card: the hotpath_smoke twin")
+def hotpath_phase(torch, launches):
+    from svoc_torch.tools import hotpath_smoke
+
+    card = nvidia_smi()
+    wrappers = zero_counts()
+    t0 = time.perf_counter()
+    art = hotpath_smoke.run(0, device=None)  # device None: CUDA
+    seconds = time.perf_counter() - t0
+    counts = read_counts(wrappers)
+    for name, passed in art["checks"].items():
+        check(passed, f"hotpath smoke on {art['device']}: {name}")
+    check(len(art["checks"]) == 6 and art["reference_mismatches"] == {},
+          f"hotpath smoke: the journal fingerprint {art['journal_fingerprint'][:16]} and the "
+          f"{len(art['per_claim_fingerprints'])} per-claim fingerprints equal the JAX package's at seed 0 "
+          f"({art['reference_mismatches']})")
+    check(counts["gated_claims_consensus"] > 0 and counts["threefry"] > 0 and counts["flash_attention"] == 0,
+          f"hotpath smoke: every dispatch a B3 launch from the staging tensor, every fleet threefry's ({counts})")
+    add_launches(launches, counts)
+    print(f"  [{card}] hotpath smoke (3 scenario runs x {art['cycles']} cycles and the clean leg) {seconds:.3f} s, "
+          f"launches {counts}; clean leg {art['clean_leg']['rpcs']}, skip-slot fallbacks "
+          f"{art['skip_slot_fallbacks']}")
 
 
 @phase("9c. the single-claim loop: fetch, commit_resilient, supervisor_step")
@@ -5370,6 +5514,246 @@ def sweeps_phase(torch, launches):
     print(f"  multimodal: {json.dumps({k: round(v, 4) for k, v in mm.items()})}")
 
 
+#: Phase 16a's command script: every command family of the console.
+CONSOLE_SCRIPT = (
+    "resume", "fetch", "consensus", "reliability", "commit", "resume", "reliability",
+    "get_oracle_value_list", "claims", "serving submit alpha the rollout went great, everyone is thrilled",
+    "serving step", "serving", "durability", "costs", "profile", "slo", "multimodal", "multimodal auto",
+    "events 5", "audit", "metrics prom", "live_mode on", "live_mode off",
+)
+#: Phase 16b's script on the CLI's standard input (after its startup
+#: resume and fetch).
+CLI_SCRIPT = ("dimension", "commit", "resume", "reliability", "multimodal", "metrics trace", "exit")
+
+
+def cli_child(torch, card):
+    """16b: ``python -m svoc_torch.apps.cli --int8`` in a child with
+    ``CLI_SCRIPT`` on its standard input; its start split from the
+    arrival times of its ``-X importtime`` lines (torch, the port) and
+    of its output (the startup resume, the startup fetch), and the
+    startup fetch from the spans its ``metrics trace`` prints: the
+    vectorizer's build (the fetch less its ``vectorize``, ``fleet`` and
+    ``consensus`` spans: CUDA's initialisation, the encoder's seeded
+    init, the fold).  A second child times, in a fresh interpreter,
+    CUDA's initialisation after torch's import and then the CLI's fold
+    alone (``quantize_params`` of the seed-0 ROBERTA_GO_EMOTIONS float32
+    weights the CLI's session draws)."""
+    import threading
+
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(Path(__file__).resolve().parent) + os.pathsep + env.get("PYTHONPATH", "")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-u", "-X", "importtime", "-m", "svoc_torch.apps.cli", "--int8",
+         "--seed-comments", "200"],
+        stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
+        cwd=str(Path(__file__).resolve().parent))
+    marks, out, err = {}, [], []
+
+    def read(stream, sink, rules):
+        for line in stream:
+            now = time.perf_counter() - t0
+            sink.append(line.rstrip("\n"))
+            for name, test in rules:
+                if name not in marks and test(line):
+                    marks[name] = now
+
+    readers = [
+        threading.Thread(target=read, args=(proc.stderr, err, [
+            ("torch", lambda l: re.search(r"\|\s+torch$", l.rstrip()) is not None),
+            # run as __main__, the CLI module itself is not an import
+            ("port", lambda l: re.search(r"\|\s+svoc_torch\.apps\.commands$", l.rstrip()) is not None)])),
+        threading.Thread(target=read, args=(proc.stdout, out, [
+            ("resumed", lambda l: "consensus_active:" in l),
+            ("fetched", lambda l: "suspected failing oracles" in l)])),
+    ]
+    for r in readers:
+        r.start()
+    proc.stdin.write("\n".join(CLI_SCRIPT) + "\n")
+    proc.stdin.close()
+    try:
+        rc = proc.wait(timeout=300)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        rc = proc.wait()
+    for r in readers:
+        r.join(timeout=30)
+    total = time.perf_counter() - t0
+    errors = [line for line in out if "error:" in line]
+    # Random weights may leave the fleet degenerate: a commit may then stop
+    # at the contract ("Commit FAILED ..."), as the reference's does.
+    check(rc == 0 and not errors and any("Dimension: 6" in line for line in out)
+          and any("Commit predictions..." in line for line in out),
+          f"16b: the CLI --int8 exited {rc}, {len(out)} lines, no error line ({errors[:3]})")
+    # The startup fetch's spans: the first of each name that metrics
+    # trace printed (the trace lists the newest 20, oldest first).
+    spans = {}
+    for line in out:
+        m = re.search(r"\b(quantize|vectorize|fleet|consensus|fetch): ([0-9.]+)ms", line)
+        if m and m.group(1) not in spans:
+            spans[m.group(1)] = float(m.group(2)) / 1e3
+    check({"torch", "port", "resumed", "fetched"} <= set(marks) and "fetch" in spans,
+          f"16b: the start's marks { {k: round(v, 3) for k, v in marks.items()} } and spans {spans}")
+    probe = subprocess.run(
+        [sys.executable, "-c", "import time, torch\n"
+         "t = time.perf_counter(); torch.zeros(1, device='cuda'); torch.cuda.synchronize()\n"
+         "cuda_s = time.perf_counter() - t\n"
+         "from svoc_torch.models.configs import ROBERTA_GO_EMOTIONS as cfg\n"
+         "from svoc_torch.models.encoder import init_params\n"
+         "from svoc_torch.models.quant import quantize_params\n"
+         "params = init_params(cfg, 0, 'cuda'); torch.cuda.synchronize()\n"
+         "t = time.perf_counter(); quantize_params(params, cfg); torch.cuda.synchronize()\n"
+         "print(cuda_s, time.perf_counter() - t)"],
+        capture_output=True, text=True, timeout=300, env=env, cwd=str(Path(__file__).resolve().parent))
+    check(probe.returncode == 0, f"16b: the CUDA-and-fold probe exited {probe.returncode} ({probe.stderr[-300:]})")
+    cuda_s, fold_s = (float(x) for x in (probe.stdout.split() + ["nan", "nan"])[:2])
+    if {"torch", "port", "resumed", "fetched"} <= set(marks) and "fetch" in spans:
+        build = spans["fetch"] - sum(spans.get(k, 0.0) for k in ("vectorize", "fleet", "consensus"))
+        print(f"  [{card}] 16b CLI --int8 start: torch's import {marks['torch']:.3f} s, the port's imports "
+              f"{marks['port'] - marks['torch']:.3f} s, the session and its resume "
+              f"{marks['resumed'] - marks['port']:.3f} s (no device touched), the startup fetch "
+              f"{marks['fetched'] - marks['resumed']:.3f} s: the vectorizer's build {build:.3f} s (CUDA's "
+              f"initialisation, the encoder's seeded init on the card, the fold), "
+              f"vectorize {spans.get('vectorize', 0):.3f} s, fleet {spans.get('fleet', 0):.3f} s; the child "
+              f"{total:.3f} s in all. Alone in a fresh interpreter: CUDA's initialisation {cuda_s:.3f} s, "
+              f"the fold {fold_s:.3f} s")
+    print("  16b output: " + json.dumps(out[-12:]))
+
+
+@phase("16. the operator console at full width: commands, the CLI --int8, the web UI")
+def console_phase(torch, launches, fabric):
+    import urllib.error
+    import urllib.request
+
+    from svoc_torch.apps import web
+    from svoc_torch.apps.commands import CommandConsole
+    from svoc_torch.apps.session import Session, SessionConfig
+    from svoc_torch.io.comment_store import CommentStore
+    from svoc_torch.io.scraper import SyntheticSource
+    from svoc_torch.obsplane.profiler import ProfileCapture
+    from svoc_torch.utils.metrics import MetricsRegistry
+
+    card = nvidia_smi()
+    if not fabric:
+        check(False, "16: 9b's fabric did not run")
+        return
+    # (a) A console over a CUDA Session at its defaults (ROBERTA_GO_EMOTIONS,
+    # packed, dense, 7 oracles; refresh 0.5 s so that live mode turns in
+    # the phase), with 9b's fabric, a 10b-shaped tier (one packed flash
+    # bf16 pipeline, queues of 64) and the profiler attached.
+    store = CommentStore()
+    store.save(SyntheticSource(batch=200)())
+    written = []  # every line the console writes, the background loops' too
+    console = CommandConsole(Session(SessionConfig(refresh_rate_s=0.5), store=store),  # device None: CUDA
+                             write=written.append)
+    # An auto cycle (fetch, commit, resume, supervisor, SLO fold) ends with
+    # the session's slo_step: count those to know that live mode turned.
+    cycles = []
+    slo_step = console.session.slo_step
+
+    def counted_slo_step():
+        result = slo_step()
+        cycles.append(time.perf_counter())
+        return result
+
+    console.session.slo_step = counted_slo_step
+    from svoc_torch.utils.metrics import registry as metrics_registry
+
+    auto_errors0 = metrics_registry.counter("auto_fetch_errors").count
+    scrape_faults0 = metrics_registry.family_total("scrape_faults")
+    multi = fabric["multi"]
+    multi.attach(console)
+    pipe = width_pipeline(torch)
+    tier = width_tier(multi, pipe, MetricsRegistry())
+    tier.attach(console)
+    profiles = Path(__file__).resolve().parent / "chiprun_out" / "console_profiles"
+    ProfileCapture(str(profiles)).attach(console)
+    wrappers = zero_counts()
+    walls, errors = [], []
+    for command in CONSOLE_SCRIPT:
+        t0 = time.perf_counter()
+        lines = console.query(command)
+        walls.append((" ".join(command.split()[:2]), round((time.perf_counter() - t0) * 1e3, 3)))
+        errors += [f"{command}: {line}" for line in lines if line.startswith("error:")]
+        if command == "live_mode on":
+            # Hold live mode until the background loop has finished one
+            # whole cycle; 'live_mode off' then lets the cycle under way end.
+            live_on = time.perf_counter()
+            deadline = time.monotonic() + 60
+            while not cycles and time.monotonic() < deadline:
+                time.sleep(0.05)
+            live_wait = (cycles[0] if cycles else time.perf_counter()) - live_on
+    thread = console._auto_fetch_thread
+    console.stop()
+    if thread is not None:
+        thread.join(timeout=60)
+    if console._scraper_thread is not None:
+        console._scraper_thread.join(timeout=30)
+    console.session.slo_step = slo_step
+    counts_a = read_counts(wrappers)
+    check(not errors, f"16a: {len(CONSOLE_SCRIPT)} commands, no error line ({errors[:3]})")
+    auto_errors = metrics_registry.counter("auto_fetch_errors").count - auto_errors0
+    scrape_faults = metrics_registry.family_total("scrape_faults") - scrape_faults0
+    written_errors = [line for line in written if "error:" in line]
+    check(len(cycles) >= 1 and (thread is None or not thread.is_alive()) and auto_errors == 0
+          and scrape_faults == 0 and not written_errors
+          and getattr(console, "_last_auto_fetch_error", None) is None,
+          f"16a: live mode ran {len(cycles)} whole auto cycle(s) in {live_wait:.3f} s with no auto_fetch "
+          f"error ({auto_errors:g} counted, {written_errors[:3]}) and no scrape fault ({scrape_faults:g})")
+    claims = console.query("claims")
+    check(claims[0].startswith(f"fabric: {FABRIC_CLAIMS} claims") and "impl=cuda" in claims[0],
+          f"16a: claims reads 9b's fabric on the card ({claims[0]})")
+    check(counts_a["threefry"] > 0 and counts_a["gated_claims_consensus"] > 0 and counts_a["flash_attention"] > 0,
+          f"16a: the session's fetches drew on threefry, the tier's step launched B1 and B3 ({counts_a})")
+    add_launches(launches, counts_a)
+    print(f"  [{card}] 16a command wall ms: " + json.dumps(walls))
+    print(f"  [{card}] 16a live mode: {len(cycles)} whole auto cycle(s), the first ended "
+          f"{live_wait:.3f} s after 'live_mode on'; launches {counts_a}")
+
+    # (b) The CLI with --int8 in a child (its launches are the child's own).
+    cli_child(torch, card)
+
+    # (c) serve(console) on port 0 of the loopback.
+    wrappers = zero_counts()
+    server, _thread = web.serve(console, port=0, block=False)
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    codes = {}
+
+    def fetch(path, body=None):
+        req = urllib.request.Request(base + path, data=None if body is None else body.encode(),
+                                     method="GET" if body is None else "POST")
+        t0 = time.perf_counter()
+        try:
+            with urllib.request.urlopen(req, timeout=60) as r:
+                data = r.readline() if path.startswith("/api/events") else r.read()
+                while path.startswith("/api/events") and not data.startswith(b"data: "):
+                    data = r.readline()
+                codes[path] = (r.status, round((time.perf_counter() - t0) * 1e3, 3))
+                return data
+        except urllib.error.HTTPError as e:
+            codes[path] = (e.code, round((time.perf_counter() - t0) * 1e3, 3))
+            return b""
+
+    try:
+        query = json.loads(fetch("/api/query", "fetch") or b"[]")
+        state = json.loads(fetch("/api/state") or b"{}")
+        frame = fetch("/api/events")
+        metrics_text = fetch("/metrics").decode()
+        submit = fetch("/api/submit", json.dumps({"claim": "alpha", "text": "one more comment from the web"}))
+    finally:
+        server.shutdown()
+    counts_c = read_counts(wrappers)
+    add_launches(launches, counts_c)
+    check(codes.get("/api/query", (0,))[0] == 200 and any("fetched" in line for line in query)
+          and codes.get("/api/state", (0,))[0] == 200 and len(state.get("claims", {})) == FABRIC_CLAIMS
+          and state.get("fabric", {}).get("consensus_impl") == "cuda" and "serving" in state
+          and codes.get("/api/events", (0,))[0] == 200 and frame.startswith(b"data: ")
+          and codes.get("/metrics", (0,))[0] == 200 and "# TYPE" in metrics_text
+          and codes.get("/api/submit", (0,))[0] in (200, 429) and bool(submit),
+          f"16c: every route answered with its code: {codes}")
+    print(f"  [{card}] 16c routes (code, wall ms): {codes}; launches {counts_c}")
+
+
 def main() -> int:
     try:
         import torch
@@ -5430,6 +5814,8 @@ def main() -> int:
         fabric_scenario_phase(torch, launches)
         fabric = fabric_width_phase(torch, launches)
         session_loop_phase(torch, launches)
+        staging_phase(torch, launches, fabric)
+        hotpath_phase(torch, launches)
         fabricked = dict(launches)
         serving_scenario_phase(torch, launches)
         tier = serving_width_phase(torch, launches, fabric)
@@ -5454,13 +5840,15 @@ def main() -> int:
         obs_gates_phase(torch, launches)
         robustness_cert_phase(torch, launches)
         sweeps_phase(torch, launches)
+        swept = dict(launches)
+        console_phase(torch, launches, fabric)
         print(f"  launches: serving paths {serving}; with the train paths {trained}; "
               f"with the multi-claim path {claimed}; with the probe path {probed}; "
               f"with the commit path {committed}; with the fabric paths {fabricked}; "
               f"with the serving tier {tiered}; with the durable paths {durable}; "
               f"with the cold-start paths {started}; with the cluster paths {clustered}; "
               f"with the reconfiguration paths {reconfigured}; with the obs gates, the certificate and the "
-              f"sweeps {launches}")
+              f"sweeps {swept}; with the console {launches}")
     check(all(launches.get(name, 0) > 0 for name in KERNEL_ROWS),
           f"every kernel launched on its path: { {k: launches.get(k, 0) for k in KERNEL_ROWS} }")
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "svoc_tpu"))

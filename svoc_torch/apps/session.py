@@ -30,9 +30,10 @@ Where the port departs from the reference:
   the preview statistics read that host block: a ``[N, M]`` fleet is
   too small to pay device launches, and a tampered block needs no
   round trip back.
-- ``quant_inference`` raises ``NotImplementedError`` (W8A8,
-  ``models/quant.py``, ROADMAP A12), and there is one device, so the
-  default vectorizer has no data mesh.
+- ``quant_inference="int8"`` serves the default vectorizer through the
+  W8A8 forward (:mod:`svoc_torch.models.quant`), folded from its float
+  weights; there is one device, so the default vectorizer has no data
+  mesh.
 - The WAL (``attach_wal``) is duck-typed, as the chain adapter's hooks
   are: :class:`svoc_torch.durability.wal.CommitIntentWAL` is the one the
   durable scenario attaches.  A commit on a lineage whose WAL cycle is
@@ -144,10 +145,10 @@ class SessionConfig:
     #: ~3× fewer forward rows on HN-shaped comments with identical
     #: results to float tolerance.  The default.
     packed_inference: bool = True
-    #: ``"int8"`` would serve the default vectorizer through the W8A8
-    #: forward, which the port does not have yet (``models/quant.py``,
-    #: ROADMAP A12): building the vectorizer then raises.  None keeps
-    #: the float forward.
+    #: ``"int8"`` serves the default vectorizer through the W8A8
+    #: dynamic-PTQ forward (:mod:`svoc_torch.models.quant`), within
+    #: quantization tolerance of the float one.  None keeps the float
+    #: forward.
     quant_inference: Optional[str] = None
     #: Deployment info (``data/contract_info.json`` fields).
     declared_address: Optional[str] = None
@@ -448,15 +449,11 @@ class Session:
                     f"dimension {dim} exceeds the {len(GO_EMOTIONS_LABELS)}"
                     "-label head — pass an explicit vectorizer"
                 )
-            if self.config.quant_inference is not None:
-                raise NotImplementedError(
-                    f"quant_inference={self.config.quant_inference!r}: the W8A8 "
-                    "forward (models/quant.py) is not ported yet (ROADMAP A12)"
-                )
             self._vectorizer = SentimentPipeline(
                 label_indices=indices,
                 batch_size=32,
                 packed=self.config.packed_inference,
+                quant=self.config.quant_inference,
                 device=self.device,
             )
         return self._vectorizer

@@ -15,13 +15,13 @@ Where the port departs:
   equal the reference's byte for byte; but :meth:`ReconfigPlan.validate`
   refuses, before any phase starts, the two plans the port cannot carry
   out: a ``consensus_impl`` (the port has one route per device) and a
-  claim ``mesh`` other than ``"off"`` (ROADMAP A12);
+  claim ``mesh`` other than ``"off"`` (ROADMAP A12e);
 - the builder is always handed ``consensus_impl=None``: a replica's
   pinned ``consensus_impl`` is its route (``"cuda"`` or ``"plain"``),
   which its device decides;
 - PREPARE warms the pending configuration's universe
   (:func:`svoc_torch.compile.universe.pending_universe` with the route
-  as the impl, no mesh and no donate twin) through
+  as the impl, no mesh, and the fleet's donate flag) through
   :func:`svoc_torch.compile.prewarm.warm_keys`: on CUDA that builds or
   loads the serving libraries (B3, flash, threefry), then primes one
   all-padding B3 launch for each dispatch group the plan brings that the
@@ -51,8 +51,8 @@ Where the port departs:
   seqs) leaves the never-attempted run's at the next step; the port's
   equal it.  Where the orders agree and no claim has a hook (the
   reconfig smoke's fleets), so do the results;
-- :meth:`ReconfigController.attach` raises: the operator console is
-  ROADMAP A12.
+- :meth:`ReconfigController.attach` wires it into the operator console
+  (:mod:`svoc_torch.apps.commands`).
 
 Every knob a stack replays under (commit mode, per-claim
 :class:`~svoc_torch.fabric.registry.ClaimSpec`) is pinned at
@@ -196,7 +196,7 @@ class ReconfigPlan:
         if self.mesh not in (None, "off"):
             raise ReconfigError(
                 f"plan sets mesh={self.mesh!r}: the claim mesh is not ported yet "
-                "(ROADMAP A12)"
+                "(ROADMAP A12e)"
             )
         roster = set(router.replica_ids())
         for cid in self.claims:
@@ -320,9 +320,9 @@ class ReconfigController:
         return {"status": "abort_requested", "phase": self._phase}
 
     def attach(self, console) -> None:
-        raise NotImplementedError(
-            "ReconfigController.attach: the operator console is not ported yet (ROADMAP A12)"
-        )
+        """Expose through a CommandConsole: the ``reconfig`` command and
+        ``/api/state``'s reconfig section read ``console.reconfig``."""
+        console.reconfig = self
 
     # -- gates ---------------------------------------------------------------
 
@@ -437,6 +437,7 @@ class ReconfigController:
             max_claims_per_batch=fabric.max_claims_per_batch,
             sanitized_dispatch=True,
             impl=fabric.consensus_impl,
+            donate=fabric.device_resident,
         )
         install_compile_listener()
 

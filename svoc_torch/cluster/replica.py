@@ -13,7 +13,7 @@ Where the port departs:
   hashes run on the CPU and launch nothing;
 - ``compilation_cache`` stays pinned ``"off"``, as at ``:178-186``;
 - ``mesh=`` takes only ``None`` and ``"off"``: a claim mesh raises
-  ``NotImplementedError`` in the fabric's router (ROADMAP A12).
+  ``NotImplementedError`` in the fabric's router (ROADMAP A12e).
 
 A replica is exactly the stack ``run_durable_scenario`` builds — one
 :class:`~svoc_torch.fabric.session.MultiSession` under one

@@ -11,8 +11,8 @@ chain (``:944-975``,
 folded into :meth:`ClusterRouter.fleet_fingerprint` even while empty),
 ``fleet_accounting`` and ``snapshot``.  The router is host code: every
 kernel launch happens inside a replica's ``ServingTier.step``.
-:meth:`ClusterRouter.attach` raises: the operator console is ROADMAP
-A12.
+:meth:`ClusterRouter.attach` wires it into the operator console
+(:mod:`svoc_torch.apps.commands`).
 
 On the forward path a broad ``except`` turns any error inside the
 transport call into a typed ``forward_error`` shed (``:356-364``, the
@@ -1070,9 +1070,6 @@ class ClusterRouter:
         }
 
     def attach(self, console) -> None:
-        """The reference wires the router into its operator console
-        (the ``cluster`` command); the port has no console yet (ROADMAP
-        A12)."""
-        raise NotImplementedError(
-            "ClusterRouter.attach: the operator console is not ported yet (ROADMAP A12)"
-        )
+        """Wire into the operator console (the ``cluster`` command and
+        the ``/api/state`` cluster section; ``router.py:1055``)."""
+        console.cluster = self

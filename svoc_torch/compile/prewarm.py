@@ -135,6 +135,7 @@ class PrewarmWorker:
             max_claims_per_batch=router.max_claims_per_batch,
             sanitized_dispatch=router.sanitized_dispatch,
             impl=router.consensus_impl,
+            donate=router.device_resident,
             include_twins=include_twins if include_twins is not None else self.config.include_twins,
         )
         primary = {group: self._primary_keys(*group) for group in {k.group() for k in keys}}
@@ -161,7 +162,7 @@ class PrewarmWorker:
         router = self.router
         return [
             dispatch_key(sanitized=router.sanitized_dispatch, sharded=False, bucket=bucket,
-                         n_oracles=n_oracles, dimension=dimension, cfg=cfg, donate=False,
+                         n_oracles=n_oracles, dimension=dimension, cfg=cfg, donate=router.device_resident,
                          impl=router.consensus_impl, mesh=None)
             for bucket in bucket_ladder(router.max_claims_per_batch)
         ]
@@ -220,7 +221,16 @@ class PrewarmWorker:
         return "primed"
 
     def _prime(self, key: CompileKey) -> None:
-        prime_key(key, self.router.device)
+        if key.donate and self.router.device_resident:
+            self.router.prime_staging(key)
+            return
+        # A router that stages nothing runs a donate key's dispatch as its
+        # non-donate twin's (the same B3 library; unlike XLA, nothing is
+        # compiled apart): warm once that twin is.
+        twin = dataclasses.replace(key, donate=False)
+        if key.donate and self.is_warm(twin):
+            return
+        prime_key(twin, self.router.device)
 
     def mark_warm(self, keys) -> None:
         """Count ``keys`` as warmed by an earlier walk (the
@@ -338,7 +348,7 @@ def prime_key(key: CompileKey, device) -> None:
 def warm_keys(keys, *, budget_s: float = 0.0, clock=None, metrics=None) -> Dict[str, int]:
     """Budgeted walk over an explicit key list with no live router behind
     it: each CUDA key builds or loads the serving libraries (``compiled``); a
-    sharded key (ROADMAP A12) or a CPU key has nothing to build
+    sharded key (ROADMAP A12e) or a CPU key has nothing to build
     (``skipped``).  Never dispatches, never journals.  ``budget_s <= 0``
     walks them all; otherwise the keys past the deadline count
     ``deferred``."""

@@ -18,12 +18,14 @@ the bucket each group's current claim count dispatches first, then the
 rest of the ladder ascending, then the twins, so that a budgeted walk
 cuts from the tail.
 
-The port enumerates only what it can dispatch.  Its impl is the route
-(``"cuda"`` or ``"plain"``, the router's ``consensus_impl``), and its
-only twin is the other gate fusion (``gated`` beside ``sanitized``).
-The reference's donate twin (``device_resident``) and its sharded kinds
-(the claim mesh) wait for ROADMAP A12: on that subset the two
-enumerations give the same keys in the same order.
+The port's impl is the route (``"cuda"`` or ``"plain"``, the router's
+``consensus_impl``).  Its twins are the reference's: the other gate
+fusion (``gated`` beside ``sanitized``) and the donate flip.  In the
+port ``donate=True`` keys the dispatch that reads a group's persistent
+staging tensor (``ClaimRouter(device_resident=True)``,
+:class:`svoc_torch.fabric.router._GroupStaging`).  Given the same
+groups and flags, the two enumerations give the same keys in the same
+order.  The sharded kinds (the claim mesh) wait for ROADMAP A12e.
 """
 
 from __future__ import annotations
@@ -37,7 +39,7 @@ from svoc_torch.consensus.kernel import ConsensusConfig
 #: The dispatch kinds: ``gated`` is the pull-mode router's dispatch (the
 #: host gate's verdicts on the device), ``sanitized`` the serving tier's
 #: gate and consensus in one pass; the ``sharded_*`` twins run in the
-#: claim mesh (ROADMAP A12).
+#: claim mesh (ROADMAP A12e).
 KINDS = ("gated", "sanitized", "sharded_gated", "sharded_sanitized")
 
 
@@ -135,21 +137,24 @@ def enumerate_universe(
     max_claims_per_batch: int,
     sanitized_dispatch: bool,
     impl: str,
+    donate: bool = False,
     include_twins: bool = True,
 ) -> List[CompileKey]:
     """The priority-ordered universe of one router's live configuration.
     ``groups`` is :func:`registry_groups`' output; the flags are the
-    router's pinned resolution.  Phases: (1) per group, the bucket its
-    current claim count dispatches; (2) the rest of the ladder; (3) with
-    ``include_twins``, the other gate fusion at every bucket, so that a
-    restart that flips ``sanitized_dispatch`` restarts warm too."""
+    router's pinned resolution (``donate`` is its ``device_resident``).
+    Phases: (1) per group, the bucket its current claim count
+    dispatches; (2) the rest of the ladder; (3) with ``include_twins``,
+    at every bucket the other gate fusion, the donate flip, and both
+    flipped (``universe.py:153-231``), so that a restart that flips
+    ``sanitized_dispatch`` or ``device_resident`` restarts warm too."""
     ordered = sorted(groups.items(), key=lambda kv: (kv[0][0], kv[0][1], repr(kv[0][2])))
     ladder = bucket_ladder(max_claims_per_batch)
 
-    def key(group, bucket, sanitized) -> CompileKey:
+    def key(group, bucket, sanitized, donate_flag) -> CompileKey:
         n, m, cfg = group
         return dispatch_key(sanitized=sanitized, sharded=False, bucket=bucket, n_oracles=n,
-                            dimension=m, cfg=cfg, donate=False, impl=impl, mesh=None)
+                            dimension=m, cfg=cfg, donate=donate_flag, impl=impl, mesh=None)
 
     out: List[CompileKey] = []
     seen = set()
@@ -160,14 +165,17 @@ def enumerate_universe(
             out.append(k)
 
     for group, count in ordered:
-        push(key(group, pow2_bucket(max(1, min(count, max_claims_per_batch))), sanitized_dispatch))
+        push(key(group, pow2_bucket(max(1, min(count, max_claims_per_batch))),
+                 sanitized_dispatch, donate))
     for group, _count in ordered:
         for bucket in ladder:
-            push(key(group, bucket, sanitized_dispatch))
+            push(key(group, bucket, sanitized_dispatch, donate))
     if include_twins:
         for group, _count in ordered:
             for bucket in ladder:
-                push(key(group, bucket, not sanitized_dispatch))
+                push(key(group, bucket, not sanitized_dispatch, donate))
+                push(key(group, bucket, sanitized_dispatch, not donate))
+                push(key(group, bucket, not sanitized_dispatch, not donate))
     return out
 
 
@@ -177,6 +185,7 @@ def pending_universe(
     max_claims_per_batch: int,
     sanitized_dispatch: bool,
     impl: str,
+    donate: bool = False,
     include_twins: bool = False,
 ) -> List[CompileKey]:
     """The universe of a configuration that is not live yet: the groups
@@ -189,7 +198,7 @@ def pending_universe(
         groups[key] = groups.get(key, 0) + 1
     return enumerate_universe(groups, max_claims_per_batch=max_claims_per_batch,
                               sanitized_dispatch=sanitized_dispatch, impl=impl,
-                              include_twins=include_twins)
+                              donate=donate, include_twins=include_twins)
 
 
 def universe_summary(keys: Iterable[CompileKey]) -> Dict[str, object]:

@@ -20,7 +20,9 @@ is never reached (:mod:`svoc_torch.compile.cache`).  ``recover(prewarm=True)``
 walks the primary universe synchronously after the restore
 (``recovery.py:361-388``); a prewarm defect is counted in
 ``compile_cache_errors{op="prewarm"}`` and does not fail the recovery.
-The console hooks (``attach``) come with the console (ROADMAP A12).
+Both classes attach to the operator console
+(:class:`svoc_torch.apps.commands.CommandConsole`) as the reference's
+do (``recovery.py:432, 551``).
 
 The WAL (:mod:`svoc_torch.durability.wal`) makes the CHAIN side of a
 crash exact; this module recovers everything else the long-lived
@@ -399,6 +401,13 @@ class RecoveryManager:
             ),
         }
 
+    def attach(self, console) -> None:
+        """Expose this manager through a
+        :class:`~svoc_torch.apps.commands.CommandConsole`: the
+        ``durability`` command and ``/api/state``'s durability section
+        read it."""
+        console.durability = self
+
     def _adapter_for(self, claim: Optional[str]):
         if claim is None:
             states = self.multi.registry.states()
@@ -510,6 +519,12 @@ class GracefulDrain:
             bundle=report.get("bundle"),
         )
         return report
+
+    def attach(self, console) -> None:
+        """Expose the drain path through a
+        :class:`~svoc_torch.apps.commands.CommandConsole` (the ``drain``
+        command)."""
+        console.drainer = self
 
     def install(self, signals=None) -> "GracefulDrain":
         """Hook SIGTERM/SIGINT through the shared

@@ -41,10 +41,18 @@ on it.  When the serving tier sets ``cost_plane``, each dispatch's host
 seconds feed the cost ledger and its claims get the ``h2d``,
 ``dispatched``, ``synced`` and ``committed`` timeline marks
 (``router.py:553-558, 628-698, 815-850``).  None of this reaches the
-journal, so the fingerprints do not change.  Not ported here: the claim
-mesh (``mesh=``, ROADMAP A12) and the device-resident staging
-(``device_resident=True``, A12), which raise ``NotImplementedError``.
-There is no ``consensus_impl`` routing: the route follows the device.
+journal, so the fingerprints do not change.
+
+``device_resident=True`` stages each ``(n_oracles, dim, cfg)`` group's
+cube in a record kept for the process (:class:`_GroupStaging`, the twin
+of ``router.py:149-186`` and ``_group_staging``/``_h2d`` at
+``:771-797``): host buffers (pinned on CUDA) filled in place each cycle,
+and persistent tensors on the router's device that one copy a buffer
+refills.  The padded cube goes straight to the claim-cube dispatch, and
+the result is bit-identical to the unstaged path's (its dispatches key
+``donate=True``).  Not ported here: the claim mesh (``mesh=``, ROADMAP
+A12e), which raises ``NotImplementedError``.  There is no
+``consensus_impl`` routing: the route follows the device.
 """
 
 from __future__ import annotations
@@ -61,6 +69,7 @@ from svoc_torch.apps.session import DegenerateBlockError, EmptyStoreError
 from svoc_torch.compile.modes import ALLOWED_WARMUP_MODES, CompilePlaneError, resolve_warmup_mode
 from svoc_torch.compile.universe import dispatch_key
 from svoc_torch.consensus.batch import (
+    _PAD_VALUE,
     _no_impl_routing,
     claims_consensus_gated,
     claims_consensus_sanitized,
@@ -104,16 +113,95 @@ def dispatch_group(
     else:
         values = torch.stack([b.to(torch.float32) for b in blocks])
     c = values.shape[0]
+    if oks is not None and not sanitized and not isinstance(oks, torch.Tensor):
+        oks = torch.stack(list(oks))
+    values, ok, claim_mask = pad_claim_cube(values, None if sanitized else oks)
+    return dispatch_padded(values, ok, claim_mask, cfg, c, sanitized)
+
+
+def dispatch_padded(
+    values: torch.Tensor,
+    ok: torch.Tensor,
+    claim_mask: torch.Tensor,
+    cfg: ConsensusConfig,
+    c: int,
+    sanitized: bool = False,
+) -> Tuple[ConsensusOutput, torch.Tensor]:
+    """One consensus dispatch over an already padded cube (``values [B,
+    N, M]``, ``ok [B, N]``, ``claim_mask [B]``; ``ok`` is ignored when
+    ``sanitized``).  Returns ``(output, ok)`` with the first ``c``
+    rows."""
     if sanitized:
-        values, _, claim_mask = pad_claim_cube(values)
         bounds = SanitizeConfig.for_consensus(cfg.constrained)
         out, ok = claims_consensus_sanitized(values, claim_mask, cfg, bounds.lo, bounds.hi)
     else:
-        if oks is not None and not isinstance(oks, torch.Tensor):
-            oks = torch.stack(list(oks))
-        values, ok, claim_mask = pad_claim_cube(values, oks)
         out = claims_consensus_gated(values, ok, claim_mask, cfg)
     return ConsensusOutput(*(field[:c] for field in out)), ok[:c]
+
+
+class _GroupStaging:
+    """Reusable staging for one ``(n_oracles, dim, cfg)`` dispatch group
+    (``ClaimRouter(device_resident=True)``; ``router.py:149-186``): the
+    cube, the admission masks and the claim mask live in host buffers
+    updated in place each cycle (pinned on CUDA), and in persistent
+    tensors on the router's device that :meth:`upload` refills with one
+    copy a buffer.
+
+    Pad rows are written once, at allocation (neutral fill, every
+    oracle admitted, claim inactive), and again only on the rows a
+    shrinking batch leaves behind (``active`` is the last batch's
+    size): bit for bit :func:`pad_claim_cube`'s output.  A buffer is
+    written only after the copy that last read it has finished (the
+    event recorded after each upload).  On the CPU the "device" tensors
+    are separate tensors that the upload copies into, never views of
+    the host buffers (the aliasing hazard of ``router.py:786-797``)."""
+
+    __slots__ = ("bucket", "host", "dev", "_arrays", "active", "_copied")
+
+    def __init__(self, bucket: int, n: int, m: int, device: torch.device):
+        pin = device.type == "cuda"
+        self.bucket = bucket
+        self.host = (
+            torch.full((bucket, n, m), _PAD_VALUE, dtype=torch.float32, pin_memory=pin),
+            torch.ones((bucket, n), dtype=torch.bool, pin_memory=pin),
+            torch.zeros(bucket, dtype=torch.bool, pin_memory=pin),
+        )
+        #: numpy views of the host buffers: the per-cycle writes.
+        self._arrays = tuple(t.numpy() for t in self.host)
+        self.dev = tuple(t.to(device, copy=True) for t in self.host)
+        self.active = 0
+        self._copied: Optional[torch.cuda.Event] = None
+
+    def load(self, blocks, oks) -> None:
+        """Write this cycle's blocks into rows ``[0, C)`` (``np.copyto``'s
+        float64 → float32 cast rounds as ``np.asarray(..., float32)``
+        does on the unstaged path) and restore the pad state on rows the
+        previous, larger batch used."""
+        if self._copied is not None:
+            self._copied.synchronize()
+        values, ok, mask = self._arrays
+        c = len(blocks)
+        for i, block in enumerate(blocks):
+            np.copyto(values[i], block, casting="same_kind")
+            np.copyto(ok[i], oks[i])
+        if self.active > c:
+            values[c : self.active] = _PAD_VALUE
+            ok[c : self.active] = True
+        mask[:c] = True
+        mask[c:] = False
+        self.active = c
+
+    def upload(self) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """One copy a buffer into the persistent device tensors, on the
+        current stream (the dispatch that reads them follows on it);
+        returns ``(values, ok, claim_mask)``."""
+        cuda = self.dev[0].device.type == "cuda"
+        for dst, src in zip(self.dev, self.host):
+            dst.copy_(src, non_blocking=cuda)
+        if cuda:
+            self._copied = torch.cuda.Event()
+            self._copied.record()
+        return self.dev
 
 
 class _PendingGroup:
@@ -169,12 +257,7 @@ class ClaimRouter:
         if mesh is not None and mesh != "off":
             raise NotImplementedError(
                 f"mesh={mesh!r}: the claim mesh (parallel/claim_shard.py) is not "
-                "ported yet (ROADMAP A12)"
-            )
-        if device_resident:
-            raise NotImplementedError(
-                "device_resident=True: the resident staging of the claim cube is "
-                "not ported yet (ROADMAP A12)"
+                "ported yet (ROADMAP A12e)"
             )
         if warmup_mode is not None and warmup_mode not in ALLOWED_WARMUP_MODES:
             raise CompilePlaneError(
@@ -211,6 +294,12 @@ class ClaimRouter:
         #: same-cycle accounting.  Its own fingerprint family.
         self.pipelined = pipelined
         self._inflight: List[_PendingGroup] = []
+        #: Resident staging: each (N, M, cfg) group's cube is staged in a
+        #: record kept for the process and refilled in place each cycle
+        #: (:class:`_GroupStaging`).  Bit-identical to the unstaged path,
+        #: so not a fingerprint family; its dispatches key ``donate=True``.
+        self.device_resident = bool(device_resident)
+        self._staging: Dict[Any, _GroupStaging] = {}
         #: Fuse gate + consensus into ONE device pass per micro-batch
         #: (:func:`svoc_torch.consensus.batch.claims_consensus_sanitized`)
         #: instead of reusing the host gate's per-claim verdicts.
@@ -459,10 +548,17 @@ class ClaimRouter:
                     if quarantine is not None
                     else np.ones(predictions.shape[0], dtype=bool)
                 )
-            cube = np.stack([np.asarray(b, dtype=np.float32) for b in blocks])
-            ok = np.stack(oks)
+            n, m = np.shape(blocks[0])
+            if self.device_resident:
+                # In place: no host allocation in the steady state.  The
+                # per-claim ``oks`` arrays stay the accounting source.
+                staging = self._group_staging(len(blocks), n, m, cfg)
+                staging.load(blocks, oks)
+            else:
+                cube = np.stack([np.asarray(b, dtype=np.float32) for b in blocks])
+                ok = np.stack(oks)
         bucket = pow2_bucket(len(members))
-        warmth_key, warmth = self._account_warmth(bucket, cube.shape[1], cube.shape[2], cfg)
+        warmth_key, warmth = self._account_warmth(bucket, n, m, cfg)
         # Cost plane: host perf_counter windows around the copy and the
         # dispatch feed the ledger; the claims' marks ride the plane's
         # (the tier's) clock.  Off, the path is the plane-less one.
@@ -471,16 +567,27 @@ class ClaimRouter:
         claim_ids = [s.spec.claim_id for s in members] if track else None
         t_start = time.perf_counter() if track else 0.0
         with stage_span("fabric_h2d"):
-            values_dev = torch.from_numpy(cube).to(self.device)
-            ok_dev = None if self.sanitized_dispatch else torch.from_numpy(ok).to(self.device)
+            if self.device_resident:
+                values_dev, ok_dev, mask_dev = staging.upload()
+            else:
+                values_dev = torch.from_numpy(cube).to(self.device)
+                ok_dev = None if self.sanitized_dispatch else torch.from_numpy(ok).to(self.device)
         h2d_s = dispatch_s = 0.0
         if track:
             h2d_s = time.perf_counter() - t_start
             plane.claim_mark(claim_ids, "h2d")
         with stage_span("fabric_dispatch"):
-            out, ok_out = dispatch_group(
-                values_dev, ok_dev, cfg, sanitized=self.sanitized_dispatch
-            )
+            if self.device_resident:
+                out, ok_out = dispatch_padded(values_dev, ok_dev, mask_dev, cfg, len(members),
+                                              sanitized=self.sanitized_dispatch)
+                if not self.sanitized_dispatch:
+                    # A view of the staging tensor the next cycle refills:
+                    # the pipelined write-back reads it a cycle later.
+                    ok_out = ok_out.clone()
+            else:
+                out, ok_out = dispatch_group(
+                    values_dev, ok_dev, cfg, sanitized=self.sanitized_dispatch
+                )
         if track:
             dispatch_s = max(0.0, time.perf_counter() - t_start - h2d_s)
             plane.claim_mark(claim_ids, "dispatched")
@@ -506,7 +613,7 @@ class ClaimRouter:
         if key is None:
             key = dispatch_key(
                 sanitized=self.sanitized_dispatch, sharded=False, bucket=bucket,
-                n_oracles=n, dimension=m, cfg=cfg, donate=False,
+                n_oracles=n, dimension=m, cfg=cfg, donate=self.device_resident,
                 impl=self.consensus_impl, mesh=None,
             )
             self._warmth_keys[shape_key] = key
@@ -518,6 +625,36 @@ class ClaimRouter:
             warmth = "cold"
         self._metrics.counter("consensus_dispatch", labels={"warmth": warmth}).add(1)
         return key, warmth
+
+    def _group_staging(self, c: int, n: int, m: int, cfg) -> _GroupStaging:
+        """The group's staging record, sized to ``c`` claims' power-of-two
+        bucket: reallocated only when the bucket changes, so the steady
+        state reuses one allocation a group for the process."""
+        bucket = pow2_bucket(c)
+        key = (n, m, cfg)
+        with self._lock:
+            staging = self._staging.get(key)
+            if staging is None or staging.bucket != bucket:
+                staging = _GroupStaging(bucket, n, m, self.device)
+                self._staging[key] = staging
+        return staging
+
+    def prime_staging(self, key) -> None:
+        """Prime a ``donate`` key on a resident router (the prewarm
+        worker's step): fill a staging record of the key's shape with
+        padding alone, upload it and dispatch it through the staged path,
+        then wait.  The router keeps the record when it has none for the
+        group yet; a record it already owns is never written from here."""
+        if not self.device_resident:
+            raise ValueError("prime_staging primes a resident router's staging; this router stages nothing")
+        staging = _GroupStaging(key.bucket, key.n_oracles, key.dimension, self.device)
+        staging.load([], [])
+        values, ok, mask = staging.upload()
+        out, _ok = dispatch_padded(values, ok, mask, key.cfg, key.bucket,
+                                   sanitized=key.kind == "sanitized")
+        out.interval_valid.cpu()  # waits for the launch
+        with self._lock:
+            self._staging.setdefault(key.group(), staging)
 
     def attach_prewarmer(self, worker) -> None:
         """Wire a :class:`~svoc_torch.compile.prewarm.PrewarmWorker` into

@@ -3,8 +3,9 @@
 Mirrors :mod:`svoc_tpu.fabric.scenario` (``scenario.py:1-242``):
 :func:`run_fabric_scenario`, :func:`deterministic_vectorizer` and
 :func:`_injection_schedule`.  ``device=None`` means CUDA (raising
-without a card); ``mesh`` and ``device_resident=True`` raise
-``NotImplementedError`` (ROADMAP A12).  ``warmup=True`` runs a
+without a card); ``device_resident=True`` turns on the router's resident
+staging (the same fingerprints); ``mesh`` raises
+``NotImplementedError`` (ROADMAP A12e).  ``warmup=True`` runs a
 synchronous prewarm of the claim-cube universe before the first cycle
 (``scenario.py:183-184``); it never journals, so the fingerprints are
 the same with it or without it.
@@ -114,8 +115,9 @@ def run_fabric_scenario(
     ``commit_mode`` pins the commit plane; it is NOT a fingerprint
     family (the batched plane emits the per-tx plane's exact journal
     events).  ``device`` is where the fleets are drawn and the claim
-    cubes dispatched (``None``: CUDA).  ``mesh`` and
-    ``device_resident`` are the reference's, and raise here unless off.
+    cubes dispatched (``None``: CUDA).  ``device_resident`` stages the
+    claim cubes in place (bit-identical, not a fingerprint family);
+    ``mesh`` is the reference's, and raises here unless off.
     ``warmup=True`` prewarms the universe synchronously first."""
     from svoc_torch.io.comment_store import CommentStore
     from svoc_torch.io.scraper import SyntheticSource

@@ -4,9 +4,11 @@ Mirrors :mod:`svoc_tpu.fabric.session` (``session.py:1-380``).  The
 port's ``MultiSession(device=None)`` resolves its device once (CUDA,
 raising without a card) and hands it to every claim's ``Session`` and to
 the router.  ``start_prewarm`` builds and runs the compile plane's
-prewarm worker (``session.py:272-322``).  ``attach(console)``
-(``apps/commands.py``, ROADMAP A12) raises ``NotImplementedError``, and
-``mesh`` and ``device_resident`` raise in the router.
+prewarm worker (``session.py:272-322``).  ``attach(console)`` exposes
+the fabric through :class:`svoc_torch.apps.commands.CommandConsole`.
+``device_resident`` passes through to the router (its resident staging)
+and :meth:`MultiSession.snapshot` reports it with the route and the
+mesh, as ``session.py:344`` does; ``mesh`` raises in the router.
 
 One object that owns N claims end-to-end (docs/FABRIC.md): a
 :class:`~svoc_torch.fabric.registry.ClaimRegistry` of per-claim state —
@@ -314,7 +316,10 @@ class MultiSession:
             "steps": self.router.steps,
             "n_claims": len(self.registry),
             "device": str(self.device),
+            "consensus_impl": self.router.consensus_impl,
+            "mesh": self.router.mesh_spec,
             "pipelined": self.router.pipelined,
+            "device_resident": self.router.device_resident,
             "warmup_mode": self.router.warmup_mode,
             "prewarm": (
                 self.router.prewarmer.stats() if self.router.prewarmer is not None else None
@@ -341,9 +346,7 @@ class MultiSession:
         return audit_record(lineage, journal=self._journal)
 
     def attach(self, console) -> None:
-        """Expose this fabric through the console (``apps/commands.py``),
-        not ported yet."""
-        raise NotImplementedError(
-            "attach: the command console (apps/commands.py) is not ported yet "
-            "(ROADMAP A12)"
-        )
+        """Expose this fabric through an existing
+        :class:`~svoc_torch.apps.commands.CommandConsole`: the ``claims``
+        command and ``/api/state``'s ``claims`` section read it."""
+        console.fabric = self

@@ -35,7 +35,7 @@ forward runs on the caller's; nothing on that path reads a value back to
 the host, so the two streams overlap on the device.  On the CPU it is
 the same code with no second stream.  The mesh forms of the reference's
 library (``parallel/serving.py:237, 275``) wait for the multi-GPU port
-(ROADMAP A12).
+(ROADMAP A12e).
 """
 
 from __future__ import annotations
@@ -151,7 +151,12 @@ class FlagshipStep:
     ``window_size`` comments, ``n_oracles`` oracles of which
     ``max(2, n_oracles // 8)`` fail, bootstrap subsets of
     ``subset_size``.  ``variant`` sets ``cfg.attention`` and the row
-    layout; any value outside :data:`VARIANTS` raises."""
+    layout; any value outside :data:`VARIANTS` raises.  ``quant="int8"``
+    runs the W8A8 forward (``bench.py --config 10``, ``bench.py:1845-1854``:
+    the ``"packed"`` variant with its block matmuls in int8), folded from
+    the float32 parameters whatever ``params_dtype`` says
+    (``bench.py:1905-1906``); it needs dense attention, so the flash
+    variant raises."""
 
     def __init__(
         self,
@@ -166,19 +171,22 @@ class FlagshipStep:
         seed: int = 0,
         params=None,
         params_dtype: "torch.dtype | None" = torch.bfloat16,
+        quant: "str | None" = None,
         device=None,
     ):
         if variant not in VARIANTS:
             raise ValueError(f"flagship_variant {variant!r} not in dense|packed|packed_flash")
         attention, self.packed = VARIANTS[variant]
         self.variant = variant
+        self.quant = quant
         self.pipe = SentimentPipeline(
             dataclasses.replace(cfg, attention=attention),
             seq_len=seq,
             batch_size=rows,
             seed=seed,
             params=params,
-            params_dtype=params_dtype,
+            params_dtype=None if quant else params_dtype,
+            quant=quant,
             device=device,
         )
         self.device = self.pipe.device

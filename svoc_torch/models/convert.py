@@ -137,19 +137,27 @@ def flax_tree(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
     ``{"params": ...}`` of numpy float arrays (the inverse of
     :func:`~svoc_torch.models.from_jax.params_from_flax`): ``Linear`` →
     ``kernel`` ``[in, out]`` and ``bias``, ``LayerNorm`` → ``scale`` and
-    ``bias``, ``Embedding`` → ``embedding``."""
+    ``bias``, ``Embedding`` → ``embedding``.  A quantized dense
+    (:func:`svoc_torch.models.quant.quantize_params`) becomes the
+    reference's ``w_int8 [in, out]`` int8, ``w_scale`` and ``bias``
+    float32, dtype-exact."""
     tree: Dict[str, Any] = {}
     modules = {k.rsplit(".", 1)[0] for k in state_dict}
+    host = lambda t: t.detach().cpu().numpy()  # noqa: E731
     for module in sorted(modules):
-        weight = state_dict[module + ".weight"].detach().cpu().float().numpy()
         leaf = module.rsplit(".", 1)[-1]
-        if leaf in ("tok_emb", "pos_emb"):
-            node = {"embedding": weight}
+        if module + ".w_int8" in state_dict:
+            node = {"w_int8": np.ascontiguousarray(host(state_dict[module + ".w_int8"]).T),
+                    "w_scale": host(state_dict[module + ".w_scale"]),
+                    "bias": host(state_dict[module + ".bias"])}
+        elif leaf in ("tok_emb", "pos_emb"):
+            node = {"embedding": host(state_dict[module + ".weight"].float())}
         elif leaf.startswith("ln_"):
-            node = {"scale": weight, "bias": state_dict[module + ".bias"].detach().cpu().float().numpy()}
+            node = {"scale": host(state_dict[module + ".weight"].float()),
+                    "bias": host(state_dict[module + ".bias"].float())}
         else:
-            node = {"kernel": np.ascontiguousarray(weight.T),
-                    "bias": state_dict[module + ".bias"].detach().cpu().float().numpy()}
+            node = {"kernel": np.ascontiguousarray(host(state_dict[module + ".weight"].float()).T),
+                    "bias": host(state_dict[module + ".bias"].float())}
         parent = tree
         for part in module.split(".")[:-1]:
             parent = parent.setdefault(part, {})

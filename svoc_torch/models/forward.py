@@ -3,9 +3,9 @@
 Mirrors :mod:`svoc_tpu.models.forward` (``validate_quant``,
 ``resolve_forward``; ``forward.py:18-58``): one place owns the
 (quant × packed) dispatch and its validation.  The float forwards are
-the two encoder modules; the int8 forward (``svoc_tpu/models/quant.py``)
-is not ported yet (ROADMAP A12), and asking for it raises rather than
-run a float forward in its place.
+the two encoder modules; ``quant="int8"`` gives the W8A8 modules of
+:mod:`svoc_torch.models.quant`, which take the quantized state dict
+(:func:`~svoc_torch.models.quant.quantize_params` folds a float one).
 """
 
 from __future__ import annotations
@@ -35,13 +35,18 @@ def resolve_forward(
     :class:`~svoc_torch.models.encoder.SentimentEncoder` (``(ids, mask) →
     logits``) or, with ``packed``,
     :class:`~svoc_torch.models.packing.PackedSentimentEncoder` (``(ids,
-    pos, seg, cls_pos) → logits``).  Both load one state dict."""
+    pos, seg, cls_pos) → logits``).  Both load one state dict.  With
+    ``quant="int8"``, the W8A8 twins
+    :class:`~svoc_torch.models.quant.QuantizedSentimentEncoder` and
+    :class:`~svoc_torch.models.quant.QuantizedPackedSentimentEncoder`."""
     validate_quant(cfg, quant)
     if quant == "int8":
-        raise NotImplementedError(
-            "the int8 (W8A8) forward is not ported yet (ROADMAP A12): "
-            "svoc_torch runs the float forwards only"
+        from svoc_torch.models.quant import (
+            QuantizedPackedSentimentEncoder,
+            QuantizedSentimentEncoder,
         )
+
+        return QuantizedPackedSentimentEncoder if packed else QuantizedSentimentEncoder
     if packed:
         from svoc_torch.models.packing import PackedSentimentEncoder
 

@@ -8,8 +8,12 @@ arrays (``tree["params"]["block_0"]["attention"]["query"]["kernel"]``,
 :class:`svoc_torch.models.encoder.SentimentEncoder`, whose submodules
 carry the same names.  ``Dense`` kernels ``[in, out]`` become
 ``Linear.weight`` ``[out, in]``; ``LayerNorm`` ``scale``/``bias`` become
-``weight``/``bias``; ``Embed.embedding`` becomes ``weight``.  Arrays are
-read through ``numpy.asarray``, so this module needs no JAX.
+``weight``/``bias``; ``Embed.embedding`` becomes ``weight``.  A dense of
+the reference's quantized tree (``svoc_tpu.models.quant.quantize_params``:
+``w_int8 [in, out]``, ``w_scale``, ``bias``) becomes the port's quantized
+triple (``w_int8 [out, in]`` int8, ``w_scale`` and ``bias`` float32),
+dtype-exact and never cast.  Arrays are read through ``numpy.asarray``,
+so this module needs no JAX.
 """
 
 from __future__ import annotations
@@ -34,7 +38,11 @@ def params_from_flax(tree: Mapping, dtype: "torch.dtype | None" = None) -> Dict[
     out: Dict[str, torch.Tensor] = {}
 
     def walk(node: Mapping, prefix: str) -> None:
-        if "kernel" in node:  # Dense
+        if "w_int8" in node:  # a quantized Dense (svoc_tpu/models/quant.py:57)
+            out[prefix + "w_int8"] = _tensor(node["w_int8"], None).T.contiguous()
+            out[prefix + "w_scale"] = _tensor(node["w_scale"], None)
+            out[prefix + "bias"] = _tensor(node["bias"], None)
+        elif "kernel" in node:  # Dense
             out[prefix + "weight"] = _tensor(node["kernel"], dtype).T.contiguous()
             out[prefix + "bias"] = _tensor(node["bias"], dtype)
         elif "scale" in node:  # LayerNorm

@@ -7,8 +7,12 @@ Mirrors :mod:`svoc_tpu.models.sentiment` (``GO_EMOTIONS_LABELS``,
 HF tokenizer files are in the repository, so the pipeline always runs
 the native hashing tokenizer, which is also what the reference falls
 back to),
-``data_mesh``, ``quant`` (:mod:`svoc_torch.models.forward` raises for
-int8) and the ``stage_span`` traces.
+``data_mesh`` (ROADMAP A12e) and the reference's ``tokenize``/``pack``/
+``forward`` spans.  ``quant="int8"`` serves the W8A8 forward
+(:mod:`svoc_torch.models.quant`): a float state dict is folded once at
+construction (no span of its own, as in the reference), a folded one is
+used as it is, and the reference's validation errors are raised
+(``sentiment.py:124-141``).
 """
 
 from __future__ import annotations
@@ -21,7 +25,7 @@ import torch
 from svoc_torch.device import resolve_device
 from svoc_torch.models.configs import ROBERTA_GO_EMOTIONS, EncoderConfig
 from svoc_torch.models.encoder import ATTENTIONS, init_params, load_encoder
-from svoc_torch.models.forward import resolve_forward
+from svoc_torch.models.forward import resolve_forward, validate_quant
 from svoc_torch.models.packing import observe_fill_ratios, pack_tokens_auto, strip_padding
 from svoc_torch.models.tokenizer import load_tokenizer
 
@@ -67,7 +71,9 @@ class SentimentPipeline:
     state dict serves the unpacked module (``model``) and the packed one
     (``packed_model``), under either ``cfg.attention``.  ``packed``
     routes ``__call__`` through :meth:`call_packed` with
-    ``max_segments`` comments a row."""
+    ``max_segments`` comments a row.  ``quant="int8"`` swaps both
+    modules for the W8A8 ones (dense attention only); the float tensors
+    are dropped once folded."""
 
     def __init__(
         self,
@@ -80,6 +86,7 @@ class SentimentPipeline:
         params_dtype: Optional[torch.dtype] = None,
         packed: bool = False,
         max_segments: int = 8,
+        quant: Optional[str] = None,
         device=None,
     ):
         # All config validation up front, before the weights are drawn
@@ -95,8 +102,25 @@ class SentimentPipeline:
                 f"{cfg.n_labels}-label head — pass label_indices "
                 f"matching the model (e.g. (0, 1) for SST-2)"
             )
-        unpacked_cls = resolve_forward(cfg)
-        packed_cls = resolve_forward(cfg, packed=True)
+        validate_quant(cfg, quant)
+        if quant is None and params is not None:
+            from svoc_torch.models.quant import is_quantized_tree
+
+            if is_quantized_tree(params):
+                raise ValueError(
+                    "params is a pre-quantized (int8) tree but quant is "
+                    "None — pass quant='int8' to serve it, or load the "
+                    "float checkpoint for the float forward"
+                )
+        if quant and params_dtype is not None:
+            raise ValueError(
+                "params_dtype is not meaningful under quant='int8' — "
+                "the fold defines its own dtypes (int8 kernels, f32 "
+                "scales/rest); casting a quantized tree would change "
+                "its numerics"
+            )
+        unpacked_cls = resolve_forward(cfg, quant)
+        packed_cls = resolve_forward(cfg, quant, packed=True)
         # float32 matmuls (the head's last projection, and every matmul of
         # a float32 config such as TINY_TEST) stay full float32 on the
         # card, as XLA's are: no TF32.
@@ -108,6 +132,7 @@ class SentimentPipeline:
         self.packed = packed
         self.max_segments = max_segments
         self.label_indices = tuple(label_indices)
+        self.quant = quant
         self.device = resolve_device(device)
         if params is None:
             params = init_params(cfg, seed, self.device)
@@ -115,8 +140,16 @@ class SentimentPipeline:
             k: v.to(self.device, params_dtype if params_dtype and v.is_floating_point() else v.dtype)
             for k, v in params.items()
         }
-        self.model = load_encoder(unpacked_cls, cfg, params)
-        self.packed_model = load_encoder(packed_cls, cfg, params)
+        if quant == "int8":
+            from svoc_torch.models.quant import is_quantized_tree, quantize_params
+
+            if not is_quantized_tree(params):
+                params = quantize_params(params, cfg)
+            self.model = unpacked_cls(cfg, params)
+            self.packed_model = packed_cls(cfg, params)
+        else:
+            self.model = load_encoder(unpacked_cls, cfg, params)
+            self.packed_model = load_encoder(packed_cls, cfg, params)
         self.tokenizer = load_tokenizer(cfg.vocab_size, pad_id=cfg.pad_id, max_len=seq_len)
 
     @property

@@ -18,7 +18,8 @@ and launches nothing on the card.  Where the port departs:
 - the anomaly's capture is ``torch.profiler``'s, owned by the thread that
   started it (:mod:`svoc_torch.obsplane.profiler`): :meth:`FleetPlane.on_step`
   starts it and stops it a step later on the same (the router's) thread;
-- :meth:`FleetPlane.attach` raises: the operator console is ROADMAP A12.
+- :meth:`FleetPlane.attach` wires it into the operator console
+  (:mod:`svoc_torch.apps.commands`), as the reference's does.
 
 Every record this plane produces rides the ``obs`` observation channel
 (:class:`~svoc_torch.obsplane.timeline.ObservationLog` — the third line
@@ -653,9 +654,7 @@ class FleetPlane:
         return out
 
     def attach(self, console) -> None:
-        """The reference exposes the plane through its CommandConsole
-        (the ``fleet`` command, ``GET /metrics/fleet``); the port has no
-        console yet (ROADMAP A12)."""
-        raise NotImplementedError(
-            "FleetPlane.attach: the operator console is not ported yet (ROADMAP A12)"
-        )
+        """Expose through a CommandConsole: the ``fleet`` command,
+        ``GET /metrics/fleet``, and the ``/api/state`` fleet section read
+        ``console.fleetplane`` (``fleet.py:647``)."""
+        console.fleetplane = self

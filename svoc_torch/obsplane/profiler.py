@@ -201,5 +201,6 @@ class ProfileCapture:
         }
 
     def attach(self, console) -> None:
-        """The console's ``profile`` command (ROADMAP A12) reads ``console.profiler``."""
+        """Expose through a CommandConsole: the ``profile`` command and
+        ``GET /api/profile`` read ``console.profiler``."""
         console.profiler = self

@@ -26,8 +26,8 @@ background prewarm first, ``tier.py:424-446``).  Its ``prewarmer`` is the
 injected worker or the router's; while that worker's walk is in flight,
 a claim whose dispatch group is still cold has its cache misses queued
 and deferred (``serving.deferred{reason="cold_shape"}``); no worker, or a
-finished one, defers nothing.  ``attach(console)`` waits for the console
-(ROADMAP A12).
+finished one, defers nothing.  ``attach(console)`` exposes the tier
+through :class:`svoc_torch.apps.commands.CommandConsole`.
 
 :class:`ClaimServingStep` mirrors the device path of
 :meth:`svoc_tpu.serving.tier.ServingTier._step_inner`
@@ -585,5 +585,8 @@ class ServingTier:
         }
 
     def attach(self, console) -> None:
-        """The console (``apps/commands.py``) is not ported yet (ROADMAP A12)."""
-        raise NotImplementedError("attach(console): the console is not ported yet (ROADMAP A12)")
+        """Expose the tier through a
+        :class:`~svoc_torch.apps.commands.CommandConsole`: the ``serving``
+        command, ``POST /api/submit``, and ``/api/state``'s serving
+        section read it (``tier.py:516``)."""
+        console.serving = self

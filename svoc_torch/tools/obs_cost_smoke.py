@@ -91,6 +91,7 @@ def universe_coverage(result):
         max_claims_per_batch=router.max_claims_per_batch,
         sanitized_dispatch=router.sanitized_dispatch,
         impl=router.consensus_impl,
+        donate=router.device_resident,
     )
     model = result["cost_plane"].model
     uncovered = []

@@ -305,7 +305,8 @@ def test_migrate_roundtrip_preserves_lineage_cursor(tmp_path):
 
 
 def test_console_hooks_wait_for_the_console(tmp_path):
-    """``attach`` raises (the console is ROADMAP A12); the router's
+    """``attach`` wires the router and its fleet plane into the console
+    (``console.cluster``, ``console.fleetplane``); the router's
     ``/api/state`` view equals the reference's but for the pinned route,
     ``mesh`` and ``fingerprint_epoch`` included."""
     def run(p, d):
@@ -318,10 +319,10 @@ def test_console_hooks_wait_for_the_console(tmp_path):
     ref, port = both(tmp_path, run)
     assert port == ref
     router = build_fleet(PORT, tmp_path / "attach")[0]
-    with pytest.raises(NotImplementedError, match="A12"):
-        router.attach(object())
-    with pytest.raises(NotImplementedError, match="A12"):
-        router.fleet_plane.attach(object())
+    console = types.SimpleNamespace()
+    router.attach(console)
+    router.fleet_plane.attach(console)
+    assert console.cluster is router and console.fleetplane is router.fleet_plane
 
 
 def test_grow_retire_and_orphans_equal_reference(tmp_path):

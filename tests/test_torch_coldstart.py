@@ -40,7 +40,8 @@ def test_three_children_on_the_cpu(reference, tmp_path):
         assert {"journal_fingerprint": got["journal_fingerprint"], "claims": got["claims"]} == reference, leg
     assert artifact["legs"]["warm_first"]["returncode"] == -9
     warmed = artifact["legs"]["warm_restart"]["prewarm_outcomes"]
-    assert warmed["primed"] == 6 and warmed["error"] == 0  # buckets 1, 2, 4 x both gate fusions
+    # buckets 1, 2, 4 x both gate fusions x both donate flips (the reference's universe)
+    assert warmed["primed"] == 12 and warmed["error"] == 0
     assert artifact["legs"]["control"]["prewarm_outcomes"]["primed"] == 0
 
 

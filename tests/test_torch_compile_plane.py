@@ -2,9 +2,9 @@
 
 Twins of ``tests/test_compile_plane.py``'s classes:
 
-- ``TestUniverse``: the enumeration against the reference's on the
-  subset the port dispatches (no donate twin, no sharded kinds: ROADMAP
-  A12), key for key and in order;
+- ``TestUniverse``: the enumeration against the reference's, donate
+  twins included (no sharded kinds: ROADMAP A12e), key for key and in
+  order;
 - ``TestPersistentCache``: the salt, stale-salt removal, eviction of the
   library loaded least recently and the stats, on fake library files,
   and loads from a directory that refuses the hit's touch;
@@ -149,11 +149,11 @@ class TestUniverse:
         ref = ref_universe.enumerate_universe(ref_groups(groups), max_claims_per_batch=cap,
                                               sanitized_dispatch=sanitized, donate=False, impl="xla",
                                               include_twins=twins)
-        assert [ident(k) for k in ours] == [ident(k) for k in ref if not k.donate]
+        # The donate twins are the port's too now: the whole list, in order.
+        assert [ident(k) for k in ours] == [ident(k) for k in ref]
+        assert any(k.donate for k in ours) == twins
         assert len(ours) == len(set(ours)) and all(k.impl == "plain" for k in ours)
-        summary, ref_summary = universe.universe_summary(ours), ref_universe.universe_summary(
-            [k for k in ref if not k.donate])
-        assert summary == ref_summary
+        assert universe.universe_summary(ours) == ref_universe.universe_summary(ref)
 
     def test_serving_critical_bucket_first_then_ladder_then_twins(self):
         keys = universe.enumerate_universe({(7, 6, CFG): 3}, max_claims_per_batch=8,
@@ -161,7 +161,11 @@ class TestUniverse:
         assert keys[0] == universe.CompileKey(kind="sanitized", bucket=4, n_oracles=7, dimension=6, cfg=CFG,
                                               impl="cuda")
         assert [k.bucket for k in keys[:4]] == [4, 1, 2, 8] and all(k.kind == "sanitized" for k in keys[:4])
-        assert [k.kind for k in keys[4:]] == ["gated"] * 4
+        assert not any(k.donate for k in keys[:4])
+        # Per bucket: the other fusion, the donate flip, then both flipped.
+        assert [(k.bucket, k.kind, k.donate) for k in keys[4:]] == [
+            (b, kind, donate) for b in (1, 2, 4, 8)
+            for kind, donate in (("gated", False), ("sanitized", True), ("gated", True))]
 
     @pytest.mark.parametrize("cap,multiple", [(1, 1), (8, 1), (8, 3), (64, 2), (100, 1)])
     def test_bucket_ladder_is_the_references(self, cap, multiple):
@@ -486,7 +490,7 @@ class TestPrewarm:
         assert worker.start() is thread or not thread.is_alive()
         assert worker.wait(60) and not worker.active
         stats = worker.stats()
-        assert stats["universe"] == stats["warmed"] == 4 and stats["report"]["outcomes"] == {"primed": 4}
+        assert stats["universe"] == stats["warmed"] == 8 and stats["report"]["outcomes"] == {"primed": 8}
 
 
 # ---------------------------------------------------------------------------
@@ -603,7 +607,8 @@ class TestColdShapeDeferral:
         try:
             assert tier.prewarmer is not None and multi.router.prewarmer is tier.prewarmer
             assert tier.prewarmer.wait(120)
-            assert tier.snapshot()["prewarm"]["warmed"] == 8  # buckets 1-8, both gate fusions
+            # buckets 1-8, both gate fusions, both donate flips
+            assert tier.snapshot()["prewarm"]["warmed"] == 16
         finally:
             stop.set()
             tier.stop_loop()

@@ -8,9 +8,12 @@ scenario).
 - The weighted rotation under a batch cap, with a paused claim and a
   claim whose tamper hook raises (isolated, counted in its own
   ``fabric_claim_errors``): the same reports, claim states and journal.
-- The options that wait for later queue items raise
-  ``NotImplementedError``; ``consensus_impl`` routing is refused.
+- The claim mesh still raises ``NotImplementedError`` (ROADMAP A12e);
+  the resident staging and the console hook run; ``consensus_impl``
+  routing is refused.
 """
+
+import types
 
 import numpy as np
 import pytest
@@ -109,14 +112,15 @@ def test_weighted_rotation_pause_and_a_raising_tamper():
 
 
 def test_options_that_wait_raise():
-    """The claim mesh, the resident staging and the console still wait
-    (ROADMAP A12); the compile plane's options now run: the prewarm
+    """The claim mesh still waits (ROADMAP A12e); the resident staging,
+    the console hook and the compile plane's options run: the prewarm
     routing, the worker, its attachment and the scenario's warmup, which
     leaves the journal as it was."""
     reg = registry.ClaimRegistry()
-    for kw in (dict(mesh="2x1"), dict(device_resident=True)):
-        with pytest.raises(NotImplementedError, match="A12"):
-            ClaimRouter(reg, device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="A12"):
+        ClaimRouter(reg, device="cpu", mesh="2x1")
+    resident = ClaimRouter(reg, device="cpu", device_resident=True)
+    assert resident.device_resident
     with pytest.raises(ValueError):
         ClaimRouter(reg, device="cpu", consensus_impl="pallas")
     assert ClaimRouter(reg, device="cpu", warmup_mode="prewarm").warmup_mode == "prewarm"
@@ -128,8 +132,9 @@ def test_options_that_wait_raise():
     other = object()
     multi.router.attach_prewarmer(other)
     assert multi.router.prewarmer is other
-    with pytest.raises(NotImplementedError, match="A12"):
-        multi.attach(object())
+    console = types.SimpleNamespace()
+    multi.attach(console)
+    assert console.fabric is multi
     warmed = scenario.run_fabric_scenario(0, cycles=1, warmup=True, device="cpu")
     plain = scenario.run_fabric_scenario(0, cycles=1, device="cpu")
     assert warmed["journal_fingerprint"] == plain["journal_fingerprint"]

@@ -82,7 +82,11 @@ def test_every_module_imports_without_jax_or_svoc_tpu():
                  "svoc_torch.sim.multimodal", "svoc_torch.robustness.attacks",
                  "svoc_torch.robustness.certify", "svoc_torch.tools.robustness_cert",
                  "svoc_torch.tools.obs_smoke", "svoc_torch.tools.obs_cost_smoke",
-                 "svoc_torch.tools.obs_query", "svoc_torch.tools.postmortem"):
+                 "svoc_torch.tools.obs_query", "svoc_torch.tools.postmortem",
+                 "svoc_torch.tools.hotpath_smoke", "svoc_torch.parallel",
+                 "svoc_torch.parallel.encoder_math", "svoc_torch.models.quant",
+                 "svoc_torch.io.scraper", "svoc_torch.apps.commands", "svoc_torch.apps.cli",
+                 "svoc_torch.apps.web"):
         assert name in names
     code = (
         "import importlib, sys\n"
@@ -196,6 +200,25 @@ def test_the_estimators_and_the_obs_gates_default_to_cuda(monkeypatch, tmp_path)
     code = "import sys, svoc_torch; assert 'torch' not in sys.modules; print(svoc_torch.resolve_device('cpu'))"
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, capture_output=True, text=True)
     assert out.stdout.strip() == "cpu"
+
+
+def test_the_console_and_the_hot_path_gate_default_to_cuda(monkeypatch, capsys):
+    """The A12b-A12d entry points: the hot-path twin, the CLI and the web
+    server resolve ``--device cuda`` (their default) and raise without a
+    card, before serving anything."""
+    from svoc_torch.apps import cli, web
+    from svoc_torch.apps.commands import CommandConsole
+    from svoc_torch.tools import hotpath_smoke
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (lambda: hotpath_smoke.run(0, cycles=1),
+                 lambda: hotpath_smoke.main(["--cycles", "1"]),
+                 lambda: cli.main(["--disable_startup_fetch", "--seed-comments", "1"]),
+                 lambda: web.main(["--disable_startup_fetch", "--seed-comments", "1", "--port", "0"]),
+                 lambda: CommandConsole()):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    assert "svoc web UI" not in capsys.readouterr().out
 
 
 def test_the_compile_plane_waits_for_nothing():

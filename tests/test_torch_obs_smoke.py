@@ -6,8 +6,9 @@
   equals a live reference run of the Byzantine scenario;
 - ``obs_cost_smoke``: the reference's 8 checks pass (the JSONL rebuild
   through ``python -m svoc_torch.tools.obs_query`` in its own
-  interpreter) and all four fingerprints equal its constant, itself a
-  live reference serving scenario's;
+  interpreter), all four fingerprints equal its constant, itself a
+  live reference serving scenario's, and its universe is the
+  reference's 16 keys (donate twins included);
 - ``obs_query --json`` over one streamed trace gives the reference's
   ``tools/obs_query.py`` document, key for key;
 - ``postmortem`` writes a complete bundle and records its device.
@@ -50,6 +51,10 @@ def test_obs_cost_smoke_on_the_cpu_equals_the_reference():
     assert art["reconstruction"]["rebuilt_keys"] == art["reconstruction"]["live_keys"] > 0
     live = run_serving_scenario(0, cost_plane="off")
     assert live["journal_fingerprint"] == obs_cost_smoke.REFERENCE_JOURNAL_FINGERPRINTS[0]
+    # The universe is the reference's, its donate twins included: 16 keys.
+    ref_tool = runpy.run_path(str(REPO / "tools" / "obs_cost_smoke.py"), run_name="ref_obs_cost_smoke")
+    assert art["coverage"]["universe"] == ref_tool["universe_coverage"](live)["universe"]
+    assert art["coverage"]["universe"]["keys"] == 16
 
 
 def test_obs_query_document_equals_the_reference(tmp_path, capsys):

@@ -135,12 +135,13 @@ def test_validate_quant_raises_what_the_reference_raises(attention, quant):
 
 def test_resolve_forward():
     validate_quant(TINY_TEST, None)
-    validate_quant(TINY_TEST, "int8")  # dense: valid, but not ported
+    validate_quant(TINY_TEST, "int8")  # dense: valid
     assert resolve_forward(TINY_TEST) is SentimentEncoder
     assert resolve_forward(TINY_TEST, packed=True) is PackedSentimentEncoder
-    for packed in (False, True):
-        with pytest.raises(NotImplementedError, match="A12"):
-            resolve_forward(TINY_TEST, "int8", packed=packed)
+    from svoc_torch.models.quant import QuantizedPackedSentimentEncoder, QuantizedSentimentEncoder
+
+    assert resolve_forward(TINY_TEST, "int8") is QuantizedSentimentEncoder
+    assert resolve_forward(TINY_TEST, "int8", packed=True) is QuantizedPackedSentimentEncoder
 
 
 def test_pack_tokens_auto_is_the_python_packer():

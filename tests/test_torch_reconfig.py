@@ -206,8 +206,9 @@ def test_port_refuses_what_it_cannot_carry_out(tmp_path, kwargs, reason):
 
 def test_controller_attach_waits_for_the_console(tmp_path):
     _, _, controller, _ = build_fleet(PORT, tmp_path, claims=("c0",))
-    with pytest.raises(NotImplementedError, match="A12"):
-        controller.attach(object())
+    console = types.SimpleNamespace()
+    controller.attach(console)  # the console's ``reconfig`` command reads it
+    assert console.reconfig is controller
     assert controller.request_abort() == {"status": "idle", "detail": "no transition in flight"}
 
 

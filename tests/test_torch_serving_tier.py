@@ -459,8 +459,9 @@ def test_tier_run_loop_serves_and_stops():
     serving.stop_loop()
     serving._loop_thread.join(timeout=5)
     assert serving.snapshot()["completed"] == 1 and not serving._loop_thread.is_alive()
-    with pytest.raises(NotImplementedError, match="A12"):
-        serving.attach(object())
+    console = types.SimpleNamespace()
+    serving.attach(console)  # the console's ``serving`` command and /api/submit read it
+    assert console.serving is serving
 
 
 # -- a real packed vectorizer through both tiers -------------------------------------------

@@ -13,8 +13,8 @@ fabric scenario's deterministic vectorizer.
   its ``commit.deferred`` event, the same fingerprints.
 - ``preview_stats`` and ``rank_array`` against the reference's jitted
   preview at odd and even N, with NaN and Inf rows.
-- The entry points default to CUDA and raise without a card; the parts
-  that wait for later queue items raise ``NotImplementedError``.
+- The entry points default to CUDA and raise without a card;
+  ``quant_inference="int8"`` builds the W8A8 vectorizer.
 """
 
 import numpy as np
@@ -196,9 +196,12 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card():
 
 
 def test_parts_that_wait_raise_not_implemented(tmp_path):
+    # The W8A8 vectorizer now builds (folded from the float weights).
+    from svoc_torch.models.quant import QuantizedPackedSentimentEncoder
+
     s = session.Session(session.SessionConfig(quant_inference="int8"), device="cpu")
-    with pytest.raises(NotImplementedError, match="A12"):
-        s.vectorizer
+    assert s.vectorizer.quant == "int8"
+    assert isinstance(s.vectorizer.packed_model, QuantizedPackedSentimentEncoder)
 
     # A commit on an open WAL cycle now reconciles it, as the reference
     # does (tests/test_torch_durable.py); the compile plane's persistent
