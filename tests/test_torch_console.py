@@ -43,16 +43,20 @@ pytest.importorskip("jax")
 
 from conftest import fake_sentiment_vectorizer
 
+import svoc_tpu.apps.session as ref_session_mod
 import svoc_tpu.utils.events as ref_events
 import svoc_tpu.utils.metrics as ref_metrics
+import svoc_tpu.utils.postmortem as ref_postmortem
 from svoc_tpu.apps.commands import CommandConsole as RefConsole
 from svoc_tpu.apps.session import Session as RefSession
 from svoc_tpu.apps.session import SessionConfig as RefConfig
 from svoc_tpu.io.comment_store import CommentStore as RefStore
 from svoc_tpu.io.scraper import SyntheticSource as RefSource
 
+import svoc_torch.apps.session as session_mod
 import svoc_torch.utils.events as events
 import svoc_torch.utils.metrics as metrics
+import svoc_torch.utils.postmortem as postmortem
 from svoc_torch.apps import cli
 from svoc_torch.apps.commands import CommandConsole
 from svoc_torch.apps.session import Session, SessionConfig
@@ -64,15 +68,32 @@ from svoc_torch.io.scraper import SyntheticSource
 ROUTE_LINES = ("fabric: ", "Commands:")
 
 
+#: The reference's process-wide tracer as imported, before any test
+#: swapped it: what sessions of earlier test files traced into.
+REF_PROCESS_TRACER = ref_metrics.tracer
+
+
 @pytest.fixture
 def fresh(monkeypatch):
-    """Fresh process journals, metric registries and lineage scopes in
-    both packages, so that ``events``, ``slo``, the seqs and the
-    sessions' lineage ids start from nothing, whatever sessions the
-    process built before."""
-    for mod_events, mod_metrics in ((events, metrics), (ref_events, ref_metrics)):
+    """Fresh process journals, metric registries, span tracers and
+    lineage scopes in both packages, so that ``events``, ``slo``,
+    ``audit``'s span counts, the seqs and the sessions' lineage ids
+    start from nothing, whatever sessions the process built before.
+
+    The tracer is also swapped where a module bound it at import time
+    (``apps/session.py``'s ``tracer``, ``utils/postmortem.py``'s
+    ``_default_tracer``); ``stage_span`` and ``events.audit_record``
+    read ``metrics.tracer`` when called."""
+    for mod_events, mod_metrics, mod_session, mod_postmortem in (
+        (events, metrics, session_mod, postmortem),
+        (ref_events, ref_metrics, ref_session_mod, ref_postmortem),
+    ):
         reg = mod_metrics.MetricsRegistry()
+        tracer = mod_metrics.Tracer(reg)
         monkeypatch.setattr(mod_metrics, "registry", reg)
+        monkeypatch.setattr(mod_metrics, "tracer", tracer)
+        monkeypatch.setattr(mod_session, "tracer", tracer)
+        monkeypatch.setattr(mod_postmortem, "_default_tracer", tracer)
         monkeypatch.setattr(mod_events, "journal", mod_events.EventJournal(registry=reg))
         monkeypatch.setattr(mod_events, "_lineage_scopes", itertools.count(1))
 
@@ -140,6 +161,21 @@ def test_every_command_equals_the_reference(fresh):
     assert _slo_shape(port.query("slo")) == _slo_shape(ref.query("slo"))
     _same(port, ref, "exit")
     assert port.session.application_on is False
+
+
+def test_audit_ignores_spans_of_earlier_sessions(fresh):
+    """Sessions built earlier in the same process left spans under the
+    lineage ids that the fresh scopes mint again: ``tests/test_apps.py``
+    run before this file fills the reference's tracer alone, so its
+    ``audit`` counted more spans than the port's. ``audit`` counts only
+    this session's."""
+    for name in ("fetch", "vectorize", "consensus", "commit"):
+        with REF_PROCESS_TRACER.span(name, lineage="blk1-000001"):
+            pass
+    port, ref = _pair()
+    for command in ("fetch", "commit", "audit", "audit blk1-000001"):
+        _same(port, ref, command)
+    assert any(line.startswith("  events: ") for line in port.query("audit blk1-000001"))
 
 
 def test_write_callback_streams():
