@@ -439,6 +439,25 @@ Phases:
    ``serve(console)`` on port 0 of the loopback: query, state, one SSE
    frame, metrics and submit, each with its code.
 
+17. The mesh (``parallel/{mesh,sharded,claim_shard,serving}.py``), every mesh
+   slots of cuda:0: (a) the twin of ``tools/shard_smoke.py`` (4 claims x 8
+   oracles, 10 cycles, twice at ``"2x4"`` and once unmeshed): its checks,
+   the JAX package's seed-0 fingerprints, B3 once a claim shard (2 a
+   meshed dispatch, the oracle-axis slots sharing its result, 1
+   unmeshed); (b) the claim-sharded dispatch of the [64, 1024, 6] cube on
+   ``"2x1"``, ``"4x2"`` and ``"8x1"``: every output ``array_equal``
+   (NaN-aware) to the unsharded B3 dispatch, B3 once a claim shard, each
+   dispatch's time by CUDA events beside the unsharded one's (in turns);
+   (c) ``sharded_fleet_claims_fn`` at [64, 1024, 6] on ``"1x1"``,
+   ``"2x4"`` and ``"8x1"``: every output bitwise the unsharded fleet's
+   consensus, B3 once a slot; (d) the data-parallel packed serving step
+   at full width (flash, bf16, 256 x 128 rows, 1024 oracles, 128
+   failing) on a ``data`` mesh of 2 slots against 1: window vectors
+   within 3e-2, the masks equal, one window's consensus (the drain
+   step's) on 2 slots within ``tests/test_parallel.py``'s bars of 1
+   slot's, B1 12 x slots a forward, comments/s of both (read, not
+   demanded). It prints its seconds.
+
 It then prints one JSON line of per-kernel numbers, the card's
 ``nvidia-smi`` name and power limit, and last
 ``{"ok": true, "device": {...}}``. It exits non-zero, and prints no
@@ -5754,6 +5773,184 @@ def console_phase(torch, launches, fabric):
     print(f"  [{card}] 16c routes (code, wall ms): {codes}; launches {counts_c}")
 
 
+#: Phase 17: the claim-sharded dispatch's meshes (b), the sharded fleet's (c), the data mesh's slots (d) and
+#: its timed steps after one warm-up. Every mesh is slots of cuda:0 (svoc_torch/parallel/mesh.py).
+MESH_DISPATCH_SPECS = ("2x1", "4x2", "8x1")
+MESH_FLEET_SPECS = ("1x1", "2x4", "8x1")
+DP_SLOTS = 2
+DP_STEPS = 3
+
+
+def nan_equal(torch, a, b) -> bool:
+    """``array_equal`` with NaN equal to NaN."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.is_floating_point():
+        return bool(((a == b) | (torch.isnan(a) & torch.isnan(b))).all())
+    return bool(torch.equal(a, b))
+
+
+def outputs_equal(torch, a, b) -> bool:
+    return len(a) == len(b) and all(nan_equal(torch, x, y) for x, y in zip(a, b))
+
+
+@phase("17a. the mesh: the shard-smoke twin on the card (2x4, eight slots of cuda:0), against the reference")
+def shard_smoke_phase(torch, launches):
+    from svoc_torch.tools import shard_smoke
+
+    wrappers = zero_counts()
+    t0 = time.perf_counter()
+    report = shard_smoke.run_shard_smoke(0, 10)
+    seconds = time.perf_counter() - t0
+    counts = read_counts(wrappers)
+    add_launches(launches, counts)
+    for name, passed in report["checks"].items():
+        check(passed, f"17a shard-smoke {name}")
+    b3, dispatches = report["b3_launches"], int(report["shard_dispatches"])
+    check(b3["meshed"] == shard_smoke.MESH_CLAIMS * dispatches and b3["unmeshed"] == dispatches,
+          f"17a B3 once a claim shard: {b3['meshed']} launches for {dispatches} meshed dispatches on {shard_smoke.MESH}"
+          f" (2 claim shards; the 4 oracle-axis slots of a shard share its one result), {b3['unmeshed']} unmeshed")
+    print(f"  [{nvidia_smi()}] shard smoke: 3 runs in {seconds:.3f} s, fingerprints {report['fingerprints']}, "
+          f"launches {counts}", flush=True)
+
+
+@phase("17b. the claim-sharded dispatch at [64, 1024, 6] on 2x1, 4x2 and 8x1 against the unsharded B3 dispatch")
+def mesh_dispatch_phase(torch, launches):
+    from svoc_torch.consensus.batch import claims_consensus_gated, pad_claim_cube
+    from svoc_torch.parallel.claim_shard import sharded_claims_consensus_fn
+    from svoc_torch.parallel.mesh import claim_mesh
+
+    bench, bench_ok, cfg = bench_cube()
+    values, ok, mask = (t.cuda() for t in pad_claim_cube(bench, bench_ok))
+    ref = claims_consensus_gated(values, ok, mask, cfg)
+    unsharded = lambda: claims_consensus_gated(values, ok, mask, cfg)  # noqa: E731
+    times = {"unsharded": [cuda_ms(torch, unsharded, iters=50)]}
+    for spec in MESH_DISPATCH_SPECS:
+        mesh = claim_mesh(spec)
+        fn = sharded_claims_consensus_fn(mesh, cfg)
+        wrappers = zero_counts()
+        out = fn(values, ok, mask)
+        counts = read_counts(wrappers)
+        add_launches(launches, counts)
+        shards = mesh.shape["claim"]
+        check(outputs_equal(torch, out, ref),
+              f"17b {spec}: every output array_equal (NaN-aware) to the unsharded B3 dispatch")
+        check(counts["gated_claims_consensus"] == shards and sum(counts.values()) == shards,
+              f"17b {spec}: B3 once a claim shard of {64 // shards} claims ({counts})")
+        times[spec] = [cuda_ms(torch, lambda: fn(values, ok, mask), iters=50)]
+    times["unsharded"].append(cuda_ms(torch, unsharded, iters=50))  # in turns: unsharded, meshes, unsharded
+    print(f"  [{nvidia_smi()}] a dispatch of [64, 1024, 6] (CUDA events over 50 back-to-back dispatches): "
+          + ", ".join(f"{k} {' / '.join(f'{t:.4f}' for t in v)} ms" for k, v in times.items()), flush=True)
+
+
+@phase("17c. the sharded fleet at [64, 1024, 6] on 1x1, 2x4 and 8x1: bitwise invariant")
+def mesh_fleet_phase(torch, launches):
+    import numpy as np
+
+    from svoc_torch.consensus.batch import claims_consensus_gated
+    from svoc_torch.parallel.claim_shard import fleet_claims_reference, sharded_fleet_claims_fn
+    from svoc_torch.parallel.mesh import claim_mesh
+    from svoc_torch.sim import claim_fleet_keys, prng
+
+    _, _, cfg = bench_cube()
+    keys = claim_fleet_keys(prng.PRNGKey(0, "cuda"), CLAIMS)
+    windows = torch.from_numpy(np.random.default_rng(5).uniform(size=(CLAIMS, 50, 6)).astype(np.float32)).cuda()
+    values, honest = fleet_claims_reference(keys, windows, ORACLES, cfg.n_failing)
+    ones = torch.ones(values.shape[:2], dtype=torch.bool, device="cuda")
+    reference = (*claims_consensus_gated(values, ones, ones[:, 0].contiguous(), cfg), honest)
+    times = {}
+    for spec in MESH_FLEET_SPECS:
+        mesh = claim_mesh(spec)
+        fn = sharded_fleet_claims_fn(mesh, cfg, ORACLES)
+        wrappers = zero_counts()
+        out, got_honest = fn(keys, windows)
+        counts = read_counts(wrappers)
+        add_launches(launches, counts)
+        check(outputs_equal(torch, (*out, got_honest), reference),
+              f"17c {spec}: every output bitwise the unsharded fleet's consensus (and so every mesh's)")
+        check(counts["gated_claims_consensus"] == mesh.size,
+              f"17c {spec}: B3 once a slot on its claims' gathered blocks ({counts})")
+        t0 = time.perf_counter()
+        for _ in range(3):
+            fn(keys, windows)[0].essence.cpu()
+        times[spec] = (time.perf_counter() - t0) / 3 * 1e3
+    check(int((~honest).sum()) == CLAIMS * cfg.n_failing, "17c: 256 failing oracles a claim")
+    print(f"  [{nvidia_smi()}] a sharded fleet step of [64, 1024, 6] (host clock, to the essence on the host, 3 "
+          f"runs): " + ", ".join(f"{k} {v:.3f} ms" for k, v in times.items()), flush=True)
+
+
+@phase("17d. data-parallel packed serving at full ROBERTA_GO_EMOTIONS width: a data mesh of 2 slots against 1")
+def mesh_serving_phase(torch, launches):
+    from svoc_torch.flagship import FlagshipStep
+    from svoc_torch.io.scraper import SyntheticSource
+    from svoc_torch.parallel.serving import (
+        fleet_step_fn,
+        packed_serving_pipelined_step_fn,
+        packed_serving_step_fn,
+        serving_mesh,
+    )
+    from svoc_torch.sim import prng
+
+    step = FlagshipStep(device="cuda")  # ROBERTA_GO_EMOTIONS, flash, bf16 weights, 1024 oracles (128 failing)
+    params = step.pipe.packed_model.state_dict()
+    feed = step.comments(SyntheticSource(batch=step.rows, seed=0))
+    batches = []
+    for _ in range(1 + DP_STEPS):
+        batch, n = next(feed)
+        batches.append((tuple(t.clone() for t in (batch.ids, batch.pos, batch.seg, batch.cls_pos))
+                        + ((batch.seg_valid > 0).clone(),), n))
+    feed.close()
+    kw = dict(window_size=step.window_size, subset_size=step.subset_size)
+    key = prng.PRNGKey(0, "cuda")
+    runs = {}
+    for slots in (1, DP_SLOTS):
+        mesh = serving_mesh(["cuda:0"] * slots)
+        serve = packed_serving_step_fn(mesh, step.pipe.cfg, step.ccfg, step.n_oracles, **kw)
+        pserve = packed_serving_pipelined_step_fn(mesh, step.pipe.cfg, step.ccfg, step.n_oracles, **kw)
+        with torch.inference_mode():
+            serve(params, key, *batches[0][0])  # builds the slots' modules
+            wrappers = zero_counts()
+            out, honest = serve(params, key, *batches[0][0])
+            counts = read_counts(wrappers)
+            add_launches(launches, counts)
+            window, _, _ = pserve(params, key, *batches[0][0], torch.zeros(step.window_size, 6, device="cuda"))
+            t0 = time.perf_counter()
+            comments = 0
+            for i, (args, n) in enumerate(batches[1:], 1):
+                serve(params, prng.fold_in(key, i), *args)[0].essence.cpu()
+                comments += n
+            seconds = time.perf_counter() - t0
+        check(counts["flash_attention"] == step.pipe.cfg.n_layers * slots and counts["fused_consensus"] == 0,
+              f"17d {slots} slot(s): B1 {step.pipe.cfg.n_layers} × {slots} a forward, B2 never (the psum body): "
+              f"{counts}")
+        runs[slots] = dict(out=out, honest=honest, window=window, rate=comments / seconds,
+                           step_ms=seconds / DP_STEPS * 1e3, mesh=mesh)
+    one, two = runs[1], runs[DP_SLOTS]
+    gap = float((one["window"] - two["window"]).abs().max())
+    check(gap <= 3e-2, f"17d window vectors of 2 slots within the attention bf16 bar of 1 slot's: {gap:.3g}")
+    check(torch.equal(one["honest"], two["honest"]) and torch.equal(one["out"].reliable, two["out"].reliable),
+          "17d the steps' honest and reliable masks equal")
+    # The consensus of one window on 2 slots against 1: the mesh's own math, apart from the forward's rows.
+    drained = [fleet_step_fn(run["mesh"], step.ccfg, step.n_oracles, subset_size=step.subset_size)(key, one["window"])
+               for run in (one, two)]
+    check(torch.equal(drained[0][1], drained[1][1]) and torch.equal(drained[0][0].reliable, drained[1][0].reliable),
+          "17d one window's honest and reliable masks equal on 2 slots and 1")
+    errs, step_gaps = {}, {}
+    for field in ("essence", "essence_first_pass", "reliability_first_pass", "reliability_second_pass",
+                  "quadratic_risk", "skewness", "kurtosis"):
+        a, b = getattr(drained[1][0], field), getattr(drained[0][0], field)
+        rtol, atol = (1e-4, 1e-5) if field in ("skewness", "kurtosis") else (1e-5, 0.0)
+        errs[field] = float(((a - b).abs() - rtol * b.abs()).max())
+        step_gaps[field] = float((getattr(two["out"], field) - getattr(one["out"], field)).abs().max())
+        check(bool(((a - b).abs() <= atol + rtol * b.abs()).all()),
+              f"17d {field} of one window on 2 slots within tests/test_parallel.py's bar of 1 slot's "
+              f"(rtol {rtol}, atol {atol})")
+    print(f"  [{nvidia_smi()}] DP packed serving, 256 x 128 rows, {DP_STEPS} steps after a warm-up: 1 slot "
+          f"{one['rate']:.1f} comments/s ({one['step_ms']:.3f} ms a step), {DP_SLOTS} slots {two['rate']:.1f} "
+          f"comments/s ({two['step_ms']:.3f} ms a step; two slots of one card cannot gain); window gap {gap:.3g}; "
+          f"one window's consensus, excess over the bars {errs}; the steps' consensus gaps {step_gaps}", flush=True)
+
+
 def main() -> int:
     try:
         import torch
@@ -5842,13 +6039,20 @@ def main() -> int:
         sweeps_phase(torch, launches)
         swept = dict(launches)
         console_phase(torch, launches, fabric)
+        consoled = dict(launches)
+        t_mesh = time.perf_counter()
+        shard_smoke_phase(torch, launches)
+        mesh_dispatch_phase(torch, launches)
+        mesh_fleet_phase(torch, launches)
+        mesh_serving_phase(torch, launches)
+        print(f"  (phase 17 in all: {time.perf_counter() - t_mesh:.1f} s)", flush=True)
         print(f"  launches: serving paths {serving}; with the train paths {trained}; "
               f"with the multi-claim path {claimed}; with the probe path {probed}; "
               f"with the commit path {committed}; with the fabric paths {fabricked}; "
               f"with the serving tier {tiered}; with the durable paths {durable}; "
               f"with the cold-start paths {started}; with the cluster paths {clustered}; "
               f"with the reconfiguration paths {reconfigured}; with the obs gates, the certificate and the "
-              f"sweeps {swept}; with the console {launches}")
+              f"sweeps {swept}; with the console {consoled}; with the mesh {launches}")
     check(all(launches.get(name, 0) > 0 for name in KERNEL_ROWS),
           f"every kernel launched on its path: { {k: launches.get(k, 0) for k in KERNEL_ROWS} }")
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "svoc_tpu"))

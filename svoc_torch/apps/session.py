@@ -32,8 +32,10 @@ Where the port departs from the reference:
   round trip back.
 - ``quant_inference="int8"`` serves the default vectorizer through the
   W8A8 forward (:mod:`svoc_torch.models.quant`), folded from its float
-  weights; there is one device, so the default vectorizer has no data
-  mesh.
+  weights.  With more than one card (and a batch of 32 that divides
+  over them) the default vectorizer splits its rows over a data mesh of
+  every card, one slot each (``svoc_tpu/apps/session.py:424-437``); on
+  one card or the CPU it has none.
 - The WAL (``attach_wal``) is duck-typed, as the chain adapter's hooks
   are: :class:`svoc_torch.durability.wal.CommitIntentWAL` is the one the
   durable scenario attaches.  A commit on a lineage whose WAL cycle is
@@ -449,9 +451,19 @@ class Session:
                     f"dimension {dim} exceeds the {len(GO_EMOTIONS_LABELS)}"
                     "-label head — pass an explicit vectorizer"
                 )
+            # More than one card: split the vectorizer's rows over them,
+            # the data-parallel path of svoc_torch.parallel.serving.
+            data_mesh = None
+            default_batch = 32
+            n_dev = torch.cuda.device_count() if self.device.type == "cuda" else 1
+            if n_dev > 1 and default_batch % n_dev == 0:
+                from svoc_torch.parallel.serving import serving_mesh
+
+                data_mesh = serving_mesh(device=self.device)
             self._vectorizer = SentimentPipeline(
                 label_indices=indices,
-                batch_size=32,
+                batch_size=default_batch,
+                data_mesh=data_mesh,
                 packed=self.config.packed_inference,
                 quant=self.config.quant_inference,
                 device=self.device,

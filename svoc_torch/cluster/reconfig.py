@@ -13,15 +13,17 @@ Where the port departs:
   (:data:`REFERENCE_CONSENSUS_IMPLS`, the commit modes), so a plan's
   :meth:`~ReconfigPlan.to_dict` and :meth:`~ReconfigPlan.fingerprint`
   equal the reference's byte for byte; but :meth:`ReconfigPlan.validate`
-  refuses, before any phase starts, the two plans the port cannot carry
-  out: a ``consensus_impl`` (the port has one route per device) and a
-  claim ``mesh`` other than ``"off"`` (ROADMAP A12e);
+  refuses, before any phase starts, a ``consensus_impl`` (the port has
+  one route per device, so there is nothing to re-pin) and a claim
+  ``mesh`` the fleet's device cannot hold (more slots than
+  :func:`svoc_torch.parallel.mesh.mesh_devices` lists), which the
+  reference finds only when the re-pin builds a stack;
 - the builder is always handed ``consensus_impl=None``: a replica's
   pinned ``consensus_impl`` is its route (``"cuda"`` or ``"plain"``),
   which its device decides;
 - PREPARE warms the pending configuration's universe
   (:func:`svoc_torch.compile.universe.pending_universe` with the route
-  as the impl, no mesh, and the fleet's donate flag) through
+  as the impl, the pending mesh, and the fleet's donate flag) through
   :func:`svoc_torch.compile.prewarm.warm_keys`: on CUDA that builds or
   loads the serving libraries (B3, flash, threefry), then primes one
   all-padding B3 launch for each dispatch group the plan brings that the
@@ -193,12 +195,15 @@ class ReconfigPlan:
                 "route per device (the kernel on CUDA, the plain version on the CPU), "
                 "so there is no implementation to re-pin"
             )
-        if self.mesh not in (None, "off"):
-            raise ReconfigError(
-                f"plan sets mesh={self.mesh!r}: the claim mesh is not ported yet "
-                "(ROADMAP A12e)"
-            )
         roster = set(router.replica_ids())
+        if self.mesh not in (None, "off") and roster:
+            from svoc_torch.parallel.mesh import MeshConfigError, claim_mesh
+
+            device = router.replica(sorted(roster)[0]).device
+            try:
+                claim_mesh(self.mesh, device=device)
+            except MeshConfigError as e:
+                raise ReconfigError(f"plan sets mesh={self.mesh!r}: {e}") from None
         for cid in self.claims:
             if cid not in router.claim_ids():
                 raise ReconfigError(f"plan names unknown claim {cid!r}")
@@ -432,12 +437,16 @@ class ReconfigController:
         fabric = ref.multi.router
         current = [router.claim_spec(cid) for cid in router.claim_ids()]
         specs = [plan.claims.get(cid, router.claim_spec(cid)) for cid in router.claim_ids()]
+        mesh = plan.mesh if plan.mesh is not None else fabric.mesh_spec
+        mesh = None if mesh in (None, "off") else mesh
         keys = pending_universe(
             specs,
             max_claims_per_batch=fabric.max_claims_per_batch,
             sanitized_dispatch=True,
             impl=fabric.consensus_impl,
             donate=fabric.device_resident,
+            mesh=mesh,
+            mesh_claim_size=int(mesh.split("x", 1)[0]) if mesh is not None else 1,
         )
         install_compile_listener()
 

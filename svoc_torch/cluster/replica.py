@@ -12,8 +12,8 @@ Where the port departs:
   for bit ``jax.random.split``; the key is host data there, so the few
   hashes run on the CPU and launch nothing;
 - ``compilation_cache`` stays pinned ``"off"``, as at ``:178-186``;
-- ``mesh=`` takes only ``None`` and ``"off"``: a claim mesh raises
-  ``NotImplementedError`` in the fabric's router (ROADMAP A12e).
+- ``mesh=`` pins the fabric router's claim mesh, its slots on the
+  replica's device (:mod:`svoc_torch.parallel.mesh`).
 
 A replica is exactly the stack ``run_durable_scenario`` builds — one
 :class:`~svoc_torch.fabric.session.MultiSession` under one
@@ -452,7 +452,7 @@ class Replica:
         (SVOC011: resolved once, never re-read) — what a
         :class:`~svoc_torch.cluster.reconfig.ReconfigPlan` diffs against.
         The port's ``consensus_impl`` is the route its device gives
-        (``"cuda"`` or ``"plain"``); its ``mesh`` is always None."""
+        (``"cuda"`` or ``"plain"``)."""
         return {
             "consensus_impl": self.multi.router.consensus_impl,
             "mesh": self.multi.router.mesh_spec,

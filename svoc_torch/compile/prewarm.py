@@ -136,6 +136,8 @@ class PrewarmWorker:
             sanitized_dispatch=router.sanitized_dispatch,
             impl=router.consensus_impl,
             donate=router.device_resident,
+            mesh=router.mesh_spec,
+            mesh_claim_size=router._shard.claim_size if router._shard else 1,
             include_twins=include_twins if include_twins is not None else self.config.include_twins,
         )
         primary = {group: self._primary_keys(*group) for group in {k.group() for k in keys}}
@@ -160,11 +162,14 @@ class PrewarmWorker:
         """The keys the pinned router can dispatch for one group: its own
         variant across the bucket ladder."""
         router = self.router
+        sharded = router._shard is not None
         return [
-            dispatch_key(sanitized=router.sanitized_dispatch, sharded=False, bucket=bucket,
-                         n_oracles=n_oracles, dimension=dimension, cfg=cfg, donate=router.device_resident,
-                         impl=router.consensus_impl, mesh=None)
-            for bucket in bucket_ladder(router.max_claims_per_batch)
+            dispatch_key(sanitized=router.sanitized_dispatch, sharded=sharded, bucket=bucket,
+                         n_oracles=n_oracles, dimension=dimension, cfg=cfg,
+                         donate=router.device_resident and not sharded,
+                         impl=router.consensus_impl, mesh=router.mesh_spec)
+            for bucket in bucket_ladder(router.max_claims_per_batch,
+                                        multiple_of=router._shard.claim_size if sharded else 1)
         ]
 
     def group_cold(self, n_oracles: int, dimension: int, cfg) -> bool:
@@ -221,6 +226,11 @@ class PrewarmWorker:
         return "primed"
 
     def _prime(self, key: CompileKey) -> None:
+        if key.kind.startswith("sharded_"):
+            if self.router._shard is None:
+                raise ValueError(f"{key.label()} is a sharded key but the router has no mesh: a stale universe")
+            prime_key(key, self.router.device, shard=self.router._shard)
+            return
         if key.donate and self.router.device_resident:
             self.router.prime_staging(key)
             return
@@ -320,10 +330,12 @@ class PrewarmWorker:
         }
 
 
-def prime_key(key: CompileKey, device) -> None:
+def prime_key(key: CompileKey, device, shard=None) -> None:
     """One dispatch of an all-padding cube of ``key``'s shape through the
-    public wrappers, on ``device``; its outputs are discarded once they
-    are on the host.  No journal, no state."""
+    public wrappers, on ``device`` (a ``sharded_*`` key through the
+    router's :class:`~svoc_torch.parallel.claim_shard.ClaimShardDispatcher`
+    ``shard``); its outputs are discarded once they are on the host.  No
+    journal, no state."""
     import torch
 
     from svoc_torch.consensus.batch import (
@@ -336,20 +348,27 @@ def prime_key(key: CompileKey, device) -> None:
     values = torch.full((key.bucket, key.n_oracles, key.dimension), _PAD_VALUE,
                         dtype=torch.float32, device=device)
     mask = torch.zeros(key.bucket, dtype=torch.bool, device=device)
-    if key.kind == "sanitized":
+    sharded = key.kind.startswith("sharded_")
+    if key.kind.endswith("sanitized"):
         bounds = SanitizeConfig.for_consensus(key.cfg.constrained)
-        out, _ok = claims_consensus_sanitized(values, mask, key.cfg, bounds.lo, bounds.hi)
+        if sharded:
+            out, _ok = shard.dispatch_sanitized(values, mask, key.cfg, bounds.lo, bounds.hi)
+        else:
+            out, _ok = claims_consensus_sanitized(values, mask, key.cfg, bounds.lo, bounds.hi)
     else:
         ok = torch.ones(key.bucket, key.n_oracles, dtype=torch.bool, device=device)
-        out = claims_consensus_gated(values, ok, mask, key.cfg)
+        if sharded:
+            out = shard.dispatch_gated(values, ok, mask, key.cfg)
+        else:
+            out = claims_consensus_gated(values, ok, mask, key.cfg)
     out.interval_valid.cpu()  # waits for the launch
 
 
 def warm_keys(keys, *, budget_s: float = 0.0, clock=None, metrics=None) -> Dict[str, int]:
     """Budgeted walk over an explicit key list with no live router behind
     it: each CUDA key builds or loads the serving libraries (``compiled``); a
-    sharded key (ROADMAP A12e) or a CPU key has nothing to build
-    (``skipped``).  Never dispatches, never journals.  ``budget_s <= 0``
+    sharded key (warmed inside its mesh, as the reference's) or a CPU key
+    has nothing to build here (``skipped``).  Never dispatches, never journals.  ``budget_s <= 0``
     walks them all; otherwise the keys past the deadline count
     ``deferred``."""
     clock = clock if clock is not None else time.monotonic

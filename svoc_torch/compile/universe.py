@@ -25,7 +25,11 @@ port ``donate=True`` keys the dispatch that reads a group's persistent
 staging tensor (``ClaimRouter(device_resident=True)``,
 :class:`svoc_torch.fabric.router._GroupStaging`).  Given the same
 groups and flags, the two enumerations give the same keys in the same
-order.  The sharded kinds (the claim mesh) wait for ROADMAP A12e.
+order.  A router with a claim mesh dispatches the ``sharded_*`` kinds,
+labelled ``@<claims>x<oracles>``, over a ladder of buckets padded to a
+multiple of the mesh's claim axis; as in the reference they have no
+twins (the sharded dispatch never donates, and warms no gate variant
+its mesh was not built for).
 """
 
 from __future__ import annotations
@@ -39,7 +43,7 @@ from svoc_torch.consensus.kernel import ConsensusConfig
 #: The dispatch kinds: ``gated`` is the pull-mode router's dispatch (the
 #: host gate's verdicts on the device), ``sanitized`` the serving tier's
 #: gate and consensus in one pass; the ``sharded_*`` twins run in the
-#: claim mesh (ROADMAP A12e).
+#: claim mesh (:mod:`svoc_torch.parallel.claim_shard`).
 KINDS = ("gated", "sanitized", "sharded_gated", "sharded_sanitized")
 
 
@@ -138,23 +142,29 @@ def enumerate_universe(
     sanitized_dispatch: bool,
     impl: str,
     donate: bool = False,
+    mesh: Optional[str] = None,
+    mesh_claim_size: int = 1,
     include_twins: bool = True,
 ) -> List[CompileKey]:
     """The priority-ordered universe of one router's live configuration.
     ``groups`` is :func:`registry_groups`' output; the flags are the
-    router's pinned resolution (``donate`` is its ``device_resident``).
-    Phases: (1) per group, the bucket its current claim count
-    dispatches; (2) the rest of the ladder; (3) with ``include_twins``,
-    at every bucket the other gate fusion, the donate flip, and both
-    flipped (``universe.py:153-231``), so that a restart that flips
-    ``sanitized_dispatch`` or ``device_resident`` restarts warm too."""
+    router's pinned resolution (``donate`` is its ``device_resident``,
+    ``mesh`` its ``mesh_spec`` and ``mesh_claim_size`` the mesh's claim
+    axis).  Phases: (1) per group, the bucket its current claim count
+    dispatches; (2) the rest of the ladder; (3) with ``include_twins``
+    and no mesh, at every bucket the other gate fusion, the donate flip,
+    and both flipped (``universe.py:153-231``), so that a restart that
+    flips ``sanitized_dispatch`` or ``device_resident`` restarts warm
+    too."""
+    sharded = mesh is not None
+    multiple = mesh_claim_size if sharded else 1
     ordered = sorted(groups.items(), key=lambda kv: (kv[0][0], kv[0][1], repr(kv[0][2])))
-    ladder = bucket_ladder(max_claims_per_batch)
+    ladder = bucket_ladder(max_claims_per_batch, multiple_of=multiple)
 
     def key(group, bucket, sanitized, donate_flag) -> CompileKey:
         n, m, cfg = group
-        return dispatch_key(sanitized=sanitized, sharded=False, bucket=bucket, n_oracles=n,
-                            dimension=m, cfg=cfg, donate=donate_flag, impl=impl, mesh=None)
+        return dispatch_key(sanitized=sanitized, sharded=sharded, bucket=bucket, n_oracles=n,
+                            dimension=m, cfg=cfg, donate=donate_flag and not sharded, impl=impl, mesh=mesh)
 
     out: List[CompileKey] = []
     seen = set()
@@ -165,12 +175,12 @@ def enumerate_universe(
             out.append(k)
 
     for group, count in ordered:
-        push(key(group, pow2_bucket(max(1, min(count, max_claims_per_batch))),
+        push(key(group, pow2_bucket(max(1, min(count, max_claims_per_batch)), multiple_of=multiple),
                  sanitized_dispatch, donate))
     for group, _count in ordered:
         for bucket in ladder:
             push(key(group, bucket, sanitized_dispatch, donate))
-    if include_twins:
+    if include_twins and not sharded:
         for group, _count in ordered:
             for bucket in ladder:
                 push(key(group, bucket, not sanitized_dispatch, donate))
@@ -186,19 +196,22 @@ def pending_universe(
     sanitized_dispatch: bool,
     impl: str,
     donate: bool = False,
+    mesh: Optional[str] = None,
+    mesh_claim_size: int = 1,
     include_twins: bool = False,
 ) -> List[CompileKey]:
     """The universe of a configuration that is not live yet: the groups
     come from ``specs`` (:class:`~svoc_torch.fabric.registry.ClaimSpec`)
-    instead of a registry.  Twins default off: a transition warms the
-    configuration it goes to."""
+    instead of a registry, the mesh is the pending one.  Twins default
+    off: a transition warms the configuration it goes to."""
     groups: Dict[Tuple[int, int, ConsensusConfig], int] = {}
     for spec in specs:
         key = (spec.n_oracles, spec.dimension, spec.consensus_config())
         groups[key] = groups.get(key, 0) + 1
     return enumerate_universe(groups, max_claims_per_batch=max_claims_per_batch,
                               sanitized_dispatch=sanitized_dispatch, impl=impl,
-                              donate=donate, include_twins=include_twins)
+                              donate=donate, mesh=mesh, mesh_claim_size=mesh_claim_size,
+                              include_twins=include_twins)
 
 
 def universe_summary(keys: Iterable[CompileKey]) -> Dict[str, object]:

@@ -50,9 +50,17 @@ of ``router.py:149-186`` and ``_group_staging``/``_h2d`` at
 and persistent tensors on the router's device that one copy a buffer
 refills.  The padded cube goes straight to the claim-cube dispatch, and
 the result is bit-identical to the unstaged path's (its dispatches key
-``donate=True``).  Not ported here: the claim mesh (``mesh=``, ROADMAP
-A12e), which raises ``NotImplementedError``.  There is no
-``consensus_impl`` routing: the route follows the device.
+``donate=True``).
+
+``mesh=`` pins a claim mesh once, at construction (``"<claims>x<oracles>"``,
+a :class:`~svoc_torch.parallel.mesh.Mesh`, or a
+:class:`~svoc_torch.parallel.claim_shard.ClaimShardDispatcher`; None reads
+``SVOC_MESH``, ``"off"`` is none; ``router.py:229-242, 334-355``): each
+group's cube is padded to a multiple of the mesh's claim axis and
+dispatched claim-sharded (B3 once a claim shard on CUDA), bitwise the
+unsharded dispatch, so a mesh never changes what the fabric journals.
+The journaled ``batch_bucket`` stays the mesh-independent power of two.
+There is no ``consensus_impl`` routing: the route follows the device.
 """
 
 from __future__ import annotations
@@ -94,6 +102,7 @@ def dispatch_group(
     oks,
     cfg: ConsensusConfig,
     sanitized: bool = False,
+    shard=None,
 ) -> Tuple[ConsensusOutput, torch.Tensor]:
     """One consensus dispatch over the ``[N, M]`` fleet blocks of ``C``
     claims that share a shape and ``cfg`` (the non-meshed branch of the
@@ -107,7 +116,10 @@ def dispatch_group(
     bounds of ``SanitizeConfig.for_consensus(cfg.constrained)``, and
     ignores ``oks``; otherwise ``oks`` are the claims' ``[N]`` admission
     masks (a ``[C, N]`` tensor or a sequence; all admitted when None).
-    Returns ``(output, ok)``, each with ``C`` rows."""
+    Returns ``(output, ok)``, each with ``C`` rows.  ``shard`` (a
+    :class:`~svoc_torch.parallel.claim_shard.ClaimShardDispatcher`) pads
+    the cube to a multiple of its claim axis and dispatches it there (the
+    meshed branch)."""
     if isinstance(blocks, torch.Tensor):
         values = blocks.to(torch.float32)
     else:
@@ -115,8 +127,9 @@ def dispatch_group(
     c = values.shape[0]
     if oks is not None and not sanitized and not isinstance(oks, torch.Tensor):
         oks = torch.stack(list(oks))
-    values, ok, claim_mask = pad_claim_cube(values, None if sanitized else oks)
-    return dispatch_padded(values, ok, claim_mask, cfg, c, sanitized)
+    multiple = shard.claim_size if shard is not None else 1
+    values, ok, claim_mask = pad_claim_cube(values, None if sanitized else oks, multiple_of=multiple)
+    return dispatch_padded(values, ok, claim_mask, cfg, c, sanitized, shard)
 
 
 def dispatch_padded(
@@ -126,14 +139,20 @@ def dispatch_padded(
     cfg: ConsensusConfig,
     c: int,
     sanitized: bool = False,
+    shard=None,
 ) -> Tuple[ConsensusOutput, torch.Tensor]:
     """One consensus dispatch over an already padded cube (``values [B,
     N, M]``, ``ok [B, N]``, ``claim_mask [B]``; ``ok`` is ignored when
-    ``sanitized``).  Returns ``(output, ok)`` with the first ``c``
-    rows."""
+    ``sanitized``), claim-sharded through ``shard`` when one is given.
+    Returns ``(output, ok)`` with the first ``c`` rows."""
     if sanitized:
         bounds = SanitizeConfig.for_consensus(cfg.constrained)
-        out, ok = claims_consensus_sanitized(values, claim_mask, cfg, bounds.lo, bounds.hi)
+        if shard is not None:
+            out, ok = shard.dispatch_sanitized(values, claim_mask, cfg, bounds.lo, bounds.hi)
+        else:
+            out, ok = claims_consensus_sanitized(values, claim_mask, cfg, bounds.lo, bounds.hi)
+    elif shard is not None:
+        out = shard.dispatch_gated(values, ok, claim_mask, cfg)
     else:
         out = claims_consensus_gated(values, ok, claim_mask, cfg)
     return ConsensusOutput(*(field[:c] for field in out)), ok[:c]
@@ -254,11 +273,6 @@ class ClaimRouter:
         if max_claims_per_batch < 1:
             raise ValueError("max_claims_per_batch must be >= 1")
         _no_impl_routing(consensus_impl)
-        if mesh is not None and mesh != "off":
-            raise NotImplementedError(
-                f"mesh={mesh!r}: the claim mesh (parallel/claim_shard.py) is not "
-                "ported yet (ROADMAP A12e)"
-            )
         if warmup_mode is not None and warmup_mode not in ALLOWED_WARMUP_MODES:
             raise CompilePlaneError(
                 f"warmup_mode {warmup_mode!r} is not one of {ALLOWED_WARMUP_MODES}"
@@ -278,7 +292,11 @@ class ClaimRouter:
         #: The attached prewarm worker (None until :meth:`attach_prewarmer`
         #: or ``MultiSession.start_prewarm``).
         self.prewarmer = None
-        self.mesh_spec = None
+        #: The claim mesh, resolved and pinned once (part of a seeded
+        #: replay's config, as the impl is): a
+        #: ClaimShardDispatcher, or None for the unsharded dispatch.
+        self._shard = self._build_shard(mesh)
+        self.mesh_spec = self._shard.spec_str if self._shard else None
         #: The route of every claim-cube dispatch, read only: one kernel
         #: launch on CUDA, the plain forms on the CPU.
         self.consensus_impl = "cuda" if self.device.type == "cuda" else "plain"
@@ -299,6 +317,9 @@ class ClaimRouter:
         #: (:class:`_GroupStaging`).  Bit-identical to the unstaged path,
         #: so not a fingerprint family; its dispatches key ``donate=True``.
         self.device_resident = bool(device_resident)
+        #: The dispatches that read the staging tensors key donate=True;
+        #: a meshed dispatch keys its sharded kind instead.
+        self._donate = self.device_resident and self._shard is None
         self._staging: Dict[Any, _GroupStaging] = {}
         #: Fuse gate + consensus into ONE device pass per micro-batch
         #: (:func:`svoc_torch.consensus.batch.claims_consensus_sanitized`)
@@ -320,6 +341,20 @@ class ClaimRouter:
 
     def _resolve_journal(self):
         return resolve_journal(self._journal)
+
+    def _build_shard(self, mesh):
+        """The claim-shard dispatcher for ``mesh`` (constructor only), or
+        None for the unsharded dispatch."""
+        from svoc_torch.parallel.claim_shard import ClaimShardDispatcher
+        from svoc_torch.parallel.mesh import Mesh, claim_mesh, resolve_claim_mesh
+
+        if isinstance(mesh, ClaimShardDispatcher):
+            return mesh
+        if not isinstance(mesh, Mesh):
+            mesh = claim_mesh(mesh if mesh is not None else resolve_claim_mesh(), device=self.device)
+            if mesh is None:
+                return None
+        return ClaimShardDispatcher(mesh, metrics=self._metrics)
 
     # -- scheduling ---------------------------------------------------------
 
@@ -549,16 +584,19 @@ class ClaimRouter:
                     else np.ones(predictions.shape[0], dtype=bool)
                 )
             n, m = np.shape(blocks[0])
+            multiple = self._shard.claim_size if self._shard else 1
             if self.device_resident:
                 # In place: no host allocation in the steady state.  The
                 # per-claim ``oks`` arrays stay the accounting source.
-                staging = self._group_staging(len(blocks), n, m, cfg)
+                staging = self._group_staging(len(blocks), n, m, cfg, multiple)
                 staging.load(blocks, oks)
             else:
                 cube = np.stack([np.asarray(b, dtype=np.float32) for b in blocks])
                 ok = np.stack(oks)
+        # The journaled batch_bucket is the mesh-independent power of two:
+        # padding to the mesh's claim axis must not reach the journal.
         bucket = pow2_bucket(len(members))
-        warmth_key, warmth = self._account_warmth(bucket, n, m, cfg)
+        warmth_key, warmth = self._account_warmth(pow2_bucket(len(members), multiple_of=multiple), n, m, cfg)
         # Cost plane: host perf_counter windows around the copy and the
         # dispatch feed the ledger; the claims' marks ride the plane's
         # (the tier's) clock.  Off, the path is the plane-less one.
@@ -579,14 +617,14 @@ class ClaimRouter:
         with stage_span("fabric_dispatch"):
             if self.device_resident:
                 out, ok_out = dispatch_padded(values_dev, ok_dev, mask_dev, cfg, len(members),
-                                              sanitized=self.sanitized_dispatch)
+                                              sanitized=self.sanitized_dispatch, shard=self._shard)
                 if not self.sanitized_dispatch:
                     # A view of the staging tensor the next cycle refills:
                     # the pipelined write-back reads it a cycle later.
                     ok_out = ok_out.clone()
             else:
                 out, ok_out = dispatch_group(
-                    values_dev, ok_dev, cfg, sanitized=self.sanitized_dispatch
+                    values_dev, ok_dev, cfg, sanitized=self.sanitized_dispatch, shard=self._shard
                 )
         if track:
             dispatch_s = max(0.0, time.perf_counter() - t_start - h2d_s)
@@ -612,9 +650,9 @@ class ClaimRouter:
         key = self._warmth_keys.get(shape_key)
         if key is None:
             key = dispatch_key(
-                sanitized=self.sanitized_dispatch, sharded=False, bucket=bucket,
-                n_oracles=n, dimension=m, cfg=cfg, donate=self.device_resident,
-                impl=self.consensus_impl, mesh=None,
+                sanitized=self.sanitized_dispatch, sharded=self._shard is not None, bucket=bucket,
+                n_oracles=n, dimension=m, cfg=cfg, donate=self._donate,
+                impl=self.consensus_impl, mesh=self.mesh_spec,
             )
             self._warmth_keys[shape_key] = key
         if key in self._warmth_seen:
@@ -626,11 +664,12 @@ class ClaimRouter:
         self._metrics.counter("consensus_dispatch", labels={"warmth": warmth}).add(1)
         return key, warmth
 
-    def _group_staging(self, c: int, n: int, m: int, cfg) -> _GroupStaging:
+    def _group_staging(self, c: int, n: int, m: int, cfg, multiple: int = 1) -> _GroupStaging:
         """The group's staging record, sized to ``c`` claims' power-of-two
-        bucket: reallocated only when the bucket changes, so the steady
-        state reuses one allocation a group for the process."""
-        bucket = pow2_bucket(c)
+        bucket (a multiple of the mesh's claim axis): reallocated only when
+        the bucket changes, so the steady state reuses one allocation a
+        group for the process."""
+        bucket = pow2_bucket(c, multiple_of=multiple)
         key = (n, m, cfg)
         with self._lock:
             staging = self._staging.get(key)

@@ -4,8 +4,9 @@ Mirrors :mod:`svoc_tpu.fabric.scenario` (``scenario.py:1-242``):
 :func:`run_fabric_scenario`, :func:`deterministic_vectorizer` and
 :func:`_injection_schedule`.  ``device=None`` means CUDA (raising
 without a card); ``device_resident=True`` turns on the router's resident
-staging (the same fingerprints); ``mesh`` raises
-``NotImplementedError`` (ROADMAP A12e).  ``warmup=True`` runs a
+staging (the same fingerprints); ``mesh`` pins the router's claim mesh
+(the same fingerprints: the claim-sharded dispatch is bitwise the
+unsharded one).  ``warmup=True`` runs a
 synchronous prewarm of the claim-cube universe before the first cycle
 (``scenario.py:183-184``); it never journals, so the fingerprints are
 the same with it or without it.
@@ -117,7 +118,7 @@ def run_fabric_scenario(
     events).  ``device`` is where the fleets are drawn and the claim
     cubes dispatched (``None``: CUDA).  ``device_resident`` stages the
     claim cubes in place (bit-identical, not a fingerprint family);
-    ``mesh`` is the reference's, and raises here unless off.
+    ``mesh`` is the router's claim mesh (not a fingerprint family either).
     ``warmup=True`` prewarms the universe synchronously first."""
     from svoc_torch.io.comment_store import CommentStore
     from svoc_torch.io.scraper import SyntheticSource

@@ -8,7 +8,8 @@ prewarm worker (``session.py:272-322``).  ``attach(console)`` exposes
 the fabric through :class:`svoc_torch.apps.commands.CommandConsole`.
 ``device_resident`` passes through to the router (its resident staging)
 and :meth:`MultiSession.snapshot` reports it with the route and the
-mesh, as ``session.py:344`` does; ``mesh`` raises in the router.
+mesh, as ``session.py:344`` does; ``mesh`` pins the router's claim mesh
+(:class:`~svoc_torch.fabric.router.ClaimRouter`).
 
 One object that owns N claims end-to-end (docs/FABRIC.md): a
 :class:`~svoc_torch.fabric.registry.ClaimRegistry` of per-claim state —

@@ -34,8 +34,12 @@ consensus go to a second stream, made once per step object, while the
 forward runs on the caller's; nothing on that path reads a value back to
 the host, so the two streams overlap on the device.  On the CPU it is
 the same code with no second stream.  The mesh forms of the reference's
-library (``parallel/serving.py:237, 275``) wait for the multi-GPU port
-(ROADMAP A12e).
+library (``parallel/serving.py:237, 275``) are
+:func:`svoc_torch.parallel.serving.packed_serving_step_fn` and
+:func:`~svoc_torch.parallel.serving.packed_serving_pipelined_step_fn`:
+the same step with its rows split over a ``data`` mesh, the forward (and
+its flash launches) once a slot, and the fleet and consensus
+oracle-parallel over the same slots.
 """
 
 from __future__ import annotations

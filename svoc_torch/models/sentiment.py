@@ -6,9 +6,13 @@ Mirrors :mod:`svoc_tpu.models.sentiment` (``GO_EMOTIONS_LABELS``,
 ``sentiment.py:26-59, 62-341``).  Not ported here: ``tokenizer_name`` (no
 HF tokenizer files are in the repository, so the pipeline always runs
 the native hashing tokenizer, which is also what the reference falls
-back to),
-``data_mesh`` (ROADMAP A12e) and the reference's ``tokenize``/``pack``/
-``forward`` spans.  ``quant="int8"`` serves the W8A8 forward
+back to) and the reference's ``tokenize``/``pack``/
+``forward`` spans.  ``data_mesh`` (a 1-D
+:class:`~svoc_torch.parallel.mesh.Mesh`) splits every forward's rows
+over its slots, each slot's rows through a copy of the module on its
+slot's device (none where the slot is the pipeline's own device), as
+the reference's ``data_mesh`` shards the batch
+(``sentiment.py:84-89, 191-212, 246-251``).  ``quant="int8"`` serves the W8A8 forward
 (:mod:`svoc_torch.models.quant`): a float state dict is folded once at
 construction (no span of its own, as in the reference), a folded one is
 used as it is, and the reference's validation errors are raised
@@ -87,10 +91,18 @@ class SentimentPipeline:
         packed: bool = False,
         max_segments: int = 8,
         quant: Optional[str] = None,
+        data_mesh=None,
         device=None,
     ):
         # All config validation up front, before the weights are drawn
         # or moved.
+        if data_mesh is not None:
+            if len(data_mesh.axis_names) != 1:
+                raise ValueError(f"data_mesh must be 1-D, got axes {data_mesh.axis_names}")
+            if batch_size % data_mesh.size:
+                raise ValueError(
+                    f"batch_size {batch_size} not divisible by the {data_mesh.size}-device data mesh"
+                )
         if packed and cfg.attention not in ATTENTIONS:
             raise ValueError(
                 "packed inference supports cfg.attention 'dense' or "
@@ -151,6 +163,39 @@ class SentimentPipeline:
             self.model = load_encoder(unpacked_cls, cfg, params)
             self.packed_model = load_encoder(packed_cls, cfg, params)
         self.tokenizer = load_tokenizer(cfg.vocab_size, pad_id=cfg.pad_id, max_len=seq_len)
+        self.data_mesh = data_mesh
+        if data_mesh is not None:
+            self._shard_forwards(data_mesh, params, unpacked_cls, packed_cls)
+
+    def _shard_forwards(self, mesh, params, unpacked_cls, packed_cls) -> None:
+        """The row-split forwards over ``mesh``: one (unpacked, packed)
+        module pair a distinct slot device, replicated there once."""
+        from svoc_torch.parallel.mesh import P, canonical_device
+        from svoc_torch.parallel.sharded import current_device, shard_map
+
+        replicas = {canonical_device(self.device): (self.model, self.packed_model)}
+        for dev in set(mesh.devices.flat):
+            if dev not in replicas:
+                local = {k: v.to(dev) for k, v in params.items()}
+                if self.quant == "int8":
+                    replicas[dev] = (unpacked_cls(self.cfg, local), packed_cls(self.cfg, local))
+                else:
+                    replicas[dev] = (load_encoder(unpacked_cls, self.cfg, local),
+                                     load_encoder(packed_cls, self.cfg, local))
+        axis = mesh.axis_names[0]
+
+        def rows(ids, mask):
+            return self._vectors(replicas[current_device()][0](ids, mask))
+
+        def packed_rows(ids, pos, seg, cls_pos):
+            logits = replicas[current_device()][1](ids, pos, seg, cls_pos)
+            r, s, n_labels = logits.shape
+            return self._vectors(logits.reshape(r * s, n_labels)).reshape(r, s, self.dimension)
+
+        self._rows = shard_map(rows, mesh=mesh, in_specs=(P(axis, None),) * 2,
+                               out_specs=P(axis, None), collectives=False)
+        self._packed_rows = shard_map(packed_rows, mesh=mesh, in_specs=(P(axis, None),) * 4,
+                                      out_specs=P(axis, None, None), collectives=False)
 
     @property
     def dimension(self) -> int:
@@ -162,7 +207,9 @@ class SentimentPipeline:
     @torch.inference_mode()
     def forward(self, ids, mask) -> torch.Tensor:
         """``[B, T]`` token ids and mask on the pipeline's device →
-        vectors ``[B, M]``."""
+        vectors ``[B, M]`` (row-split over ``data_mesh`` when set)."""
+        if self.data_mesh is not None:
+            return self._rows(ids, mask)
         return self._vectors(self.model(ids, mask))
 
     @torch.inference_mode()
@@ -170,6 +217,8 @@ class SentimentPipeline:
         """``[R, T]`` packed tensors (and ``cls_pos [R, S]``) on the
         pipeline's device → vectors ``[R, S, M]``.  Invalid segments give
         rows the caller masks with ``seg_valid``."""
+        if self.data_mesh is not None:
+            return self._packed_rows(ids, pos, seg, cls_pos)
         logits = self.packed_model(ids, pos, seg, cls_pos)
         r, s, n_labels = logits.shape
         return self._vectors(logits.reshape(r * s, n_labels)).reshape(r, s, self.dimension)

@@ -6,7 +6,7 @@ Mirrors :mod:`svoc_tpu.parallel.encoder_math` (``encoder_math.py:21-113``):
 :func:`encoder_block` with ``dense_fn=`` and ``attention_fn=``.  The
 W8A8 forward (:mod:`svoc_torch.models.quant`) runs the block through
 here with its quantized matmul, and the sequence-parallel encoder and
-the pipeline (ROADMAP A12e) will too, so that the block's wiring is
+the pipeline (ROADMAP A12e part 2) will too, so that the block's wiring is
 written once.  With ``dense_fn`` left at its default, the blocks equal
 :class:`svoc_torch.models.encoder.SentimentEncoder`'s exactly at float32.
 

@@ -1,12 +1,13 @@
 """Oracle fleet simulation of the port: generators, the bootstrap model and
 the Monte-Carlo benchmarks.
 
-Mirrors :mod:`svoc_tpu.sim` and exports what it exports, but for
-``claim_fleet_keys``, which goes with the claim mesh (ROADMAP A12e).
+Mirrors :mod:`svoc_tpu.sim` and exports what it exports.
 """
 
 from svoc_torch.sim.generators import (  # noqa: F401
+    FLEET_CLAIM_SALT,
     beta_mode,
+    claim_fleet_keys,
     generate_beta_oracles,
     generate_gaussian_oracles,
     generate_kumaraswamy_oracles,

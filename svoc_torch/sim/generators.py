@@ -2,10 +2,10 @@
 
 Mirrors :mod:`svoc_tpu.sim.generators` (``generators.py:26-197``):
 ``claim_seed`` (bit for bit), ``beta_mode``, ``kumaraswamy_mode``,
+``FLEET_CLAIM_SALT`` and ``claim_fleet_keys`` (bit for bit),
 ``_shuffle``, ``generate_beta_oracles``, ``generate_biased_beta_oracles``,
 ``generate_kumaraswamy_oracles`` and ``generate_gaussian_oracles``, on
-the threefry draws of :mod:`svoc_torch.sim.prng`.  ``claim_fleet_keys``
-goes with the claim mesh and is not ported (ROADMAP A12e).
+the threefry draws of :mod:`svoc_torch.sim.prng`.
 
 A failing oracle is a uniform draw (``documentation/README.md:105-114``)
 and the fleet is shuffled so the failing identities are hidden.  Every
@@ -45,6 +45,22 @@ def claim_seed(base_seed: int, claim_id) -> int:
     crc = zlib.crc32(repr(claim_id).encode())
     mixed = (int(base_seed) * 1_000_003 + crc) & 0xFFFFFFFFFFFFFFFF
     return ((mixed >> 32) ^ mixed) & 0xFFFFFFFF
+
+
+#: ``fold_in`` salt separating the per-claim key stream from the
+#: per-oracle streams the claim keys later fold (``fold_in(claim_key,
+#: 0)`` is the failing-slot permutation, ``i + 1`` oracle ``i``'s
+#: stream): crc32 of a stable string, masked to an int32-safe word.
+FLEET_CLAIM_SALT = zlib.crc32(b"svoc.fleet.claim") & 0x7FFFFFFF
+
+
+def claim_fleet_keys(key: torch.Tensor, n_claims: int) -> torch.Tensor:
+    """Per-claim keys ``[n_claims, 2]`` of the sharded claim-cube fleet
+    (:mod:`svoc_torch.parallel.claim_shard`): ``fold_in(fold_in(key,
+    FLEET_CLAIM_SALT), c)`` for each global claim index ``c``, so the
+    fleet cube is the same bits however (and whether) the claim ×
+    oracle mesh splits it."""
+    return prng.fold_in_range(prng.fold_in(key, FLEET_CLAIM_SALT), 0, n_claims)
 
 
 def beta_mode(a: float, b: float) -> float:

@@ -94,6 +94,13 @@ def fold_in(keys: torch.Tensor, data: int) -> torch.Tensor:
     return threefry(_flat(keys), 1, base=int(data) & MASK).reshape(keys.shape)
 
 
+def fold_in_range(keys: torch.Tensor, start: int, n: int) -> torch.Tensor:
+    """``fold_in(key, start + j)`` for ``j < n``: ``[..., 2]`` →
+    ``[..., n, 2]``, one hash call (a key's oracle streams by global
+    index, ``svoc_tpu/parallel/sharded.py:212``)."""
+    return threefry(_flat(keys), n, base=int(start) & MASK).reshape(*keys.shape[:-1], n, 2)
+
+
 def random_bits(keys: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
     """32-bit random bits ``[..., *shape]`` int64 in ``[0, 2**32)``."""
     shape = tuple(shape)

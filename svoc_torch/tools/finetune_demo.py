@@ -21,7 +21,7 @@ which appear.  The loop:
 The reference trains on a GSPMD ``data × model`` mesh and also restores
 onto a changed mesh; the port has one device, and the changed-mesh
 restore (``--changed-mesh``) and ZeRO-1 (``--zero1``) raise
-``NotImplementedError`` (ROADMAP A12e).  Their report keys stay, as None.
+``NotImplementedError`` (ROADMAP A12e part 2).  Their report keys stay, as None.
 
 Usage::
 
@@ -123,10 +123,10 @@ def run(
     seed=0)``; ``on_step(i)`` runs before each step of the uninterrupted
     run."""
     if zero1:
-        raise NotImplementedError("--zero1: the sharded optimizer state needs the mesh trainer (ROADMAP A12e)")
+        raise NotImplementedError("--zero1: the sharded optimizer state needs the mesh trainer (ROADMAP A12e part 2)")
     if changed_mesh:
         raise NotImplementedError("--changed-mesh: a restore onto another mesh needs the mesh trainer "
-                                  "(ROADMAP A12e)")
+                                  "(ROADMAP A12e part 2)")
     import torch
 
     from svoc_torch.device import resolve_device
@@ -238,8 +238,8 @@ def main(argv=None) -> int:
     p.add_argument("--attention", choices=("dense", "flash"), default="dense")
     p.add_argument("--device", default=None, help="default: cuda (raises without a card)")
     p.add_argument("--out", default="FINETUNE_torch.json")
-    p.add_argument("--zero1", action="store_true", help="(ROADMAP A12e) raises")
-    p.add_argument("--changed-mesh", action="store_true", help="(ROADMAP A12e) raises")
+    p.add_argument("--zero1", action="store_true", help="(ROADMAP A12e part 2) raises")
+    p.add_argument("--changed-mesh", action="store_true", help="(ROADMAP A12e part 2) raises")
     args = p.parse_args(argv)
     report = run(steps=args.steps, batch=args.batch, seq=args.seq, lr=args.lr, target_f1=args.target_f1,
                  eval_n=args.eval_n, config=args.config, attention=args.attention, device=args.device,

@@ -3,8 +3,7 @@
 Twins of ``tests/test_compile_plane.py``'s classes:
 
 - ``TestUniverse``: the enumeration against the reference's, donate
-  twins included (no sharded kinds: ROADMAP A12e), key for key and in
-  order;
+  twins and the sharded kinds included, key for key and in order;
 - ``TestPersistentCache``: the salt, stale-salt removal, eviction of the
   library loaded least recently and the stats, on fake library files,
   and loads from a directory that refuses the hit's touch;
@@ -166,6 +165,22 @@ class TestUniverse:
         assert [(k.bucket, k.kind, k.donate) for k in keys[4:]] == [
             (b, kind, donate) for b in (1, 2, 4, 8)
             for kind, donate in (("gated", False), ("sanitized", True), ("gated", True))]
+
+    @pytest.mark.parametrize("sanitized", [False, True])
+    @pytest.mark.parametrize("mesh,claim_size", [("2x4", 2), ("4x2", 4), ("8x1", 8), ("3x1", 3)])
+    def test_sharded_universe_is_the_references(self, sanitized, mesh, claim_size):
+        """A meshed router's universe: the ``sharded_*`` kind, labelled
+        ``@mesh``, over a ladder padded to the claim axis, no twins."""
+        groups = {(8, 6, CFG): 3, (16, 6, ConsensusConfig(n_failing=4)): 5}
+        ours = universe.enumerate_universe(groups, max_claims_per_batch=8, sanitized_dispatch=sanitized,
+                                           impl="plain", donate=True, mesh=mesh, mesh_claim_size=claim_size)
+        ref = ref_universe.enumerate_universe(ref_groups(groups), max_claims_per_batch=8,
+                                              sanitized_dispatch=sanitized, donate=True, impl="xla",
+                                              mesh=mesh, mesh_claim_size=claim_size)
+        assert [ident(k) for k in ours] == [ident(k) for k in ref]
+        assert [k.label() for k in ours] == [k.label() for k in ref]
+        assert all(k.kind.startswith("sharded_") and k.label().endswith(f"@{mesh}") for k in ours)
+        assert all(k.bucket % claim_size == 0 and not k.donate for k in ours)
 
     @pytest.mark.parametrize("cap,multiple", [(1, 1), (8, 1), (8, 3), (64, 2), (100, 1)])
     def test_bucket_ladder_is_the_references(self, cap, multiple):

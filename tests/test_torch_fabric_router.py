@@ -8,9 +8,8 @@ scenario).
 - The weighted rotation under a batch cap, with a paused claim and a
   claim whose tamper hook raises (isolated, counted in its own
   ``fabric_claim_errors``): the same reports, claim states and journal.
-- The claim mesh still raises ``NotImplementedError`` (ROADMAP A12e);
-  the resident staging and the console hook run; ``consensus_impl``
-  routing is refused.
+- The claim mesh, the resident staging and the console hook run;
+  ``consensus_impl`` routing is refused.
 """
 
 import types
@@ -112,13 +111,18 @@ def test_weighted_rotation_pause_and_a_raising_tamper():
 
 
 def test_options_that_wait_raise():
-    """The claim mesh still waits (ROADMAP A12e); the resident staging,
-    the console hook and the compile plane's options run: the prewarm
-    routing, the worker, its attachment and the scenario's warmup, which
-    leaves the journal as it was."""
+    """The claim mesh, the resident staging, the console hook and the
+    compile plane's options run: the mesh pins its spec as the
+    reference's router does, the prewarm routing, the worker, its
+    attachment and the scenario's warmup, which leaves the journal as it
+    was.  ``consensus_impl`` routing is refused."""
+    from svoc_tpu.fabric.registry import ClaimRegistry as RefRegistry
+    from svoc_tpu.fabric.router import ClaimRouter as RefRouter
+
     reg = registry.ClaimRegistry()
-    with pytest.raises(NotImplementedError, match="A12"):
-        ClaimRouter(reg, device="cpu", mesh="2x1")
+    for mesh in ("2x1", "2x4", "off", None):
+        assert ClaimRouter(reg, device="cpu", mesh=mesh).mesh_spec == RefRouter(
+            RefRegistry(), mesh=mesh, consensus_impl="xla").mesh_spec
     resident = ClaimRouter(reg, device="cpu", device_resident=True)
     assert resident.device_resident
     with pytest.raises(ValueError):

@@ -138,8 +138,8 @@ def test_modes_and_claim_seed_equal_the_reference():
 
 def test_package_exports_and_gen_oracle_predictions_equal_the_reference():
     """``svoc_torch.sim`` and ``svoc_torch.robustness`` export the
-    reference's names (``claim_fleet_keys`` waits for the claim mesh; the
-    ``*_jax`` gate twins keep the port's names), and the one-call fleet
+    reference's names (and ``claim_fleet_keys``; the ``*_jax`` gate twins
+    keep the port's names), and the one-call fleet
     ``gen_oracle_predictions`` is the reference's bit for bit."""
     import svoc_torch.robustness as port_robustness
     import svoc_torch.sim as port_sim

@@ -86,7 +86,9 @@ def test_every_module_imports_without_jax_or_svoc_tpu():
                  "svoc_torch.tools.hotpath_smoke", "svoc_torch.parallel",
                  "svoc_torch.parallel.encoder_math", "svoc_torch.models.quant",
                  "svoc_torch.io.scraper", "svoc_torch.apps.commands", "svoc_torch.apps.cli",
-                 "svoc_torch.apps.web"):
+                 "svoc_torch.apps.web", "svoc_torch.parallel.mesh", "svoc_torch.parallel.sharded",
+                 "svoc_torch.parallel.claim_shard", "svoc_torch.parallel.serving",
+                 "svoc_torch.tools.shard_smoke"):
         assert name in names
     code = (
         "import importlib, sys\n"

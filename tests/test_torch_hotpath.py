@@ -186,8 +186,20 @@ def test_pending_masks_are_not_views_of_the_staging_tensor():
 
 
 def test_mesh_still_raises():
-    with pytest.raises(NotImplementedError, match="A12e"):
-        MultiSession(base_seed=0, vectorizer=fake_sentiment_vectorizer, mesh="2x1", device="cpu")
+    """A claim mesh now serves (``tests/test_torch_claim_shard.py``); one
+    that holds more slots than the device offers raises before any
+    session is built, as the reference's does."""
+    from svoc_torch.parallel.mesh import MeshConfigError
+    from svoc_tpu.fabric.session import MultiSession as RefMultiSession
+    from svoc_tpu.parallel.mesh import MeshConfigError as RefMeshConfigError
+
+    with pytest.raises(MeshConfigError, match="needs 4096 slots"):
+        MultiSession(base_seed=0, vectorizer=fake_sentiment_vectorizer, mesh="64x64", device="cpu")
+    with pytest.raises(RefMeshConfigError, match="needs 4096 devices"):
+        RefMultiSession(base_seed=0, vectorizer=fake_sentiment_vectorizer, mesh="64x64")
+    staged = MultiSession(base_seed=0, vectorizer=fake_sentiment_vectorizer, mesh="2x1",
+                          device_resident=True, device="cpu")
+    assert (staged.snapshot()["mesh"], staged.router._donate) == ("2x1", False)
 
 
 # ---------------------------------------------------------------------------

@@ -186,12 +186,13 @@ def test_plan_rejects_the_same_bad_knobs(kwargs, reconfig_error):
 @pytest.mark.parametrize("kwargs,reason", [
     ({"consensus_impl": "xla"}, "one route per device"),
     ({"consensus_impl": "pallas", "commit_mode": "batched"}, "one route per device"),
-    ({"mesh": "2x4"}, "A12"),
+    ({"mesh": "64x64"}, "needs 4096 slots"),
 ])
 def test_port_refuses_what_it_cannot_carry_out(tmp_path, kwargs, reason):
-    """A ``consensus_impl`` or a claim mesh is refused by ``validate``
-    with a ``ReconfigError`` that names why, before any phase starts:
-    nothing to roll back, no transition counted, nothing changed."""
+    """A ``consensus_impl``, or a claim mesh of more slots than the
+    fleet's device offers, is refused by ``validate`` with a
+    ``ReconfigError`` that names why, before any phase starts: nothing to
+    roll back, no transition counted, nothing changed."""
     router, _, controller, metrics = build_fleet(PORT, tmp_path, claims=("c0",))
     before = tree_bytes(tmp_path), router.fleet_fingerprint()
     plan = cluster.ReconfigPlan(**kwargs)
@@ -238,9 +239,27 @@ def test_replica_epoch_names_and_pinned_config_equal_reference(tmp_path, epoch, 
 
 
 def test_replica_claim_mesh_waits_for_a12(tmp_path):
-    with pytest.raises(NotImplementedError, match="A12"):
-        cluster.Replica("r0", str(tmp_path / "replica-r0"), chain_dir=str(tmp_path / "chain"), seed=0,
-                        clock=serving.VirtualClock(), mesh="2x4", device="cpu")
+    """A replica pinned to a claim mesh builds, pins it, and serves
+    through it: its config, its dispatch count and its fingerprints equal
+    the reference's replica's."""
+    def run(p, d):
+        d.mkdir()
+        replica = p.cluster.Replica("r0", str(d / "replica-r0"), chain_dir=str(d / "chain"), seed=0,
+                                    clock=p.serving.VirtualClock(), lineage_scope="clu", mesh="2x1",
+                                    **p.kw)
+        config = replica.pinned_config()
+        config.pop("consensus_impl")
+        replica.add_claim(p.registry.ClaimSpec(claim_id="c0", n_oracles=8, dimension=6))
+        for step in range(2):
+            replica.submit("c0", f"comment {step}")
+            replica.step()
+        return (config, replica.metrics.family_total("claim_shard_dispatches"),
+                replica.metrics.family_total("claim_shard_fallback"),
+                replica.claim_journal_fingerprint("blkclu-c0"))
+
+    ref, port = both(tmp_path, run)
+    assert port == ref
+    assert port[0]["mesh"] == "2x1" and port[1] > 0 and port[2] == 0
 
 
 def test_adopt_claim_fresh_and_replace_replica_equal_reference(tmp_path):
@@ -314,6 +333,32 @@ def test_commit_repins_under_new_epoch_equal_reference(tmp_path):
                for t in traces.values())
     assert persisted["epoch"] == 1 and persisted["chain"][0]["plan"] == report["plan_fingerprint"]
     assert port[5] == "admitted" and port[6] == 1
+
+
+def test_mesh_plan_repins_every_replica_equal_reference(tmp_path):
+    """A plan with a claim mesh commits: every replica is rebuilt pinned
+    to it, its next cycle dispatches claim-sharded, and the report,
+    configs, epoch chain and fingerprints equal the reference's."""
+    def run(p, d):
+        router, _, controller, _ = build_fleet(p, d)
+        report = controller.apply(p.cluster.ReconfigPlan(mesh="2x1"))
+        report.pop("prewarm")
+        configs = {}
+        for rid in router.replica_ids():
+            config = router.replica(rid).pinned_config()
+            config.pop("consensus_impl")
+            configs[rid] = config
+        for cid in router.claim_ids():
+            router.submit(cid, f"after repin {cid}")
+        router.step_all()
+        served = sum(router.replica(rid).metrics.family_total("claim_shard_dispatches")
+                     for rid in router.replica_ids())
+        return report, configs, fingerprints(router), router.epoch_chain(), served > 0
+
+    ref, port = both(tmp_path, run)
+    assert port == ref
+    assert port[0]["status"] == "committed" and port[4]
+    assert all(c["mesh"] == "2x1" and c["fingerprint_epoch"] == 1 for c in port[1].values())
 
 
 @pytest.mark.parametrize("point", RECONFIG_POINTS)
