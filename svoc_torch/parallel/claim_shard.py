@@ -259,11 +259,11 @@ class ClaimShardDispatcher:
             self.spec_str, reason, detail, SHARD_FALLBACK_COUNTER, reason,
         )
 
-    def _fn(self, key, builder):
+    def _fn(self, key, make):
         with self._lock:
             fn = self._fns.get(key)
             if fn is None:
-                fn = self._fns[key] = builder()
+                fn = self._fns[key] = make()
         return fn
 
     def shardable(self, n_claims: int, n_oracles: int) -> Optional[str]:

@@ -27,8 +27,8 @@ a feature the reference lacks.
 
 One device may fill several slots: the slot inventory
 (:func:`mesh_devices`) lists every visible card (or the CPU)
-``SVOC_MESH_SLOTS`` times (default 8, the reference's simulated device
-count), cards interleaved, so a mesh of at most as many slots as cards
+:data:`MESH_SLOTS` times (8, the reference's simulated device count),
+cards interleaved, so a mesh of at most as many slots as cards
 puts each slot on its own card, and a ``"2x4"`` mesh on one H100 (or on
 the CPU) is 8 slots of that one device.  A copy between two slots of
 one device is a no-op.
@@ -64,10 +64,9 @@ REPLICA_AXIS = "replica"
 #: ``SVOC_MESH=<claims>x<oracles>``: the operator override the router
 #: reads when it is given no ``mesh`` (:func:`resolve_claim_mesh`).
 CLAIM_MESH_ENV = "SVOC_MESH"
-#: ``SVOC_MESH_SLOTS=<n>``: slots each device offers to a mesh, the
-#: port's counterpart of ``--xla_force_host_platform_device_count``.
-MESH_SLOTS_ENV = "SVOC_MESH_SLOTS"
-DEFAULT_MESH_SLOTS = 8
+#: Slots each device offers to a mesh: the port's counterpart of the
+#: reference tests' ``--xla_force_host_platform_device_count=8``.
+MESH_SLOTS = 8
 #: The committed ``claim_mesh`` decision (``PERF_DECISIONS.json:4``,
 #: ``"none"``): no mesh unless ``SVOC_MESH`` or the caller names one.
 DEFAULT_CLAIM_MESH = None
@@ -174,30 +173,16 @@ def canonical_device(device) -> torch.device:
     return dev
 
 
-def mesh_slots() -> int:
-    """Slots each device offers (``SVOC_MESH_SLOTS``, default 8)."""
-    raw = os.environ.get(MESH_SLOTS_ENV, "").strip()
-    if not raw:
-        return DEFAULT_MESH_SLOTS
-    try:
-        slots = int(raw)
-    except ValueError:
-        raise MeshConfigError(f"{MESH_SLOTS_ENV}={raw!r} is not an integer") from None
-    if slots < 1:
-        raise MeshConfigError(f"{MESH_SLOTS_ENV} must be >= 1, got {slots}")
-    return slots
-
-
 def mesh_devices(device=None) -> List[torch.device]:
     """The slot inventory: every visible card when ``device`` is CUDA
     (``None``: CUDA, raising without a card), else ``device`` itself,
-    each :func:`mesh_slots` times, cards interleaved."""
+    each :data:`MESH_SLOTS` times, cards interleaved."""
     dev = resolve_device(device)
     if dev.type == "cuda":
         cards = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
     else:
         cards = [dev]
-    return cards * mesh_slots()
+    return cards * MESH_SLOTS
 
 
 def make_mesh(spec: MeshSpec, devices: Optional[Sequence] = None, device=None) -> Mesh:
@@ -271,8 +256,8 @@ def claim_mesh(spec, devices: Optional[Sequence] = None, device=None) -> Optiona
     if claims * oracles > len(devs):
         raise MeshConfigError(
             f"claim mesh {claims}x{oracles} needs {claims * oracles} slots, only {len(devs)} "
-            f"available — each device offers {MESH_SLOTS_ENV} slots (default {DEFAULT_MESH_SLOTS}); "
-            "raise it, or add cards"
+            f"available — each device offers {MESH_SLOTS} slots; add cards, or pass the slots "
+            "as devices="
         )
     return make_mesh(MeshSpec((CLAIM_AXIS, ORACLE_AXIS), (claims, oracles)), devs)
 

@@ -189,7 +189,9 @@ def _check_capacity(cls_pos, window_size: int) -> None:
         )
 
 
-_ROWS = lambda axis: (P(axis, None),) * 5  # noqa: E731 — ids, pos, seg, cls_pos, valid
+def _row_specs(axis: str) -> tuple:
+    """The packed rows' specs: ids, pos, seg, cls_pos and valid split over ``axis``."""
+    return (P(axis, None),) * 5
 
 
 def packed_serving_step_fn(
@@ -218,7 +220,7 @@ def packed_serving_step_fn(
     def body(params, key, ids, pos, seg, cls_pos, valid):
         return tail(key, window_of(params, ids, pos, seg, cls_pos, valid))
 
-    mapped = shard_map(body, mesh=mesh, in_specs=(P(), P()) + _ROWS(axis),
+    mapped = shard_map(body, mesh=mesh, in_specs=(P(), P()) + _row_specs(axis),
                        out_specs=(consensus_out_specs(axis), P(axis)))
 
     def serve(params, key, ids, pos, seg, cls_pos, valid):
@@ -254,7 +256,7 @@ def packed_serving_pipelined_step_fn(
         out, honest = tail(key, prev_window)
         return window, out, honest
 
-    mapped = shard_map(body, mesh=mesh, in_specs=(P(), P()) + _ROWS(axis) + (P(),),
+    mapped = shard_map(body, mesh=mesh, in_specs=(P(), P()) + _row_specs(axis) + (P(),),
                        out_specs=(P(), consensus_out_specs(axis), P(axis)))
 
     def serve(params, key, ids, pos, seg, cls_pos, valid, prev_window):

@@ -214,12 +214,8 @@ def psum(x, axis: str):
     return total
 
 
-def _is_spec(spec) -> bool:
-    return isinstance(spec, P)
-
-
 def _spec_axes(tree) -> set:
-    if _is_spec(tree):
+    if isinstance(tree, P):
         return {a for a in tree if a is not None}
     if isinstance(tree, (tuple, list)):
         return set().union(*(_spec_axes(t) for t in tree)) if tree else set()
@@ -228,7 +224,7 @@ def _spec_axes(tree) -> set:
 
 def _assemble(spec_tree, outs: Dict[Tuple[int, ...], Any], mesh: Mesh, select: Callable):
     """One output leaf (or tree) from the slots' outputs by its specs."""
-    if not _is_spec(spec_tree):
+    if not isinstance(spec_tree, P):
         parts = [
             _assemble(s, outs, mesh, lambda o, i=i, sel=select: sel(o)[i])
             for i, s in enumerate(spec_tree)

@@ -240,17 +240,15 @@ class TestMeshConfig:
             with pytest.raises(ref_mesh.MeshConfigError):
                 ref_mesh.parse_claim_mesh(bad)
 
-    def test_claim_mesh_device_budget(self, monkeypatch):
+    def test_claim_mesh_device_budget(self):
         m = mesh("2x4")
         assert dict(m.shape) == {"claim": 2, "oracle": 4} == dict(ref_mesh.claim_mesh("2x4").shape)
         assert {str(d) for d in m.devices.flat} == {"cpu"}
         assert mesh("none") is None
         with pytest.raises(MeshConfigError) as err:
             mesh("64x64")
-        # The error names the knob that is the one fix.
-        assert "SVOC_MESH_SLOTS" in str(err.value)
-        monkeypatch.setenv("SVOC_MESH_SLOTS", "4096")
-        assert mesh("64x64").size == 4096
+        assert "needs 4096 slots" in str(err.value)  # the error names the inventory
+        assert claim_mesh("64x64", devices=["cpu"] * 4096).size == 4096
 
     def test_resolve_claim_mesh_env(self, monkeypatch):
         monkeypatch.delenv("SVOC_MESH", raising=False)

@@ -4,7 +4,7 @@ Twin of ``tests/test_mesh.py``: factorizations, validation, the hybrid
 single- and multi-slice paths, and ``init_distributed``'s contract under
 the same monkeypatch shape (``torch.distributed`` standing in for
 ``jax.distributed``).  The port's slots are 8 of the CPU
-(``SVOC_MESH_SLOTS``'s default), the reference's 8 simulated devices.
+(``MESH_SLOTS``), the reference's 8 simulated devices.
 """
 
 from __future__ import annotations
@@ -37,15 +37,11 @@ def test_best_mesh_uses_all_slots():
     assert {str(d) for d in m.devices.flat} == {"cpu"}
 
 
-def test_slot_inventory_follows_the_knob(monkeypatch):
-    monkeypatch.setenv("SVOC_MESH_SLOTS", "3")
-    assert best_mesh(device="cpu").size == 3
-    monkeypatch.setenv("SVOC_MESH_SLOTS", "zero")
-    with pytest.raises(mesh.MeshConfigError, match="SVOC_MESH_SLOTS"):
-        mesh.mesh_devices("cpu")
+def test_slot_inventory_interleaves_cards(monkeypatch):
+    monkeypatch.setattr(mesh, "MESH_SLOTS", 2)
+    assert best_mesh(device="cpu").size == 2
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    monkeypatch.setenv("SVOC_MESH_SLOTS", "2")
     # Cards interleaved: a mesh of two slots puts one on each card.
     assert [str(d) for d in mesh.mesh_devices("cuda")] == ["cuda:0", "cuda:1", "cuda:0", "cuda:1"]
     with pytest.raises(RuntimeError, match="defaults to CUDA"):

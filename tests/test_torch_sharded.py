@@ -62,7 +62,7 @@ def assert_parallel_bars(out, ref):
 
 @pytest.mark.parametrize("index", [0, 1], ids=["constrained", "unconstrained"])
 def test_sharded_matches_single_device_and_the_reference(mesh, index):
-    values = np.asarray(jax.random.uniform(jax.random.PRNGKey(7), (64, 6)))
+    values = np.array(jax.random.uniform(jax.random.PRNGKey(7), (64, 6)))
     out = sharded.sharded_consensus_fn(mesh, CFGS[index])(torch.from_numpy(values))
     assert_parallel_bars(out, consensus_step(torch.from_numpy(values), CFGS[index]))
     ref = ref_sharded.sharded_consensus_fn(ref_mesh.best_mesh("oracle"), REF_CFGS[index])(jnp.asarray(values))
@@ -91,7 +91,7 @@ def test_fleet_step_sharding_invariance(mesh):
     """Keyed by global oracle index: a 1-slot and an 8-slot mesh give the
     same fleet bit for bit, and the configured number of failures."""
     cfg = ConsensusConfig(n_failing=8, constrained=True)
-    window = torch.from_numpy(np.asarray(jax.random.uniform(jax.random.PRNGKey(11), (50, 6))))
+    window = torch.from_numpy(np.array(jax.random.uniform(jax.random.PRNGKey(11), (50, 6))))
     key = prng.PRNGKey(3, "cpu")
     out8, honest8 = sharded.sharded_fleet_step_fn(mesh, cfg, 64)(key, window)
     out1, honest1 = sharded.sharded_fleet_step_fn(oracle_mesh(1), cfg, 64)(key, window)
@@ -109,8 +109,10 @@ def test_fleet_step_detects_failures(mesh):
     window = torch.from_numpy(np.clip(0.5 + 0.01 * np.asarray(jax.random.normal(jax.random.PRNGKey(0), (50, 6))),
                                       0.0, 1.0).astype(np.float32))
     fn = sharded.sharded_fleet_step_fn(mesh, cfg, 64)
-    hits = sum(int(torch.equal(*(lambda o, h: (o.reliable, h))(*fn(prng.PRNGKey(100 + t, "cpu"), window))))
-               for t in range(10))
+    hits = 0
+    for t in range(10):
+        out, honest = fn(prng.PRNGKey(100 + t, "cpu"), window)
+        hits += int(torch.equal(out.reliable, honest))
     assert hits >= 8, f"only {hits}/10 exact identifications"
 
 
