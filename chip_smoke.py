@@ -145,14 +145,16 @@ Phases:
    move, including the 36 query, key and value projections, the loss on
    the fixed batch must fall, and a saved and restored state must equal
    the original. One profiled step follows (informational). Then (5c)
-   the twin of ``tools/finetune_demo.py`` (``svoc_torch.tools.finetune_demo``):
-   TINY_TEST with flash, the reference's CLI defaults (240 steps of 32,
-   AdamW(3e-3), target macro-F1 0.9), a checkpoint at step 120 and a
-   same-device replay of the rest: macro-F1 >= 0.9, a replay delta of
-   exactly 0.0, and 2 B1, 2 B4 and 2 B5 launches a train step (2 B1 an
-   evaluation); then at ROBERTA_GO_EMOTIONS width (bf16 matmuls, flash,
-   batch 32, the same task; cut: 40 steps) the loss must fall and stay
-   finite, and the F1, the step's ms and trained comments/s are printed.
+   the twin of ``tools/finetune_demo.py`` (``svoc_torch.tools.finetune_demo``)
+   on a ``data(4) x model(2)`` mesh of slots of cuda:0: TINY_TEST with
+   flash, the reference's CLI defaults (240 steps of 32, AdamW(3e-3),
+   target macro-F1 0.9), a checkpoint at step 120, a same-mesh replay of
+   the rest and a restore onto ``data(2) x model(4)`` with 5 more steps:
+   macro-F1 >= 0.9, replay and restore deltas of exactly 0.0, and 2 x 8
+   B1, B4 and B5 launches a train step (2 B1 an unsharded evaluation);
+   then at ROBERTA_GO_EMOTIONS width (bf16 matmuls, flash, batch 32, the
+   same task; cut: 20 steps) the loss must fall and stay finite, both
+   deltas 0.0, and the F1, the step's ms and trained comments/s are printed.
 6. The multi-claim serving step at full width: 64 claims of 1024
    oracles (128 failing, constrained), ROBERTA_GO_EMOTIONS with bf16
    weights; each step takes 8 new comments per claim (512), assembled
@@ -370,7 +372,7 @@ Phases:
    journaled, no ``forward_error`` shed, hop chains fully classified,
    the merged exposition equal to the scrapes' sum (before the kill),
    12 flash launches a forward, B3 once a dispatched group, threefry 8 a
-   claim served. (d) The same 64 claims and 512 arrivals for 4 steps
+   claim served. (d) The same 64 claims and 512 arrivals for 3 steps (cut from 4)
    with no kill, on 1 and on 3 replicas: requests/s over the whole
    window (submits and steps; over the steps alone beside it) and step
    ms of each (the ratio is read, not demanded), with (c)'s invariants.
@@ -457,6 +459,31 @@ Phases:
    step's) on 2 slots within ``tests/test_parallel.py``'s bars of 1
    slot's, B1 12 x slots a forward, comments/s of both (read, not
    demanded). It prints its seconds.
+18. The training and sequence paths on the mesh
+   (``parallel/{ring_attention,sp_encoder,pipeline}.py``, the mesh
+   factories of ``train/trainer.py``), every mesh slots of cuda:0: (a)
+   ring attention on q, k, v [2, 8192, 12, 64] bf16 over 8 ``seq`` slots
+   (1024 keys a hop; row 1's 3000 real keys leave shards 3-7 all
+   padding), the flash inner (B1 with ``return_lse`` once a hop, 64 a
+   call) and the dense inner against each other and against B1 over the
+   whole sequence (3e-2); B1 at the hop against its plain version with
+   the all-padding hop (output 0, lse -inf); B1's time at the hop beside
+   its plain version, SDPA and the bound. (b) The sequence-parallel
+   forward of ROBERTA_GO_EMOTIONS (bf16) on ids [8, 512] of mixed
+   lengths, dense and flash inner (768 B1 a flash forward), against the
+   unsharded forward. (c) ``make_sp_train_step`` at full width in
+   float32 (dense), 3 SGD steps on (b)'s batch against the unsharded
+   step at ``tests/test_train.py``'s SP bars. (d) ``pipeline_forward_fn``
+   on stage(4) x data(2), 4 microbatches, flash, ids [32, 128] (96 B1, the
+   bubbles skipped) against the unsharded forward. (e)
+   ``make_sharded_packed_train_step`` on data(4) x model(2), flash and
+   AdamW, on phase 5b's packed batches of 256 x 128 rows: 3 steps, then 3
+   under ZeRO-1, each against the unsharded packed step, B1, B4 and B5 96
+   a step (8 slots x 12 layers, 6 heads a shard), every moment at most 1/4
+   on a slot under ZeRO-1; B4 and B5 on a 6-head shard against their
+   plain backward. (f) The fine-tune twin at its reference defaults
+   (TINY, dense) on 4x2 slots, with and without ``--zero1``. Bars that
+   the reference does not give: ``MESH_LOGIT_BAR`` and ``TP_*`` below.
 
 It then prints one JSON line of per-kernel numbers, the card's
 ``nvidia-smi`` name and power limit, and last
@@ -3772,11 +3799,13 @@ def durable_width_phase(torch, launches, serving):
     print("  durable per step: " + json.dumps({"crash": crash_rows, "recover": rec_rows}))
 
 
-#: Phase 5c's full-width fine-tune (cut from the TINY run's 240: steps only).
-FINETUNE_ROBERTA_STEPS = 40
+#: Phase 5c's full-width fine-tune (cut from the TINY run's 240: steps only; 40 before the fine-tune moved onto the
+#: mesh, whose 8 slots run serially on one card).
+FINETUNE_ROBERTA_STEPS = 20
 
 
-@phase("5c. the fine-tune twin (tools/finetune_demo.py): TINY to the target, then at full width")
+@phase("5c. the fine-tune twin (tools/finetune_demo.py) on data(4) x model(2) slots: TINY to the target, then at "
+       "full width")
 def finetune_phase(torch, launches):
     import numpy as np
 
@@ -3800,19 +3829,23 @@ def finetune_phase(torch, launches):
     for k, n in totals.items():
         launches[k] = launches.get(k, 0) + n
     n_layers, steps = 2, tiny["steps"]
-    replayed = steps - steps // 2
+    slots = math.prod(finetune_demo.TRAIN_MESH)  # every slot runs its model shard's heads
+    replayed, continued = steps - steps // 2, len(tiny["changed_mesh_continued_losses"])
+    trained = steps + replayed + continued
     per_step = [{k: b[k] - a[k] for k in b} for a, b in zip(seen, seen[1:])]
-    want = {"flash_attention": n_layers * (steps + replayed + 2), "flash_dq": n_layers * (steps + replayed),
-            "flash_dkv": n_layers * (steps + replayed)}
-    check(all(d == dict.fromkeys(counted, n_layers) for d in per_step) and totals == want,
-          f"TINY flash fine-tune: {n_layers} B1, {n_layers} B4 and {n_layers} B5 launches a train step "
-          f"({len(per_step)} steps read), in all {totals} == {want} (2 evaluations, {steps} steps, "
-          f"{replayed} replayed)")
-    check(tiny["macro_f1_after"] >= tiny["target_f1"] and tiny["same_mesh_replay_max_abs_param_delta"] == 0.0
-          and tiny["losses_finite"],
+    want = {"flash_attention": n_layers * (slots * trained + 2), "flash_dq": n_layers * slots * trained,
+            "flash_dkv": n_layers * slots * trained}
+    check(all(d == dict.fromkeys(counted, n_layers * slots) for d in per_step) and totals == want,
+          f"TINY flash fine-tune on data(4) x model(2) slots: {n_layers} x {slots} B1, B4 and B5 launches a train "
+          f"step ({len(per_step)} steps read), in all {totals} == {want} (2 unsharded evaluations, {steps} steps, "
+          f"{replayed} replayed, {continued} on the changed mesh)")
+    check(tiny["ok"] and tiny["macro_f1_after"] >= tiny["target_f1"]
+          and tiny["same_mesh_replay_max_abs_param_delta"] == 0.0
+          and tiny["changed_mesh_restore_max_abs_param_delta"] == 0.0 and tiny["losses_finite"],
           f"TINY (240 steps of 32, the reference's CLI defaults): macro-F1 {tiny['macro_f1_before']} -> "
-          f"{tiny['macro_f1_after']} (target {tiny['target_f1']}), same-device replay max|dparams| "
-          f"{tiny['same_mesh_replay_max_abs_param_delta']}")
+          f"{tiny['macro_f1_after']} (target {tiny['target_f1']}), same-mesh replay max|dparams| "
+          f"{tiny['same_mesh_replay_max_abs_param_delta']}, changed-mesh restore "
+          f"{tiny['changed_mesh_restore_max_abs_param_delta']}")
     print(f"  [{card}] TINY: loss {tiny['loss_curve'][0]} -> {tiny['loss_curve'][-1]}, train step "
           f"{tiny['step_ms']:.3f} ms ({tiny['comments_per_s']:.1f} comments/s), {secs:.1f} s with the "
           f"evaluations and the replay")
@@ -3825,13 +3858,17 @@ def finetune_phase(torch, launches):
     for k, w in counted.items():
         launches[k] = launches.get(k, 0) + w.launches
     losses = full["loss_curve"]
-    check(full["losses_finite"] and losses[-1] < losses[0] and np.isfinite(losses).all(),
-          f"ROBERTA_GO_EMOTIONS width (bf16 matmuls, flash, batch 32, {FINETUNE_ROBERTA_STEPS} steps: cut from "
-          f"240, steps only): the loss falls and stays finite ({losses[0]} -> {losses[-1]})")
+    check(full["losses_finite"] and losses[-1] < losses[0] and np.isfinite(losses).all()
+          and full["same_mesh_replay_max_abs_param_delta"] == 0.0
+          and full["changed_mesh_restore_max_abs_param_delta"] == 0.0,
+          f"ROBERTA_GO_EMOTIONS width on data(4) x model(2) slots (bf16 matmuls, flash, batch 32, "
+          f"{FINETUNE_ROBERTA_STEPS} steps: cut from 240, steps only): the loss falls and stays finite "
+          f"({losses[0]} -> {losses[-1]}), same-mesh replay and changed-mesh restore max|dparams| "
+          f"{full['same_mesh_replay_max_abs_param_delta']} and {full['changed_mesh_restore_max_abs_param_delta']}")
     print(f"  [{card}] full width: loss {losses[:3]} ... {losses[-3:]}, macro-F1 {full['macro_f1_before']} -> "
           f"{full['macro_f1_after']} (target {full['target_f1']}, read, not demanded), train step "
-          f"{full['step_ms']:.3f} ms, {full['comments_per_s']:.1f} trained comments/s, same-device replay "
-          f"max|dparams| {full['same_mesh_replay_max_abs_param_delta']}, {secs:.1f} s in all; launches "
+          f"{full['step_ms']:.3f} ms, {full['comments_per_s']:.1f} trained comments/s, continued losses on 2x4 "
+          f"{full['changed_mesh_continued_losses']}, {secs:.1f} s in all; launches "
           f"{ {k: w.launches for k, w in counted.items()} }")
 
 
@@ -4156,7 +4193,7 @@ def profiler_phase(torch, launches, uninterrupted, serving_main):
 
 #: Phase 13c/13d: the fleet's replicas, steps, kill, failover and migration steps.
 FLEET_REPLICAS, FLEET_STEPS, FLEET_KILL_STEP, FLEET_FAILOVER_STEP, FLEET_MIGRATE_STEP = 3, 10, 4, 6, 8
-FLEET_BENCH_STEPS = 4  # phase 13d, on 1 and on 3 replicas
+FLEET_BENCH_STEPS = 3  # phase 13d, on 1 and on 3 replicas (cut from 4 to make room for phase 18)
 #: A replica's queue capacity, per claim (10b's).
 FLEET_QUEUE_CAPACITY = 64
 #: A replica's request-latency target (``2.5 * step_period_s`` in ``Replica``).  A request
@@ -4972,7 +5009,7 @@ def fleet_width_phase(torch, launches):
     return {"pipe": pipe}
 
 
-@phase("13d. replicas on one card: 64 claims, 512 arrivals a step, 4 steps, on 1 and on 3 replicas")
+@phase("13d. replicas on one card: 64 claims, 512 arrivals a step, 3 steps, on 1 and on 3 replicas")
 def replicas_phase(torch, launches, fleet):
     card = nvidia_smi()
     pipe = fleet["pipe"] if fleet else None
@@ -5320,11 +5357,12 @@ def reconfig_width_phase(torch, launches, fleet):
           f"{run['n_layers']} flash launches); dispatch warmth by replica {run['warmth']}")
 
 
-def zero_counts():
-    """Every counted wrapper's count set to 0 (after a sync); returns them."""
+def zero_counts(wrappers=None):
+    """Every counted wrapper's count (``counted_wrappers()`` by default) set
+    to 0 (after a sync); returns them."""
     import torch
 
-    wrappers = counted_wrappers()
+    wrappers = wrappers or counted_wrappers()
     torch.cuda.synchronize()
     for w in wrappers.values():
         w.launches = 0
@@ -5951,6 +5989,382 @@ def mesh_serving_phase(torch, launches):
           f"one window's consensus, excess over the bars {errs}; the steps' consensus gaps {step_gaps}", flush=True)
 
 
+#: Phase 18: the training and sequence paths on the mesh, every mesh slots of cuda:0.
+#: (a) ring attention: q, k, v [B, T, H, D] bf16 on 8 seq slots (1024 keys a hop), each row's real keys.
+RING_SHAPE, RING_SLOTS, RING_KEYS = (2, 8192, 12, 64), 8, (8192, 3000)
+#: (b, c) the sequence-parallel batch: ROBERTA_GO_EMOTIONS ids [8, 512], each row's real tokens.
+SP_LENGTHS, SP_T = (512, 480, 333, 256, 130, 64, 9, 2), 512
+SP_TRAIN_STEPS, SP_SGD_LR = 3, 1e-3
+#: (d) the pipeline: ids [32, 128] on stage(4) x data(2), 4 microbatches.
+PIPE_ROWS, PIPE_T, PIPE_MESH, PIPE_MICRO = 32, 128, (4, 2), 4
+#: (e) the tensor-parallel packed step on data(4) x model(2): steps with and without ZeRO-1, AdamW's lr.
+TP_MESH, TP_STEPS, TP_LR = (4, 2), 3, 1e-4
+#: Bars of phase 18 where the reference gives none (PERF.md §6 gives their reasons):
+#: bf16 logits of a sharded forward against the unsharded one (4x the 2.5e-2 that the same comparisons
+#: gave at full width on the CPU); the TP step's loss and grad norm (rtol) against the unsharded step's.
+MESH_LOGIT_BAR, TP_LOSS_RTOL, TP_NORM_RTOL = 1e-1, 5e-3, 2e-2
+
+
+def mesh_wrappers():
+    """The counted wrappers of phase 18: B1, B4 and B5 (the others must stay at 0)."""
+    from svoc_torch.ops.flash_attention import flash_dkv_cuda, flash_dq_cuda
+
+    return dict(counted_wrappers(), flash_dq=flash_dq_cuda, flash_dkv=flash_dkv_cuda)
+
+
+def event_ms(torch, fn):
+    """One call of ``fn`` between two CUDA events: (ms, its result)."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end), out
+
+
+def max_err(a, b) -> float:
+    return float((a.float() - b.float()).abs().max())
+
+
+def launches_are(counts: dict, want: dict) -> bool:
+    """Every counted kernel launched as ``want`` says, and the others not at all."""
+    return all(counts.get(k, 0) == want.get(k, 0) for k in set(counts) | set(want))
+
+
+@phase("18a. ring attention at [2, 8192, 12, 64] bf16 on 8 seq slots: flash and dense inner, B1 at the hop")
+def ring_phase(torch, launches):
+    import torch.nn.functional as F
+
+    from svoc_torch.ops.flash_attention import attention_tags, flash_attention_cuda, flash_attention_plain
+    from svoc_torch.parallel.mesh import MeshSpec, make_mesh
+    from svoc_torch.parallel.ring_attention import ring_attention_fn
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(18)
+    b, t, h, d = RING_SHAPE
+    hop = t // RING_SLOTS
+    q, k, v = (torch.randn(b, t, h, d, generator=gen, device=dev).to(torch.bfloat16) for _ in range(3))
+    kmask = (torch.arange(t, device=dev)[None, :] < torch.tensor(RING_KEYS, device=dev)[:, None]).to(torch.int32)
+    mesh = make_mesh(MeshSpec(("seq",), (RING_SLOTS,)))
+    flash_ring, dense_ring = ring_attention_fn(mesh, block_impl="flash"), ring_attention_fn(mesh)
+    card = nvidia_smi()
+    with torch.inference_mode():
+        flash_ring(q, k, v, kmask)  # warm-up
+        wrappers = zero_counts(mesh_wrappers())
+        flash_ms, out_flash = event_ms(torch, lambda: flash_ring(q, k, v, kmask))
+        counts = read_counts(wrappers)
+        add_launches(launches, counts)
+        want = {"flash_attention": RING_SLOTS * RING_SLOTS}
+        check(launches_are(counts, want),
+              f"18a flash ring: B1 {RING_SLOTS} slots x {RING_SLOTS} hops = {want['flash_attention']} launches "
+              f"a call ({counts})")
+        wrappers = zero_counts(mesh_wrappers())
+        dense_ms, out_dense = event_ms(torch, lambda: dense_ring(q, k, v, kmask))
+        counts_dense = read_counts(wrappers)
+        check(launches_are(counts_dense, {}), f"18a dense ring: no kernel launches ({counts_dense})")
+        qtag, ktag = attention_tags(q, kmask=kmask > 0)
+        whole = flash_attention_cuda(q, k, v, qtag, ktag)  # B1 over the whole sequence: the comparison
+        errs = {"flash ring - dense ring": max_err(out_flash, out_dense),
+                "flash ring - B1 whole": max_err(out_flash, whole),
+                "dense ring - B1 whole": max_err(out_dense, whole)}
+        check(all(e <= 3e-2 for e in errs.values()) and bool(torch.isfinite(out_flash.float()).all()),
+              f"18a the rings agree with each other and with B1 over the whole sequence within bf16's 3e-2: {errs}")
+        print(f"  [{card}] ring call of [2, 8192, 12, 64] bf16 on 8 slots (CUDA events, one call after a "
+              f"warm-up): flash inner {flash_ms:.3f} ms, dense inner {dense_ms:.3f} ms", flush=True)
+
+        # B1 at the hop's shape: shard 0's queries against shard 3's keys, all padding for row 1.
+        dead_shard = 3
+        qb = q[:, :hop].contiguous()
+        kb, vb = (x[:, dead_shard * hop:(dead_shard + 1) * hop].contiguous() for x in (k, v))
+        mb = kmask[:, dead_shard * hop:(dead_shard + 1) * hop].contiguous()
+        bq, bk = attention_tags(qb, kmask=mb > 0)
+        out_b, lse_b = flash_attention_cuda(qb, kb, vb, bq, bk, return_lse=True)
+        ref_b, ref_lse = flash_attention_plain(qb, kb, vb, bq, bk, return_lse=True)
+        live = torch.isfinite(ref_lse)
+        check(max_err(out_b, ref_b) <= 3e-2 and float((lse_b[live] - ref_lse[live]).abs().max()) <= 1e-3
+              and torch.equal(live, torch.isfinite(lse_b)),
+              f"18a B1 at the hop [2, {hop}, 12, 64] with kmask and return_lse: out err "
+              f"{max_err(out_b, ref_b):.3e} <= 3e-2, lse err {float((lse_b[live] - ref_lse[live]).abs().max()):.3e}"
+              " <= 1e-3")
+        check(bool(torch.all(out_b[1] == 0)) and bool(torch.all(torch.isneginf(lse_b[1]))),
+              "18a the all-padding hop (row 1, keys of shard 3): output exactly 0 and lse -inf")
+
+        # Times at the hop's shape, every key real (shard 0 against shard 0).
+        k0, v0 = (x[:, :hop].contiguous() for x in (k, v))
+        m0 = kmask[:, :hop].contiguous()
+        t0q, t0k = attention_tags(qb, kmask=m0 > 0)
+        kernel_ms = cuda_ms(torch, lambda: flash_attention_cuda(qb, k0, v0, t0q, t0k, return_lse=True))
+        plain_ms = cuda_ms(torch, lambda: flash_attention_plain(qb, k0, v0, t0q, t0k, return_lse=True), iters=5)
+        qs, ks, vs = (x.transpose(1, 2).contiguous() for x in (qb, k0, v0))
+        bool_mask = (m0 > 0)[:, None, None, :]
+        sdpa_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=bool_mask))
+        kernel_again = cuda_ms(torch, lambda: flash_attention_cuda(qb, k0, v0, t0q, t0k, return_lse=True))
+        elems = b * hop * h * d
+        bytes_moved = 4 * elems * 2 + 2 * b * hop * 4 + b * hop * h * 4  # q, k, v read, out written; tags; lse
+        bound_ms, bound_by = bound(bytes_moved, 4.0 * b * h * hop * hop * d, BF16_FLOPS)
+        print(f"  [{card}] B1 at the ring hop [2, {hop}, 12, 64] bf16, kmask, return_lse (CUDA events, 20 "
+              f"launches): kernel {kernel_ms:.4f} / {kernel_again:.4f} ms (before / after SDPA), plain "
+              f"{plain_ms:.4f} ms, SDPA (boolean key mask) {sdpa_ms:.4f} ms, bound {bound_ms:.4f} ms "
+              f"({bound_by})", flush=True)
+
+
+def sp_batch(torch, cfg, dev):
+    """18b's ids and mask [8, 512]: mixed lengths, padding spanning shards."""
+    import numpy as np
+
+    rng = np.random.default_rng(18)
+    ids = torch.from_numpy(rng.integers(4, cfg.vocab_size, (len(SP_LENGTHS), SP_T)).astype("int32"))
+    mask = torch.zeros_like(ids)
+    for i, n in enumerate(SP_LENGTHS):
+        mask[i, :n] = 1
+        ids[i, n:] = cfg.pad_id
+    labels = torch.from_numpy((rng.random((len(SP_LENGTHS), cfg.n_labels)) < 0.05).astype("float32"))
+    return ids.to(dev), mask.to(dev), labels.to(dev)
+
+
+@phase("18b. the sequence-parallel forward at full ROBERTA_GO_EMOTIONS width: ids [8, 512] on 8 seq slots")
+def sp_forward_phase(torch, launches):
+    from svoc_torch.models.configs import ROBERTA_GO_EMOTIONS
+    from svoc_torch.models.encoder import SentimentEncoder, init_params, load_encoder
+    from svoc_torch.parallel.mesh import MeshSpec, make_mesh
+    from svoc_torch.parallel.sp_encoder import sequence_parallel_forward_fn
+
+    dev = torch.device("cuda")
+    params = init_params(ROBERTA_GO_EMOTIONS, seed=0, device=dev)
+    ids, mask, _ = sp_batch(torch, ROBERTA_GO_EMOTIONS, dev)
+    mesh = make_mesh(MeshSpec(("seq",), (8,)))
+    card = nvidia_smi()
+    outs = {}
+    with torch.inference_mode():
+        for attention in ("dense", "flash"):
+            cfg = dataclasses.replace(ROBERTA_GO_EMOTIONS, attention=attention)
+            fwd = sequence_parallel_forward_fn(mesh, cfg)
+            fwd(params, ids, mask)  # warm-up
+            wrappers = zero_counts(mesh_wrappers())
+            ms, logits = event_ms(torch, lambda: fwd(params, ids, mask))
+            counts = read_counts(wrappers)
+            add_launches(launches, counts)
+            want = {"flash_attention": cfg.n_layers * 8 * 8} if attention == "flash" else {}
+            check(launches_are(counts, want),
+                  f"18b {attention} inner: B1 {want.get('flash_attention', 0)} launches a forward (12 layers x 8 "
+                  f"slots x 8 hops under flash) ({counts})")
+            plain_ms, plain = event_ms(torch, lambda: load_encoder(SentimentEncoder, cfg, params)(ids, mask))
+            err = max_err(logits, plain)
+            check(err <= MESH_LOGIT_BAR and bool(torch.isfinite(logits).all()) and logits.shape == (8, 28),
+                  f"18b {attention} inner: logits [8, 28] within {MESH_LOGIT_BAR} of the unsharded {attention} "
+                  f"forward's: {err:.3e} (max |logit| {float(plain.abs().max()):.3f})")
+            outs[attention] = logits
+            print(f"  [{card}] SP forward, {attention} inner: {ms:.3f} ms on 8 slots (CUDA events, after a "
+                  f"warm-up), the unsharded forward {plain_ms:.3f} ms", flush=True)
+    gap = max_err(outs["flash"], outs["dense"])
+    check(gap <= MESH_LOGIT_BAR, f"18b flash inner within {MESH_LOGIT_BAR} of the dense inner: {gap:.3e}")
+
+
+@phase("18c. the sequence-parallel train step at full width, float32, dense: 3 SGD steps against the unsharded")
+def sp_train_phase(torch, launches):
+    from svoc_torch.models.configs import ROBERTA_GO_EMOTIONS
+    from svoc_torch.models.encoder import SentimentEncoder, init_params
+    from svoc_torch.parallel.mesh import MeshSpec, make_mesh
+    from svoc_torch.train.trainer import Batch, init_state, make_sp_train_step, make_train_step, sgd
+
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(ROBERTA_GO_EMOTIONS, dtype=torch.float32)
+    params = init_params(cfg, seed=0, device=dev)
+    batch = Batch(*sp_batch(torch, cfg, dev))
+    mesh = make_mesh(MeshSpec(("seq",), (8,)))
+    card = nvidia_smi()
+    runs = {}
+    for name, step in (("unsharded", make_train_step()), ("sp", make_sp_train_step(cfg, mesh))):
+        with torch.device("meta"):
+            model = SentimentEncoder(cfg)
+        state = init_state(model, params, sgd(SP_SGD_LR), device=dev)
+        wrappers = zero_counts(mesh_wrappers())
+        rows = []
+        for _ in range(SP_TRAIN_STEPS):
+            ms, (state, metrics) = event_ms(torch, lambda: step(state, batch))
+            rows.append((metrics["loss"].item(), metrics["grad_norm"].item(), ms))
+        counts = read_counts(wrappers)
+        add_launches(launches, counts)
+        check(launches_are(counts, {}), f"18c {name}: no kernel launches (dense attention) ({counts})")
+        runs[name] = (rows, {k: p.detach() for k, p in state.model.named_parameters()})
+        del state, model
+        torch.cuda.empty_cache()
+    (plain_rows, plain_p), (sp_rows, sp_p) = runs["unsharded"], runs["sp"]
+    loss_err = max(abs(a[0] - b[0]) / abs(b[0]) for a, b in zip(sp_rows, plain_rows))
+    p_err = max(max_err(sp_p[k], plain_p[k]) for k in plain_p)
+    check(loss_err <= 1e-4 and p_err <= 5e-5,
+          f"18c {SP_TRAIN_STEPS} SGD({SP_SGD_LR}) steps: losses within rtol 1e-4 ({loss_err:.3e}), parameters "
+          f"within 5e-5 ({p_err:.3e}) of the unsharded dense step's (tests/test_train.py's SP bars)")
+    print(f"  [{card}] SP train step [8, 512] f32 on 8 slots: (loss, grad norm, ms by CUDA events) {sp_rows}; "
+          f"unsharded {plain_rows}", flush=True)
+
+
+@phase("18d. the pipeline forward at full width: stage(4) x data(2), 4 microbatches, flash, ids [32, 128]")
+def pipeline_phase(torch, launches):
+    import numpy as np
+
+    from svoc_torch.models.configs import ROBERTA_GO_EMOTIONS
+    from svoc_torch.models.encoder import SentimentEncoder, init_params, load_encoder
+    from svoc_torch.parallel import pipeline_forward_fn
+    from svoc_torch.parallel.mesh import MeshSpec, make_mesh
+
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(ROBERTA_GO_EMOTIONS, attention="flash")
+    params = init_params(cfg, seed=0, device=dev)
+    rng = np.random.default_rng(19)
+    ids = torch.from_numpy(rng.integers(4, cfg.vocab_size, (PIPE_ROWS, PIPE_T)).astype("int32"))
+    mask = torch.ones_like(ids)
+    for i, n in enumerate(rng.integers(2, PIPE_T + 1, PIPE_ROWS)):
+        mask[i, n:] = 0
+        ids[i, n:] = cfg.pad_id
+    ids, mask = ids.to(dev), mask.to(dev)
+    mesh = make_mesh(MeshSpec(("stage", "data"), PIPE_MESH))
+    fwd = pipeline_forward_fn(mesh, cfg, n_microbatches=PIPE_MICRO, data_axis="data")
+    card = nvidia_smi()
+    with torch.inference_mode():
+        fwd(params, ids, mask)  # warm-up
+        wrappers = zero_counts(mesh_wrappers())
+        ms, logits = event_ms(torch, lambda: fwd(params, ids, mask))
+        counts = read_counts(wrappers)
+        add_launches(launches, counts)
+        want = {"flash_attention": PIPE_MICRO * cfg.n_layers * PIPE_MESH[1]}
+        check(launches_are(counts, want),
+              f"18d B1 {want['flash_attention']} launches a forward: {PIPE_MICRO} microbatches x {cfg.n_layers} "
+              f"layers x {PIPE_MESH[1]} data slots, the bubbles skipped ({counts})")
+        plain_ms, plain = event_ms(torch, lambda: load_encoder(SentimentEncoder, cfg, params)(ids, mask))
+    err = max_err(logits, plain)
+    check(err <= MESH_LOGIT_BAR and logits.shape == (PIPE_ROWS, cfg.n_labels),
+          f"18d logits within {MESH_LOGIT_BAR} of the unsharded flash forward's: {err:.3e}")
+    print(f"  [{card}] pipeline forward of [32, 128] on stage(4) x data(2): {ms:.3f} ms (CUDA events, after a "
+          f"warm-up; {PIPE_MESH[0] + PIPE_MICRO - 1} schedule steps), the unsharded forward {plain_ms:.3f} ms",
+          flush=True)
+
+
+@phase("18e. the tensor-parallel packed train step at full width on data(4) x model(2): flash, AdamW, ZeRO-1")
+def tp_train_phase(torch, launches):
+    import numpy as np
+
+    from svoc_torch.flagship import pack_stream, token_lists
+    from svoc_torch.io.scraper import SyntheticSource
+    from svoc_torch.models.configs import ROBERTA_GO_EMOTIONS
+    from svoc_torch.models.encoder import init_params
+    from svoc_torch.models.tokenizer import HashingTokenizer
+    from svoc_torch.ops.flash_attention import (
+        attention_delta, attention_tags, flash_attention_bwd_plain, flash_attention_cuda, flash_dkv_cuda,
+        flash_dq_cuda,
+    )
+    from svoc_torch.parallel.mesh import MeshSpec, make_mesh
+    from svoc_torch.train.trainer import adamw, make_packed_train_step, make_sharded_packed_train_step
+    from svoc_torch.train.trainer import max_shard_fraction
+
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(ROBERTA_GO_EMOTIONS, attention="flash")
+    tok = HashingTokenizer(cfg.vocab_size, pad_id=cfg.pad_id, max_len=128)
+    feed = pack_stream(token_lists(tok, SyntheticSource(batch=256, seed=7), 128), 256, 128, 8, tok.pad_id)
+    rng = np.random.default_rng(0)
+    batches = []
+    for _ in range(TP_STEPS):
+        batch, n = next(feed)
+        batches.append(train_batch(torch, batch, n, rng, cfg.n_labels, dev))
+    params = init_params(cfg, seed=0, device=dev)
+    mesh = make_mesh(MeshSpec(("data", "model"), TP_MESH))
+    slots = TP_MESH[0] * TP_MESH[1]
+    card = nvidia_smi()
+    runs = {}
+    for name in ("unsharded", "sharded", "zero1"):
+        state = packed_state(torch, cfg, params, adamw(TP_LR), dev)
+        if name == "unsharded":
+            step = make_packed_train_step()
+        else:
+            step, shard_state, _ = make_sharded_packed_train_step(cfg, mesh, params_template=params,
+                                                                  zero1=name == "zero1")
+            state = shard_state(state)
+        rows, per_step = [], []
+        torch.cuda.reset_peak_memory_stats()
+        for tb in batches:
+            wrappers = zero_counts(mesh_wrappers())
+            t0 = time.perf_counter()
+            ms, (state, metrics) = event_ms(torch, lambda: step(state, tb))
+            rows.append(dict(loss=metrics["loss"].item(), grad_norm=metrics["grad_norm"].item(), event_ms=ms,
+                             host_ms=(time.perf_counter() - t0) * 1e3))
+            counts = read_counts(wrappers)
+            add_launches(launches, counts)
+            per_step.append(counts)
+        heads = cfg.n_heads // (TP_MESH[1] if name != "unsharded" else 1)
+        want = cfg.n_layers * (slots if name != "unsharded" else 1)
+        check(all(launches_are(c, dict(flash_attention=want, flash_dq=want, flash_dkv=want)) for c in per_step),
+              f"18e {name}: B1, B4 and B5 {want} launches each a step, on {heads} of the {cfg.n_heads} heads "
+              f"({per_step[0]})")
+        if name == "unsharded":
+            whole = {k: p.detach().clone() for k, p in state.model.named_parameters()}
+        else:
+            whole = {k: arr.gather() for k, arr in state.params.items()}
+        extra = {}
+        if name == "zero1":
+            fractions = {k: max_shard_fraction(arr) for m in state.opt_state.values() for k, arr in m.items()}
+            worst = max(max_shard_fraction(arr) for m in state.opt_state.values() for arr in m.values())
+            extra = dict(moments=len(fractions), max_shard_fraction=worst)
+            check(len(state.opt_state) == len(whole) and worst <= 0.25 + 1e-9,
+                  f"18e ZeRO-1: every AdamW moment of all {len(whole)} parameters at most 1/4 of its whole on a "
+                  f"slot (largest piece {worst:.4f} of its whole)")
+        runs[name] = (rows, whole, torch.cuda.max_memory_allocated() / 2**30, extra)
+        del state
+        torch.cuda.empty_cache()
+    plain_rows, plain_p, _, _ = runs["unsharded"]
+    p_bar = TP_STEPS * 2 * TP_LR * 1.05
+    for name in ("sharded", "zero1"):
+        rows, whole, _, _ = runs[name]
+        loss_err = max(abs(r["loss"] - p["loss"]) / abs(p["loss"]) for r, p in zip(rows, plain_rows))
+        norm_err = max(abs(r["grad_norm"] - p["grad_norm"]) / p["grad_norm"] for r, p in zip(rows, plain_rows))
+        p_err = max(max_err(whole[k], plain_p[k]) for k in plain_p)
+        check(loss_err <= TP_LOSS_RTOL and norm_err <= TP_NORM_RTOL and p_err <= p_bar,
+              f"18e {name}: against the unsharded packed step over {TP_STEPS} AdamW({TP_LR}) steps, losses rtol "
+              f"{loss_err:.3e} <= {TP_LOSS_RTOL}, grad norms rtol {norm_err:.3e} <= {TP_NORM_RTOL}, parameters "
+              f"{p_err:.3e} <= {p_bar:.3g} (2 lr a step: AdamW's steps of a near-zero gradient's two signs)")
+    for name, (rows, _, peak, extra) in runs.items():
+        print(f"  [{card}] {name} packed step of 256 x 128 rows: " + json.dumps(rows)
+              + f"; max memory allocated {peak:.3f} GiB {extra or ''}", flush=True)
+
+    # B4 and B5 on a model shard's 6 heads: one data slot's 64 rows.
+    seg = batches[0].seg[:64].to(torch.int32).contiguous()
+    gen = torch.Generator(device=dev).manual_seed(5)
+    q, k, v, dout = (torch.randn(64, 128, cfg.n_heads // TP_MESH[1], cfg.head_dim, generator=gen,
+                                 device=dev).to(torch.bfloat16) for _ in range(4))
+    qtag, ktag = attention_tags(q, segment_ids=seg)
+    out, lse = flash_attention_cuda(q, k, v, qtag, ktag, return_lse=True)
+    delta = attention_delta(out, dout)
+    got = (flash_dq_cuda(q, k, v, qtag, ktag, dout, lse, delta), *flash_dkv_cuda(q, k, v, qtag, ktag, dout, lse, delta))
+    ref = flash_attention_bwd_plain(q.float(), k.float(), v.float(), qtag, ktag, out.float(), lse, dout.float())
+    errs = [max_err(g, r) for g, r in zip(got, ref)]
+    ok = all(bool(((g.float() - r).abs() <= 3e-2 + 2.0 ** -8 * r.abs()).all()) for g, r in zip(got, ref))
+    check(ok, "18e B4 and B5 on a 6-head shard [64, 128, 6, 64] bf16 with a data slot's segments: max |kernel - "
+              "plain| dq {:.3e}, dk {:.3e}, dv {:.3e} <= 3e-2 + 2^-8 |plain|".format(*errs))
+
+
+@phase("18f. the fine-tune twin's reference defaults on TINY on 4x2 slots, with and without --zero1")
+def finetune_mesh_phase(torch, launches):
+    from svoc_torch.tools import finetune_demo
+
+    card = nvidia_smi()
+    for zero1 in (False, True):
+        wrappers = zero_counts(mesh_wrappers())
+        t0 = time.perf_counter()
+        report = finetune_demo.run(device="cuda", zero1=zero1)
+        secs = time.perf_counter() - t0
+        counts = read_counts(wrappers)
+        add_launches(launches, counts)
+        check(report["ok"] and report["same_mesh_replay_max_abs_param_delta"] == 0.0
+              and report["changed_mesh_restore_max_abs_param_delta"] == 0.0 and launches_are(counts, {}),
+              f"18f zero1={zero1}: macro-F1 {report['macro_f1_before']} -> {report['macro_f1_after']} (target "
+              f"{report['target_f1']}), same-mesh replay {report['same_mesh_replay_max_abs_param_delta']}, "
+              f"changed-mesh restore {report['changed_mesh_restore_max_abs_param_delta']}, continued losses "
+              f"{report['changed_mesh_continued_losses']} (last < 1.5 x the checkpoint's), no kernel launches "
+              f"(dense) ({counts})")
+        print(f"  [{card}] zero1={zero1}: loss {report['loss_curve'][0]} -> {report['loss_curve'][-1]}, train step "
+              f"{report['step_ms']:.3f} ms, {secs:.1f} s with the evaluations, the replay and the changed mesh",
+              flush=True)
+
+
 def main() -> int:
     try:
         import torch
@@ -6046,13 +6460,23 @@ def main() -> int:
         mesh_fleet_phase(torch, launches)
         mesh_serving_phase(torch, launches)
         print(f"  (phase 17 in all: {time.perf_counter() - t_mesh:.1f} s)", flush=True)
+        meshed = dict(launches)
+        t_paths = time.perf_counter()
+        ring_phase(torch, launches)
+        sp_forward_phase(torch, launches)
+        sp_train_phase(torch, launches)
+        pipeline_phase(torch, launches)
+        tp_train_phase(torch, launches)
+        finetune_mesh_phase(torch, launches)
+        print(f"  (phase 18 in all: {time.perf_counter() - t_paths:.1f} s)", flush=True)
         print(f"  launches: serving paths {serving}; with the train paths {trained}; "
               f"with the multi-claim path {claimed}; with the probe path {probed}; "
               f"with the commit path {committed}; with the fabric paths {fabricked}; "
               f"with the serving tier {tiered}; with the durable paths {durable}; "
               f"with the cold-start paths {started}; with the cluster paths {clustered}; "
               f"with the reconfiguration paths {reconfigured}; with the obs gates, the certificate and the "
-              f"sweeps {swept}; with the console {consoled}; with the mesh {launches}")
+              f"sweeps {swept}; with the console {consoled}; with the mesh {meshed}; with the training and "
+              f"sequence paths on the mesh {launches}")
     check(all(launches.get(name, 0) > 0 for name in KERNEL_ROWS),
           f"every kernel launched on its path: { {k: launches.get(k, 0) for k in KERNEL_ROWS} }")
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "svoc_tpu"))

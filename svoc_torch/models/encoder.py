@@ -1,7 +1,8 @@
 """RoBERTa-style post-LN sentiment encoder as ``nn.Module``s.
 
 Mirrors :mod:`svoc_tpu.models.encoder` (``SelfAttention``,
-``EncoderBlock``, ``SentimentEncoder``, ``init_params``).  Submodules
+``EncoderBlock``, ``SentimentEncoder``, ``init_params``,
+``param_shardings``).  Submodules
 keep the flax names (``block_{i}.attention.query``, ``ln_attn``, …) so
 that :func:`svoc_torch.models.from_jax.params_from_flax` maps a flax tree
 onto them one to one.  What must match the reference:
@@ -186,6 +187,35 @@ def init_params(
             params[prefix + "weight"] = torch.ones(cfg.hidden, device=device)
             params[prefix + "bias"] = torch.zeros(cfg.hidden, device=device)
     return {k: v.to(dtype) for k, v in params.items()}
+
+
+#: The Megatron layout (``encoder.py:142-171``): these projections split
+#: their output features over the model axis, the row-split ones their
+#: input features.
+COLUMN_SPLIT = ("ffn_in", "query", "key", "value")
+ROW_SPLIT = ("ffn_out", "attention.out")
+
+
+def param_shardings(params: Dict[str, torch.Tensor], mesh, model_axis: str = "model") -> Dict:
+    """A :class:`~svoc_torch.parallel.mesh.NamedSharding` for each tensor
+    of the port's state dict: tensor parallelism over ``model_axis``,
+    the reference's Megatron layout.  A ``Linear`` weight is ``[out,
+    in]`` here, the transpose of flax's ``[in, out]`` kernel, so the
+    ``query``, ``key``, ``value`` and ``ffn_in`` weights split dimension
+    0 (flax's column) and ``ffn_out`` and ``attention.out`` dimension 1
+    (flax's row); every other tensor (biases, LayerNorms, embeddings, the
+    head) is replicated, as the reference matches only 2-D kernels."""
+    from svoc_torch.parallel.mesh import NamedSharding, P
+
+    def spec_for(name: str, leaf: torch.Tensor) -> P:
+        if leaf.dim() == 2 and name.endswith(".weight"):
+            if any(k in name for k in COLUMN_SPLIT):
+                return P(model_axis, None)
+            if any(k in name for k in ROW_SPLIT):
+                return P(None, model_axis)
+        return P()
+
+    return {name: NamedSharding(mesh, spec_for(name, leaf)) for name, leaf in params.items()}
 
 
 def _normal(shape, std, gen, device):

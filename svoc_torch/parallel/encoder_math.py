@@ -5,9 +5,14 @@ Mirrors :mod:`svoc_tpu.parallel.encoder_math` (``encoder_math.py:21-113``):
 :func:`local_position_ids`, :func:`cls_head`, :func:`local_attention` and
 :func:`encoder_block` with ``dense_fn=`` and ``attention_fn=``.  The
 W8A8 forward (:mod:`svoc_torch.models.quant`) runs the block through
-here with its quantized matmul, and the sequence-parallel encoder and
-the pipeline (ROADMAP A12e part 2) will too, so that the block's wiring is
-written once.  With ``dense_fn`` left at its default, the blocks equal
+here with its quantized matmul, the sequence-parallel encoder
+(:mod:`~svoc_torch.parallel.sp_encoder`) with the ring as its attention,
+the pipeline (:mod:`~svoc_torch.parallel.pipeline`) as it is, and the
+tensor-parallel train step (:mod:`svoc_torch.train.trainer`) on a model
+shard's heads, so that the block's wiring is written once.  The head
+count comes from the query projection's width, so a block whose
+projections hold some of the heads runs those.  With ``dense_fn`` left
+at its default, the blocks equal
 :class:`svoc_torch.models.encoder.SentimentEncoder`'s exactly at float32.
 
 The parameters are the port's own names, as a nested dict
@@ -93,16 +98,16 @@ def encoder_block(x, kmask, bp: Mapping, cfg: EncoderConfig, attention_fn=None, 
     if dense_fn is None:
         dense_fn = dense
     b, t, _ = x.shape
-    h, d = cfg.n_heads, cfg.head_dim
+    d = cfg.head_dim
     ap = bp["attention"]
-    q = dense_fn(x, ap["query"], cfg.dtype).reshape(b, t, h, d)
-    k = dense_fn(x, ap["key"], cfg.dtype).reshape(b, t, h, d)
-    v = dense_fn(x, ap["value"], cfg.dtype).reshape(b, t, h, d)
+    q = dense_fn(x, ap["query"], cfg.dtype).reshape(b, t, -1, d)
+    k = dense_fn(x, ap["key"], cfg.dtype).reshape(b, t, -1, d)
+    v = dense_fn(x, ap["value"], cfg.dtype).reshape(b, t, -1, d)
     if attention_fn is None:
         ctx = local_attention(q, k, v, kmask, cfg)
     else:
         ctx = attention_fn(q, k, v, kmask)
-    a = dense_fn(ctx.reshape(b, t, cfg.hidden), ap["out"], cfg.dtype)
+    a = dense_fn(ctx.reshape(b, t, -1), ap["out"], cfg.dtype)
     x = layernorm(x + a, bp["ln_attn"], cfg.ln_eps).to(cfg.dtype)
     f = F.gelu(dense_fn(x, bp["ffn_in"], cfg.dtype), approximate="none")
     f = dense_fn(f, bp["ffn_out"], cfg.dtype)

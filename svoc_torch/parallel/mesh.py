@@ -3,7 +3,10 @@
 Mirrors :mod:`svoc_tpu.parallel.mesh` (``mesh.py:1-304``: the axis
 names, ``CLAIM_MESH_ENV``, ``MeshConfigError``, ``MeshSpec``,
 ``make_mesh``, ``parse_claim_mesh``, ``claim_mesh``, ``best_mesh``,
-``hybrid_mesh``, ``init_distributed``, ``replicated``, ``row_sharded``).
+``hybrid_mesh``, ``init_distributed``, ``replicated``, ``row_sharded``),
+with :class:`ShardedArray`, the counterpart of a ``jax.Array`` that a
+``NamedSharding`` placed: one piece a slot, each on its slot's device
+(the mesh train state keeps its tensors so).
 
 Axis conventions (as in the reference):
 
@@ -43,9 +46,10 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import itertools
 import math
 import os
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -162,6 +166,77 @@ class NamedSharding:
             chunk = x.shape[dim] // size
             x = x.narrow(dim, coords[axis] * chunk, chunk)
         return x.to(device)
+
+
+class ShardedArray:
+    """One logical tensor kept as one piece a slot of a mesh, each piece
+    on its slot's device: the counterpart of a ``jax.Array`` placed by a
+    :class:`NamedSharding` (its ``addressable_shards``).  The pieces split
+    the whole as ``sharding.spec`` says; slots that differ only along an
+    axis the spec leaves out hold equal pieces, each a tensor of its
+    own.  ``pieces`` maps a slot's coordinates (one index an axis, in the
+    mesh's axis order) to its piece."""
+
+    def __init__(self, sharding: NamedSharding, shape, pieces: Dict[Tuple[int, ...], torch.Tensor]):
+        self.sharding = sharding
+        self.shape = torch.Size(shape)
+        self.pieces = pieces
+
+    @classmethod
+    def put(cls, x: torch.Tensor, sharding: NamedSharding, requires_grad: bool = False) -> "ShardedArray":
+        """``x`` split by ``sharding``, a copy of its piece on each slot
+        (``jax.device_put``); with ``requires_grad`` each piece is a leaf
+        that autograd fills a ``.grad`` of."""
+        mesh = sharding.mesh
+        pieces = {}
+        for key in slot_keys(mesh):
+            piece = sharding.local(x.detach(), dict(zip(mesh.axis_names, key))).clone()
+            pieces[key] = piece.requires_grad_(requires_grad)
+        return cls(sharding, x.shape, pieces)
+
+    @property
+    def mesh(self) -> Mesh:
+        return self.sharding.mesh
+
+    @property
+    def spec(self) -> P:
+        return self.sharding.spec
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.shape)
+
+    @property
+    def addressable_shards(self) -> List[torch.Tensor]:
+        """Every slot's piece (``jax.Array.addressable_shards``' data)."""
+        return list(self.pieces.values())
+
+    def local(self, coords: dict) -> torch.Tensor:
+        """The piece of the slot at ``coords`` (axis → index)."""
+        return self.pieces[tuple(coords[a] for a in self.mesh.axis_names)]
+
+    def gather(self) -> torch.Tensor:
+        """The whole tensor on the mesh's controller, detached: the
+        pieces joined along the axes the spec names, from the slots at
+        index 0 along the others."""
+        mesh = self.mesh
+        named = [(dim, axis) for dim, axis in enumerate(self.spec) if axis is not None]
+
+        def build(level: int, coords: dict) -> torch.Tensor:
+            if level == len(named):
+                return self.pieces[tuple(coords.get(a, 0) for a in mesh.axis_names)].detach().to(mesh.controller)
+            dim, axis = named[level]
+            return torch.cat([build(level + 1, dict(coords, **{axis: i})) for i in range(mesh.shape[axis])], dim=dim)
+
+        return build(0, {})
+
+    def __repr__(self) -> str:
+        return f"ShardedArray({tuple(self.shape)}, {self.spec}, {self.mesh})"
+
+
+def slot_keys(mesh: Mesh) -> List[Tuple[int, ...]]:
+    """Every slot's coordinates, in slot order (the last axis fastest)."""
+    return list(itertools.product(*(range(n) for n in mesh.shape.values())))
 
 
 def canonical_device(device) -> torch.device:

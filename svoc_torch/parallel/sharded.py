@@ -11,10 +11,11 @@ mesh is single-controller): it splits each input by its :class:`P` spec
 and runs the body once per slot, on that slot's device, so every kernel
 a body calls launches on its slot's tensors' device
 (``ops/_build.py::launch``).  Inside the body, :func:`axis_index`,
-:func:`axis_size`, :func:`all_gather` (concatenate in axis-index order)
-and :func:`psum` (add the partials in axis-index order) are plain tensor
-ops across the slots of the body's group (the slots that differ only
-along the named axis).  Outputs are assembled by their specs on the
+:func:`axis_size`, :func:`all_gather` (concatenate in axis-index order),
+:func:`psum` (add the partials in axis-index order) and :func:`ppermute`
+(each slot gets its source's piece) are plain tensor ops across the
+slots of the body's group (the slots that differ only along the named
+axis), so autograd follows them from slot to slot.  Outputs are assembled by their specs on the
 mesh's first slot's device; an axis an output spec leaves out is
 replicated, and the slot at index 0 along it gives the value.
 
@@ -29,8 +30,9 @@ How the slots run:
 - With ``collectives=False`` the slots run one after another on the
   caller's thread, and any collective raises: the form of a body with no
   cross-slot math (the claim shard's exact-parity contract).
-- Otherwise each running slot gets a thread, and the threads run in
-  lockstep: one at a time, in slot order, each up to its next
+- Otherwise each running slot gets a thread (long-lived ones, kept
+  idle between runs: a fresh thread pays for CUDA's per-thread setup),
+  and the threads run in lockstep: one at a time, in slot order, each up to its next
   collective, so the collective of round *r* reads every slot's
   contribution to round *r*.  The work is as serial as the caller's
   (kernel launches and launch counters see one slot at a time, in slot
@@ -53,7 +55,10 @@ bitwise the same however the mesh splits it.
 from __future__ import annotations
 
 import contextlib
+import functools
 import itertools
+import os
+import queue
 import threading
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
@@ -63,7 +68,7 @@ import torch
 from svoc_torch.consensus.kernel import ConsensusConfig, ConsensusOutput, reliability
 from svoc_torch.ops import sort as sort_ops
 from svoc_torch.ops import stats
-from svoc_torch.parallel.mesh import Mesh, NamedSharding, P
+from svoc_torch.parallel.mesh import Mesh, NamedSharding, P, ShardedArray
 from svoc_torch.robustness.sanitize import quarantine_mask
 from svoc_torch.sim import prng
 
@@ -81,39 +86,40 @@ class _Aborted(Exception):
 class _Lockstep:
     """Runs the slot threads one at a time, in slot order, handing the
     turn on at every collective and at the body's end; a collective's
-    contributions are kept by call number."""
+    contributions are kept by call number.  Each slot waits on an event
+    of its own, so a handoff wakes the next slot alone."""
 
     def __init__(self, n: int):
         self.n = n
-        self.cond = threading.Condition()
-        self.turn = 0
+        self.lock = threading.Lock()
+        self.wake = [threading.Event() for _ in range(n)]
+        self.wake[0].set()
         self.done = [False] * n
         self.error: Optional[BaseException] = None
         self.deposits: Dict[int, Dict[int, Any]] = {}
 
     def wait_turn(self, k: int) -> None:
-        with self.cond:
-            while self.turn != k and self.error is None:
-                self.cond.wait()
-            if self.error is not None:
-                raise _Aborted()
+        self.wake[k].wait()
+        self.wake[k].clear()
+        if self.error is not None:
+            raise _Aborted()
 
     def pass_turn(self, k: int, finished: bool = False) -> None:
-        with self.cond:
+        with self.lock:
             self.done[k] = self.done[k] or finished
             nxt = (k + 1) % self.n
             for _ in range(self.n):
                 if not self.done[nxt]:
                     break
                 nxt = (nxt + 1) % self.n
-            self.turn = nxt
-            self.cond.notify_all()
+        self.wake[nxt].set()
 
     def fail(self, error: BaseException) -> None:
-        with self.cond:
+        with self.lock:
             if self.error is None:
                 self.error = error
-            self.cond.notify_all()
+        for event in self.wake:
+            event.set()
 
 
 class _SlotContext:
@@ -179,7 +185,7 @@ def _exchange(axis: str, value) -> List[Any]:
         raise RuntimeError(f"a collective over {axis!r} in a shard_map run with collectives=False")
     call = ctx.calls
     ctx.calls += 1
-    with lockstep.cond:
+    with lockstep.lock:
         lockstep.deposits.setdefault(call, {})[ctx.index] = value
     lockstep.pass_turn(ctx.index)
     lockstep.wait_turn(ctx.index)
@@ -214,12 +220,71 @@ def psum(x, axis: str):
     return total
 
 
+def ppermute(x, axis: str, perm):
+    """``jax.lax.ppermute``: ``perm`` lists ``(source, destination)``
+    pairs of indices along ``axis``; each slot gets what its source
+    passed, on its own device, and a slot that no pair names as a
+    destination gets zeros.  ``x`` is a tensor or a tuple or list of
+    them, sent in one exchange.  The copy is a differentiable
+    ``.to(device)`` (no copy between slots of one device), so autograd
+    carries a gradient back to the source slot."""
+    ctx = _context()
+    _check_axis(ctx, axis)
+    size = ctx.mesh.shape[axis]
+    pairs = [(int(src), int(dst)) for src, dst in perm]
+    sources, dests = [p[0] for p in pairs], [p[1] for p in pairs]
+    if len(set(sources)) < len(sources) or len(set(dests)) < len(dests) or not all(
+            0 <= i < size for i in sources + dests):
+        raise ValueError(f"perm {perm} is not a partial permutation of the {size} indices of {axis!r}")
+    peers = _exchange(axis, x)
+    src = dict((d, s) for s, d in pairs).get(ctx.coords[axis])
+    dev = current_device()
+    if src is None:
+        return _map_tensors(torch.zeros_like, x)
+    return _map_tensors(lambda t: t.to(dev), peers[src])
+
+
+def _map_tensors(fn, x):
+    if isinstance(x, (tuple, list)):
+        return type(x)(fn(t) for t in x)
+    return fn(x)
+
+
+def to_slot(tree):
+    """Every tensor of a (nested) dict on the running slot's device: a
+    replicated parameter tree passed with ``P()`` arrives as the caller
+    holds it."""
+    dev = current_device()
+    if isinstance(tree, dict):
+        return {k: to_slot(v) for k, v in tree.items()}
+    return tree.to(dev) if isinstance(tree, torch.Tensor) else tree
+
+
 def _spec_axes(tree) -> set:
     if isinstance(tree, P):
         return {a for a in tree if a is not None}
+    if isinstance(tree, dict):
+        tree = tuple(tree.values())
     if isinstance(tree, (tuple, list)):
         return set().union(*(_spec_axes(t) for t in tree)) if tree else set()
     raise TypeError(f"not a spec tree: {tree!r}")
+
+
+def _local_input(mesh: Mesh, spec, x, coords: dict):
+    """A slot's piece of one input.  A dict of specs splits a dict input
+    key by key; a :class:`P` that names an axis splits every tensor of a
+    dict input (a spec is a prefix of its input's tree, as in JAX)."""
+    if isinstance(spec, dict):
+        if set(spec) != set(x):
+            raise ValueError("a dict of specs needs an input dict of the same keys")
+        return {k: _local_input(mesh, spec[k], x[k], coords) for k in x}
+    if isinstance(x, dict) and any(a is not None for a in spec):
+        return {k: _local_input(mesh, spec, v, coords) for k, v in x.items()}
+    if isinstance(x, ShardedArray):
+        if tuple(x.spec) != tuple(spec):
+            raise ValueError(f"a ShardedArray placed by {x.spec} passed where {spec} is expected")
+        return x.local(coords)
+    return NamedSharding(mesh, spec).local(x, coords)
 
 
 def _assemble(spec_tree, outs: Dict[Tuple[int, ...], Any], mesh: Mesh, select: Callable):
@@ -264,7 +329,8 @@ def shard_map(
 ) -> Callable:
     """``f`` run once per slot of ``mesh`` on its inputs' pieces
     (``jax.shard_map``'s counterpart; the module docstring says how).
-    ``in_specs`` holds one :class:`P` a positional input, ``out_specs``
+    ``in_specs`` holds one spec a positional input: a :class:`P`, or a
+    dict of them for a dict input (:func:`_local_input`); ``out_specs``
     the output tree's specs (a :class:`P`, or a tuple or NamedTuple of
     them)."""
     mapped = _spec_axes(tuple(in_specs)) | _spec_axes(out_specs)
@@ -274,20 +340,20 @@ def shard_map(
     ranges = [range(mesh.shape[a]) if a in mapped else range(1) for a in mesh.axis_names]
     slots = [dict(zip(mesh.axis_names, c)) for c in itertools.product(*ranges)]
     slot_of = {tuple(c[a] for a in mesh.axis_names): i for i, c in enumerate(slots)}
-    shardings = [NamedSharding(mesh, spec) for spec in in_specs]
+    in_specs = tuple(in_specs)
 
     def run_slot(index: int, lockstep, args):
         coords = slots[index]
         _local.ctx = _SlotContext(mesh, coords, index, mapped, lockstep, slot_of)
         try:
-            local = [s.local(a, coords) for s, a in zip(shardings, args)]
+            local = [_local_input(mesh, s, a, coords) for s, a in zip(in_specs, args)]
             return f(*local)
         finally:
             _local.ctx = None
 
     def mapped_fn(*args):
-        if len(args) != len(shardings):
-            raise TypeError(f"shard_map body takes {len(shardings)} inputs, got {len(args)}")
+        if len(args) != len(in_specs):
+            raise TypeError(f"shard_map body takes {len(in_specs)} inputs, got {len(args)}")
         if getattr(_local, "ctx", None) is not None:
             raise RuntimeError("shard_map bodies do not nest")
         outs: Dict[Tuple[int, ...], Any] = {}
@@ -301,10 +367,57 @@ def shard_map(
     return mapped_fn
 
 
+class _SlotWorker:
+    """A long-lived slot thread that runs the tasks put on its queue.  A
+    fresh thread pays for CUDA's per-thread setup (a cuBLAS handle among
+    it) at its first launches, milliseconds where a launch takes
+    microseconds, so the runner keeps its threads."""
+
+    def __init__(self):
+        self.tasks: "queue.SimpleQueue" = queue.SimpleQueue()
+        threading.Thread(target=self._loop, daemon=True, name="svoc-slot").start()
+
+    def _loop(self) -> None:
+        while True:
+            task = self.tasks.get()
+            try:
+                task()
+            except BaseException:  # noqa: BLE001 — a task reports its own errors; the worker lives on
+                pass
+
+
+_idle_workers: List[_SlotWorker] = []
+_idle_lock = threading.Lock()
+
+
+def _drop_workers_after_fork() -> None:
+    """A forked child has none of its parent's threads."""
+    global _idle_lock
+    _idle_workers.clear()
+    _idle_lock = threading.Lock()
+
+
+os.register_at_fork(after_in_child=_drop_workers_after_fork)
+
+
+def _acquire_workers(n: int) -> List[_SlotWorker]:
+    """``n`` idle slot threads, started when there are too few; runs of
+    shard_maps on several caller threads take different ones."""
+    with _idle_lock:
+        got = [_idle_workers.pop() for _ in range(min(n, len(_idle_workers)))]
+    return got + [_SlotWorker() for _ in range(n - len(got))]
+
+
+def _release_workers(workers: List[_SlotWorker]) -> None:
+    with _idle_lock:
+        _idle_workers.extend(workers)
+
+
 def _run_lockstep(run_slot, slots, mesh, args):
     lockstep = _Lockstep(len(slots))
     grad, inference, streams = _thread_state(mesh)
     results: List[Any] = [None] * len(slots)
+    finished = [threading.Event() for _ in slots]
 
     def worker(index: int):
         try:
@@ -321,12 +434,15 @@ def _run_lockstep(run_slot, slots, mesh, args):
             pass
         except BaseException as e:  # noqa: BLE001 — re-raised on the caller's thread
             lockstep.fail(e)
+        finally:
+            finished[index].set()
 
-    threads = [threading.Thread(target=worker, args=(i,), daemon=True) for i in range(len(slots))]
-    for t in threads:
-        t.start()
-    for t in threads:
-        t.join()
+    workers = _acquire_workers(len(slots))
+    for i, w in enumerate(workers):
+        w.tasks.put(functools.partial(worker, i))
+    for event in finished:
+        event.wait()
+    _release_workers(workers)
     if lockstep.error is not None:
         raise lockstep.error
     return {tuple(c[a] for a in mesh.axis_names): results[i] for i, c in enumerate(slots)}

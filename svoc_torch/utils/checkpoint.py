@@ -5,7 +5,9 @@ Mirrors :mod:`svoc_tpu.utils.checkpoint` (``checkpoint.py:1-575``):
 - **Training state**: ``save_train_state`` and ``restore_train_state``
   (``:59-85``), which write a :class:`TrainState` with orbax there.
   Here one ``torch.save`` file holds the step and the model's and the
-  optimizer's state dicts.
+  optimizer's state dicts; a state sharded over a mesh is gathered whole
+  first, and restores onto any mesh through its factory's
+  ``shard_state``.
 - **Simulation state**: :func:`contract_to_dict`/:func:`contract_from_dict`
   (``:87-158``) and :func:`save_simulation`/:func:`restore_simulation`
   (``:160-237``), the contract simulator plus the session cursor.
@@ -41,7 +43,7 @@ import numpy as np
 import torch
 
 from svoc_torch.consensus.state import OracleConsensusContract
-from svoc_torch.train.trainer import TrainState
+from svoc_torch.train.trainer import ShardedTrainState, TrainState, unshard_state
 
 #: The snapshot promotion boundary.  Declared in
 #: :mod:`svoc_torch.durability.faultspace` (importing the durability
@@ -59,8 +61,14 @@ _SCHEMA_VERSION = 1
 # ---------------------------------------------------------------------------
 
 
-def save_train_state(path: str, state: TrainState) -> None:
-    """Write ``state`` to the file ``path``."""
+def save_train_state(path: str, state: "TrainState | ShardedTrainState") -> None:
+    """Write ``state`` to the file ``path``.  A sharded state is written
+    whole (:func:`svoc_torch.train.trainer.unshard_state`), so the file is
+    the same whatever mesh wrote it, and a factory's ``shard_state``
+    places the restored state on any mesh (``tools/finetune_demo.py:
+    224-240``: orbax's restore, then ``device_put`` to another mesh)."""
+    if isinstance(state, ShardedTrainState):
+        state = unshard_state(state)
     torch.save(
         {
             "step": state.step,

@@ -323,43 +323,27 @@ class TestRouterIntegration:
         """The resident staging and the sanitized dispatch through the
         mesh: the same per-claim fingerprints as the reference's meshed
         router, every dispatch sharded."""
-        from conftest import fake_sentiment_vectorizer
-        from svoc_tpu.fabric.registry import ClaimSpec as RefSpec
-        from svoc_tpu.fabric.session import MultiSession as RefMulti
-
-        from svoc_torch.fabric.registry import ClaimSpec
-        from svoc_torch.fabric.session import MultiSession
-
-        from svoc_tpu.io.comment_store import CommentStore as RefStore
-        from svoc_tpu.io.scraper import SyntheticSource as RefSource
-
-        from svoc_torch.io.comment_store import CommentStore
-        from svoc_torch.io.scraper import SyntheticSource
-
-        def stores(Store, Source):
-            def factory(claim_id):
-                store = Store()
-                store.save(Source(batch=60, seed=len(claim_id))())
-                return store
-
-            return factory
-
-        def run(Multi, Spec, **kw):
-            multi = Multi(base_seed=4, vectorizer=fake_sentiment_vectorizer, mesh="2x1",
-                          device_resident=resident, sanitized_dispatch=sanitized, lineage_scope="msh", **kw)
-            for cid in ("a", "b", "c"):
-                multi.add_claim(Spec(claim_id=cid, n_oracles=8))
-            reg = multi.router._shard._metrics
-            before = [reg.family_total(f) for f in ("claim_shard_dispatches", "claim_shard_fallback")]
-            multi.run(3)
-            after = [reg.family_total(f) for f in ("claim_shard_dispatches", "claim_shard_fallback")]
-            return ({cid: multi.router._resolve_journal().fingerprint(lineage_prefix=f"blkmsh-{cid}")
-                     for cid in ("a", "b", "c")}, [y - x for x, y in zip(before, after)])
-
-        ours = run(MultiSession, ClaimSpec, store_factory=stores(CommentStore, SyntheticSource), device="cpu")
-        theirs = run(RefMulti, RefSpec, store_factory=stores(RefStore, RefSource), consensus_impl="xla")
+        ours, theirs = _meshed_router_fingerprints(resident, sanitized)
         assert ours == theirs
         assert ours[1] == [3, 0]  # a sharded dispatch a cycle, no fallback
+
+    @pytest.mark.parametrize("leak", ["port", "reference"])
+    def test_an_event_in_one_process_journal_leaves_the_meshed_fingerprints_equal(self, leak, monkeypatch):
+        """An event that an earlier test emitted into one package's
+        process journal, and not the other's, shifts that journal's
+        global seqs: the routers journal into journals of their own, so
+        the per-claim fingerprints stay equal.  The leak goes into a
+        fresh process journal, which the test takes away again."""
+        from svoc_tpu.utils import events as ref_events
+
+        from svoc_torch.utils import events
+
+        mod = events if leak == "port" else ref_events
+        monkeypatch.setattr(mod, "journal", mod.EventJournal())
+        mod.emit_event("test.leak", lineage="blkmsh-a")
+        ours, theirs = _meshed_router_fingerprints(True, True)
+        assert ours == theirs
+        assert ours[1] == [3, 0]
 
     def test_multisession_snapshot_surfaces_mesh(self):
         from svoc_torch.fabric.session import MultiSession
@@ -378,3 +362,50 @@ class TestRouterIntegration:
         monkeypatch.delenv("SVOC_MESH")
         assert router.mesh_spec == "2x1"
         assert ClaimRouter(ClaimRegistry(), device="cpu").mesh_spec is None
+
+
+def _meshed_router_fingerprints(resident, sanitized):
+    """Three claims through each package's ``MultiSession(mesh="2x1")``
+    for three cycles: ``({claim: journal fingerprint}, [sharded
+    dispatches, fallbacks])``.  Each fabric journals into a fresh
+    journal of its own: a per-claim fingerprint carries the journal's
+    global seqs, so the process journals (which other tests emit into)
+    would make the two sides differ."""
+    from conftest import fake_sentiment_vectorizer
+    from svoc_tpu.fabric.registry import ClaimSpec as RefSpec
+    from svoc_tpu.fabric.session import MultiSession as RefMulti
+    from svoc_tpu.io.comment_store import CommentStore as RefStore
+    from svoc_tpu.io.scraper import SyntheticSource as RefSource
+    from svoc_tpu.utils.events import EventJournal as RefJournal
+
+    from svoc_torch.fabric.registry import ClaimSpec
+    from svoc_torch.fabric.session import MultiSession
+    from svoc_torch.io.comment_store import CommentStore
+    from svoc_torch.io.scraper import SyntheticSource
+    from svoc_torch.utils.events import EventJournal
+
+    def stores(Store, Source):
+        def factory(claim_id):
+            store = Store()
+            store.save(Source(batch=60, seed=len(claim_id))())
+            return store
+
+        return factory
+
+    def run(Multi, Spec, **kw):
+        multi = Multi(base_seed=4, vectorizer=fake_sentiment_vectorizer, mesh="2x1",
+                      device_resident=resident, sanitized_dispatch=sanitized, lineage_scope="msh", **kw)
+        for cid in ("a", "b", "c"):
+            multi.add_claim(Spec(claim_id=cid, n_oracles=8))
+        reg = multi.router._shard._metrics
+        before = [reg.family_total(f) for f in ("claim_shard_dispatches", "claim_shard_fallback")]
+        multi.run(3)
+        after = [reg.family_total(f) for f in ("claim_shard_dispatches", "claim_shard_fallback")]
+        return ({cid: multi.router._resolve_journal().fingerprint(lineage_prefix=f"blkmsh-{cid}")
+                 for cid in ("a", "b", "c")}, [y - x for x, y in zip(before, after)])
+
+    ours = run(MultiSession, ClaimSpec, store_factory=stores(CommentStore, SyntheticSource),
+               journal=EventJournal(), device="cpu")
+    theirs = run(RefMulti, RefSpec, store_factory=stores(RefStore, RefSource), journal=RefJournal(),
+                 consensus_impl="xla")
+    return ours, theirs

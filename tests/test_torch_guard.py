@@ -88,7 +88,8 @@ def test_every_module_imports_without_jax_or_svoc_tpu():
                  "svoc_torch.io.scraper", "svoc_torch.apps.commands", "svoc_torch.apps.cli",
                  "svoc_torch.apps.web", "svoc_torch.parallel.mesh", "svoc_torch.parallel.sharded",
                  "svoc_torch.parallel.claim_shard", "svoc_torch.parallel.serving",
-                 "svoc_torch.tools.shard_smoke"):
+                 "svoc_torch.tools.shard_smoke", "svoc_torch.parallel.ring_attention",
+                 "svoc_torch.parallel.sp_encoder", "svoc_torch.parallel.pipeline", "svoc_torch.train"):
         assert name in names
     code = (
         "import importlib, sys\n"
@@ -536,3 +537,13 @@ def test_only_the_launch_helper_asks_for_a_stream():
                 assert word not in text, (path.name, word)
             if "_build.load(" in text:
                 assert "_build.launch(" in text, path.name
+
+
+def test_the_mesh_paths_wait_for_nothing():
+    """No source of the port says ring attention, the sequence-parallel
+    encoder, the pipeline or the mesh train factories wait for ROADMAP
+    A12e part 2 any longer, and the fine-tune twin has no ``--changed-mesh``
+    flag (the reference has none: its restore always runs)."""
+    for path in (REPO / "svoc_torch").rglob("*.py"):
+        assert "A12e part 2" not in path.read_text(), path
+    assert "--changed-mesh" not in (REPO / "svoc_torch" / "tools" / "finetune_demo.py").read_text()

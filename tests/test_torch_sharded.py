@@ -192,10 +192,15 @@ def test_runner_refusals_and_errors():
             raise KeyError("slot 2 fails")
         return sharded.psum(t, "y")
 
-    threads = threading.active_count()
+    # The runner keeps its slot threads between runs: after a run that
+    # started them, a failing run starts none and leaves none behind.
+    sharded.shard_map(lambda t: sharded.psum(t, "y"), mesh=grid_mesh(1, 4), in_specs=(P("y"),),
+                      out_specs=P())(torch.zeros(4))
+    threads, idle = threading.active_count(), len(sharded._idle_workers)
     with pytest.raises(KeyError, match="slot 2 fails"):
         sharded.shard_map(boom, mesh=grid_mesh(1, 4), in_specs=(P("y"),), out_specs=P())(torch.zeros(4))
-    assert threading.active_count() == threads  # every slot thread ended
+    assert threading.active_count() == threads  # no slot thread started or left running
+    assert len(sharded._idle_workers) == idle  # every slot thread back among the idle ones
 
 
 def test_threads_keep_the_callers_modes():
