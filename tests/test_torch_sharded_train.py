@@ -8,7 +8,7 @@ seeded numpy batches.  Bars are the reference's: the sharded step's
 loss rtol 2e-4 and parameters 2e-4 (SGD, three steps); ZeRO-1's
 parameters 2e-3 (SGD with momentum) with every moment leaf it can split
 at most 1/4 of its whole on a slot; the sharded packed and flash steps
-2e-5 of the unsharded step.  ``param_shardings`` gives the reference's
+2e-5 of the reference's sharded steps and of the unsharded step.  ``param_shardings`` gives the reference's
 spec for every leaf, transposed with the weight.  A sharded state saved
 whole restores onto a ``data(2) × model(4)`` mesh with its values
 exactly.
@@ -177,33 +177,53 @@ def test_sharded_step_matches_the_references_and_the_unsharded_step(flax_params,
             np.testing.assert_allclose(m["momentum_buffer"].gather().numpy(), ref_mu[name].numpy(), atol=bar)
 
 
-def test_sharded_packed_and_flash_steps_match_the_unsharded_steps(params):
+def test_sharded_packed_and_flash_steps_match_the_references_and_the_unsharded_steps(flax_params, params):
     """One SGD(0.1) step each at the reference's 2e-5: the packed step
-    (rows split 4 ways, 2 a slot) and the flash step (B1, B4 and B5's
-    plain versions on each model shard's 2 of the 4 heads)."""
+    (rows split 4 ways, 2 a slot), dense against the reference's
+    ``make_sharded_packed_train_step`` and, with flash too, against the
+    port's unsharded packed step; the unpacked flash step (B1, B4 and
+    B5's plain versions on each model shard's 2 of the 4 heads) against
+    the reference's sharded flash step (its Pallas kernels in interpret
+    mode) and the port's unsharded one."""
     rng = np.random.default_rng(0)
     toks = [np.arange(4, 4 + n, dtype=np.int32) for n in rng.integers(3, 8, 40)]
     packed, n = pack_tokens_auto(toks, 16, 4, pad_id=TINY_TEST.pad_id, rows=8)
     labels = (rng.random((n, TINY_TEST.n_labels)) < 0.3).astype(np.float32)
-    pbatch = PackedTrainBatch(*(torch.from_numpy(np.asarray(x)) for x in (
-        packed.ids, packed.pos, packed.seg, packed.cls_pos, packed.seg_valid, pack_labels(packed, labels))))
+    columns = [np.asarray(x) for x in (packed.ids, packed.pos, packed.seg, packed.cls_pos, packed.seg_valid,
+                                       pack_labels(packed, labels))]
+    pbatch = PackedTrainBatch(*(torch.from_numpy(x) for x in columns))
+    ref_step, ref_shard, ref_bshard = jt.make_sharded_packed_train_step(REF_TINY, optax.sgd(0.1), ref_mesh(),
+                                                                        params_template=flax_params)
+    ref_state, ref_metrics = ref_step(ref_shard(jt.init_state(None, flax_params, optax.sgd(0.1))),
+                                      jax.device_put(jt.PackedTrainBatch(*(jnp.asarray(x) for x in columns)), ref_bshard))
     for attention in ("dense", "flash"):
         cfg = dataclasses.replace(TINY_TEST, attention=attention)
-        ref_state, ref_metrics = make_packed_train_step()(fresh(params, sgd(0.1), cfg, PackedSentimentEncoder), pbatch)
+        plain_state, plain_metrics = make_packed_train_step()(fresh(params, sgd(0.1), cfg, PackedSentimentEncoder),
+                                                              pbatch)
         step, shard_state, _ = make_sharded_packed_train_step(cfg, mesh(), params_template=params)
         state, metrics = step(shard_state(fresh(params, sgd(0.1), cfg, PackedSentimentEncoder)), pbatch)
-        np.testing.assert_allclose(metrics["loss"].item(), ref_metrics["loss"].item(), rtol=2e-4)
-        plain = dict(ref_state.model.named_parameters())
+        np.testing.assert_allclose(metrics["loss"].item(), plain_metrics["loss"].item(), rtol=2e-4)
+        plain = dict(plain_state.model.named_parameters())
+        refs = params_from_flax(ref_state.params)
         for name, value in whole(state).items():
             np.testing.assert_allclose(value.numpy(), plain[name].detach().numpy(), atol=2e-5, err_msg=name)
-    flash = dataclasses.replace(TINY_TEST, attention="flash")
+            if attention == "dense":
+                np.testing.assert_allclose(value.numpy(), refs[name].numpy(), atol=2e-5, err_msg=name)
+        if attention == "dense":
+            np.testing.assert_allclose(metrics["loss"].item(), float(ref_metrics["loss"]), rtol=2e-4)
+    flash, ref_flash = (dataclasses.replace(c, attention="flash") for c in (TINY_TEST, REF_TINY))
     a = arrays(2)
-    ref_state, _ = make_train_step()(fresh(params, sgd(0.1), flash), torch_batch(a))
+    ref_step, ref_shard, ref_bshard = jt.make_sharded_train_step(RefEncoder(ref_flash), optax.sgd(0.1), ref_mesh(),
+                                                                 params_template=flax_params)
+    ref_state, _ = ref_step(ref_shard(jt.init_state(None, flax_params, optax.sgd(0.1))),
+                            jax.device_put(jt.Batch(*(jnp.asarray(x) for x in a)), ref_bshard))
+    plain_state, _ = make_train_step()(fresh(params, sgd(0.1), flash), torch_batch(a))
     step, shard_state, _ = make_sharded_train_step(flash, mesh(), params_template=params)
     state, _ = step(shard_state(fresh(params, sgd(0.1), flash)), torch_batch(a))
-    plain = dict(ref_state.model.named_parameters())
+    plain, refs = dict(plain_state.model.named_parameters()), params_from_flax(ref_state.params)
     for name, value in whole(state).items():
         np.testing.assert_allclose(value.numpy(), plain[name].detach().numpy(), atol=2e-5, err_msg=name)
+        np.testing.assert_allclose(value.numpy(), refs[name].numpy(), atol=2e-5, err_msg=name)
 
 
 def test_zero1_adamw_is_the_replicated_update_and_saves_whole_onto_another_mesh(params, tmp_path):
