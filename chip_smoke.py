@@ -3799,13 +3799,83 @@ def durable_width_phase(torch, launches, serving):
     print("  durable per step: " + json.dumps({"crash": crash_rows, "recover": rec_rows}))
 
 
-#: Phase 5c's full-width fine-tune (cut from the TINY run's 240: steps only; 40 before the fine-tune moved onto the
+#: Phase 5c's full-width fine-tune (cut from the reference's 240: steps only; 40 before the fine-tune moved onto the
 #: mesh, whose 8 slots run serially on one card).
 FINETUNE_ROBERTA_STEPS = 20
+#: 5c's unsharded step, flash against dense: SGD steps a configuration and their lr; the bf16 losses' rtol, where the
+#: reference gives no bar (18e's; PERF.md §6).
+UNSHARDED_STEPS, UNSHARDED_LR, BF16_LOSS_RTOL = 3, 1e-3, 5e-3
 
 
-@phase("5c. the fine-tune twin (tools/finetune_demo.py) on data(4) x model(2) slots: TINY to the target, then at "
-       "full width")
+def unsharded_steps(torch, cfg, batch, dev):
+    """``make_train_step`` on a fresh ``SentimentEncoder(cfg)`` for
+    UNSHARDED_STEPS SGD steps of ``batch``: (losses, the first step's
+    gradients by name, B1/B4/B5 launches of each step)."""
+    from svoc_torch.models.encoder import SentimentEncoder, init_params
+    from svoc_torch.train.trainer import init_state, make_train_step, sgd
+
+    with torch.device("meta"):
+        model = SentimentEncoder(cfg)
+    state = init_state(model, init_params(cfg, seed=0, device=dev), sgd(UNSHARDED_LR), device=dev)
+    step = make_train_step()
+    losses, per_step, grads = [], [], None
+    for _ in range(UNSHARDED_STEPS):
+        wrappers = zero_counts(mesh_wrappers())
+        state, metrics = step(state, batch)
+        per_step.append(read_counts(wrappers))
+        losses.append(metrics["loss"].item())
+        if grads is None:  # the step leaves each parameter's gradient in place
+            grads = {k: p.grad.detach().clone() for k, p in state.model.named_parameters()}
+    return losses, grads, per_step
+
+
+def unsharded_phase_part(torch, launches, card):
+    """5c's unsharded flash step against the dense step: TINY_TEST and
+    full width in float32 at the reference's bars, and full width in
+    bf16, the configuration's own type, held by its losses."""
+    import numpy as np
+
+    from svoc_torch.models.configs import ROBERTA_GO_EMOTIONS, TINY_TEST
+    from svoc_torch.train.trainer import Batch
+
+    dev = torch.device("cuda")
+    roberta_f32 = dataclasses.replace(ROBERTA_GO_EMOTIONS, dtype=torch.float32)
+    for name, base, (b, t), density in (("TINY_TEST f32", TINY_TEST, (32, 48), 0.3),
+                                        ("ROBERTA_GO_EMOTIONS f32", roberta_f32, (32, 128), 0.05),
+                                        ("ROBERTA_GO_EMOTIONS bf16", ROBERTA_GO_EMOTIONS, (32, 128), 0.05)):
+        rng = np.random.default_rng(5)
+        ids = rng.integers(4, base.vocab_size, (b, t)).astype("int32")
+        mask = (np.arange(t)[None, :] < rng.integers(6, t + 1, (b, 1))).astype("int32")
+        labels = (rng.random((b, base.n_labels)) < density).astype("float32")
+        batch = Batch(*(torch.from_numpy(a).to(dev) for a in (ids, mask, labels)))
+        t0 = time.perf_counter()
+        flash_losses, flash_grads, flash_counts = unsharded_steps(
+            torch, dataclasses.replace(base, attention="flash"), batch, dev)
+        dense_losses, dense_grads, dense_counts = unsharded_steps(torch, base, batch, dev)
+        secs = time.perf_counter() - t0
+        for counts in flash_counts:
+            add_launches(launches, counts)
+        want = dict.fromkeys(("flash_attention", "flash_dq", "flash_dkv"), base.n_layers)
+        check(all(launches_are(c, want) for c in flash_counts) and all(launches_are(c, {}) for c in dense_counts),
+              f"{name} unsharded flash step: B1, B4 and B5 {base.n_layers} launches each a step, the dense step "
+              f"none ({flash_counts[0]}, {dense_counts[0]})")
+        loss_err = max(abs(f - d) / abs(d) for f, d in zip(flash_losses, dense_losses))
+        if base.dtype == torch.float32:  # tests/test_train.py::test_flash_train_step_matches_dense
+            excess = max(float(((flash_grads[k] - g).abs() - 2e-3 * g.abs()).max()) for k, g in dense_grads.items())
+            check(loss_err <= 1e-5 and excess <= 2e-5,
+                  f"{name}: {UNSHARDED_STEPS} SGD({UNSHARDED_LR}) steps of make_train_step, flash against dense: "
+                  f"losses rtol {loss_err:.3e} <= 1e-5, the first step's gradients within 2e-5 + 2e-3 |dense| "
+                  f"(worst excess over 2e-3 |dense| {excess:.3e})")
+        else:
+            check(loss_err <= BF16_LOSS_RTOL,
+                  f"{name}: {UNSHARDED_STEPS} SGD({UNSHARDED_LR}) steps of make_train_step, flash against dense: "
+                  f"losses rtol {loss_err:.3e} <= {BF16_LOSS_RTOL}")
+        print(f"  [{card}] {name} unsharded step [{b}, {t}]: losses flash {flash_losses}, dense {dense_losses}; "
+              f"{secs:.1f} s for both", flush=True)
+
+
+@phase("5c. the fine-tune twin (tools/finetune_demo.py) at full width on data(4) x model(2) slots, flash; the "
+       "unsharded flash step against the dense one")
 def finetune_phase(torch, launches):
     import numpy as np
 
@@ -3823,40 +3893,22 @@ def finetune_phase(torch, launches):
     for wrapper in counted.values():
         wrapper.launches = 0
     t0 = time.perf_counter()
-    tiny = finetune_demo.run(config="tiny", attention="flash", device="cuda", on_step=on_step)
+    full = finetune_demo.run(config="roberta", attention="flash", device="cuda", steps=FINETUNE_ROBERTA_STEPS,
+                             on_step=on_step)
     secs = time.perf_counter() - t0
     totals = {k: w.launches for k, w in counted.items()}
-    for k, n in totals.items():
-        launches[k] = launches.get(k, 0) + n
-    n_layers, steps = 2, tiny["steps"]
+    add_launches(launches, totals)
+    n_layers, steps = 12, full["steps"]
     slots = math.prod(finetune_demo.TRAIN_MESH)  # every slot runs its model shard's heads
-    replayed, continued = steps - steps // 2, len(tiny["changed_mesh_continued_losses"])
+    replayed, continued = steps - steps // 2, len(full["changed_mesh_continued_losses"])
     trained = steps + replayed + continued
     per_step = [{k: b[k] - a[k] for k in b} for a, b in zip(seen, seen[1:])]
     want = {"flash_attention": n_layers * (slots * trained + 2), "flash_dq": n_layers * slots * trained,
             "flash_dkv": n_layers * slots * trained}
     check(all(d == dict.fromkeys(counted, n_layers * slots) for d in per_step) and totals == want,
-          f"TINY flash fine-tune on data(4) x model(2) slots: {n_layers} x {slots} B1, B4 and B5 launches a train "
-          f"step ({len(per_step)} steps read), in all {totals} == {want} (2 unsharded evaluations, {steps} steps, "
+          f"flash fine-tune on data(4) x model(2) slots: {n_layers} x {slots} B1, B4 and B5 launches a train step "
+          f"({len(per_step)} steps read), in all {totals} == {want} (2 unsharded evaluations, {steps} steps, "
           f"{replayed} replayed, {continued} on the changed mesh)")
-    check(tiny["ok"] and tiny["macro_f1_after"] >= tiny["target_f1"]
-          and tiny["same_mesh_replay_max_abs_param_delta"] == 0.0
-          and tiny["changed_mesh_restore_max_abs_param_delta"] == 0.0 and tiny["losses_finite"],
-          f"TINY (240 steps of 32, the reference's CLI defaults): macro-F1 {tiny['macro_f1_before']} -> "
-          f"{tiny['macro_f1_after']} (target {tiny['target_f1']}), same-mesh replay max|dparams| "
-          f"{tiny['same_mesh_replay_max_abs_param_delta']}, changed-mesh restore "
-          f"{tiny['changed_mesh_restore_max_abs_param_delta']}")
-    print(f"  [{card}] TINY: loss {tiny['loss_curve'][0]} -> {tiny['loss_curve'][-1]}, train step "
-          f"{tiny['step_ms']:.3f} ms ({tiny['comments_per_s']:.1f} comments/s), {secs:.1f} s with the "
-          f"evaluations and the replay")
-
-    for wrapper in counted.values():
-        wrapper.launches = 0
-    t0 = time.perf_counter()
-    full = finetune_demo.run(config="roberta", attention="flash", device="cuda", steps=FINETUNE_ROBERTA_STEPS)
-    secs = time.perf_counter() - t0
-    for k, w in counted.items():
-        launches[k] = launches.get(k, 0) + w.launches
     losses = full["loss_curve"]
     check(full["losses_finite"] and losses[-1] < losses[0] and np.isfinite(losses).all()
           and full["same_mesh_replay_max_abs_param_delta"] == 0.0
@@ -3868,8 +3920,8 @@ def finetune_phase(torch, launches):
     print(f"  [{card}] full width: loss {losses[:3]} ... {losses[-3:]}, macro-F1 {full['macro_f1_before']} -> "
           f"{full['macro_f1_after']} (target {full['target_f1']}, read, not demanded), train step "
           f"{full['step_ms']:.3f} ms, {full['comments_per_s']:.1f} trained comments/s, continued losses on 2x4 "
-          f"{full['changed_mesh_continued_losses']}, {secs:.1f} s in all; launches "
-          f"{ {k: w.launches for k, w in counted.items()} }")
+          f"{full['changed_mesh_continued_losses']}, {secs:.1f} s in all")
+    unsharded_phase_part(torch, launches, card)
 
 
 @phase("12a. the cold-start smoke on the card: prewarm, SIGKILL, warm restart, children on CUDA")
@@ -6001,8 +6053,10 @@ PIPE_ROWS, PIPE_T, PIPE_MESH, PIPE_MICRO = 32, 128, (4, 2), 4
 TP_MESH, TP_STEPS, TP_LR = (4, 2), 3, 1e-4
 #: Bars of phase 18 where the reference gives none (PERF.md §6 gives their reasons):
 #: bf16 logits of a sharded forward against the unsharded one (4x the 2.5e-2 that the same comparisons
-#: gave at full width on the CPU); the TP step's loss and grad norm (rtol) against the unsharded step's.
-MESH_LOGIT_BAR, TP_LOSS_RTOL, TP_NORM_RTOL = 1e-1, 5e-3, 2e-2
+#: gave at full width on the CPU); the TP step's loss and grad norm (rtol) against the unsharded step's;
+#: 18a's bf16 attention outputs against each other (typical |output| about 0.02 over 8192 random keys, so
+#: the reference's 3e-2 of short rows would pass anything; 3.4x the 2.9e-3 that sound runs read).
+MESH_LOGIT_BAR, TP_LOSS_RTOL, TP_NORM_RTOL, RING_OUT_BAR = 1e-1, 5e-3, 2e-2, 1e-2
 
 
 def mesh_wrappers():
@@ -6067,8 +6121,9 @@ def ring_phase(torch, launches):
         errs = {"flash ring - dense ring": max_err(out_flash, out_dense),
                 "flash ring - B1 whole": max_err(out_flash, whole),
                 "dense ring - B1 whole": max_err(out_dense, whole)}
-        check(all(e <= 3e-2 for e in errs.values()) and bool(torch.isfinite(out_flash.float()).all()),
-              f"18a the rings agree with each other and with B1 over the whole sequence within bf16's 3e-2: {errs}")
+        check(all(e <= RING_OUT_BAR for e in errs.values()) and bool(torch.isfinite(out_flash.float()).all()),
+              f"18a the rings agree with each other and with B1 over the whole sequence within {RING_OUT_BAR} "
+              f"(max |B1 whole| {float(whole.float().abs().max()):.3e}): {errs}")
         print(f"  [{card}] ring call of [2, 8192, 12, 64] bf16 on 8 slots (CUDA events, one call after a "
               f"warm-up): flash inner {flash_ms:.3f} ms, dense inner {dense_ms:.3f} ms", flush=True)
 
@@ -6081,11 +6136,11 @@ def ring_phase(torch, launches):
         out_b, lse_b = flash_attention_cuda(qb, kb, vb, bq, bk, return_lse=True)
         ref_b, ref_lse = flash_attention_plain(qb, kb, vb, bq, bk, return_lse=True)
         live = torch.isfinite(ref_lse)
-        check(max_err(out_b, ref_b) <= 3e-2 and float((lse_b[live] - ref_lse[live]).abs().max()) <= 1e-3
+        check(max_err(out_b, ref_b) <= RING_OUT_BAR and float((lse_b[live] - ref_lse[live]).abs().max()) <= 1e-3
               and torch.equal(live, torch.isfinite(lse_b)),
               f"18a B1 at the hop [2, {hop}, 12, 64] with kmask and return_lse: out err "
-              f"{max_err(out_b, ref_b):.3e} <= 3e-2, lse err {float((lse_b[live] - ref_lse[live]).abs().max()):.3e}"
-              " <= 1e-3")
+              f"{max_err(out_b, ref_b):.3e} <= {RING_OUT_BAR} (max |plain| {float(ref_b.float().abs().max()):.3e}), "
+              f"lse err {float((lse_b[live] - ref_lse[live]).abs().max()):.3e} <= 1e-3")
         check(bool(torch.all(out_b[1] == 0)) and bool(torch.all(torch.isneginf(lse_b[1]))),
               "18a the all-padding hop (row 1, keys of shard 3): output exactly 0 and lse -inf")
 
@@ -6255,7 +6310,7 @@ def tp_train_phase(torch, launches):
     )
     from svoc_torch.parallel.mesh import MeshSpec, make_mesh
     from svoc_torch.train.trainer import adamw, make_packed_train_step, make_sharded_packed_train_step
-    from svoc_torch.train.trainer import max_shard_fraction
+    from svoc_torch.train.trainer import max_shard_fraction, sgd
 
     dev = torch.device("cuda")
     cfg = dataclasses.replace(ROBERTA_GO_EMOTIONS, attention="flash")
@@ -6270,18 +6325,25 @@ def tp_train_phase(torch, launches):
     mesh = make_mesh(MeshSpec(("data", "model"), TP_MESH))
     slots = TP_MESH[0] * TP_MESH[1]
     card = nvidia_smi()
+    # The reference's parity step (tests/test_train.py::test_sharded_packed_train_step_matches_unsharded): float32,
+    # one SGD(0.1) step, here on 64 of the 256 rows (16 a data slot).
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    batch32 = type(batches[0])(*(x[:64] for x in batches[0]))
     runs = {}
-    for name in ("unsharded", "sharded", "zero1"):
-        state = packed_state(torch, cfg, params, adamw(TP_LR), dev)
-        if name == "unsharded":
+    # (name, configuration, optimizer, zero1 or None for the unsharded step, batches)
+    for name, run_cfg, tx, zero1, run_batches in (
+            ("unsharded", cfg, adamw(TP_LR), None, batches), ("sharded", cfg, adamw(TP_LR), False, batches),
+            ("zero1", cfg, adamw(TP_LR), True, batches), ("f32 sgd unsharded", cfg32, sgd(0.1), None, [batch32]),
+            ("f32 sgd sharded", cfg32, sgd(0.1), False, [batch32])):
+        state = packed_state(torch, run_cfg, params, tx, dev)
+        if zero1 is None:
             step = make_packed_train_step()
         else:
-            step, shard_state, _ = make_sharded_packed_train_step(cfg, mesh, params_template=params,
-                                                                  zero1=name == "zero1")
+            step, shard_state, _ = make_sharded_packed_train_step(run_cfg, mesh, params_template=params, zero1=zero1)
             state = shard_state(state)
         rows, per_step = [], []
         torch.cuda.reset_peak_memory_stats()
-        for tb in batches:
+        for tb in run_batches:
             wrappers = zero_counts(mesh_wrappers())
             t0 = time.perf_counter()
             ms, (state, metrics) = event_ms(torch, lambda: step(state, tb))
@@ -6290,12 +6352,12 @@ def tp_train_phase(torch, launches):
             counts = read_counts(wrappers)
             add_launches(launches, counts)
             per_step.append(counts)
-        heads = cfg.n_heads // (TP_MESH[1] if name != "unsharded" else 1)
-        want = cfg.n_layers * (slots if name != "unsharded" else 1)
+        heads = cfg.n_heads // (TP_MESH[1] if zero1 is not None else 1)
+        want = cfg.n_layers * (slots if zero1 is not None else 1)
         check(all(launches_are(c, dict(flash_attention=want, flash_dq=want, flash_dkv=want)) for c in per_step),
               f"18e {name}: B1, B4 and B5 {want} launches each a step, on {heads} of the {cfg.n_heads} heads "
               f"({per_step[0]})")
-        if name == "unsharded":
+        if zero1 is None:
             whole = {k: p.detach().clone() for k, p in state.model.named_parameters()}
         else:
             whole = {k: arr.gather() for k, arr in state.params.items()}
@@ -6307,22 +6369,34 @@ def tp_train_phase(torch, launches):
             check(len(state.opt_state) == len(whole) and worst <= 0.25 + 1e-9,
                   f"18e ZeRO-1: every AdamW moment of all {len(whole)} parameters at most 1/4 of its whole on a "
                   f"slot (largest piece {worst:.4f} of its whole)")
+        extra["rows"] = run_batches[0].ids.shape[0]
         runs[name] = (rows, whole, torch.cuda.max_memory_allocated() / 2**30, extra)
         del state
         torch.cuda.empty_cache()
-    plain_rows, plain_p, _, _ = runs["unsharded"]
-    p_bar = TP_STEPS * 2 * TP_LR * 1.05
+    plain_rows = runs["unsharded"][0]
     for name in ("sharded", "zero1"):
-        rows, whole, _, _ = runs[name]
+        rows = runs[name][0]
         loss_err = max(abs(r["loss"] - p["loss"]) / abs(p["loss"]) for r, p in zip(rows, plain_rows))
         norm_err = max(abs(r["grad_norm"] - p["grad_norm"]) / p["grad_norm"] for r, p in zip(rows, plain_rows))
-        p_err = max(max_err(whole[k], plain_p[k]) for k in plain_p)
-        check(loss_err <= TP_LOSS_RTOL and norm_err <= TP_NORM_RTOL and p_err <= p_bar,
+        check(loss_err <= TP_LOSS_RTOL and norm_err <= TP_NORM_RTOL,
               f"18e {name}: against the unsharded packed step over {TP_STEPS} AdamW({TP_LR}) steps, losses rtol "
-              f"{loss_err:.3e} <= {TP_LOSS_RTOL}, grad norms rtol {norm_err:.3e} <= {TP_NORM_RTOL}, parameters "
-              f"{p_err:.3e} <= {p_bar:.3g} (2 lr a step: AdamW's steps of a near-zero gradient's two signs)")
+              f"{loss_err:.3e} <= {TP_LOSS_RTOL}, grad norms rtol {norm_err:.3e} <= {TP_NORM_RTOL}")
+    (rows, whole, _, _), (z_rows, z_whole, _, _) = runs["sharded"], runs["zero1"]
+    same = [(r["loss"], r["grad_norm"]) for r in rows] == [(r["loss"], r["grad_norm"]) for r in z_rows]
+    differ = [k for k in whole if not torch.equal(whole[k], z_whole[k])]
+    check(same and not differ,
+          f"18e ZeRO-1 bitwise the sharded step after {TP_STEPS} AdamW steps: losses and grad norms equal ({same}), "
+          f"parameters equal but for {len(differ)} of {len(whole)} ({differ[:3]})")
+    (plain_rows, plain_p, _, _), (rows, whole, _, _) = runs["f32 sgd unsharded"], runs["f32 sgd sharded"]
+    loss_err = abs(rows[0]["loss"] - plain_rows[0]["loss"]) / abs(plain_rows[0]["loss"])
+    p_errs = {k: max_err(whole[k], plain_p[k]) for k in plain_p}
+    worst = max(p_errs, key=p_errs.get)
+    check(loss_err <= 2e-4 and p_errs[worst] <= 2e-5,
+          f"18e float32, one SGD(0.1) step of 64 rows, sharded against unsharded (tests/test_train.py's sharded "
+          f"packed bars): loss rtol {loss_err:.3e} <= 2e-4, parameters {p_errs[worst]:.3e} <= 2e-5 (worst {worst}; "
+          f"largest update {max(max_err(plain_p[k], params[k]) for k in params):.3e})")
     for name, (rows, _, peak, extra) in runs.items():
-        print(f"  [{card}] {name} packed step of 256 x 128 rows: " + json.dumps(rows)
+        print(f"  [{card}] {name} packed step of {extra.pop('rows')} x 128 rows: " + json.dumps(rows)
               + f"; max memory allocated {peak:.3f} GiB {extra or ''}", flush=True)
 
     # B4 and B5 on a model shard's 6 heads: one data slot's 64 rows.
@@ -6341,28 +6415,27 @@ def tp_train_phase(torch, launches):
               "plain| dq {:.3e}, dk {:.3e}, dv {:.3e} <= 3e-2 + 2^-8 |plain|".format(*errs))
 
 
-@phase("18f. the fine-tune twin's reference defaults on TINY on 4x2 slots, with and without --zero1")
+@phase("18f. the fine-tune twin's reference defaults on TINY on 4x2 slots with --zero1 (5c runs flash without)")
 def finetune_mesh_phase(torch, launches):
     from svoc_torch.tools import finetune_demo
 
     card = nvidia_smi()
-    for zero1 in (False, True):
-        wrappers = zero_counts(mesh_wrappers())
-        t0 = time.perf_counter()
-        report = finetune_demo.run(device="cuda", zero1=zero1)
-        secs = time.perf_counter() - t0
-        counts = read_counts(wrappers)
-        add_launches(launches, counts)
-        check(report["ok"] and report["same_mesh_replay_max_abs_param_delta"] == 0.0
-              and report["changed_mesh_restore_max_abs_param_delta"] == 0.0 and launches_are(counts, {}),
-              f"18f zero1={zero1}: macro-F1 {report['macro_f1_before']} -> {report['macro_f1_after']} (target "
-              f"{report['target_f1']}), same-mesh replay {report['same_mesh_replay_max_abs_param_delta']}, "
-              f"changed-mesh restore {report['changed_mesh_restore_max_abs_param_delta']}, continued losses "
-              f"{report['changed_mesh_continued_losses']} (last < 1.5 x the checkpoint's), no kernel launches "
-              f"(dense) ({counts})")
-        print(f"  [{card}] zero1={zero1}: loss {report['loss_curve'][0]} -> {report['loss_curve'][-1]}, train step "
-              f"{report['step_ms']:.3f} ms, {secs:.1f} s with the evaluations, the replay and the changed mesh",
-              flush=True)
+    wrappers = zero_counts(mesh_wrappers())
+    t0 = time.perf_counter()
+    report = finetune_demo.run(device="cuda", zero1=True)
+    secs = time.perf_counter() - t0
+    counts = read_counts(wrappers)
+    add_launches(launches, counts)
+    check(report["ok"] and report["same_mesh_replay_max_abs_param_delta"] == 0.0
+          and report["changed_mesh_restore_max_abs_param_delta"] == 0.0 and launches_are(counts, {}),
+          f"18f --zero1: macro-F1 {report['macro_f1_before']} -> {report['macro_f1_after']} (target "
+          f"{report['target_f1']}), same-mesh replay {report['same_mesh_replay_max_abs_param_delta']}, "
+          f"changed-mesh restore {report['changed_mesh_restore_max_abs_param_delta']}, continued losses "
+          f"{report['changed_mesh_continued_losses']} (last < 1.5 x the checkpoint's), no kernel launches "
+          f"(dense) ({counts})")
+    print(f"  [{card}] --zero1: loss {report['loss_curve'][0]} -> {report['loss_curve'][-1]}, train step "
+          f"{report['step_ms']:.3f} ms, {secs:.1f} s with the evaluations, the replay and the changed mesh",
+          flush=True)
 
 
 def main() -> int:
