@@ -484,6 +484,16 @@ Phases:
    plain backward. (f) The fine-tune twin at its reference defaults
    (TINY, dense) on 4x2 slots, with and without ``--zero1``. Bars that
    the reference does not give: ``MESH_LOGIT_BAR`` and ``TP_*`` below.
+19. The lint gate on the card's host (``svoc_torch/analysis``): ``python
+   -m svoc_torch.tools.svoclint --format json`` in a child, its cache in
+   a temporary directory, must exit 0 with no new finding and no stale
+   baseline entry; then the port's analyzer over the reference's
+   ``svoc_tpu tools``, with the reference's ``tools/svoclint_baseline.json``
+   read in place, must give the reference analyzer's files, findings by
+   rule, suppressions and baselined findings (``REFERENCE_LINT``,
+   computed with the JAX package's analyzer).  No JAX and no torch is
+   needed to lint; the phase prints its seconds beside the card's name
+   and power limit.
 
 It then prints one JSON line of per-kernel numbers, the card's
 ``nvidia-smi`` name and power limit, and last
@@ -6438,7 +6448,53 @@ def finetune_mesh_phase(torch, launches):
           flush=True)
 
 
+#: The reference analyzer (``svoc_tpu.analysis.analyze_paths``) over
+#: ``svoc_tpu tools``, against ``tools/svoclint_baseline.json``: files
+#: analyzed, findings by rule, suppressed findings, and those the baseline
+#: covers (none new, none stale).
+REFERENCE_LINT = {"files": 153, "by_rule": {"SVOC003": 6}, "suppressed": 36, "baselined": 6}
+
+
+@phase("19. the lint gate: svoclint over svoc_torch in a child, and over the reference's tree in process")
+def lint_phase(torch):
+    import collections
+    import tempfile
+
+    from svoc_torch.analysis import Baseline, analyze_paths
+
+    card = nvidia_smi()
+    root = Path(__file__).resolve().parent
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "svoc_torch.tools.svoclint", "--format", "json",
+             "--cache", os.path.join(tmp, ".svoclint_torch_cache.json")],
+            cwd=root, capture_output=True, text=True, timeout=300,
+        )
+        child_s = time.perf_counter() - t0
+    try:
+        counts = json.loads(proc.stdout)["counts"]
+    except (ValueError, KeyError):
+        counts = {}
+    check(proc.returncode == 0 and counts.get("new") == 0 and counts.get("stale_baseline_entries") == 0,
+          f"19a svoclint over svoc_torch: exit {proc.returncode}, {counts} ({proc.stderr.strip()[-300:]})")
+    print(f"  [{card}] 19a: {child_s:.2f} s in a child ({counts.get('files')} files, "
+          f"{counts.get('baselined')} baselined, {counts.get('suppressed')} suppressed)", flush=True)
+    t0 = time.perf_counter()
+    report = analyze_paths([str(root / "svoc_tpu"), str(root / "tools")], root=str(root))
+    new, baselined, stale = Baseline.load(str(root / "tools" / "svoclint_baseline.json")).split(
+        report.all_findings)
+    ref_s = time.perf_counter() - t0
+    got = {"files": report.files, "by_rule": dict(collections.Counter(f.rule for f in report.all_findings)),
+           "suppressed": report.suppressed, "baselined": len(baselined)}
+    check(got == REFERENCE_LINT and not new and not stale,
+          f"19b the port's analyzer over svoc_tpu tools: {got}, {len(new)} new, {len(stale)} stale "
+          f"(reference analyzer: {REFERENCE_LINT})")
+    print(f"  [{card}] 19b: {ref_s:.2f} s in process", flush=True)
+
+
 def main() -> int:
+    t_script = time.perf_counter()
     try:
         import torch
     except ImportError:
@@ -6542,6 +6598,7 @@ def main() -> int:
         tp_train_phase(torch, launches)
         finetune_mesh_phase(torch, launches)
         print(f"  (phase 18 in all: {time.perf_counter() - t_paths:.1f} s)", flush=True)
+        lint_phase(torch)
         print(f"  launches: serving paths {serving}; with the train paths {trained}; "
               f"with the multi-claim path {claimed}; with the probe path {probed}; "
               f"with the commit path {committed}; with the fabric paths {fabricked}; "
@@ -6564,6 +6621,7 @@ def main() -> int:
     if failures:
         print(f"FAILED: {len(failures)} check(s): {failures}", file=sys.stderr)
         return 1
+    print(f"  (the whole script: {time.perf_counter() - t_script:.1f} s)", flush=True)
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -383,8 +383,8 @@ class ClaimRouter:
         expanded: List[str] = []
         for cid in new_rotation:
             expanded.extend([cid] * weights[cid])
-        self._rotation = deque(expanded)
-        self._rotation_members = members
+        self._rotation = deque(expanded)  # svoc: volatile(derived from registry membership + weights; rebuilt on the next select() after any membership change)
+        self._rotation_members = members  # svoc: volatile(cache key for the rotation rebuild; derived like _rotation)
 
     def select(self) -> List[ClaimState]:
         """The next micro-batch: up to ``max_claims_per_batch`` DISTINCT
@@ -449,7 +449,7 @@ class ClaimRouter:
         """Drain the pipelined in-flight consensus write-backs (the
         pipeline's one-cycle tail); returns how many groups were
         finished.  A no-op when unpipelined or already drained."""
-        pending, self._inflight = self._inflight, []
+        pending, self._inflight = self._inflight, []  # svoc: volatile(pipelined device buffers are process-local; a crashed cycle's groups are re-selected from the registry next step)
         if pending:
             with stage_span("fabric_consensus"):
                 for group in pending:
@@ -499,7 +499,7 @@ class ClaimRouter:
                     tamper=tamper,
                     window=None if feeds is None else feeds[spec.claim_id],
                 )
-            except EmptyStoreError:
+            except EmptyStoreError:  # svoclint: disable=SVOC014 -- deliberate: an empty store is the routine pre-data wait, surfaced per claim in the step report's `skipped` map; anomalies take the counted fabric_claim_errors lane below
                 report["skipped"][spec.claim_id] = "empty_store"
                 continue
             except Exception as e:  # noqa: BLE001 — isolation contract
@@ -727,7 +727,7 @@ class ClaimRouter:
                     pending.ok.to(torch.float32),
                 ],
                 dim=1,
-            ).cpu().numpy()
+            ).cpu().numpy()  # svoclint: disable=SVOC001
             cols = np.cumsum([0, m, m, 1, 1, n, 1, n])
             essence, essence1, rel1, rel2, reliable, valid, oks = (
                 host[:, cols[i] : cols[i + 1]] for i in range(7)

@@ -8,9 +8,10 @@ the consumer; ``close()`` is idempotent, joins with a timeout and flags
 a producer it could not join (``producer_leaked``); ``stats()`` splits
 the wall clock into produce time and consumer wait.  The native
 tokenizer and packer release the GIL, so the overlap is parallel work.
-Not ported: the ``stage_span`` traces, the journal event of a crashed
-producer and the leak counter of the metrics registry (the port has
-neither yet); the leak and the error stay visible in ``stats()``.
+The producer's ``tokenize`` and ``h2d`` spans carry the pipeline's
+``lineage`` (a producer thread inherits none), a crashed producer
+journals ``pipeline.producer_error`` and a wedged one counts once in
+``pipeline_producer_leaks`` (``pipeline.py:81-117, 180-188``).
 
 :class:`DevicePut` is the copy stage (the reference's ``packed_put_fn``,
 ``bench.py:1797-1811``): on CUDA it lays a batch's host arrays into one
@@ -60,6 +61,8 @@ class PrefetchPipeline:
       depth: producer queue depth (2 = classic double buffering).
       device_put: the copy stage, run on the producer thread, or None.
       join_timeout_s: how long ``close()`` waits for the producer.
+      lineage: the block lineage of the producer's spans and of its
+        ``pipeline.producer_error`` event.
     """
 
     def __init__(
@@ -70,10 +73,12 @@ class PrefetchPipeline:
         depth: int = 2,
         device_put: Optional[Callable] = None,
         join_timeout_s: float = 5.0,
+        lineage: Optional[str] = None,
     ):
         self._source = iter(source)
         self._tokenizer = tokenizer
         self._seq_len = seq_len
+        self._lineage = lineage
         self._queue: "queue.Queue" = queue.Queue(maxsize=depth)
         self._device_put = device_put
         self._error: Optional[BaseException] = None
@@ -89,15 +94,19 @@ class PrefetchPipeline:
         self._thread.start()
 
     def _produce(self) -> None:
+        from svoc_torch.utils.metrics import stage_span
+
         try:
             for item in self._source:
                 if self._stop.is_set():
                     break
                 t0 = time.perf_counter()
                 if self._tokenizer is not None:
-                    item = self._tokenizer(list(item), self._seq_len)
+                    with stage_span("tokenize", lineage=self._lineage):
+                        item = self._tokenizer(list(item), self._seq_len)
                 if self._device_put is not None:
-                    item = self._device_put(item)
+                    with stage_span("h2d", lineage=self._lineage):
+                        item = self._device_put(item)
                 self._produced += 1
                 self._produce_s += time.perf_counter() - t0
                 while not self._stop.is_set():
@@ -108,6 +117,17 @@ class PrefetchPipeline:
                         continue
         except BaseException as e:  # surfaced on the consumer side
             self._error = e
+            # A crashed producer is an incident of the flight recorder
+            # (the postmortem monitor bundles on it), not only a field of
+            # stats() that nobody reads until the consumer re-raises.
+            from svoc_torch.utils.events import journal
+
+            journal.emit(
+                "pipeline.producer_error",
+                lineage=self._lineage,
+                error=repr(e),
+                produced=self._produced,
+            )
         finally:
             # A generator source is closed on the thread that iterated it,
             # so its own cleanup (an inner pipeline's close) runs now.
@@ -164,9 +184,18 @@ class PrefetchPipeline:
                     self._queue.get_nowait()
             except queue.Empty:
                 pass
-            if self._thread.is_alive():
-                self._thread.join(timeout=self._join_timeout_s)
-            self._producer_leaked = self._thread.is_alive()
+            if not self._thread.is_alive():
+                self._producer_leaked = False  # reaped since the last close
+                return
+            self._thread.join(timeout=self._join_timeout_s)
+            leaked = self._thread.is_alive()
+            if leaked and not self._producer_leaked:
+                # Once a wedge: a later close that reaps the producer
+                # clears the flag, so a new wedge counts again.
+                from svoc_torch.utils.metrics import registry
+
+                registry.counter("pipeline_producer_leaks").add(1)
+            self._producer_leaked = leaked
 
     def __enter__(self) -> "PrefetchPipeline":
         return self

@@ -6,8 +6,10 @@ Mirrors :mod:`svoc_tpu.models.sentiment` (``GO_EMOTIONS_LABELS``,
 ``sentiment.py:26-59, 62-341``).  Not ported here: ``tokenizer_name`` (no
 HF tokenizer files are in the repository, so the pipeline always runs
 the native hashing tokenizer, which is also what the reference falls
-back to) and the reference's ``tokenize``/``pack``/
-``forward`` spans.  ``data_mesh`` (a 1-D
+back to).  The ``tokenize``, ``pack`` and ``forward`` spans sit where the
+reference's do (``sentiment.py:276-278, 306, 331, 338``); ``forward``
+covers the launch and the copy of the vectors to the host that was
+already there, so it adds no sync.  ``data_mesh`` (a 1-D
 :class:`~svoc_torch.parallel.mesh.Mesh`) splits every forward's rows
 over its slots, each slot's rows through a copy of the module on its
 slot's device (none where the slot is the pipeline's own device), as
@@ -32,6 +34,7 @@ from svoc_torch.models.encoder import ATTENTIONS, init_params, load_encoder
 from svoc_torch.models.forward import resolve_forward, validate_quant
 from svoc_torch.models.packing import observe_fill_ratios, pack_tokens_auto, strip_padding
 from svoc_torch.models.tokenizer import load_tokenizer
+from svoc_torch.utils.metrics import stage_span
 
 #: The 28 go_emotions labels in model-head order.
 GO_EMOTIONS_LABELS = (
@@ -237,17 +240,22 @@ class SentimentPipeline:
     def _to_device(self, arrays):
         return [torch.from_numpy(a).to(self.device) for a in arrays]
 
-    def call_packed(self, texts: Sequence[str], max_segments: int = 8) -> np.ndarray:
+    def call_packed(
+        self, texts: Sequence[str], max_segments: int = 8, lineage: Optional[str] = None
+    ) -> np.ndarray:
         """Packed equivalent of ``__call__``: the same ``[len(texts), M]``
         result from about packing-factor fewer forward rows.  The row
         count is padded to ``batch_size`` multiples by repeating the last
-        row, so the forward's shapes stay fixed."""
+        row, so the forward's shapes stay fixed.  ``lineage`` tags the
+        stage spans (inside a ``fetch`` span they inherit its lineage)."""
         if not len(texts):
             return np.zeros((0, self.dimension))
-        ids, mask = self.tokenizer(list(texts), self.seq_len)
-        batch, n = pack_tokens_auto(
-            strip_padding(ids, mask), self.seq_len, max_segments, self.tokenizer.pad_id
-        )
+        with stage_span("tokenize", lineage=lineage):
+            ids, mask = self.tokenizer(list(texts), self.seq_len)
+        with stage_span("pack", lineage=lineage):
+            batch, n = pack_tokens_auto(
+                strip_padding(ids, mask), self.seq_len, max_segments, self.tokenizer.pad_id
+            )
         # The packing_fill_ratio{kind=} gauges: how much of the segment
         # and token headroom this pack used (sentiment.py:286).
         observe_fill_ratios(batch)
@@ -264,23 +272,27 @@ class SentimentPipeline:
                     np.concatenate([a, np.repeat(a[-1:], b - n_real, axis=0)], axis=0)
                     for a in chunk
                 ]
-            vecs = self.packed_forward(*self._to_device(chunk)).cpu().numpy().astype(np.float64)
+            with stage_span("forward", lineage=lineage):
+                vecs = self.packed_forward(*self._to_device(chunk)).cpu().numpy().astype(np.float64)  # svoclint: disable=SVOC001 -- the host copy the reference's suppressed np.asarray makes (sentiment.py:307): the span covers the launch and the fetch that was already here, no added sync
             valid = batch.seg_valid[sl] > 0
             out[batch.owner[sl][valid]] = vecs[:n_real][valid]
         return out
 
-    def __call__(self, texts: Sequence[str]) -> np.ndarray:
+    def __call__(self, texts: Sequence[str], lineage: Optional[str] = None) -> np.ndarray:
         """``sentiment_analysis`` equivalent: pad the last chunk with
         ``""`` to ``batch_size``, run the forward per chunk, return
-        ``[len(texts), M]`` float64."""
+        ``[len(texts), M]`` float64.  ``lineage`` as in :meth:`call_packed`."""
         if self.packed:
-            return self.call_packed(texts, self.max_segments)
+            return self.call_packed(texts, self.max_segments, lineage=lineage)
         out = []
         b = self.batch_size
         for i in range(0, len(texts), b):
             chunk = list(texts[i : i + b])
             n_real = len(chunk)
             chunk += [""] * (b - n_real)
-            vecs = self.forward(*self._to_device(self.tokenizer(chunk, self.seq_len)))
-            out.append(vecs[:n_real].cpu().numpy().astype(np.float64))
+            with stage_span("tokenize", lineage=lineage):
+                ids, mask = self.tokenizer(chunk, self.seq_len)
+            with stage_span("forward", lineage=lineage):
+                vecs = self.forward(*self._to_device((ids, mask)))
+                out.append(vecs[:n_real].cpu().numpy().astype(np.float64))  # svoclint: disable=SVOC001 -- the host copy the reference's suppressed np.asarray makes (sentiment.py:340): the span covers the launch and the fetch that was already here, no added sync
         return np.concatenate(out, axis=0) if out else np.zeros((0, self.dimension))

@@ -45,6 +45,8 @@ from typing import Callable, Dict, List, Optional, Sequence
 
 import torch
 
+from svoc_torch.utils.artifacts import fsync_dir
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 NVCC_FLAGS = (
@@ -137,7 +139,14 @@ def build(names: Sequence[str]) -> Dict[str, str]:
         if proc.returncode != 0:
             failed.append(f"{name}.cu (exit {proc.returncode}):\n{report}")
             continue
+        # Durably: the file before the rename, the directory after it. A
+        # persistent build directory (the compile plane's kernel cache)
+        # outlives the process, and a crash must not leave an empty file
+        # under the library's name, which would fail to load, not rebuild.
+        with open(tmp, "rb") as f:
+            os.fsync(f.fileno())
         os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
+        fsync_dir(str(out))
         _built.add(out)
         reports[name] = report
     if failed:

@@ -151,7 +151,7 @@ class CircuitBreaker:
                     if self._clock() - self._opened_at >= self.reset_timeout_s:
                         self._transition(BREAKER_HALF_OPEN)
                         self._probes_in_flight = 0
-                        self._half_open_since = self._clock()
+                        self._half_open_since = self._clock()  # svoc: volatile(restore collapses half-open to OPEN with a fresh reset window — restore_breaker_state — so the probe-window clock re-arms on the next transition)
                     else:
                         return False
                 # half-open: admit up to the probe budget.  A probe whose

@@ -253,7 +253,7 @@ class FleetHealthSupervisor:
                 ):
                     reliable[addr] = bool(ok)
                     enabled[addr] = bool(en)
-        except Exception:
+        except Exception:  # svoclint: disable=SVOC014 -- deliberate: a pre-consensus contract state is routine bootstrap (rel₂ simply absent this step) and a faulted TRANSPORT read already counted on the breaker before reaching here; health keeps running on the commit-failure signal
             # Pre-consensus state or a faulted read: health runs on the
             # commit-failure signal alone this step.
             reliable, enabled = {}, {}

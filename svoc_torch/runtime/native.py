@@ -39,6 +39,7 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 
 from svoc_torch.ops._build import BUILD_DIR
+from svoc_torch.utils.artifacts import fsync_dir
 
 SRC_DIR = Path(__file__).resolve().parent
 SOURCES = ("tokenizer.cpp", "packer.cpp")
@@ -78,7 +79,12 @@ def build() -> Path:
             raise RuntimeError(
                 f"the native runtime did not build ({CXX}, exit {res.returncode}):\n{res.stderr}"
             )
+        # Durably: the file before the rename, the directory after it, so
+        # that a crash cannot leave an empty library under the final name.
+        with open(tmp, "rb") as f:
+            os.fsync(f.fileno())
         os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
+        fsync_dir(str(out))
     finally:
         if os.path.exists(tmp):
             os.unlink(tmp)

@@ -266,7 +266,7 @@ class ServingFrontend:
     def set_draining(self, draining: bool = True) -> None:
         """Set or clear the drain latch."""
         with self._lock:
-            self._draining = bool(draining)
+            self._draining = bool(draining)  # svoc: volatile(per-process drain latch; a restarted process starts undrained by definition)
 
     @property
     def draining(self) -> bool:

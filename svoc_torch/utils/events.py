@@ -115,7 +115,7 @@ def fsync_dir(path: str) -> None:
     dirname = os.path.dirname(os.path.abspath(path))
     try:
         fd = os.open(dirname, os.O_RDONLY)
-    except OSError:
+    except OSError:  # svoclint: disable=SVOC014 -- deliberate: platforms without directory fds cannot fsync a directory at all — best-effort is this helper's documented contract and there is nothing to degrade TO
         return
     try:
         with contextlib.suppress(OSError):
@@ -140,7 +140,7 @@ def _json_safe(value: Any) -> Any:
     if callable(item):
         try:  # numpy / torch scalars
             return _json_safe(item())
-        except (TypeError, ValueError):
+        except (TypeError, ValueError):  # svoclint: disable=SVOC014 -- deliberate: repr() below IS the output for non-scalar .item() objects — a codec choice inside pure data conversion, not a degraded serving path
             pass
     return repr(value)
 
@@ -241,7 +241,7 @@ class RotatingJsonlWriter:
             self._file = open(self.path, "a", buffering=1)
             try:
                 self._size = os.path.getsize(self.path)
-            except OSError:
+            except OSError:  # svoclint: disable=SVOC014 -- deliberate: 0 is the CORRECT size for a just-created file — the rotation accounting starts fresh, nothing degrades
                 self._size = 0
 
     def _rotate_locked(self) -> None:

@@ -490,7 +490,7 @@ class Tracer:
                 from svoc_torch.utils import events as _events
 
                 _events.journal.emit("trace.write_error", path=path, error=repr(e))
-            except Exception:
+            except Exception:  # svoclint: disable=SVOC014 -- deliberate: recursion guard — the write-error EVENT failing to journal must not re-enter the journal; the latch + trace_write_errors counter above already made the failure visible
                 pass  # the journal's own export failing must not recurse
 
     def recent(self, n: Optional[int] = None) -> List[SpanRecord]:

@@ -311,6 +311,28 @@ class TestPersistentCache:
             directory.chmod(mode)
         assert events == [("miss", "probe"), ("hit", "probe")]
 
+    def test_a_build_is_fsynced_before_and_after_its_rename(self, fake_nvcc, monkeypatch):
+        """The library, then its rename, then its directory: a persistent
+        build directory must not come back from a crash with an empty
+        library under the final name."""
+        steps = []
+        fsync, replace = os.fsync, os.replace
+
+        def recording_fsync(fd):
+            steps.append(("fsync", os.readlink(f"/proc/self/fd/{fd}")))
+            return fsync(fd)
+
+        def recording_replace(src, dst):
+            steps.append(("replace", str(dst)))
+            return replace(src, dst)
+
+        monkeypatch.setattr(os, "fsync", recording_fsync)
+        monkeypatch.setattr(os, "replace", recording_replace)
+        out = _build.library_path("probe")
+        assert _build.load("probe").svoc_probe() == 7
+        assert [kind for kind, _ in steps] == ["fsync", "replace", "fsync"]
+        assert steps[0][1].endswith(".tmp") and steps[1][1] == str(out) and steps[2][1] == str(out.parent)
+
     def test_load_all_builds_every_missing_source_at_once(self, fake_nvcc, monkeypatch):
         _build.load("probe")
         _build._loaded.clear()

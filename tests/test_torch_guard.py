@@ -89,7 +89,13 @@ def test_every_module_imports_without_jax_or_svoc_tpu():
                  "svoc_torch.apps.web", "svoc_torch.parallel.mesh", "svoc_torch.parallel.sharded",
                  "svoc_torch.parallel.claim_shard", "svoc_torch.parallel.serving",
                  "svoc_torch.tools.shard_smoke", "svoc_torch.parallel.ring_attention",
-                 "svoc_torch.parallel.sp_encoder", "svoc_torch.parallel.pipeline", "svoc_torch.train"):
+                 "svoc_torch.parallel.sp_encoder", "svoc_torch.parallel.pipeline", "svoc_torch.train",
+                 "svoc_torch.analysis", "svoc_torch.analysis.findings", "svoc_torch.analysis.concurrency",
+                 "svoc_torch.analysis.jitmap", "svoc_torch.analysis.callgraph", "svoc_torch.analysis.cache",
+                 "svoc_torch.analysis.rules", "svoc_torch.analysis.taint", "svoc_torch.analysis.statecov",
+                 "svoc_torch.analysis.emissions", "svoc_torch.analysis.shardspec",
+                 "svoc_torch.analysis.interrules", "svoc_torch.analysis.engine", "svoc_torch.analysis.sarif",
+                 "svoc_torch.tools.svoclint"):
         assert name in names
     code = (
         "import importlib, sys\n"
