@@ -97,15 +97,17 @@ Phases:
    with bf16 weights, 256 packed rows of 128 tokens with up to 8 comments,
    a 50-comment window, 1024 oracles, subsets of 10, the fleet keyed by
    the reference's chain (``PRNGKey(0)``, ``key = fold_in(key, step)``).
-   It runs twice on the same comments: with the serial native feed
-   (tokenize, pack and copy on the caller's thread, each timed: one
-   warm-up and five timed steps), then with the feed overlapped through
-   the two-stage prefetch pipeline (one warm-up and eight timed steps);
+   It runs twice on the same comments, the two runs taking turns step
+   by step: with the serial native feed (tokenize, pack and copy on the
+   caller's thread, each timed) and with the feed overlapped in its
+   worker process (``FlagshipStep.comments``, each batch copied as it is
+   taken), one warm-up and 24 timed steps each;
    each prints comments/s on the wall clock beside the step alone. The
    two runs give the same essences step for step, the overlapped
    batches equal the serial Python feed's bit for bit, and the
-   forward's CUDA-event time with the feed running stays within the
-   serial run's range plus its spread (at least 5 % of its mean).
+   forward's mean CUDA-event time with the feed running stays within
+   the serial readings' mean plus their spread (the gap between their
+   halves, at least 5 % of their mean).
    Every kernel's launch count is set to 0 just before the main path
    and read just after it (8 threefry launches a step); the backward
    kernels must launch 0 times there. One more step then runs under
@@ -116,14 +118,15 @@ Phases:
    attention): one warm-up and five timed steps each on distinct batches,
    0 flash launches and 1 fused-consensus launch a step, and the same
    for ``packed_int8`` (``bench.py --config 10``: ``packed`` with the
-   W8A8 forward, folded from the seed-0 float32 weights); on one shared
+   W8A8 forward, folded from the seed-0 float32 weights, on the batches
+   that follow ``packed``'s from the same feed); on one shared
    set of 256 comments the per-comment vectors of the three float
    variants agree (5e-3 in bf16), and the int8 variant's logits and
    vectors meet the reference's bars against ``packed``'s (0.15
    max(1, |ref|) and 0.05).
    Then (4d) the pipelined twin of 4b (``FlagshipStep.pipelined``, the
    reference's default loop): 4b's step, comments, key chain and
-   overlapped feed; a priming forward of batch 0, eight steps each
+   overlapped feed; a priming forward of batch 0, 24 steps each
    running the forward of batch k on the caller's stream beside the
    fleet and consensus of batch k-1 on the step's second stream, then
    the drain. Its essences and second-pass reliabilities equal 4b's
@@ -153,7 +156,7 @@ Phases:
    macro-F1 >= 0.9, replay and restore deltas of exactly 0.0, and 2 x 8
    B1, B4 and B5 launches a train step (2 B1 an unsharded evaluation);
    then at ROBERTA_GO_EMOTIONS width (bf16 matmuls, flash, batch 32, the
-   same task; cut: 20 steps) the loss must fall and stay finite, both
+   same task; cut: 10 steps) the loss must fall and stay finite, both
    deltas 0.0, and the F1, the step's ms and trained comments/s are printed.
 6. The multi-claim serving step at full width: 64 claims of 1024
    oracles (128 failing, constrained), ROBERTA_GO_EMOTIONS with bf16
@@ -177,9 +180,11 @@ Phases:
    step runs under it (informational). Last, one batched fleet build of
    64 claims equals 64 one-claim builds bit for bit, and both are timed.
 7. The probe path: ``svoc_torch.tools.probe.main`` through its normal
-   entry, each probe in its own interpreter under a timeout: nine records
-   (``backend``, ``grid_copy``, ``consensus128/256/512/1024``,
-   ``flash512``, ``encoder512_dense``, ``encoder512_flash``), every one
+   entry, each probe in its own interpreter under a timeout: six records
+   (``backend``, ``grid_copy``, ``consensus1024`` without the tool's
+   bisect below it, ``flash512``, ``encoder512_dense``,
+   ``encoder512_flash``; two interpreters at a time after ``backend``,
+   so a probe's times are read beside another's), every one
    ok, with ``correct``, ``essence_match`` and ``match_dense`` true and
    ``GPU_PROBE.json`` readable. Each record carries the launch counts of
    its own interpreter (set to 0 by its start, read at its end): the
@@ -284,20 +289,23 @@ Phases:
    CUDA: five kill legs (a torn WAL intent, a kill between a tx and its
    landed record, a kill before a snapshot, a kill mid-way through a
    batched commit's log, and a second kill during recovery), two matrix
-   runs in waves of child processes; zero duplicate txs, zero unknown
+   runs side by side in waves of child processes; zero duplicate txs, zero unknown
    and unaccounted WAL slots and requests, zero open cycles, each leg's
    point in its fired log, identical recovered fingerprints across the
    runs, and every leg's recovered per-claim fingerprints equal to the
    JAX package's (the constants of the tool); then one uninterrupted
    ``run_durable_scenario(0)`` in this process on the card, against the
    same run on the CPU, with B3 once a step that served a claim and
-   threefry 6-8 a claim served. (c) 10b's tier made durable: a
+   threefry 6-8 a claim served. (c) 10b's tier made durable, at the
+   fleet phases' 30 s latency target: a
    ``CommitIntentWAL``, a ``DurableLocalBackend`` chain log for each of
    the 64 claims, ``RecoveryManager`` snapshots every 2 steps and the
    journal's trace fsynced on every event; a first child process
    (``chip_smoke.py --durable-child DIR crash``) is SIGKILLed at the
    228th ``chain.batch.mid_fleet`` firing of step 4 (mid-way through
-   the 33rd claim's batch), a second (``... recover``) recovers and runs
+   the 33rd claim's batch) or, where claims commit per tx, at the 116th
+   ``chainlog.tx.post_fsync`` firing, whichever comes first; a second
+   (``... recover``) recovers and runs
    to step 6 (cut: steps only). Checks: the kill where it was scheduled;
    the invariants of (b) over all 64 chain logs; one open cycle whose
    durable prefix is landed and whose suffix alone is resent; 12 flash
@@ -372,7 +380,7 @@ Phases:
    journaled, no ``forward_error`` shed, hop chains fully classified,
    the merged exposition equal to the scrapes' sum (before the kill),
    12 flash launches a forward, B3 once a dispatched group, threefry 8 a
-   claim served. (d) The same 64 claims and 512 arrivals for 3 steps (cut from 4)
+   claim served. (d) The same 64 claims and 512 arrivals for 2 steps (cut from 4)
    with no kill, on 1 and on 3 replicas: requests/s over the whole
    window (submits and steps; over the steps alone beside it) and step
    ms of each (the ratio is read, not demanded), with (c)'s invariants.
@@ -394,7 +402,7 @@ Phases:
    the JAX package's (the tool's constants); a surviving child's start
    split into the interpreter, torch's import, the port's imports (or the
    fork), CUDA's initialisation and the workload, spawned beside forked.
-   (c) 13c's fleet with no kill for 10 steps: after step 3 the smoke's
+   (c) 13c's fleet with no kill for 9 steps (cut from 10): after step 3 the smoke's
    plan aborted by an ``error`` at ``reconfig.pre_resume`` (every replica
    has built its new stack) with no traffic; after step 4 the same abort
    with one arrival a claim at every stage boundary; after step 6 the
@@ -494,6 +502,29 @@ Phases:
    computed with the JAX package's analyzer).  No JAX and no torch is
    needed to lint; the phase prints its seconds beside the card's name
    and power limit.
+20. BASELINE configs 1-4 (``bench.py``'s ``bench_config1``-``bench_config4``)
+   through ``svoc_torch.tools.baseline_configs`` at full width: (a)
+   config 1, DistilBERT-SST2 over 100 cached comments of 128 tokens, the
+   bf16 forward against the same seeded weights in float32 on the card
+   (3e-2), every value finite, each row's two scores summing to 1 and
+   the prediction their mean, and a narrow float32 DistilBERT-shaped
+   step on the card against the CPU (1e-4); no kernel launches. (b)
+   Config 2, 8 Beta(10, 10) oracles (2 failing) in 6 dimensions, a chunk
+   of 256 updates through one B3 launch against ``consensus_step_batched``
+   on the same fleets on the card (the consensus bars), the card's fleets
+   against the host's draws (keys and honest masks exact, values 1e-6),
+   the mean failing detected. (c) Config 3 on phase 4b's seed-0 weights
+   (the dense unpacked forward of 128 x 128 tokens, the window [50, 2],
+   64 oracles, 8 failing, subsets of 10), B2 once a step against
+   ``fused_consensus_plain`` on the last fleet, distinct essences across
+   keys. (d) Config 4, 1024 oracles (256 failing) over ``uniform(PRNGKey(1),
+   (50, 6)) / 6``, a chunk of 64 through one B3 launch against the plain
+   cube, the mean failing detected. Launch counts are read around each
+   config (threefry as drawn, B2 once a config-3 step, B3 once a chunk,
+   B1, B4, B5 and B6 never); each prints its rate on the wall clock
+   (comments/s or consensus-updates/s, every result fetched), its
+   forward's and consensus's CUDA-event times, and config 4 the latency
+   of one update at 1024 oracles, beside the card's name and power limit.
 
 It then prints one JSON line of per-kernel numbers, the card's
 ``nvidia-smi`` name and power limit, and last
@@ -510,6 +541,7 @@ import json
 import math
 import os
 import re
+import statistics
 import subprocess
 import sys
 import time
@@ -522,7 +554,12 @@ FP32_FLOPS = 67e12
 KERNELS = ("flash_attention", "flash_attention_bwd", "fused_consensus",
            "gated_claims_consensus", "grid_copy", "threefry")  # sources
 MAIN_STEPS = 5  # timed steps after one warm-up step
-OVERLAP_STEPS = 8  # timed steps of the serving path with the overlapped feed
+#: Timed steps of the serving path with the overlapped feed (8 before): the
+#: forward is launch-bound, so its CUDA-event time is the host's launch time,
+#: and the host stalls a step now and then (2-12 ms on an NVIDIA H100 80GB
+#: HBM3 host, in serial steps as in overlapped ones); one stall moves the
+#: mean of 24 steps a third as far as the mean of 8.
+OVERLAP_STEPS = 24
 CONFIG5_STEPS = 10  # timed steps of phase 8's per-tx submit (bench.py's config 5)
 #: The least spread of the serving forward's CUDA-event time: its mean
 #: over five steps ranged 18.6-20.1 ms (±4 %) between runs on an NVIDIA
@@ -586,8 +623,17 @@ KNOWN_ANSWERS = (
 #: body's tree (an NVIDIA H100 80GB HBM3 at 700.00 W).
 OLD_DQ_MS = {(256, 128): 1.5497, (8, 512): 0.7043, (8, 2048): 10.8642, (2, 8192): 42.4093}
 PROBE_TIMEOUT_S = 120  # each probe of phase 7 (about 10 s each on an H100)
-PROBE_RECORDS = ("backend", "grid_copy", "consensus128", "consensus256", "consensus512",
-                 "consensus1024", "flash512", "encoder512_dense", "encoder512_flash")
+#: Phase 7 runs the consensus probe at 1024 oracles only: the tool's bisect
+#: below it (128, 256, 512) repeated the same probe in three more
+#: interpreters, about 39 s (cut to fit the time limit).
+PROBE_CONSENSUS_SIZES = (1024,)
+#: Probe interpreters at a time after the backend canary (one at a time
+#: took 76.9 s against 42.9 s at two on NVIDIA H100 80GB HBM3 hosts; each
+#: spends most of its life importing torch): every record but the
+#: canary's carries ``jobs``, its times read beside another probe's.
+PROBE_JOBS = 2
+PROBE_RECORDS = ("backend", "grid_copy", *(f"consensus{n}" for n in PROBE_CONSENSUS_SIZES), "flash512",
+                 "encoder512_dense", "encoder512_flash")
 
 failures: list = []
 #: A checkout of the parent commit (``--parent DIR``): phases 1b and 3b
@@ -1328,6 +1374,18 @@ def flash_dense_phase(torch):
         torch.cuda.empty_cache()
 
 
+def fused_errors(torch, out, ref):
+    """Whether a B2 output meets the reference's bars against ``ref``
+    (the reliable mask exact; essences, risks and reliabilities within
+    1e-5; skewness within 1e-4; kurtosis within 1e-3), and its errors."""
+    errs = {f: (getattr(out, f) - getattr(ref, f)).abs().max().item() for f in (
+        "essence", "essence_first_pass", "quadratic_risk", "reliability_first_pass",
+        "reliability_second_pass", "skewness", "kurtosis")}
+    ok = (torch.equal(out.reliable, ref.reliable) and all(errs[f] <= 1e-5 for f in list(errs)[:5])
+          and errs["skewness"] <= 1e-4 and errs["kurtosis"] <= 1e-3)
+    return ok, errs
+
+
 @phase("3. fused consensus: kernel vs plain")
 def consensus_phase(torch, results):
     from svoc_torch.consensus.kernel import ConsensusConfig
@@ -1339,16 +1397,8 @@ def consensus_phase(torch, results):
 
     def compare(name, values, cfg):
         nonlocal worst
-        out = fused_consensus_cuda(values, cfg)
-        ref = fused_consensus_plain(values, cfg)
-        torch.cuda.synchronize()
-        errs = {f: (getattr(out, f) - getattr(ref, f)).abs().max().item() for f in (
-            "essence", "essence_first_pass", "quadratic_risk", "reliability_first_pass",
-            "reliability_second_pass", "skewness", "kurtosis")}
+        ok, errs = fused_errors(torch, fused_consensus_cuda(values, cfg), fused_consensus_plain(values, cfg))
         worst = max(worst, *(errs[f] for f in ("essence", "essence_first_pass", "quadratic_risk")))
-        ok = (torch.equal(out.reliable, ref.reliable)
-              and all(errs[f] <= 1e-5 for f in list(errs)[:5])
-              and errs["skewness"] <= 1e-4 and errs["kurtosis"] <= 1e-3)
         check(ok, f"{name}: mask exact, " + ", ".join(f"{f} {e:.2e}" for f, e in errs.items()))
 
     flagship = ConsensusConfig(n_failing=128, constrained=True)
@@ -1625,7 +1675,9 @@ def threefry_phase(torch, results):
 
 @phase("4a. small serving step: card vs CPU")
 def small_step_phase(torch):
-    from svoc_torch.flagship import FlagshipStep
+    import contextlib
+
+    from svoc_torch.flagship import FlagshipStep, comment_stream, packed_comment_stream
     from svoc_torch.io.scraper import SyntheticSource
     from svoc_torch.models.configs import TINY_TEST
     from svoc_torch.models.encoder import init_params
@@ -1636,7 +1688,14 @@ def small_step_phase(torch):
     for variant in ("packed_flash", "packed", "dense"):
         card = FlagshipStep(TINY_TEST, variant=variant, device="cuda", **kw)
         cpu = FlagshipStep(TINY_TEST, variant=variant, device="cpu", **kw)
-        batch, _ = next(card.comments(SyntheticSource(batch=16, seed=5)))
+        # The feed's own generator on this thread (4b drives it in its
+        # worker process): a spawned worker a variant would pay a fresh
+        # interpreter's import of torch, for a single TINY batch.
+        source = SyntheticSource(batch=16, seed=5)
+        feed = (packed_comment_stream(card.pipe.tokenizer, source, 16, 32, 4) if card.packed
+                else comment_stream(card.pipe.tokenizer, source, 16, 32))
+        with contextlib.closing(feed):
+            batch, _ = next(feed)
         w_card, w_cpu = card.window(batch), cpu.window(batch)
         out_card, _ = card(batch, PRNGKey(1, "cuda"))
         out_cpu, _ = cpu(batch, PRNGKey(1, "cpu"))
@@ -1687,53 +1746,59 @@ def main_path_phase(torch, launches):
             staged, n = put(item)
             yield staged.wait(), n
 
-    def drive(feed, n_steps, keep=None):
-        """One warm-up step and ``n_steps`` timed steps on ``feed``, keyed
-        by the reference's chain: PRNGKey(0), then key = fold_in(key, s)."""
-        key = prng.PRNGKey(0, "cuda")
-        essences, rows_out = [], []
-        rel2s.clear()
+    def drive(feeds, n_steps):
+        """One warm-up step and ``n_steps`` timed steps on each of
+        ``feeds``, the feeds taking turns step by step, so that a host
+        whose speed drifts over the phase moves every feed's readings
+        alike.  Each feed is keyed by the reference's chain: PRNGKey(0),
+        then key = fold_in(key, s)."""
+        keys = [prng.PRNGKey(0, "cuda") for _ in feeds]
+        runs = [dict(essences=[], rows=[], rel2=[], batches=[]) for _ in feeds]
         for i in range(1 + n_steps):
-            for stage in split:
-                split[stage] = 0.0
-            t0 = time.perf_counter()
-            batch, n_comments = next(feed)
-            t1 = time.perf_counter()
-            if keep is not None:
-                keep.append(batch)
-            key = prng.fold_in(key, i)
-            ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
-            ev[0].record()
-            window = step.window(batch)
-            ev[1].record()
-            out, honest = step.consensus(window, step.draws(key))
-            ev[2].record()
-            essence = out.essence.cpu()  # fetched to the host: the step is done
-            t2 = time.perf_counter()
-            essences.append(tuple(essence.tolist()))
-            rel2s.append(out.reliability_second_pass.item())
-            rows_out.append(dict(feed_ms=(t1 - t0) * 1e3, step_ms=(t2 - t1) * 1e3,
-                                 source_ms=split["source"] * 1e3, tokenize_ms=split["tokenize"] * 1e3,
-                                 pack_ms=split["pack"] * 1e3,
-                                 forward_ms=ev[0].elapsed_time(ev[1]),
-                                 consensus_ms=ev[1].elapsed_time(ev[2]), comments=n_comments))
-        return essences, rows_out, (window, out, honest)
+            for f, (feed, run) in enumerate(zip(feeds, runs)):
+                for stage in split:
+                    split[stage] = 0.0
+                t0 = time.perf_counter()
+                batch, n_comments = next(feed)
+                t1 = time.perf_counter()
+                run["batches"].append(batch)
+                keys[f] = prng.fold_in(keys[f], i)
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+                ev[0].record()
+                window = step.window(batch)
+                ev[1].record()
+                out, honest = step.consensus(window, step.draws(keys[f]))
+                ev[2].record()
+                essence = out.essence.cpu()  # fetched to the host: the step is done
+                t2 = time.perf_counter()
+                run["essences"].append(tuple(essence.tolist()))
+                run["rel2"].append(out.reliability_second_pass.item())
+                run["rows"].append(dict(feed_ms=(t1 - t0) * 1e3, step_ms=(t2 - t1) * 1e3,
+                                        source_ms=split["source"] * 1e3, tokenize_ms=split["tokenize"] * 1e3,
+                                        pack_ms=split["pack"] * 1e3,
+                                        forward_ms=ev[0].elapsed_time(ev[1]),
+                                        consensus_ms=ev[1].elapsed_time(ev[2]), comments=n_comments))
+        return runs, (window, out, honest)
 
     counted = (flash_attention_cuda, fused_consensus_cuda, threefry_cuda, flash_dq_cuda, flash_dkv_cuda)
-    rel2s = []
     torch.cuda.synchronize()
     for wrapper in counted:
         wrapper.launches = 0
-    serial_essences, serial_rows, _ = drive(serial_native_feed(), MAIN_STEPS)
+    # The serial feed and the overlapped one (its worker process running
+    # beside the step), step by step on the same comments.  The overlapped
+    # feed copies each batch as it is taken and freezes the heap it starts
+    # on (io/pipeline.py::staged_stream), for any caller of
+    # FlagshipStep.comments.
     feed = step.comments(SyntheticSource(batch=rows, seed=0))
-    staged = []
-    essences, rows_run, (window, out, honest) = drive(feed, OVERLAP_STEPS, keep=staged)
+    (serial, fed_run), (window, out, honest) = drive([serial_native_feed(), feed], OVERLAP_STEPS)
+    serial_essences, serial_rows = serial["essences"], serial["rows"]
+    essences, rows_run, rel2_run, staged = fed_run["essences"], fed_run["rows"], fed_run["rel2"], fed_run["batches"]
     launches["flash_attention"] = flash_attention_cuda.launches
     launches["fused_consensus"] = fused_consensus_cuda.launches
     launches["threefry"] = threefry_cuda.launches
     backward = (flash_dq_cuda.launches, flash_dkv_cuda.launches)
 
-    steps = 2 + MAIN_STEPS + OVERLAP_STEPS
+    steps = 2 * (1 + OVERLAP_STEPS)
     check(launches["flash_attention"] == n_layers * steps,
           f"flash kernel launches {launches['flash_attention']} == {n_layers} x {steps} steps")
     check(launches["fused_consensus"] == steps,
@@ -1742,7 +1807,7 @@ def main_path_phase(torch, launches):
           f"threefry launches {launches['threefry']} == 8 x {steps} steps (fold_in, 7 for the fleet)")
     check(backward == (0, 0), f"backward kernel launches while serving (dq, dk/dv) {backward} == (0, 0)")
     check(len(set(essences)) == 1 + OVERLAP_STEPS, f"{1 + OVERLAP_STEPS} distinct essences on distinct batches")
-    check(essences[:1 + MAIN_STEPS] == serial_essences,
+    check(essences == serial_essences,
           "the overlapped feed's steps give the serial native feed's essences, step for step")
     e = torch.tensor(essences)
     check(bool(torch.isfinite(e).all()) and e.shape == (1 + OVERLAP_STEPS, 6),
@@ -1768,32 +1833,38 @@ def main_path_phase(torch, launches):
         n_comments = sum(r["comments"] for r in rs)
         wall_s = sum(r["feed_ms"] + r["step_ms"] for r in rs) / 1e3
         device_s = sum(r["step_ms"] for r in rs) / 1e3
-        print(f"  [{card}] {name}, {len(rs)} timed steps: step {mean(rs, 'step_ms'):.3f} ms (forward "
-              f"{mean(rs, 'forward_ms'):.3f} ms, consensus {mean(rs, 'consensus_ms'):.3f} ms), feed wait "
-              f"{mean(rs, 'feed_ms'):.3f} ms; {n_comments / len(rs):.1f} comments/step: "
-              f"{n_comments / wall_s:.1f} comments/s on the wall clock, {n_comments / device_s:.1f} over "
-              f"the step alone")
+        print(f"  [{card}] {name}, {len(rs)} timed steps (taking turns with the other feed): step "
+              f"{mean(rs, 'step_ms'):.3f} ms (forward {mean(rs, 'forward_ms'):.3f} ms, consensus "
+              f"{mean(rs, 'consensus_ms'):.3f} ms), feed wait {mean(rs, 'feed_ms'):.3f} ms; "
+              f"{n_comments / len(rs):.1f} comments/step: {n_comments / wall_s:.1f} comments/s on the wall clock, "
+              f"{n_comments / device_s:.1f} over the step alone")
     rs = serial_rows[1:]
     rest_ms = mean(rs, "feed_ms") - sum(mean(rs, f"{stage}_ms") for stage in split)
     print(f"  [{card}] the serial feed's split, host ms a step: source (SyntheticSource) "
           f"{mean(rs, 'source_ms'):.3f}, tokenize {mean(rs, 'tokenize_ms'):.3f}, pack "
           f"{mean(rs, 'pack_ms'):.3f}, copy and the rest (strip, buffer, pinned copy) {rest_ms:.3f}")
+    # Paired: the mean of the fed forwards against the mean of the serial
+    # ones, read in turns.  The spread: the gap between the serial
+    # readings' first and second halves (what drift is left after the
+    # pairing), but at least FORWARD_SPREAD of their mean, the forward's
+    # spread between runs.
     alone = [r["forward_ms"] for r in serial_rows[1:]]
     fed = [r["forward_ms"] for r in rows_run[1:]]
-    # The spread: the range of the steps without the feed, but at least
-    # FORWARD_SPREAD of their mean, the forward's spread between runs (five
-    # steps can land inside a range narrower than that).
-    spread = max(max(alone) - min(alone), FORWARD_SPREAD * sum(alone) / len(alone))
-    check(sum(fed) / len(fed) <= max(alone) + spread,
-          f"forward with the feed running {sum(fed) / len(fed):.3f} ms (mean) <= without it "
-          f"{min(alone):.3f}-{max(alone):.3f} ms + the spread {spread:.3f}")
+    avg = lambda xs: sum(xs) / len(xs)  # noqa: E731
+    half = len(alone) // 2
+    first, second = avg(alone[:half]), avg(alone[half:])
+    spread = max(abs(first - second), FORWARD_SPREAD * avg(alone))
+    check(avg(fed) <= avg(alone) + spread,
+          f"forward with the feed running {avg(fed):.3f} ms (mean of {len(fed)}) <= without it {avg(alone):.3f} "
+          f"ms (mean of {len(alone)}, in turns with it; halves {first:.3f} and {second:.3f}) + the spread "
+          f"{spread:.3f}")
     print("  serial per step: " + json.dumps(serial_rows))
     print("  overlapped per step: " + json.dumps(rows_run))
     batch, _ = next(feed)
     key = prng.PRNGKey(0, "cuda")
     profiled = profile_one_step(torch, lambda: step(batch, key)[0].essence.cpu())
     feed.close()
-    return dict(step=step, essences=essences, rel2=list(rel2s), rows=rows_run[1:], profiled=profiled)
+    return dict(step=step, essences=essences, rel2=rel2_run, rows=rows_run[1:], profiled=profiled)
 
 
 @phase("4c. the packed, packed_int8 and dense flagship variants at full width")
@@ -1831,9 +1902,13 @@ def variants_phase(torch, launches):
           f"packed_int8 runs the W8A8 forward ({type(qmodel).__name__})")
     print(f"  [{card}] packed_int8: folded from float32 in {fold_s:.3f} s (the step's build, the fold inside), "
           f"quantized weights {quantized_size_bytes(qmodel.qparams) / 2**20:.1f} MiB")
+    # packed and packed_int8 share one packed feed (its worker's start is a
+    # fresh interpreter's import of torch): packed_int8 takes the batches
+    # that follow packed's.
+    packed_feed = steps["packed"].comments(SyntheticSource(batch=256, seed=0))
     for variant in ("packed", "packed_int8", "dense"):
         step = steps[variant]
-        feed = step.comments(SyntheticSource(batch=256, seed=0))
+        feed = packed_feed if step.packed else step.comments(SyntheticSource(batch=256, seed=0))
         key = prng.PRNGKey(0, "cuda")
         torch.cuda.synchronize()
         for wrapper in counted:
@@ -1855,7 +1930,8 @@ def variants_phase(torch, launches):
             rows.append(dict(feed_ms=(t1 - t0) * 1e3, step_ms=(t2 - t1) * 1e3,
                              forward_ms=ev[0].elapsed_time(ev[1]),
                              consensus_ms=ev[1].elapsed_time(ev[2]), comments=n_comments))
-        feed.close()
+        if variant != "packed":
+            feed.close()
         counts = [w.launches for w in counted]
         launches["fused_consensus"] = launches.get("fused_consensus", 0) + counts[1]
         steps_run = 1 + MAIN_STEPS
@@ -2449,13 +2525,16 @@ def probe_phase(torch, launches):
 
     before = grid_copy_cuda.launches
     t0 = time.perf_counter()
-    rc = probe.main(["--timeout", str(PROBE_TIMEOUT_S)])  # prints each record as it lands
+    rc = probe.main(["--timeout", str(PROBE_TIMEOUT_S), "--consensus-sizes",
+                     ",".join(map(str, PROBE_CONSENSUS_SIZES)), "--jobs", str(PROBE_JOBS)])  # prints each record
     elapsed = time.perf_counter() - t0
     records = json.loads((Path(probe.REPO) / "GPU_PROBE.json").read_text())
     by_name = {r["probe"]: r for r in records}
-    check(rc == 0 and tuple(r["probe"] for r in records) == PROBE_RECORDS,
-          f"probe.main returned {rc}; GPU_PROBE.json holds {[r['probe'] for r in records]} "
-          f"({elapsed:.1f} s)")
+    jobs = [r.get("jobs") for r in records]
+    check(rc == 0 and tuple(r["probe"] for r in records) == PROBE_RECORDS
+          and jobs == [None] + [PROBE_JOBS] * (len(records) - 1),
+          f"probe.main returned {rc}; GPU_PROBE.json holds {[r['probe'] for r in records]} in record order, "
+          f"each after the canary marked run {PROBE_JOBS} at a time ({jobs}; {elapsed:.1f} s)")
     for r in records:
         check(r.get("ok") is True and not r.get("timeout"),
               f"{r['probe']}: ok ({r.get('elapsed_s')} s)"
@@ -2469,7 +2548,7 @@ def probe_phase(torch, launches):
     check(by_name["grid_copy"]["correct"] is True and counts["grid_copy"]["grid_copy"] >= 1,
           f"grid_copy: correct, {counts['grid_copy']['grid_copy']} launches in its interpreter, "
           f"build {by_name['grid_copy']['build_s']} s, copy {by_name['grid_copy']['copy_ms']} ms")
-    for n in (128, 256, 512, 1024):
+    for n in PROBE_CONSENSUS_SIZES:
         r = by_name[f"consensus{n}"]
         check(r["essence_match"] is True and r["n_oracles"] == n
               and counts[f"consensus{n}"]["fused_consensus"] >= 1,
@@ -3274,16 +3353,17 @@ def width_pipeline(torch, cfg=None, device="cuda"):
                              device=device)
 
 
-def width_tier(multi, pipe, metrics, claims: int = SERVING_CLAIMS, arrivals: int = SERVING_ARRIVALS):
+def width_tier(multi, pipe, metrics, claims: int = SERVING_CLAIMS, arrivals: int = SERVING_ARRIVALS,
+               latency_target_s: float = SERVING_LATENCY_TARGET_S):
     """10b's ``ServingTier`` over ``multi``: queues of 64, a step drains
-    every arrival, 10b's latency target."""
+    every arrival, 10b's latency target unless another is given."""
     from svoc_torch.serving.frontend import AdmissionConfig
     from svoc_torch.serving.tier import ServingTier
     from svoc_torch.utils.slo import serving_slos
 
     return ServingTier(multi, vectorizer=pipe, admission=AdmissionConfig(queue_capacity=64),
                        max_requests_per_step=claims * arrivals,
-                       slos=serving_slos(metrics, latency_target_s=SERVING_LATENCY_TARGET_S))
+                       slos=serving_slos(metrics, latency_target_s=latency_target_s))
 
 
 @phase("10b. the serving tier at full width: 64 claims x 7 oracles, one packed flash forward a step")
@@ -3505,7 +3585,8 @@ def crash_matrix_phase(torch, launches):
         counts = crash_smoke.reconcile_counts(rec.get("reconcile") or {})
         print(f"  {leg}: killed {entry['killed']}, reconcile {counts}, "
               f"resent {(rec.get('reconcile') or {}).get('resent')}, lost requests {rec.get('lost_requests')}")
-    print(f"  [{card}] crash matrix: {secs:.3f} s for 2 x 11 child processes in waves of 5, 5, 1")
+    print(f"  [{card}] crash matrix: {secs:.3f} s for 2 x 11 child processes, the two runs side by side in "
+          f"waves of 10, 10, 2")
 
     # One uninterrupted run in this process, counted from 0.
     counted = {"gated_claims_consensus": fused_consensus_gated_claims_cuda, "threefry": threefry_cuda,
@@ -3543,20 +3624,39 @@ def crash_matrix_phase(torch, launches):
 #: the mid_fleet firing it dies at within that step (7 records a claim's
 #: batch: mid-way through the 33rd claim's).
 DURABLE_STEPS, DURABLE_KILL_STEP, DURABLE_KILL_NTH = 6, 4, 7 * 32 + 4
+#: A claim whose block has a quarantined slot commits through the per-tx
+#: loop, which never passes mid_fleet; the first child is also armed at
+#: this firing of that route's ``chainlog.tx.post_fsync`` (mid-way through
+#: the 17th claim's txs).  A step commits about 64 x 7 txs over the two
+#: routes, more than the two counts together, so one of them is reached
+#: in the kill step whatever route each claim takes.
+DURABLE_KILL_NTH_PER_TX = 7 * 16 + 4
+#: The fault point of each commit route and its firing the first child dies at.
+DURABLE_KILLS = {"chain.batch.mid_fleet": DURABLE_KILL_NTH, "chainlog.tx.post_fsync": DURABLE_KILL_NTH_PER_TX}
+#: The durable tier's request-latency target: the fleet phases' 30 s. At
+#: 10b's 5 s a slow host's durable steps (2.1-3.6 s, fsyncs included, on
+#: an NVIDIA H100 80GB HBM3 host) burned the SLO and the tier shed every
+#: request from step 3 on, so the first child committed nothing to die in.
+DURABLE_LATENCY_TARGET_S = 30.0
 DURABLE_SNAPSHOT_EVERY = 2
 
 
 def durable_width_run(torch, workdir: str, role: str, device=None, cfg=None, claims: int = SERVING_CLAIMS,
                       arrivals: int = SERVING_ARRIVALS, steps: int = DURABLE_STEPS,
                       kill_step: int = DURABLE_KILL_STEP, kill_nth: int = DURABLE_KILL_NTH,
+                      kill_nth_per_tx: int = DURABLE_KILL_NTH_PER_TX, per_tx_claims: int = 0,
                       comments: int = 256) -> None:
     """One child of phase 11c: 10b's serving tier made durable in
     ``workdir`` (a WAL, a chain log a claim, snapshots every two steps,
     the journal's trace fsynced). ``role`` "crash" arms the fault
     controller at the start of step ``kill_step`` and is SIGKILLed at
-    its ``kill_nth`` ``chain.batch.mid_fleet`` firing; "recover" recovers
-    from the directory, runs to ``steps`` and writes ``result.json``.
-    Each step appends its row to ``rows-<role>.jsonl`` as it ends."""
+    its ``kill_nth`` ``chain.batch.mid_fleet`` firing (the batched
+    commit route) or its ``kill_nth_per_tx`` ``chainlog.tx.post_fsync``
+    firing (the per-tx route), whichever comes first; "recover" recovers
+    from the directory, runs to ``steps`` and writes ``result.json``; any
+    other role runs uninterrupted to ``steps`` and writes it too.  The
+    first ``per_tx_claims`` claims commit per tx.  Each step appends its
+    row to ``rows-<role>.jsonl`` as it ends."""
     import collections
     import os
 
@@ -3643,8 +3743,10 @@ def durable_width_run(torch, workdir: str, role: str, device=None, cfg=None, cla
     tamper = fabric_tamper(kinds, 6)
     for cid in names:
         multi.add_claim(ClaimSpec(claim_id=cid, tamper=tamper if cid == offender else None))
+    for cid in names[:per_tx_claims]:
+        multi.get(cid).session.commit_mode = "per_tx"
     multi.attach_wal(wal)
-    tier = width_tier(multi, pipe, metrics, claims, arrivals)
+    tier = width_tier(multi, pipe, metrics, claims, arrivals, DURABLE_LATENCY_TARGET_S)
     manager = RecoveryManager(multi, out_dir=workdir, wal=wal, tier=tier, compilation_cache="off")
     snapshots = []
     snapshot = manager.snapshot
@@ -3676,7 +3778,8 @@ def durable_width_run(torch, workdir: str, role: str, device=None, cfg=None, cla
         step_no = tier.steps  # continues across the restart (restored)
         if role == "crash" and step_no + 1 == kill_step:
             faultspace.arm(faultspace.FaultController(
-                [faultspace.FaultEvent("chain.batch.mid_fleet", nth=kill_nth)],
+                [faultspace.FaultEvent("chain.batch.mid_fleet", nth=kill_nth),
+                 faultspace.FaultEvent("chainlog.tx.post_fsync", nth=kill_nth_per_tx)],
                 log_path=os.path.join(workdir, "fired.jsonl")))
         rng = np.random.default_rng(claim_seed(0, f"arrivals{step_no}"))
         fresh = iter(SyntheticSource(batch=claims * arrivals, seed=1000 + step_no)())
@@ -3747,12 +3850,12 @@ def durable_width_phase(torch, launches, serving):
     crash_rows, rec_rows = rows("crash"), rows("recover")
     fired = read_fired_log(os.path.join(workdir, "fired.jsonl"))
     action = fired["actions"][-1] if fired["actions"] else {}
-    check(children["crash"][0].returncode == -9 and "chain.batch.mid_fleet" in fired["fired"]
-          and action.get("action") == "kill" and action.get("n") == DURABLE_KILL_NTH
+    check(children["crash"][0].returncode == -9 and action.get("action") == "kill"
+          and action.get("point") in DURABLE_KILLS and action.get("n") == DURABLE_KILLS[action["point"]]
           and [r["step"] for r in crash_rows] == list(range(1, DURABLE_KILL_STEP)),
           f"the first child died by SIGKILL (exit {children['crash'][0].returncode}) at the "
-          f"{DURABLE_KILL_NTH}th chain.batch.mid_fleet firing of step {DURABLE_KILL_STEP}, "
-          f"after steps {[r['step'] for r in crash_rows]}")
+          f"{action.get('n')}th {action.get('point')} firing of step {DURABLE_KILL_STEP} (armed: {DURABLE_KILLS}; "
+          f"fired {fired['fired']}), after steps {[r['step'] for r in crash_rows]}")
     if children["recover"][0].returncode != 0 or not os.path.exists(os.path.join(workdir, "result.json")):
         check(False, f"the recovery child exited {children['recover'][0].returncode}")
         return
@@ -3810,8 +3913,8 @@ def durable_width_phase(torch, launches, serving):
 
 
 #: Phase 5c's full-width fine-tune (cut from the reference's 240: steps only; 40 before the fine-tune moved onto the
-#: mesh, whose 8 slots run serially on one card).
-FINETUNE_ROBERTA_STEPS = 20
+#: mesh, whose 8 slots run serially on one card, 20 before the script's time was brought under 900 s).
+FINETUNE_ROBERTA_STEPS = 10
 #: 5c's unsharded step, flash against dense: SGD steps a configuration and their lr; the bf16 losses' rtol, where the
 #: reference gives no bar (18e's; PERF.md §6).
 UNSHARDED_STEPS, UNSHARDED_LR, BF16_LOSS_RTOL = 3, 1e-3, 5e-3
@@ -4255,7 +4358,7 @@ def profiler_phase(torch, launches, uninterrupted, serving_main):
 
 #: Phase 13c/13d: the fleet's replicas, steps, kill, failover and migration steps.
 FLEET_REPLICAS, FLEET_STEPS, FLEET_KILL_STEP, FLEET_FAILOVER_STEP, FLEET_MIGRATE_STEP = 3, 10, 4, 6, 8
-FLEET_BENCH_STEPS = 3  # phase 13d, on 1 and on 3 replicas (cut from 4 to make room for phase 18)
+FLEET_BENCH_STEPS = 2  # phase 13d, on 1 and on 3 replicas (cut from 4 for phase 18, from 3 for the 900 s)
 #: A replica's queue capacity, per claim (10b's).
 FLEET_QUEUE_CAPACITY = 64
 #: A replica's request-latency target (``2.5 * step_period_s`` in ``Replica``).  A request
@@ -5071,7 +5174,7 @@ def fleet_width_phase(torch, launches):
     return {"pipe": pipe}
 
 
-@phase("13d. replicas on one card: 64 claims, 512 arrivals a step, 3 steps, on 1 and on 3 replicas")
+@phase("13d. replicas on one card: 64 claims, 512 arrivals a step, 2 steps, on 1 and on 3 replicas")
 def replicas_phase(torch, launches, fleet):
     card = nvidia_smi()
     pipe = fleet["pipe"] if fleet else None
@@ -5253,7 +5356,9 @@ def chaos_fuzz_phase(torch):
     return artifact
 
 
-RECONFIG_STEPS, RECONFIG_QUIET_ABORT_STEP, RECONFIG_ABORT_STEP, RECONFIG_COMMIT_STEP = 10, 3, 4, 6
+#: Phase 14c: its steps (cut from 10 to bring the script under 900 s: step 8 is the one after the commit's
+#: two), the quiet abort's, the abort under traffic's and the commit's.
+RECONFIG_STEPS, RECONFIG_QUIET_ABORT_STEP, RECONFIG_ABORT_STEP, RECONFIG_COMMIT_STEP = 9, 3, 4, 6
 
 
 def reconfig_width_run(torch, pipe, *, device=None, claims: int = SERVING_CLAIMS,
@@ -6493,6 +6598,254 @@ def lint_phase(torch):
     print(f"  [{card}] 19b: {ref_s:.2f} s in process", flush=True)
 
 
+#: Phase 20: config 3's steps on distinct keys, the calls timed alone by
+#: CUDA events, and the seconds of each config's timed window in
+#: ``baseline_configs.run`` (the rates and the 1024-oracle latency).
+BASELINE_STEPS, BASELINE_EVENTS, BASELINE_SECONDS = 10, 5, 1.0
+#: Config 1's bf16 forward against the same weights in float32 on the
+#: card (the reference's bf16 bar, ``tests/test_pallas_attention.py``).
+CONFIG1_BF16_BAR = 3e-2
+#: Config 1's narrow float32 step on the card against the CPU: DistilBERT's
+#: pad 0, ln_eps 1e-12 and softmax head at a width the host runs quickly.
+CONFIG1_NARROW = dict(n_layers=1, hidden=64, n_heads=4, intermediate=64, vocab_size=512)
+
+
+def baseline_wrappers():
+    """Every counted wrapper of phase 20: B1-B6 and threefry."""
+    from svoc_torch.ops.grid_copy import grid_copy_cuda
+
+    return dict(mesh_wrappers(), grid_copy=grid_copy_cuda)
+
+
+def baseline_run(bc, config: int, **kwargs) -> dict:
+    """``baseline_configs.run`` at full width on the card (what ``python -m
+    svoc_torch.tools.baseline_configs --config N`` prints), its detail
+    checked; the report."""
+    report = bc.run(config, seconds=BASELINE_SECONDS, **kwargs)  # device None: CUDA
+    detail = report["detail"]
+    metric, unit = bc.METRICS[config]
+    if config == 4:
+        metric = metric.format(n=bc.CONFIG4_ORACLES, f=bc.CONFIG4_ORACLES // 4)
+    shape = {1: dict(batch=bc.CONFIG1_COMMENTS, seq_len=bc.CONFIG1_SEQ),
+             2: dict(n_oracles=bc.CONFIG2_ORACLES, n_failing=bc.CONFIG2_FAILING, chunk=bc.CONFIG2_CHUNK),
+             3: dict(batch=bc.CONFIG3_BATCH, seq_len=bc.CONFIG3_SEQ),
+             4: dict(n_oracles=bc.CONFIG4_ORACLES, n_failing=bc.CONFIG4_ORACLES // 4, chunk=bc.CONFIG4_CHUNK)}[config]
+    detected = detail.get("mean_failing_detected", 1.0)
+    check(report["metric"] == metric and report["unit"] == unit and report["value"] > 0
+          and detail["device"].startswith("cuda") and all(detail[k] == v for k, v in shape.items())
+          and 0 < detected <= detail.get("n_failing", 1) and "vs_baseline" not in report,
+          f"baseline_configs.run({config}) on the card: {report['value']:.1f} {unit}, {shape}, "
+          f"{detail['calls']} calls in {detail['elapsed_s']:.3f} s")
+    return report
+
+
+@phase("20a. BASELINE config 1: DistilBERT-SST2, 100 cached comments x 128 tokens, the window's mean")
+def config1_phase(torch, launches):
+    from svoc_torch.models.configs import DISTILBERT_SST2
+    from svoc_torch.models.encoder import init_params
+    from svoc_torch.tools import baseline_configs as bc
+
+    card = nvidia_smi()
+    wrappers = zero_counts(baseline_wrappers())
+    params = init_params(DISTILBERT_SST2, 0, "cuda")
+    pipe = bc.config1_pipeline(params=params)  # device None: CUDA
+    f32 = bc.config1_pipeline(params=params, cfg=dataclasses.replace(DISTILBERT_SST2, dtype=torch.float32))
+    ids, mask = bc.comment_batch(pipe, bc.CONFIG1_COMMENTS)
+    vecs, pred = bc.config1_step(pipe, ids, mask)
+    ref, _ = bc.config1_step(f32, ids, mask)
+    err = max_err(vecs, ref)
+    check(bool(torch.isfinite(vecs).all()) and vecs.shape == (100, 2) and err <= CONFIG1_BF16_BAR,
+          f"the bf16 forward of 100 comments: finite {tuple(vecs.shape)}, against the same weights in float32 "
+          f"on the card max err {err:.3e} <= {CONFIG1_BF16_BAR}")
+    row_err = (vecs.sum(1) - 1).abs().max().item()
+    mean_err = max_err(pred, vecs.mean(0))
+    check(row_err <= 1e-6 and mean_err == 0.0,
+          f"every row's two scores sum to 1 (max err {row_err:.2e}); the prediction "
+          f"{[round(p, 6) for p in pred.tolist()]} is their mean (err {mean_err:.1e})")
+
+    narrow = dataclasses.replace(DISTILBERT_SST2, dtype=torch.float32, **CONFIG1_NARROW)
+    host_params = init_params(narrow, 1, "cpu")
+    card_pipe = bc.config1_pipeline(params=host_params, cfg=narrow)
+    host_pipe = bc.config1_pipeline(device="cpu", params=host_params, cfg=narrow)
+    got = bc.config1_step(card_pipe, *bc.comment_batch(card_pipe, bc.CONFIG1_COMMENTS))[0]
+    want = bc.config1_step(host_pipe, *bc.comment_batch(host_pipe, bc.CONFIG1_COMMENTS))[0]
+    err = max_err(got.cpu(), want)
+    check(err <= 1e-4, f"a narrow float32 DistilBERT-shaped step (pad 0, ln_eps 1e-12, softmax head): card vs "
+                       f"CPU max err {err:.3e} <= 1e-4")
+
+    forward_ms = cuda_ms(torch, lambda: pipe.forward(ids, mask), iters=BASELINE_EVENTS, warmup=0)
+    report = baseline_run(bc, 1, params=params)
+    counts = read_counts(wrappers)
+    check(launches_are(counts, {}), f"config 1 launches no kernel (dense attention, no fleet): {counts}")
+    add_launches(launches, counts)
+    d = report["detail"]
+    print(f"  [{card}] config 1: {report['value']:.1f} comments/s on the wall clock ({d['steps']} steps of 100 "
+          f"in {d['elapsed_s']:.3f} s, the prediction fetched; a step's latency {d['step_latency_ms']:.3f} ms); "
+          f"forward {forward_ms:.3f} ms (CUDA events)")
+
+
+@phase("20b. BASELINE config 2: 8 Beta(10, 10) oracles (2 failing) in 6 dims, 256 updates a chunk, B3 a chunk")
+def config2_phase(torch, launches):
+    from svoc_torch.consensus.kernel import ConsensusConfig, consensus_step_batched
+    from svoc_torch.ops.fused_consensus import consensus_blocks
+    from svoc_torch.sim import prng
+    from svoc_torch.sim.generators import generate_beta_oracles
+    from svoc_torch.tools import baseline_configs as bc
+
+    card = nvidia_smi()
+    ccfg = ConsensusConfig(n_failing=bc.CONFIG2_FAILING, constrained=True)
+    key = prng.PRNGKey(0, "cuda")
+    draw = lambda keys: generate_beta_oracles(  # noqa: E731
+        keys, bc.CONFIG2_ORACLES, bc.CONFIG2_FAILING, bc.CONFIG2_A, bc.CONFIG2_B, dim=bc.CONFIG2_DIM)
+    wrappers = zero_counts(baseline_wrappers())
+    chunk = bc.config2_chunk(key)
+    counts = read_counts(wrappers)
+    check(counts["threefry"] > 0 and launches_are(counts, {"gated_claims_consensus": 1,
+                                                           "threefry": counts["threefry"]}),
+          f"one chunk of 256: B3 once, threefry as drawn, nothing else: {counts}")
+    add_launches(launches, counts)
+    ok, errs, _ = gated_errors(torch, chunk.out, consensus_step_batched(chunk.values, ccfg))
+    check(ok and chunk.values.shape == (256, 8, 6),
+          "B3 on the chunk's [256, 8, 6] fleets against consensus_step_batched on the card: "
+          + ", ".join(f"{f} {e:.2e}" for f, e in errs.items()))
+    host_keys = prng.fold_in_range(prng.PRNGKey(0, "cpu"), 0, bc.CONFIG2_CHUNK)
+    values, honest = draw(host_keys)
+    err = max_err(chunk.values.cpu(), values)
+    check(torch.equal(prng.fold_in_range(key, 0, bc.CONFIG2_CHUNK).cpu(), host_keys)
+          and torch.equal(chunk.honest.cpu(), honest) and err <= 1e-6,
+          f"the card's fleets against the host's draws: keys and honest masks exact, Beta values max err "
+          f"{err:.2e} <= 1e-6")
+    detected = chunk.detected.float().mean().item()
+    check(0 < detected <= bc.CONFIG2_FAILING, f"mean failing detected {detected:.3f} of {bc.CONFIG2_FAILING}")
+
+    wrappers = zero_counts(baseline_wrappers())
+    keys = prng.fold_in_range(key, 0, bc.CONFIG2_CHUNK)
+    draw_ms = cuda_ms(torch, lambda: draw(keys), iters=BASELINE_EVENTS, warmup=0)
+    consensus_ms = cuda_ms(torch, lambda: consensus_blocks(chunk.values, ccfg), iters=BASELINE_EVENTS, warmup=0)
+    report = baseline_run(bc, 2)
+    d = report["detail"]
+    counts = read_counts(wrappers)
+    b3 = BASELINE_EVENTS + d["calls"]
+    check(launches_are(counts, {"gated_claims_consensus": b3, "threefry": counts["threefry"]}),
+          f"the timed chunks: B3 once a chunk ({d['calls']} in baseline_configs.run, {BASELINE_EVENTS} timed "
+          f"alone), threefry as drawn: {counts}")
+    add_launches(launches, counts)
+    print(f"  [{card}] config 2: {report['value']:.1f} consensus-updates/s on the wall clock ({d['steps']} updates "
+          f"in chunks of 256 in {d['elapsed_s']:.3f} s, each chunk's result fetched; one update's latency "
+          f"{d['consensus_update_latency_ms']:.3f} ms); a chunk's fleets {draw_ms:.3f} ms, its consensus (B3) "
+          f"{consensus_ms:.3f} ms (CUDA events)")
+
+
+@phase("20c. BASELINE config 3: RoBERTa go_emotions on 128 x 128, window [50, 2], 64 oracles (8 failing), B2 a step")
+def config3_phase(torch, launches, serving_main):
+    from svoc_torch.consensus.kernel import ConsensusConfig
+    from svoc_torch.ops.fused_consensus import fused_consensus, fused_consensus_plain
+    from svoc_torch.sim import prng
+    from svoc_torch.sim.oracle import gen_oracle_predictions
+    from svoc_torch.tools import baseline_configs as bc
+
+    card = nvidia_smi()
+    if not serving_main:
+        check(False, "config 3 reuses phase 4b's weights, and phase 4b returned none")
+        return
+    ccfg = ConsensusConfig(n_failing=bc.CONFIG3_FAILING, constrained=True)
+    # Phase 4b's seed-0 weights (bf16-resident), through the dense unpacked forward.
+    weights = serving_main["step"].pipe.model.state_dict()
+    pipe = bc.config3_pipeline(params=weights)
+    ids, mask = bc.comment_batch(pipe, bc.CONFIG3_BATCH)
+    key = prng.PRNGKey(0, "cuda")
+    wrappers = zero_counts(baseline_wrappers())
+    key = prng.fold_in(key, 0)
+    out, honest, window = bc.config3_step(pipe, key, ids, mask)
+    one = read_counts(wrappers)
+    essences = {tuple(out.essence.tolist())}
+    for s in range(1, BASELINE_STEPS):
+        key = prng.fold_in(key, s)
+        out, honest, window = bc.config3_step(pipe, key, ids, mask)
+        essences.add(tuple(out.essence.tolist()))
+    counts = read_counts(wrappers)
+    per_step = {"fused_consensus": 1, "threefry": one["threefry"]}
+    check(one["threefry"] > 0 and launches_are(one, per_step)
+          and launches_are(counts, {k: v * BASELINE_STEPS for k, v in per_step.items()}),
+          f"B2 once a step, threefry {one['threefry']} a step, nothing else, over {BASELINE_STEPS} steps: {counts}")
+    add_launches(launches, counts)
+    values, honest_again = gen_oracle_predictions(key, window, bc.CONFIG3_ORACLES, bc.CONFIG3_FAILING,
+                                                  subset_size=bc.CONFIG3_SUBSET)
+    ok, errs = fused_errors(torch, out, fused_consensus_plain(values, ccfg))
+    check(ok and torch.equal(honest, honest_again) and window.shape == (50, 2) and values.shape == (64, 2),
+          "B2 at [64, 2] against fused_consensus_plain on the last fleet: mask exact, "
+          + ", ".join(f"{f} {e:.2e}" for f, e in errs.items()))
+    check(len(essences) == BASELINE_STEPS and all(map(math.isfinite, sum(essences, ()))),
+          f"{len(essences)} distinct finite essences over {BASELINE_STEPS} keys")
+
+    def fleet_and_consensus():
+        fleet, _ = gen_oracle_predictions(key, window, bc.CONFIG3_ORACLES, bc.CONFIG3_FAILING,
+                                          subset_size=bc.CONFIG3_SUBSET)
+        return fused_consensus(fleet.contiguous(), ccfg)
+
+    wrappers = zero_counts(baseline_wrappers())
+    forward_ms = cuda_ms(torch, lambda: pipe.forward(ids, mask), iters=BASELINE_EVENTS, warmup=0)
+    consensus_ms = cuda_ms(torch, fleet_and_consensus, iters=BASELINE_EVENTS, warmup=0)
+    report = baseline_run(bc, 3, params=weights)
+    d = report["detail"]
+    counts = read_counts(wrappers)
+    b2 = BASELINE_EVENTS + d["calls"]
+    check(launches_are(counts, {"fused_consensus": b2, "threefry": counts["threefry"]}),
+          f"the timed steps: B2 once a step ({d['calls']} in baseline_configs.run, {BASELINE_EVENTS} timed alone): "
+          f"{counts}")
+    add_launches(launches, counts)
+    print(f"  [{card}] config 3: {report['value']:.1f} comments/s on the wall clock ({d['steps']} steps of 128 in "
+          f"{d['elapsed_s']:.3f} s, the essence fetched; a step's latency {d['step_latency_ms']:.3f} ms); forward "
+          f"{forward_ms:.3f} ms, fleet and consensus (B2) {consensus_ms:.3f} ms (CUDA events)")
+
+
+@phase("20d. BASELINE config 4: 1024 oracles (256 failing), subsets of 10, 64 updates a chunk, B3 a chunk")
+def config4_phase(torch, launches):
+    from svoc_torch.consensus.kernel import ConsensusConfig, consensus_step_batched
+    from svoc_torch.ops.fused_consensus import consensus_blocks
+    from svoc_torch.sim import prng
+    from svoc_torch.sim.oracle import gen_oracle_predictions
+    from svoc_torch.tools import baseline_configs as bc
+
+    card = nvidia_smi()
+    n, n_failing = bc.CONFIG4_ORACLES, bc.CONFIG4_ORACLES // 4
+    ccfg = ConsensusConfig(n_failing=n_failing, constrained=True)
+    window = bc.config4_window()  # device None: CUDA
+    key = prng.PRNGKey(0, "cuda")
+    wrappers = zero_counts(baseline_wrappers())
+    chunk = bc.config4_chunk(key, window)
+    one = read_counts(wrappers)
+    check(one["threefry"] > 0 and launches_are(one, {"gated_claims_consensus": 1, "threefry": one["threefry"]}),
+          f"one chunk of 64: B3 once, threefry {one['threefry']} (as drawn), nothing else: {one}")
+    add_launches(launches, one)
+    ok, errs, _ = gated_errors(torch, chunk.out, consensus_step_batched(chunk.values, ccfg))
+    check(ok and chunk.values.shape == (64, n, 6),
+          f"B3 on the chunk's [64, {n}, 6] fleets against the plain cube (consensus_step_batched) on the card: "
+          + ", ".join(f"{f} {e:.2e}" for f, e in errs.items()))
+    detected = chunk.detected.float().mean().item()
+    check(0 < detected <= n_failing, f"mean failing detected {detected:.3f} of {n_failing}")
+
+    wrappers = zero_counts(baseline_wrappers())
+    keys = prng.fold_in_range(key, 0, bc.CONFIG4_CHUNK)
+    draw_ms = cuda_ms(torch, lambda: gen_oracle_predictions(
+        keys, window.expand(bc.CONFIG4_CHUNK, *window.shape), n, n_failing, subset_size=bc.CONFIG4_SUBSET),
+        iters=BASELINE_EVENTS, warmup=0)
+    consensus_ms = cuda_ms(torch, lambda: consensus_blocks(chunk.values, ccfg), iters=BASELINE_EVENTS, warmup=0)
+    report = baseline_run(bc, 4)
+    d = report["detail"]
+    counts = read_counts(wrappers)
+    b3 = BASELINE_EVENTS + d["calls"]
+    check(launches_are(counts, {"gated_claims_consensus": b3, "threefry": counts["threefry"]}),
+          f"the timed chunks: B3 once a chunk ({d['calls']} in baseline_configs.run, the single updates of the "
+          f"latency included; {BASELINE_EVENTS} timed alone), threefry as drawn: {counts}")
+    add_launches(launches, counts)
+    print(f"  [{card}] config 4: {report['value']:.1f} consensus-updates/s on the wall clock ({d['steps']} updates "
+          f"in chunks of 64 in {d['elapsed_s']:.3f} s, each chunk's result fetched); a chunk's fleets "
+          f"{draw_ms:.3f} ms, its consensus (B3) {consensus_ms:.3f} ms (CUDA events)")
+    print(f"  [{card}] config 4: consensus-update latency @1024 oracles {d['consensus_update_latency_ms']:.3f} ms "
+          f"(baseline_configs.run: the median of 30 single updates, fleet and B3, each fetched)")
+
+
 def main() -> int:
     t_script = time.perf_counter()
     try:
@@ -6599,6 +6952,13 @@ def main() -> int:
         finetune_mesh_phase(torch, launches)
         print(f"  (phase 18 in all: {time.perf_counter() - t_paths:.1f} s)", flush=True)
         lint_phase(torch)
+        linted = dict(launches)
+        t_configs = time.perf_counter()
+        config1_phase(torch, launches)
+        config2_phase(torch, launches)
+        config3_phase(torch, launches, serving_main)
+        config4_phase(torch, launches)
+        print(f"  (phase 20 in all: {time.perf_counter() - t_configs:.1f} s)", flush=True)
         print(f"  launches: serving paths {serving}; with the train paths {trained}; "
               f"with the multi-claim path {claimed}; with the probe path {probed}; "
               f"with the commit path {committed}; with the fabric paths {fabricked}; "
@@ -6606,7 +6966,7 @@ def main() -> int:
               f"with the cold-start paths {started}; with the cluster paths {clustered}; "
               f"with the reconfiguration paths {reconfigured}; with the obs gates, the certificate and the "
               f"sweeps {swept}; with the console {consoled}; with the mesh {meshed}; with the training and "
-              f"sequence paths on the mesh {launches}")
+              f"sequence paths on the mesh {linted}; with BASELINE configs 1-4 {launches}")
     check(all(launches.get(name, 0) > 0 for name in KERNEL_ROWS),
           f"every kernel launched on its path: { {k: launches.get(k, 0) for k in KERNEL_ROWS} }")
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "svoc_tpu"))

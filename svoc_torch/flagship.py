@@ -206,9 +206,9 @@ class FlagshipStep:
         """The host feed of this step's shape and layout from ``source``
         (picklable: it runs in the feed's worker process, on its own
         copy), produced ``FEED_DEPTH`` batches ahead and copied to the step's
-        device on a prefetch thread: ``(batch, n_comments)``, the batch's
+        device as each is taken: ``(batch, n_comments)``, the batch's
         fields tensors ready on the caller's stream.  Close the generator
-        (or drop it) to stop the worker and the thread."""
+        (or drop it) to stop the worker."""
         tok = self.pipe.tokenizer
         if self.packed:
             items = worker_stream(packed_comment_stream, tok, source, self.rows, self.seq,
@@ -216,7 +216,7 @@ class FlagshipStep:
         else:
             items = worker_stream(comment_stream, tok, source, self.rows, self.seq,
                                   depth=FEED_DEPTH)
-        return staged_stream(items, self.device, FEED_DEPTH)
+        return staged_stream(items, self.device)
 
     def window(self, batch: "PackedBatch | TokenBatch") -> torch.Tensor:
         """Forward → vectors → the window ``[W, M]``: the first

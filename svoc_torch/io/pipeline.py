@@ -27,8 +27,17 @@ op; a comment source written in Python (``SyntheticSource`` holds the
 GIL for milliseconds a batch) on a thread of the same process delayed
 them so much that the forward's device time grew fivefold on an H100
 (``chip_smoke.py`` phase 4b, PERF.md §6).  In its own process the feed
-takes no GIL from the launching thread; only the copy stage stays on a
-thread here.
+takes no GIL from the launching thread.
+
+:func:`staged_stream`, the serving loop's feed, runs the copy stage on
+the consumer's thread as it takes each batch, between steps: on a
+thread of its own here, the stage's GIL handoffs (the batch's unpickling
+and its copy) landed inside the launch-bound forward that had just
+started, about 2 ms of a 20 ms forward on an H100 host (``chip_smoke.py``
+phase 4b, PERF.md §6).  It also freezes the heap it starts on while it
+runs (:func:`frozen_heap`): with the feed in its own process the step is
+what allocates here, so a full collection of a large start-up heap ran
+inside a forward (175 ms for some 270 000 objects on that host).
 
 :func:`window_source` is the fetch loop's read stage over a
 :class:`~svoc_torch.io.comment_store.CommentStore`
@@ -37,6 +46,8 @@ thread here.
 
 from __future__ import annotations
 
+import contextlib
+import gc
 import multiprocessing
 import os
 import queue
@@ -292,15 +303,53 @@ class DevicePut:
         return Staged(type(batch)(*(v.view(a.shape) for v, a in zip(views, arrays))), slot.event), n
 
 
-def staged_stream(items: Iterable[Tuple[tuple, int]], device, depth: int = 4):
-    """``items`` (``(batch of numpy arrays, n)``) produced and copied to
-    ``device`` on a :class:`PrefetchPipeline` thread, ``depth`` ahead;
-    yields ``(batch of tensors, n)`` ready on the consumer's stream.
-    Closing the generator closes the pipeline."""
-    with PrefetchPipeline(items, None, 0, depth=depth,
-                          device_put=DevicePut(device, slots=depth + 2)) as stream:
-        for staged, n in stream:
-            yield staged.wait(), n
+_frozen = 0
+_frozen_lock = threading.Lock()
+
+
+@contextlib.contextmanager
+def frozen_heap():
+    """The heap as it stands on entry kept out of the cyclic collector
+    until the last of the nested blocks exits: the first entry collects
+    once and freezes (``gc.freeze``), the last exit unfreezes the whole
+    permanent generation (``gc.unfreeze``: whatever froze it).  A
+    long-running loop's start-up heap (the model, the package, the
+    caller's own objects) is then not scanned while it runs, so a full
+    collection costs what the loop itself keeps alive."""
+    global _frozen
+    with _frozen_lock:
+        if _frozen == 0:
+            gc.collect()
+            gc.freeze()
+        _frozen += 1
+    try:
+        yield
+    finally:
+        with _frozen_lock:
+            _frozen -= 1
+            if _frozen == 0:
+                gc.unfreeze()
+
+
+def staged_stream(items: Iterable[Tuple[tuple, int]], device):
+    """``items`` (``(batch of numpy arrays, n)``, produced ahead by a
+    :func:`worker_stream`) copied to ``device`` as each is taken, on the
+    caller's thread (:class:`DevicePut`: two pinned buffers, one for the
+    batch in the copy and one for the batch before it); yields ``(batch
+    of tensors, n)`` ready on the consumer's stream.  The heap is frozen
+    while the stream runs (:func:`frozen_heap`).  Closing the generator
+    closes ``items``."""
+    put = DevicePut(device, slots=2)
+    source = iter(items)
+    try:
+        with frozen_heap():
+            for item in source:
+                staged, n = put(item)
+                yield staged.wait(), n
+    finally:
+        close = getattr(source, "close", None)
+        if close is not None:
+            close()
 
 
 #: How long closing a worker stream waits for the worker to stop.

@@ -157,6 +157,24 @@ class SentimentEncoder(nn.Module):
         return self.head(x[:, 0, :])
 
 
+class _SkipInit(torch.overrides.TorchFunctionMode):
+    """Skips ``torch.nn.init``'s initialisers.  A module built on the meta
+    device only for its names and shapes needs none, and their meta
+    versions import ``torch._dynamo`` the first time a process runs one
+    (seconds)."""
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        if getattr(func, "__module__", None) == "torch.nn.init":
+            return args[0] if args else kwargs["tensor"]
+        return func(*args, **(kwargs or {}))
+
+
+def meta_module(cls, cfg: EncoderConfig) -> nn.Module:
+    """``cls(cfg)`` on the meta device, its tensors left uninitialised."""
+    with torch.device("meta"), _SkipInit():
+        return cls(cfg)
+
+
 def init_params(
     cfg: EncoderConfig,
     seed: int = 0,
@@ -171,8 +189,7 @@ def init_params(
     device = resolve_device(device)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
-    with torch.device("meta"):
-        shapes = SentimentEncoder(cfg)
+    shapes = meta_module(SentimentEncoder, cfg)
     params = {}
     for name, module in shapes.named_modules():
         prefix = f"{name}." if name else ""
@@ -225,7 +242,6 @@ def _normal(shape, std, gen, device):
 def load_encoder(cls, cfg: EncoderConfig, params: Dict[str, torch.Tensor]):
     """``cls(cfg)`` holding ``params`` as its tensors (no copy, no
     default init), in eval mode."""
-    with torch.device("meta"):
-        model = cls(cfg)
+    model = meta_module(cls, cfg)
     model.load_state_dict(params, assign=True)
     return model.eval()

@@ -24,9 +24,9 @@ After every chain's final (clean) child: **zero duplicate txs** in any
 chain log, **zero unknown and zero unaccounted WAL slots**, **zero
 unaccounted admitted requests**, **zero open WAL cycles**, and each
 leg's named fault point present in the durable fired log.  The FULL
-matrix runs twice, each phase as one parallel wave of children; the
-recovered per-claim journal fingerprints must be byte-identical across
-the two runs.  At seed 0 every leg's recovered per-claim fingerprints
+matrix runs twice, side by side in disjoint directories, each phase as
+one parallel wave of children; the recovered per-claim journal
+fingerprints must be byte-identical across the two runs.  At seed 0 every leg's recovered per-claim fingerprints
 must also equal the JAX package's, kept below as constants
 (:data:`REFERENCE_FINGERPRINTS`; ``tests/test_torch_crash.py`` rechecks
 one leg against the live reference).
@@ -45,6 +45,7 @@ Usage::
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import json
 import os
 import signal
@@ -281,8 +282,11 @@ def run(seed: int = 0, device: Optional[str] = None, base: Optional[str] = None)
     build_kernels(device)
     legs = list(LEGS)
     base = base or tempfile.mkdtemp(prefix="crash-smoke-")
-    first = run_matrix(seed, legs, os.path.join(base, "run1"), device)
-    second = run_matrix(seed, legs, os.path.join(base, "run2"), device)
+    # The two runs share nothing but the built kernels, so they run side
+    # by side: each child's start is mostly a fresh interpreter's imports.
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        first, second = pool.map(lambda run: run_matrix(seed, legs, os.path.join(base, run), device),
+                                 ("run1", "run2"))
     checks = check_matrix(first)
 
     fingerprints = {}

@@ -31,17 +31,25 @@ A probe needs a CUDA device and fails without one: nothing here runs on
 the CPU.  Every record carries ``launches``, the kernel wrappers' counts
 inside that probe's interpreter.
 
-Usage: ``python -m svoc_torch.tools.probe [--only NAME] [--timeout S]``
+Usage: ``python -m svoc_torch.tools.probe [--only NAME] [--timeout S]
+[--consensus-sizes 128,256,512,1024] [--jobs N]``.  ``--consensus-sizes
+1024`` runs the consensus probe once, at 1024 oracles, without the bisect
+below it.  ``--jobs N`` runs N probe interpreters at a time after the
+``backend`` canary: every record then carries ``"jobs": N``, since its
+times were read beside another probe's, and each is written as it lands
+(the file kept in record order).
 """
 
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import json
 import os
 import signal
 import subprocess
 import sys
+import threading
 import time
 
 from svoc_torch.utils.artifacts import atomic_write_json
@@ -262,52 +270,74 @@ def _kill_group(proc: subprocess.Popen) -> None:
         pass
 
 
+def _runs(names, consensus_sizes):
+    """The probe runs in record order, grouped in chains: ``(probe, record
+    name, env)`` lists, each run in order.  The consensus probe's size
+    bisect is one chain, ascending: it stops at the first hang, since
+    larger sizes would only hang longer.  ``encoder512`` runs twice, dense
+    and then with the flash-attention encoder config."""
+    chains = []
+    for name in names:
+        if name == "consensus1024":
+            chains.append([(name, f"consensus{n}", {"SVOC_PROBE_N_ORACLES": str(n)}) for n in consensus_sizes])
+        elif name == "encoder512":
+            chains += [[(name, f"encoder512_{a}", {"SVOC_PROBE_ATTENTION": a})] for a in ("dense", "flash")]
+        else:
+            chains.append([(name, name, {})])
+    return chains
+
+
+def _run_chain(chain, timeout_s: float, emit) -> list:
+    """``chain``'s runs in order, each record passed to ``emit`` as it
+    lands; stops after a timeout."""
+    out = []
+    for name, record_name, env in chain:
+        r = run_probe(name, timeout_s, env)
+        r["probe"] = record_name
+        emit(r)
+        out.append(r)
+        if r.get("timeout"):
+            break
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument("--only", choices=sorted(PROBES), default=None)
     parser.add_argument("--timeout", type=float, default=420.0)
+    parser.add_argument("--consensus-sizes", default="128,256,512,1024",
+                        help="the consensus probe's fleet sizes, ascending, each its own record")
+    parser.add_argument("--jobs", type=int, default=1,
+                        help="probe interpreters at a time after the backend canary (records carry it)")
     args = parser.parse_args(argv)
 
-    names = [args.only] if args.only else list(PROBES)
+    chains = _runs([args.only] if args.only else list(PROBES),
+                   [int(n) for n in args.consensus_sizes.split(",")])
+    order = {record_name: i for i, (_, record_name, _) in enumerate(run for chain in chains for run in chain)}
     results = []
     out_path = os.path.join(REPO, "GPU_PROBE.json")
+    lock = threading.Lock()
 
     def record(r):
-        """Print and persist after EVERY probe: a kill from outside must
-        not lose the probes that had finished."""
-        print(json.dumps(r), flush=True)
-        results.append(r)
-        atomic_write_json(out_path, results)
+        """Print and persist after EVERY probe, as it lands (the file in
+        record order): a kill from outside must not lose the probes that
+        had finished."""
+        if args.jobs > 1 and r["probe"] != "backend":
+            r["jobs"] = args.jobs
+        with lock:
+            print(json.dumps(r), flush=True)
+            results.append(r)
+            results.sort(key=lambda x: order[x["probe"]])
+            atomic_write_json(out_path, results)
 
-    for name in names:
-        extra = {}
-        if name == "consensus1024":
-            # Size bisect, ascending; stop at the first hang: larger
-            # sizes would only hang longer.
-            hung = False
-            for n_oracles in (128, 256, 512):
-                r1 = run_probe(name, args.timeout, {"SVOC_PROBE_N_ORACLES": str(n_oracles)})
-                r1["probe"] = f"consensus{n_oracles}"
-                record(r1)
-                if r1.get("timeout"):
-                    hung = True
-                    break
-            if hung:
-                continue
-            extra = {"SVOC_PROBE_N_ORACLES": "1024"}
-        if name == "encoder512":
-            # run twice: dense, then the flash-attention encoder config
-            r1 = run_probe(name, args.timeout, {"SVOC_PROBE_ATTENTION": "dense"})
-            r1["probe"] = "encoder512_dense"
-            record(r1)
-            extra = {"SVOC_PROBE_ATTENTION": "flash"}
-        r = run_probe(name, args.timeout, extra)
-        if name == "encoder512":
-            r["probe"] = "encoder512_flash"
-        record(r)
-        if name == "backend" and not r["ok"]:
+    if chains and chains[0][0][0] == "backend":
+        (r,) = _run_chain(chains.pop(0), args.timeout, record)
+        if not r["ok"]:
             print(json.dumps({"abort": "backend unreachable"}))
-            break
+            return 1
+    with concurrent.futures.ThreadPoolExecutor(max(1, args.jobs)) as pool:
+        for done in [pool.submit(_run_chain, chain, args.timeout, record) for chain in chains]:
+            done.result()
 
     return 0 if all(r.get("ok") for r in results) else 1
 

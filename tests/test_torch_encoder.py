@@ -82,6 +82,34 @@ def test_init_params_is_seeded_and_complete():
     assert not torch.equal(a["block_0.ffn_in.weight"], c["block_0.ffn_in.weight"])
 
 
+def test_meta_construction_runs_no_initialiser():
+    """``init_params`` and ``load_encoder`` build their module on the meta
+    device without ``torch.nn.init``'s initialisers, whose meta versions
+    import ``torch._dynamo`` (seconds in a fresh process); the weights are
+    the seeded draws all the same."""
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    code = (
+        "import sys, torch\n"
+        "from svoc_torch.models.configs import TINY_TEST\n"
+        "from svoc_torch.models.encoder import SentimentEncoder, init_params, load_encoder, meta_module\n"
+        "from svoc_torch.models.packing import PackedSentimentEncoder\n"
+        "params = init_params(TINY_TEST, seed=5, device='cpu')\n"
+        "model = load_encoder(PackedSentimentEncoder, TINY_TEST, params)\n"
+        "assert all(t.is_meta for t in meta_module(SentimentEncoder, TINY_TEST).state_dict().values())\n"
+        "assert model.block_0.ffn_in.weight.data_ptr() == params['block_0.ffn_in.weight'].data_ptr()\n"
+        "assert 'torch._dynamo' not in sys.modules, 'torch._dynamo imported'\n"
+    )
+    subprocess.run([sys.executable, "-c", code], cwd=Path(__file__).resolve().parent.parent, check=True,
+                   timeout=120)
+    with torch.device("meta"):  # the default initialisers: the same names and shapes
+        names = {k: v.shape for k, v in SentimentEncoder(TINY_TEST).state_dict().items()}
+    a = init_params(TINY_TEST, seed=5, device="cpu")
+    assert {k: v.shape for k, v in a.items()} == names
+
+
 def test_packed_flash_logits_and_vectors_match_flax(flax_params, packed):
     jcfg = dataclasses.replace(jax_configs.TINY_TEST, attention="flash")
     arrays = (packed.ids, packed.pos, packed.seg, packed.cls_pos)

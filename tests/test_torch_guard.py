@@ -95,7 +95,7 @@ def test_every_module_imports_without_jax_or_svoc_tpu():
                  "svoc_torch.analysis.rules", "svoc_torch.analysis.taint", "svoc_torch.analysis.statecov",
                  "svoc_torch.analysis.emissions", "svoc_torch.analysis.shardspec",
                  "svoc_torch.analysis.interrules", "svoc_torch.analysis.engine", "svoc_torch.analysis.sarif",
-                 "svoc_torch.tools.svoclint"):
+                 "svoc_torch.tools.svoclint", "svoc_torch.tools.baseline_configs"):
         assert name in names
     code = (
         "import importlib, sys\n"
@@ -137,6 +137,20 @@ def test_default_device_raises_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         finetune_demo.run(steps=2)
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_the_baseline_configs_default_to_cuda(monkeypatch):
+    """BASELINE configs 1-4 resolve ``device=None`` to CUDA and raise
+    without a card, before building a pipeline or drawing a fleet."""
+    from svoc_torch.tools import baseline_configs
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (lambda: baseline_configs.config1_pipeline(), lambda: baseline_configs.config3_pipeline(),
+                 lambda: baseline_configs.config4_window(),
+                 *(lambda c=c: baseline_configs.run(c, small=True) for c in (1, 2, 3, 4)),
+                 lambda: baseline_configs.main(["--config", "2"])):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
 
 
 def test_the_cluster_and_the_fleet_plane_wait_for_nothing():

@@ -4,14 +4,17 @@ On the CPU: order is kept and the queue bounded; a producer's error
 reaches the consumer; ``close()`` is idempotent and flags a producer it
 cannot join; the feed's worker process yields in order, reports its
 error and stops when closed; the flagship's feed (native tokenizer on an
-inner thread and native packer, both in the worker, the copy on a thread
-here) gives the batches of the serial Python feed bit for bit.  On the card (``requires_cuda``):
+inner thread and native packer, both in the worker, the copy on the
+consumer's thread) gives the batches of the serial Python feed bit for
+bit; the serving feed keeps the heap it starts on frozen until it
+closes.  On the card (``requires_cuda``):
 the copy stage's three traps, each with a test: a pinned buffer is not
 overwritten while its copy is in flight, the allocator does not hand the
 batch's memory out while the consumer's stream still reads it, and the
 producer thread makes the batch's device current itself.
 """
 
+import gc
 import itertools
 import multiprocessing
 import threading
@@ -163,6 +166,63 @@ def test_unpacked_feed_runs_on_the_pipeline():
     feed.close()
 
 
+def _frozen(obj) -> bool:
+    """``obj`` is in the permanent generation: tracked, yet in none of
+    the three the collector scans."""
+    return gc.is_tracked(obj) and not any(o is obj for o in gc.get_objects())
+
+
+def _small_batches(n):
+    for i in range(n):
+        yield TokenBatch(np.full((2, 3), i, np.int32), np.ones((2, 3), np.int32)), i
+
+
+def test_the_serving_feed_freezes_its_start_up_heap_while_it_runs():
+    """A full collection while the feed runs scans only what the loop
+    allocated since it started: the heap as it stood is frozen, and
+    unfrozen when the feed closes."""
+    start_up = [object()]
+    feed = staged_stream(_small_batches(4), "cpu")
+    batch, n = next(feed)
+    assert n == 0 and int(batch.ids.max()) == 0
+    assert gc.get_freeze_count() > 0 and _frozen(start_up)
+    during = [object()]  # allocated by the loop: the collector's to scan
+    assert not _frozen(during)
+    assert [n for _, n in feed] == [1, 2, 3]  # run to its end: closed
+    assert gc.get_freeze_count() == 0 and not _frozen(start_up)
+
+
+def test_nested_feeds_unfreeze_when_the_last_closes():
+    """4c's variants share one feed while another is open: the heap stays
+    frozen until every feed has closed, and a dropped feed counts as
+    closed."""
+    start_up = [object()]
+    first = FlagshipStep(TINY_TEST, rows=4, seq=16, max_seg=4, n_oracles=16, subset_size=2,
+                         params_dtype=None, device="cpu").comments(SyntheticSource(batch=4, seed=0))
+    next(first)
+    second = staged_stream(_small_batches(3), "cpu")
+    next(second)
+    later = [object()]  # alive only after the first feed froze the heap
+    assert _frozen(start_up) and not _frozen(later)
+    first.close()
+    assert _frozen(start_up)
+    del second  # dropped, never closed by hand
+    assert gc.get_freeze_count() == 0 and not _frozen(start_up)
+
+
+def test_a_feed_that_fails_unfreezes_the_heap():
+    def broken():
+        yield from _small_batches(1)
+        raise KeyError("bad source")
+
+    feed = staged_stream(broken(), "cpu")
+    next(feed)
+    assert gc.get_freeze_count() > 0
+    with pytest.raises(KeyError, match="bad source"):
+        next(feed)
+    assert gc.get_freeze_count() == 0
+
+
 # ---------------------------------------------------------------------------
 # On the card: the copy stage's traps
 # ---------------------------------------------------------------------------
@@ -199,7 +259,7 @@ def test_card_batch_memory_outlives_the_consumers_stream_work(cuda):
     reference and the feed allocates on: the work still reads the
     batch's own values (``record_stream`` keeps its memory)."""
     sums = []
-    feed = staged_stream(_batches(12), cuda, depth=2)
+    feed = staged_stream(_batches(12), cuda)
     for batch, i in feed:
         big = torch.randn(2048, 2048, device=cuda)
         for _ in range(20):

@@ -192,6 +192,43 @@ def test_probe_full_run_records_nine_and_persists_after_each(monkeypatch, tmp_pa
     assert [n for name, n, _ in ran if name == "consensus1024"] == ["128", "256", "512", "1024"]
 
 
+def test_probe_consensus_sizes_cut_the_bisect(monkeypatch, tmp_path):
+    ran = []
+    monkeypatch.setattr(probe, "run_probe", _fake_probe(ran))
+    monkeypatch.setattr(probe, "REPO", str(tmp_path))
+    assert probe.main(["--consensus-sizes", "1024"]) == 0
+    assert [r["probe"] for r in json.loads((tmp_path / "GPU_PROBE.json").read_text())] == [
+        "backend", "grid_copy", "consensus1024", "flash512", "encoder512_dense", "encoder512_flash",
+    ]
+    assert [n for name, n, _ in ran if name == "consensus1024"] == ["1024"]
+    ran.clear()
+    assert probe.main(["--only", "consensus1024", "--consensus-sizes", "64,256"]) == 0
+    assert [n for _, n, _ in ran] == ["64", "256"]
+    assert [r["probe"] for r in json.loads((tmp_path / "GPU_PROBE.json").read_text())] == [
+        "consensus64", "consensus256"]
+
+
+def test_probe_jobs_keep_the_record_order(monkeypatch, tmp_path):
+    ran, persisted = [], []
+
+    def slow_first(name, env):  # the earliest probe lands last
+        if name == "grid_copy":
+            time.sleep(0.5)
+            # every other probe has landed and been written meanwhile
+            persisted.append([r["probe"] for r in json.loads((tmp_path / "GPU_PROBE.json").read_text())])
+
+    monkeypatch.setattr(probe, "run_probe", _fake_probe(ran, slow_first))
+    monkeypatch.setattr(probe, "REPO", str(tmp_path))
+    assert probe.main(["--consensus-sizes", "1024", "--jobs", "5"]) == 0
+    records = json.loads((tmp_path / "GPU_PROBE.json").read_text())
+    assert [r["probe"] for r in records] == [
+        "backend", "grid_copy", "consensus1024", "flash512", "encoder512_dense", "encoder512_flash",
+    ]
+    assert persisted == [["backend", "consensus1024", "flash512", "encoder512_dense", "encoder512_flash"]]
+    assert [r.get("jobs") for r in records] == [None, 5, 5, 5, 5, 5]  # the canary runs alone
+    assert ran[0][0] == "backend" and len(ran) == 6
+
+
 def test_probe_aborts_on_a_dead_backend_and_fails_on_any_failure(monkeypatch, tmp_path, capsys):
     ran = []
     dead = lambda name, env: {"ok": False} if name == "backend" else None  # noqa: E731
