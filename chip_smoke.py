@@ -183,8 +183,8 @@ Phases:
    entry, each probe in its own interpreter under a timeout: six records
    (``backend``, ``grid_copy``, ``consensus1024`` without the tool's
    bisect below it, ``flash512``, ``encoder512_dense``,
-   ``encoder512_flash``; two interpreters at a time after ``backend``,
-   so a probe's times are read beside another's), every one
+   ``encoder512_flash``; three interpreters at a time after ``backend``,
+   so a probe's times are read beside others'), every one
    ok, with ``correct``, ``essence_match`` and ``match_dense`` true and
    ``GPU_PROBE.json`` readable. Each record carries the launch counts of
    its own interpreter (set to 0 by its start, read at its end): the
@@ -289,7 +289,9 @@ Phases:
    CUDA: five kill legs (a torn WAL intent, a kill between a tx and its
    landed record, a kill before a snapshot, a kill mid-way through a
    batched commit's log, and a second kill during recovery), two matrix
-   runs side by side in waves of child processes; zero duplicate txs, zero unknown
+   runs side by side in waves of child processes, each forked from a
+   fork server that imported torch and never initialised CUDA; zero
+   duplicate txs, zero unknown
    and unaccounted WAL slots and requests, zero open cycles, each leg's
    point in its fired log, identical recovered fingerprints across the
    runs, and every leg's recovered per-claim fingerprints equal to the
@@ -319,8 +321,8 @@ Phases:
 12. Cold start (``compile/*``, ``obsplane/profiler.py``, the runtime end
    of ``utils/metrics.py``). (a) ``svoc_torch.tools.coldstart_smoke`` with
    every child on CUDA and its kernel cache under a fresh temporary
-   directory: ``control``, ``warm_first`` (the persistent cache, a
-   synchronous prewarm, then SIGKILLed) and ``warm_restart``; the
+   directory: ``control`` beside ``warm_first`` (the persistent cache, a
+   synchronous prewarm, then SIGKILLed), then ``warm_restart``; the
    fingerprints of the three legs equal the JAX package's (the tool's
    constants), the first warm leg builds, the restart builds nothing and
    loads from the cache, and this process builds nothing into it. (b)
@@ -395,7 +397,7 @@ Phases:
    B3 once a dispatched group plus one a group PREPARE primed, threefry 8
    a claim served; the seconds of each run. (b)
    ``svoc_torch.tools.chaos_fuzz`` at its default 32 seeds, each rerun,
-   with its children on CUDA forked from ``FUZZ_JOBS`` fork servers, and
+   ``FUZZ_JOBS`` jobs, its children on CUDA forked from the fork server, and
    the felt soak, and beside them every tier-1 corpus entry twice with
    spawned children: every one of the tool's checks
    (``seeds_explored_at_least_32`` included), every recovered fingerprint
@@ -525,6 +527,31 @@ Phases:
    (comments/s or consensus-updates/s, every result fetched), its
    forward's and consensus's CUDA-event times, and config 4 the latency
    of one update at 1024 oracles, beside the card's name and power limit.
+21. The JAX package's last entry points (``svoc_torch/tools/baseline_configs.py``
+   and ``svoc_torch/examples/``). (a) Config 7 (``bench.py:1580``): the
+   dense data-parallel step on ``serving_mesh()`` (one slot a card),
+   ROBERTA_GO_EMOTIONS with bf16-resident seeded weights, 256 rows of 128
+   tokens a slot, 1024 oracles (128 failing), subsets of 10; one step's
+   launches (threefry only), the slot's vectors against the unmeshed dense
+   forward within ``VARIANT_BAR`` and the step's consensus against the
+   fleet and consensus of that forward's window; then
+   ``baseline_configs.run(7)`` with a 1 s window. (b) Config 11
+   (``bench.py:2159``): the int8 packed step (the float32 weights folded),
+   256 rows of 128 tokens with up to 8 comments; the loop primed as
+   ``bench.py:2275-2297`` primes it, the pipelined output of batch k equal
+   to the plain step's on batch k exactly, the drain closing the last;
+   the int8 forward against the bf16 packed one at the reference's bars;
+   ``baseline_configs.run(11)``. (c) Each example's ``main`` in this
+   process at the reference's documented command (``examples/README.md``),
+   its output captured: every number it prints held to the JAX package's
+   output (:data:`REFERENCE_EXAMPLES`) by
+   ``svoc_torch.examples.compare_printed``, within its printed unit plus
+   the demo's ``printed_bars`` and the bars of :data:`EXAMPLE_RUNS`, its
+   launches to :data:`EXAMPLE_LAUNCHES`, the fleet demo's commit to the
+   batched certified route, the serving ladder on 8 slots of the card
+   and at full width on one; and one stage of each demo that reaches B1
+   or B3 on the card and on the CPU.
+   (d) The phase's seconds.
 
 It then prints one JSON line of per-kernel numbers, the card's
 ``nvidia-smi`` name and power limit, and last
@@ -628,10 +655,11 @@ PROBE_TIMEOUT_S = 120  # each probe of phase 7 (about 10 s each on an H100)
 #: interpreters, about 39 s (cut to fit the time limit).
 PROBE_CONSENSUS_SIZES = (1024,)
 #: Probe interpreters at a time after the backend canary (one at a time
-#: took 76.9 s against 42.9 s at two on NVIDIA H100 80GB HBM3 hosts; each
-#: spends most of its life importing torch): every record but the
-#: canary's carries ``jobs``, its times read beside another probe's.
-PROBE_JOBS = 2
+#: took 76.9 s against 42.9 s at two on NVIDIA H100 80GB HBM3 hosts, and
+#: the phase 37.6 s at two on a faster one; each spends most of its life
+#: importing torch): every record but the canary's carries ``jobs``, its
+#: times read beside other probes'.
+PROBE_JOBS = 3
 PROBE_RECORDS = ("backend", "grid_copy", *(f"consensus{n}" for n in PROBE_CONSENSUS_SIZES), "flash512",
                  "encoder512_dense", "encoder512_flash")
 
@@ -649,10 +677,14 @@ def check(ok: bool, what: str) -> bool:
 
 
 def phase(title: str):
+    """A phase of the script: its title, its seconds, and the commit routes
+    it took in this process (chain RPCs by mode, batched-commit fallbacks
+    by reason) where it took any."""
     def wrap(fn):
         def run(*args, **kwargs):
             print(f"== {title}", flush=True)
             t0 = time.perf_counter()
+            routes = commit_routes() if "svoc_torch.utils.metrics" in sys.modules else {}
             try:
                 return fn(*args, **kwargs)
             except Exception:  # a phase that raises is a failed phase; the next may still run
@@ -660,7 +692,11 @@ def phase(title: str):
                 failures.append(f"{title}: raised")
                 return None
             finally:
-                print(f"  (phase {title.split('.')[0]}: {time.perf_counter() - t0:.1f} s)", flush=True)
+                number = title.split('.')[0]
+                moved = diff(commit_routes(), routes) if "svoc_torch.utils.metrics" in sys.modules else {}
+                if moved:
+                    print(f"  (phase {number}'s commit routes: {moved})", flush=True)
+                print(f"  (phase {number}: {time.perf_counter() - t0:.1f} s)", flush=True)
         return run
     return wrap
 
@@ -3586,7 +3622,8 @@ def crash_matrix_phase(torch, launches):
         print(f"  {leg}: killed {entry['killed']}, reconcile {counts}, "
               f"resent {(rec.get('reconcile') or {}).get('resent')}, lost requests {rec.get('lost_requests')}")
     print(f"  [{card}] crash matrix: {secs:.3f} s for 2 x 11 child processes, the two runs side by side in "
-          f"waves of 10, 10, 2")
+          f"waves of 10, 10, 2, each child forked from a fork server that imported torch and never "
+          f"initialised CUDA")
 
     # One uninterrupted run in this process, counted from 0.
     counted = {"gated_claims_consensus": fused_consensus_gated_claims_cuda, "threefry": threefry_cuda,
@@ -3791,7 +3828,7 @@ def durable_width_run(torch, workdir: str, role: str, device=None, cfg=None, cla
         for wrapper in counted.values():
             wrapper.launches = 0
         forwards.clear()
-        fs0, ap0, n_snap = dict(fsyncs), dict(appended), len(snapshots)
+        fs0, ap0, n_snap, routes = dict(fsyncs), dict(appended), len(snapshots), commit_routes()
         t0 = time.perf_counter()
         out = tier.step()
         step_ms = (time.perf_counter() - t0) * 1e3
@@ -3800,7 +3837,8 @@ def durable_width_run(torch, workdir: str, role: str, device=None, cfg=None, cla
                    snapshot_bytes=[s[1] for s in snap], served=len(out["served"]), forwards=len(forwards),
                    launches={k: w.launches for k, w in counted.items()},
                    fsyncs=fsyncs["n"] - fs0.get("n", 0), fsync_ms=(fsyncs["s"] - fs0.get("s", 0.0)) * 1e3,
-                   wal_records={k: appended[k] - ap0.get(k, 0) for k in appended if appended[k] - ap0.get(k, 0)})
+                   wal_records={k: appended[k] - ap0.get(k, 0) for k in appended if appended[k] - ap0.get(k, 0)},
+                   routes=diff(commit_routes(), routes))
         with open(rows_path, "a") as f:
             f.write(json.dumps(row) + "\n")
     if role == "crash":
@@ -5276,9 +5314,9 @@ def reconfig_smoke_phase(torch, launches):
           f"prewarm {artifact['reconfig']['prewarm']}; deferred released {artifact['reconfig']['deferred_released']}")
 
 
-#: Fork servers of phase 14b's pass (its corpus replays spawn beside it):
-#: ``chaos_fuzz --seeds 8`` forked took least wall time at 3 jobs of 3, 4
-#: and 6 on the card's 8-core host (``PERF.md`` §6).
+#: Jobs of phase 14b's pass, its children forked from the fork server (its
+#: corpus replays spawn beside it): ``chaos_fuzz --seeds 8`` forked took least
+#: wall time at 3 jobs of 3, 4 and 6 on the card's 8-core host (``PERF.md`` §6).
 FUZZ_JOBS = 3
 
 
@@ -5305,8 +5343,8 @@ def chaos_fuzz_phase(torch):
         return checked, time.perf_counter() - t
 
     # The corpus replays spawn a fresh interpreter a child (the old start,
-    # measured beside the cut) while the pass forks its children from
-    # fork servers; every child is its own process either way.
+    # measured beside the cut) while the pass forks its children from the
+    # fork server; every child is its own process either way.
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(corpus)) as pool:
         futures = {e["name"]: pool.submit(replay, e) for e in corpus}
@@ -5335,7 +5373,6 @@ def chaos_fuzz_phase(torch):
               f"{str(result.get('fingerprint'))[:16]} == the JAX package's {ref[:16]} ({checked['violations']})")
     forks = [r["child_seconds"] for r in artifact["runs"]]
     spawns = [c["run"]["result"]["child_seconds"] for c in replays.values() if c["run"]["result"]]
-    servers = artifact["fork_server_start_seconds"]
     children = sum(len(r["phases"]) for r in artifact["runs"])
 
     def med(rows, key):
@@ -5349,10 +5386,7 @@ def chaos_fuzz_phase(torch):
           f"{med(spawns, 'interpreter_s'):.3f}, torch's import {med(spawns, 'torch_import_s'):.3f}, the port's imports "
           f"{med(spawns, 'port_import_s'):.3f}, CUDA's initialisation {med(spawns, 'cuda_init_s'):.3f}, workload "
           f"{med(spawns, 'workload_s'):.3f}; forked ({len(forks)}): the fork {med(forks, 'start_s'):.3f}, CUDA's "
-          f"initialisation {med(forks, 'cuda_init_s'):.3f}, workload {med(forks, 'workload_s'):.3f}; "
-          f"{len(servers)} fork servers' own start (interpreter, torch, port): "
-          + json.dumps([[round(v["interpreter_s"] or 0, 3), round(v["torch_import_s"], 3),
-                         round(v["port_import_s"], 3)] for v in servers]))
+          f"initialisation {med(forks, 'cuda_init_s'):.3f}, workload {med(forks, 'workload_s'):.3f}")
     return artifact
 
 
@@ -6846,6 +6880,404 @@ def config4_phase(torch, launches):
           f"(baseline_configs.run: the median of 30 single updates, fleet and B3, each fetched)")
 
 
+#: Phase 21: each example's output from the JAX package at the reference's documented command
+#: (``examples/README.md``: ``beta_kumaraswamy_demo --trials 3000``, ``gaussian_demo --trials 3000``,
+#: ``multimodal_demo --trials 300``, ``fleet_demo`` at its defaults, ``serving_demo --steps 20`` on 8
+#: virtual CPU devices; seed 0), run with jax 0.9.0 on a CPU and kept as text: the card's machine has no
+#: JAX. The fleet demo's clocks read ``#``; the serving demo's rates (clocks) are cut from its lines.
+REFERENCE_EXAMPLES = {
+    "beta_kumaraswamy_demo": (
+        '== 1. single-fleet walkthrough ==\n'
+        'fleet (7 oracles, 2 failing, Beta a=b=10):\n'
+        '  oracle 0: [0.1043 0.344 ]  FAILING\n'
+        '  oracle 1: [0.1311 0.8101]  FAILING\n'
+        '  oracle 2: [0.5665 0.5946]  honest \n'
+        '  oracle 3: [0.4625 0.2784]  honest \n'
+        '  oracle 4: [0.5473 0.4682]  honest \n'
+        '  oracle 5: [0.4042 0.4427]  honest \n'
+        '  oracle 6: [0.2567 0.367 ]  honest \n'
+        '  mode of Beta(10,10) (true essence): 0.5000\n'
+        '  restricted median (detected set):  [0.4625 0.4427]\n'
+        '  restricted median (honest truth):  [0.4625 0.4427]\n'
+        '  on-chain two-pass kernel: essence=[0.3304 0.3555] rel1=0.6419 rel2=0.7526\n'
+        '\n'
+        '== 2. Beta vs Kumaraswamy honest model ==\n'
+        'Beta(10,10):        mode=0.5000  sample mean=0.4995  std=0.1096\n'
+        'Kumaraswamy(10,10): mode=0.7868  sample mean=0.7515  std=0.0875\n'
+        '\n'
+        '== 3. benchmark grid (notebook rule, K=3000, N=7/2 failing) ==\n'
+        '---\n'
+        'a=10 | b=15.0     | identification success: 42.60 % | reliability : 96.47 %\n'
+        'a=10 | b=10.0     | identification success: 39.93 % | reliability : 95.68 %\n'
+        '---\n'
+        'a=20 | b=15.0     | identification success: 48.27 % | reliability : 97.29 %\n'
+        'a=20 | b=20.0     | identification success: 50.73 % | reliability : 97.39 %\n'
+        '---\n'
+        'a=30 | b=15.0     | identification success: 55.23 % | reliability : 97.77 %\n'
+        'a=30 | b=30.0     | identification success: 58.77 % | reliability : 98.10 %\n'
+        '---\n'
+        'a=100 | b=15.0     | identification success: 78.57 % | reliability : 99.55 %\n'
+        'a=100 | b=100.0    | identification success: 75.50 % | reliability : 99.41 %\n'
+        '\n'
+        '== 3b. same grid through the on-chain two-pass kernel ==\n'
+        '---\n'
+        'a=10 | b=15.0     | identification success: 43.00 % | reliability : 96.39 %\n'
+        'a=10 | b=10.0     | identification success: 38.83 % | reliability : 95.34 %\n'
+        '---\n'
+        'a=20 | b=15.0     | identification success: 46.90 % | reliability : 97.02 %\n'
+        'a=20 | b=20.0     | identification success: 50.57 % | reliability : 97.24 %\n'
+        '---\n'
+        'a=30 | b=15.0     | identification success: 53.83 % | reliability : 97.53 %\n'
+        'a=30 | b=30.0     | identification success: 58.20 % | reliability : 98.09 %\n'
+        '---\n'
+        'a=100 | b=15.0     | identification success: 77.00 % | reliability : 99.48 %\n'
+        'a=100 | b=100.0    | identification success: 74.90 % | reliability : 99.40 %\n'
+        '\n'
+        '== 4. Cairo test-fixture source for the stage-1 fleet ==\n'
+        'array![104290, 343987].span(),\n'
+        'array![131067, 810130].span(),\n'
+        'array![566489, 594568].span(),\n'
+        'array![462485, 278376].span(),\n'
+        'array![547262, 468196].span(),\n'
+        'array![404182, 442713].span(),\n'
+        'array![256661, 367000].span(),\n'
+    ),
+    "gaussian_demo": (
+        '== 1. single-fleet walkthrough (on-chain unconstrained rule) ==\n'
+        'fleet (7 oracles, 2 failing, honest ~ N((20.0, 12.0), (3.0, 2.0)^2)):\n'
+        '  oracle 0: [12.086  8.88 ]  FAILING\n'
+        '  oracle 1: [12.621 18.203]  FAILING\n'
+        '  oracle 2: [17.931 10.404]  honest \n'
+        '  oracle 3: [19.221 14.86 ]  honest \n'
+        '  oracle 4: [17.395 12.42 ]  honest \n'
+        '  oracle 5: [18.276 13.6  ]  honest \n'
+        '  oracle 6: [18.429  8.51 ]  honest \n'
+        '  consensus (mean of detected-honest): [18.2502 11.9586]\n'
+        '  reliability first/second pass: 0.5533 / 0.7524   (the Cairo fixture run records 0.533 / 0.647 for its vectors)\n'
+        '\n'
+        '== 2. Monte-Carlo estimator quality (K=3000) ==\n'
+        '  sigma=(1.5, 1.0): identification 83.90 % | reliability 98.55 % | on-chain rel2 82.80 % | estimator error 0.1450\n'
+        '  sigma=(3.0, 2.0): identification 50.03 % | reliability 91.66 % | on-chain rel2 68.90 % | estimator error 0.8342\n'
+        '  sigma=(6.0, 4.0): identification 9.13 % | reliability 73.72 % | on-chain rel2 49.40 % | estimator error 2.6285\n'
+        '\n'
+        '== 3. Cairo fixture source for the stage-1 fleet ==\n'
+        'array![12085807, 8879751].span(),\n'
+        'array![12621345, 18202611].span(),\n'
+        'array![17930528, 10403746].span(),\n'
+        'array![19221179, 14859745].span(),\n'
+        'array![17394960, 12419903].span(),\n'
+        'array![18275659, 13599673].span(),\n'
+        'array![18428592, 8509973].span(),\n'
+    ),
+    "multimodal_demo": (
+        '== one bimodal fleet (N=64, 4 failing, weights 0.6/0.4) ==\n'
+        'true poles:        [[0.20000000298023224, 0.20000000298023224], [0.800000011920929, 0.699999988079071]]\n'
+        'EM pole means:     [[0.18800000846385956, 0.20100000500679016], [0.7880000472068787, 0.6980000138282776]]\n'
+        'EM pole weights:   [0.6170000433921814, 0.3830000162124634]\n'
+        'essence (dominant): [0.18800000846385956, 0.20100000500679016]\n'
+        'essence (average):  [0.4180000126361847, 0.3920000195503235]  <- between poles: held by no oracle\n'
+        'adversaries caught in mask: 4/4\n'
+        '\n'
+        '== Monte-Carlo (300 trials/cell): mixture vs unimodal two-pass ==\n'
+        '     weights  mix near-pole  uni near-pole  mix dom%  uni dom%  pole recov\n'
+        '  0.50/0.50          0.0071         0.0606      53.3      53.7      0.0076\n'
+        '  0.60/0.40          0.0069         0.0452      90.7      91.3      0.0090\n'
+        '  0.70/0.30          0.0062         0.0224     100.0     100.0      0.0114\n'
+        '  0.85/0.15          0.0053         0.0104     100.0     100.0      0.0274\n'
+        '\n'
+        'Reading: the mixture essence stays ~sigma from a true pole in every regime and\n'
+        "recovers BOTH pole centers; the unimodal median's nearest-pole error includes the\n"
+        'balanced-tie trials where it lands in the empty gap between the poles.\n'
+    ),
+    "fleet_demo": (
+        '== fleet demo: 1024 oracles, 256 adversarial ==\n'
+        'fetch: 30 comments -> 1024 oracle predictions in #s (packed x flash forward + bootstrap fleet + preview ranks)\n'
+        'preview flags 205 oracles as suspect (red in the UI)\n'
+        'commit: 1024 txs in #s (device-certified batch — sequential-loop semantics, O(1) golden recomputes)\n'
+        'on-chain: active=True rel1=0.555 rel2=0.993\n'
+        'uniform adversaries (256/1024): per-oracle misflag rate 0.45 %, restricted-median reliability 99.87 %\n'
+        'coordinated capture (563/1024, biased): misflag rate 90.04 % — the estimator inverts past N/2 (docs/ALGORITHM.md §5 breakdown curve)\n'
+    ),
+    "serving_demo": (
+        '[serving demo] 8 device(s), tiny shapes, 128-oracle fleet, window 32\n'
+        '  dense DP serving\n'
+        '  packed serving\n'
+        '  packed + pipelined\n'
+        '  packed + pipelined + int8\n'
+        '[serving demo] pipelined output verified equal to the plain step\n'
+    ),
+}
+#: Phase 21c's runs: (demo, argv, the arguments of its ``printed_bars``, the bars beyond them).
+#: :func:`svoc_torch.examples.compare_printed` holds each number a demo prints (none comes from a clock)
+#: to the texts above within one unit of its last printed place (the generators agree with JAX's to 3
+#: ulp for normals and 1e-6 for Beta fleets, so a printed digit may round the other way on the card),
+#: plus the demo's own ``printed_bars``: a number that counts trials may move by one trial's share (an
+#: identification success or a dominant-pole share over K trials 100/K percentage points, a misflag
+#: rate over K trials of N oracles 100/(K*N)); a reliability, an error or another mean only by its
+#: printed unit. The bars beyond them, from the port's plain run on a CPU at the same arguments
+#: (``python -m svoc_torch.examples.<name> --device cpu``), which printed the reference's text exactly
+#: but for the fleet demo's ``rel2=0.991`` (0.993), its sentiment weights the port's seeded ones: that
+#: gap on the fleet demo's on-chain reliabilities; a fixture's felts the wsad units that agreement
+#: reaches (Beta: 1e-6 is 1 wsad, +1 for the encoding's rounding; Gaussian: 3 ulp of a float32 below
+#: 32 is 5.7e-6, 6 wsad, +2).
+EXAMPLE_FELTS = r"array!\[(.*)\]"
+EXAMPLE_RUNS = (
+    ("beta_kumaraswamy_demo", ["--trials", "3000"], {"trials": 3000}, ((EXAMPLE_FELTS, 2),)),
+    ("gaussian_demo", ["--trials", "3000"], {"trials": 3000}, ((EXAMPLE_FELTS, 8),)),
+    ("multimodal_demo", ["--trials", "300"], {"trials": 300}, ()),
+    ("fleet_demo", [], {"trials": 50, "oracles": 1024}, ((r"rel1=(\S+) rel2=(\S+)", 0.002),)),
+)
+#: Phase 21c's cells on the card against their plain versions on the CPU: the shares of trials may move
+#: by one trial's share, every mean by this (on an H100 the card and the CPU agreed to 6e-7).
+TRIAL_COUNTS = {"identification_success_pct", "mixture_dominant_pole_pct", "unimodal_dominant_pole_pct"}
+CELL_BAR = 1e-4
+#: Phase 21b: the int8 forward against the bf16 packed one at the reference's bars
+#: (``tests/test_quant.py``): logits within this × max(1, |ref|), vectors within the second.
+INT8_LOGIT_BAR, INT8_VECTOR_BAR = 0.15, 0.05
+#: Phase 21c: the kernels each demo's main is expected to launch, the others 0; None: at least once,
+#: as drawn. B3 once a grid cell of 3b (8), a noise scale (3), a table row (4) and a fleet_benchmark
+#: (2); B1 once a layer of a packed forward (TINY_TEST: 2 layers) and threefry as drawn.
+EXAMPLE_LAUNCHES = {
+    "beta_kumaraswamy_demo": {"gated_claims_consensus": 8, "threefry": None},
+    "gaussian_demo": {"gated_claims_consensus": 3, "threefry": None},
+    "multimodal_demo": {"gated_claims_consensus": 4, "threefry": None},
+    "fleet_demo": {"gated_claims_consensus": 2, "flash_attention": None, "threefry": None},
+    "serving_demo": {"threefry": None},
+}
+
+
+def run_main(module, argv) -> str:
+    """``module.main(argv)`` on the card with its standard output captured (and returned)."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = module.main(argv)
+    if rc != 0:
+        raise RuntimeError(f"{module.__name__}.main({argv}) returned {rc}")
+    return buf.getvalue()
+
+
+@phase("21a. BASELINE config 7: dense data-parallel serving, 256 x 128 rows a slot, 1024 oracles, on one slot")
+def dp_config7_phase(torch, launches):
+    from svoc_torch.io.scraper import SyntheticSource
+    from svoc_torch.models.sentiment import SentimentPipeline
+    from svoc_torch.parallel.serving import fleet_step_fn
+    from svoc_torch.sim import prng
+    from svoc_torch.tools import baseline_configs as bc
+
+    card = nvidia_smi()
+    s = bc.dp_serving(7)  # device None: CUDA; one slot a card
+    (batch, _), = bc.dp_batches(s, SyntheticSource(batch=s.rows, seed=0), 1)
+    key = prng.PRNGKey(0, "cuda")
+    wrappers = zero_counts(baseline_wrappers())
+    out, honest = bc.dp_step(s, key, batch)
+    one = read_counts(wrappers)
+    check(s.mesh.size == torch.cuda.device_count() and one["threefry"] > 0
+          and launches_are(one, {"threefry": one["threefry"]}),
+          f"21a one step on {s.mesh.size} slot(s): threefry {one['threefry']} (the fleet's draws), no other kernel "
+          f"(dense forward, the psum consensus): {one}")
+    add_launches(launches, one)
+    # The slot's forward against the unmeshed dense variant's (4c) on the same batch and weights.
+    meshed = SentimentPipeline(s.cfg, seq_len=s.seq, batch_size=s.rows, params=s.params, data_mesh=s.mesh)
+    dense = SentimentPipeline(s.cfg, seq_len=s.seq, batch_size=s.rows, params=s.params)
+    vecs, ref = meshed.forward(*batch), dense.forward(*batch)
+    gap = max_err(vecs, ref)
+    check(bool(torch.isfinite(vecs).all()) and vecs.shape == (256, 6) and gap <= VARIANT_BAR,
+          f"21a the slot's sentiment vectors [256, 6] against the unmeshed dense forward: max gap {gap:.3e} "
+          f"<= {VARIANT_BAR}")
+    ref_out, ref_honest = fleet_step_fn(s.mesh, s.ccfg, s.n_oracles, subset_size=bc.DP_SUBSET)(
+        key, ref[: s.window].float())
+    egap = max_err(out.essence, ref_out.essence)
+    check(torch.equal(honest, ref_honest) and torch.equal(out.reliable, ref_out.reliable) and egap <= VARIANT_BAR
+          and int((~honest).sum()) == s.ccfg.n_failing,
+          f"21a the step's consensus against the fleet and consensus of the dense forward's window: honest and "
+          f"reliable masks equal, essence gap {egap:.3e} <= {VARIANT_BAR}, {s.ccfg.n_failing} failing of "
+          f"{s.n_oracles}")
+    step_ms = cuda_ms(torch, lambda: bc.dp_step(s, key, batch), iters=BASELINE_EVENTS, warmup=0)
+    wrappers = zero_counts(baseline_wrappers())
+    report = bc.run(7, seconds=BASELINE_SECONDS)
+    counts = read_counts(wrappers)
+    d = report["detail"]
+    check(report["metric"] == bc.METRICS[7][0].format(n_dev=s.mesh.size, n=1024, s=1)
+          and report["unit"] == "comments/sec" and report["value"] > 0 and d["rows"] == 256 * s.mesh.size
+          and d["seq_len"] == 128 and counts["threefry"] > 0 and launches_are(counts, {"threefry": counts["threefry"]}),
+          f"21a baseline_configs.run(7) on the card: {report['value']:.1f} comments/s, {d['steps']} steps, "
+          f"{d['distinct_essences']} distinct essences, launches {counts}")
+    add_launches(launches, counts)
+    print(f"  [{card}] config 7: {report['value']:.1f} comments/s on the wall clock ({d['steps']} steps of "
+          f"{d['rows']} in {d['elapsed_s']:.3f} s, each essence fetched; a step's latency "
+          f"{d['step_latency_ms']:.3f} ms); step {step_ms:.3f} ms (CUDA events); launches {counts}", flush=True)
+
+
+@phase("21b. BASELINE config 11: INT8 packed data-parallel serving, 8-segment rows, pipelined, on one slot")
+def dp_config11_phase(torch, launches):
+    from svoc_torch.io.scraper import SyntheticSource
+    from svoc_torch.models.encoder import init_params
+    from svoc_torch.models.sentiment import SentimentPipeline
+    from svoc_torch.sim import prng
+    from svoc_torch.tools import baseline_configs as bc
+
+    card = nvidia_smi()
+    weights = init_params(bc.ROBERTA_GO_EMOTIONS, 0, "cuda")
+    s = bc.dp_serving(11, params=weights)  # device None: CUDA; the fold timed inside
+    warm, = bc.dp_batches(s, SyntheticSource(batch=s.rows, seed=1), 1)
+    batches = bc.dp_batches(s, SyntheticSource(batch=s.rows, seed=0), 2)
+    key = prng.PRNGKey(0, "cuda")
+    wrappers = zero_counts(baseline_wrappers())
+    prev_window, _, _ = bc.dp_pipelined(s, key, warm[0], bc.zero_window(s))
+    prev_key, got, plain = key, [], []
+    for step, (batch, _) in enumerate(batches):
+        k = prng.fold_in(key, step)
+        prev_window, out, honest = bc.dp_pipelined(s, prev_key, batch, prev_window)
+        got.append((out, honest))
+        plain.append(bc.dp_step(s, k, batch))
+        prev_key = k
+    got.append(bc.dp_drain(s, prev_key, prev_window))
+    counts = read_counts(wrappers)
+    check(counts["threefry"] > 0 and launches_are(counts, {"threefry": counts["threefry"]}),
+          f"21b the primed loop (3 pipelined steps, 2 plain, the drain): threefry as drawn, no other kernel "
+          f"(the int8 forward's products are torch._int_mm, the consensus the psum body): {counts}")
+    add_launches(launches, counts)
+    same = [all(nan_equal(torch, a, b) for a, b in zip(g[0], p[0])) and torch.equal(g[1], p[1])
+            for g, p in zip(got[1:], plain)]
+    check(all(same) and len(same) == 2,
+          f"21b the pipelined output of batch k equals the plain int8 step's on batch k, exactly, the drain "
+          f"closing the last: {same}")
+    # The int8 forward against the bf16 packed forward of the same float weights, on one config-11 batch.
+    arrays, _ = batches[0]
+    valid = arrays[4]
+    bf16 = SentimentPipeline(s.cfg, seq_len=s.seq, batch_size=s.rows, packed=True,
+                             params={k: v.bfloat16() for k, v in weights.items()})
+    q = SentimentPipeline(s.cfg, seq_len=s.seq, batch_size=s.rows, packed=True, quant="int8", params=s.params)
+    with torch.inference_mode():
+        ref_logits = bf16.packed_model(*arrays[:4])[valid].float()
+        int8_logits = q.packed_model(*arrays[:4])[valid].float()
+    logit_gap = max_err(int8_logits, ref_logits)
+    logit_bar = INT8_LOGIT_BAR * max(1.0, ref_logits.abs().max().item())
+    vec_gap = max_err(q.packed_forward(*arrays[:4])[valid], bf16.packed_forward(*arrays[:4])[valid])
+    check(bool(torch.isfinite(int8_logits).all()) and logit_gap < logit_bar and vec_gap < INT8_VECTOR_BAR,
+          f"21b the int8 forward against the bf16 packed one on {int(valid.sum())} segments: logits within "
+          f"{logit_gap:.4f} (bar {logit_bar:.4f}), vectors within {vec_gap:.5f} (bar {INT8_VECTOR_BAR})")
+    del bf16, q
+    step_ms = cuda_ms(torch, lambda: bc.dp_step(s, key, batches[0][0]), iters=BASELINE_EVENTS, warmup=0)
+    wrappers = zero_counts(baseline_wrappers())
+    report = bc.run(11, seconds=BASELINE_SECONDS, params=weights)
+    counts = read_counts(wrappers)
+    d = report["detail"]
+    check(report["metric"] == bc.METRICS[11][0].format(n_dev=s.mesh.size, n=1024, s=8)
+          and report["unit"] == "comments/sec" and report["value"] > 0 and d["rows"] == 256 * s.mesh.size
+          and d["max_segments"] == 8 and counts["threefry"] > 0
+          and launches_are(counts, {"threefry": counts["threefry"]}),
+          f"21b baseline_configs.run(11) on the card: {report['value']:.1f} comments/s, {d['steps']} steps, "
+          f"packing factor {d['packing_factor']:.3f}, launches {counts}")
+    add_launches(launches, counts)
+    print(f"  [{card}] config 11: {report['value']:.1f} comments/s on the wall clock ({d['steps']} pipelined steps "
+          f"of {d['rows']} rows, {d['packing_factor']:.3f} comments a row, in {d['elapsed_s']:.3f} s, each essence "
+          f"fetched; the plain step's latency {d['step_latency_ms']:.3f} ms); plain step {step_ms:.3f} ms (CUDA "
+          f"events); the fold {s.fold_s:.3f} s here, {d['fold_s']:.3f} s in run(); launches {counts}", flush=True)
+
+
+@phase("21c. the examples at the reference's documented commands: beta, gaussian, multimodal, fleet, serving")
+def examples_phase(torch, launches):
+    import contextlib
+    import importlib
+    import io
+
+    import numpy as np
+
+    from svoc_torch.examples import compare_printed, without_clocks
+    from svoc_torch.sim import montecarlo, multimodal, prng
+
+    card = nvidia_smi()
+    counted = baseline_wrappers()
+    demos = {name: importlib.import_module(f"svoc_torch.examples.{name}") for name in EXAMPLE_LAUNCHES}
+    for name, argv, bar_args, extra_bars in EXAMPLE_RUNS:
+        wrappers = zero_counts(counted)
+        before = commit_routes()
+        t0 = time.perf_counter()
+        text = run_main(demos[name], argv)
+        secs = time.perf_counter() - t0
+        counts = read_counts(wrappers)
+        add_launches(launches, counts)
+        bars = extra_bars + demos[name].printed_bars(**bar_args)
+        ok, gaps = compare_printed(without_clocks(text), REFERENCE_EXAMPLES[name], bars)
+        command = " ".join([name] + argv) if argv else f"{name} at its defaults"
+        check(ok, f"21c {command}: every printed number within its printed unit and its bar of the JAX "
+                  f"package's (bars {bars}; non-zero gaps by line: {gaps})")
+        expected = EXAMPLE_LAUNCHES[name]
+        check(all(counts[k] > 0 if expected.get(k, 0) is None else counts[k] == expected.get(k, 0) for k in counts),
+              f"21c {name}: launches {counts}, expected {expected} (None: as drawn), the others 0")
+        if name == "fleet_demo":
+            routes = diff(commit_routes(), before)
+            check(routes == {"chain_commit_rpcs{mode=batch}": 1} and "1024 txs" in text and "active=True" in text,
+                  f"21c fleet_demo: its commit took the batched certified route, one RPC for 1024 txs ({routes})")
+        print(f"  [{card}] 21c {command}: {secs:.2f} s; launches {counts}", flush=True)
+        print("    " + "\n    ".join(text.strip("\n").splitlines()[-4:]), flush=True)
+
+    # The serving ladder: 8 slots of the card at the tiny shapes (the reference's 8 devices), then the
+    # full width on one slot. Its numbers are clocks; its lines and its lossless check are held.
+    for argv, header in ((["--steps", "20", "--slots", "8"], REFERENCE_EXAMPLES["serving_demo"].splitlines()[0]),
+                         (["--steps", "20", "--full"],
+                          "[serving demo] 1 device(s), flagship shapes, 1024-oracle fleet, window 50")):
+        wrappers = zero_counts(counted)
+        t0 = time.perf_counter()
+        text = run_main(demos["serving_demo"], argv)
+        secs = time.perf_counter() - t0
+        counts = read_counts(wrappers)
+        add_launches(launches, counts)
+        lines = text.strip("\n").splitlines()
+        want = "\n".join([header] + REFERENCE_EXAMPLES["serving_demo"].splitlines()[1:])
+        check(without_clocks(text).strip("\n") == want,
+              f"21c serving_demo {' '.join(argv)}: the header {lines[0]!r}, the four rungs, and the pipelined "
+              f"output verified equal to the plain step")
+        check(counts["threefry"] > 0 and launches_are(counts, {"threefry": counts["threefry"]}),
+              f"21c serving_demo {' '.join(argv)}: threefry as drawn, no other kernel (dense attention, the psum "
+              f"consensus, torch._int_mm): {counts}")
+        print(f"  [{card}] 21c serving_demo {' '.join(argv)}: {secs:.2f} s; launches {counts}", flush=True)
+        print("    " + "\n    ".join(lines), flush=True)
+
+    # One stage of each demo that reaches B1 or B3, on the card and as its plain version on the CPU.
+    def both(fn):
+        return [fn(prng.PRNGKey(0, dev)) for dev in ("cuda", "cpu")]
+
+    def bar_ok(a: dict, b: dict, trials: int) -> bool:
+        return all(abs(a[k] - b[k]) <= (100.0 / trials if k in TRIAL_COUNTS else CELL_BAR) for k in a)
+
+    cells = {
+        "beta 3b, a=10 b=10": (both(lambda k: montecarlo.benchmark(
+            prng.fold_in(prng.split(k, 3)[2], 2), 10.0, 10.0, 7, 2, k_trials=3000, use_kernel=True)), 3000),
+        "gaussian 2, sigma (3, 2)": (both(lambda k: montecarlo.benchmark_unconstrained(
+            prng.fold_in(prng.split(k, 2)[1], 10), (20.0, 12.0), (3.0, 2.0), 7, 2, k_trials=3000, max_spread=10.0,
+            use_kernel=True)), 3000),
+        "multimodal 0.50/0.50": (both(lambda k: multimodal.benchmark_multimodal(
+            prng.fold_in(k, 50), np.array([[0.2, 0.2], [0.8, 0.7]], np.float32), 0.03, weights=[0.5, 0.5],
+            n_oracles=64, n_failing=4, k_trials=300)), 300),
+    }
+    for what, ((card_cell, cpu_cell), trials) in cells.items():
+        check(bar_ok(card_cell, cpu_cell, trials),
+              f"21c {what}: the card's cell (B3) against its plain version on the CPU, the shares of trials "
+              f"({sorted(TRIAL_COUNTS & set(card_cell))}) within one trial's share (100/{trials}), the means within "
+              f"{CELL_BAR}: card {card_cell}, CPU {cpu_cell}")
+    fleet = demos["fleet_demo"]
+    with contextlib.redirect_stdout(io.StringIO()):
+        runs = [fleet.run(1024, 256, 1, device=dev) for dev in ("cuda", "cpu")]
+    (card_run, cpu_run) = runs
+    gap = float(np.abs(card_run["preview"]["values"] - cpu_run["preview"]["values"]).max())
+    check(np.array_equal(card_run["preview"]["honest"], cpu_run["preview"]["honest"]) and gap <= 1e-4
+          and card_run["n_tx"] == cpu_run["n_tx"] == 1024,
+          f"21c fleet_demo's fetch (B1, the packed flash forward) against its plain version on the CPU: the fleet's "
+          f"honest mask equal, values within {gap:.2e} (bar 1e-4), 1024 txs each")
+    # Its fleet_benchmark (B3) at one trial: a misflag count of 1024 oracle-trials, a reliability a mean.
+    for stage in ("uniform", "capture"):
+        a, b = card_run[stage], cpu_run[stage]
+        check(abs(a["mean_misclassified"] - b["mean_misclassified"]) <= 1
+              and all(abs(a[k] - b[k]) <= CELL_BAR for k in ("reliability_pct", "mean_onchain_reliability2_pct")),
+              f"21c fleet_demo's {stage} fleet_benchmark (B3) against its plain version on the CPU, one trial: "
+              f"misflagged oracles within one, reliabilities within {CELL_BAR}: card {a}, CPU {b}")
+
+
 def main() -> int:
     t_script = time.perf_counter()
     try:
@@ -6959,6 +7391,12 @@ def main() -> int:
         config3_phase(torch, launches, serving_main)
         config4_phase(torch, launches)
         print(f"  (phase 20 in all: {time.perf_counter() - t_configs:.1f} s)", flush=True)
+        configured = dict(launches)
+        t_examples = time.perf_counter()
+        dp_config7_phase(torch, launches)
+        dp_config11_phase(torch, launches)
+        examples_phase(torch, launches)
+        print(f"  [{nvidia_smi()}] 21d: phase 21 in all: {time.perf_counter() - t_examples:.1f} s", flush=True)
         print(f"  launches: serving paths {serving}; with the train paths {trained}; "
               f"with the multi-claim path {claimed}; with the probe path {probed}; "
               f"with the commit path {committed}; with the fabric paths {fabricked}; "
@@ -6966,7 +7404,11 @@ def main() -> int:
               f"with the cold-start paths {started}; with the cluster paths {clustered}; "
               f"with the reconfiguration paths {reconfigured}; with the obs gates, the certificate and the "
               f"sweeps {swept}; with the console {consoled}; with the mesh {meshed}; with the training and "
-              f"sequence paths on the mesh {linted}; with BASELINE configs 1-4 {launches}")
+              f"sequence paths on the mesh {linted}; with BASELINE configs 1-4 {configured}; with configs 7 and 11 "
+              f"and the examples {launches}")
+    from svoc_torch.durability import forked
+
+    forked.stop()  # 11b's and 14b's children came from it; it would outlive this process for a moment
     check(all(launches.get(name, 0) > 0 for name in KERNEL_ROWS),
           f"every kernel launched on its path: { {k: launches.get(k, 0) for k in KERNEL_ROWS} }")
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "svoc_tpu"))

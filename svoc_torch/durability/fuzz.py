@@ -78,7 +78,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from svoc_torch.durability import faultspace
+from svoc_torch.durability import faultspace, forked
 from svoc_torch.durability.chainlog import (
     DurableLocalBackend,
     duplicate_predictions,
@@ -712,62 +712,15 @@ def spawn_child(argv: List[str], timeout_s: float) -> Tuple[int, str, str]:
     return proc.returncode, proc.stdout, proc.stderr
 
 
-class ForkServer:
-    """One long-lived ``python -m svoc_torch.tools.chaos_fuzz
-    --fork-server`` that has imported torch and the child's modules, and
-    never initialised CUDA, forks one child a phase.  Each child is still
-    its own process, SIGKILLed at its fault point and reaped by the
-    server, whose return code (``-9``) and output files come back over
-    the server's pipes; it initialises CUDA itself, after the fork.  One
-    server serves one caller thread at a time; :meth:`close` ends it."""
-
-    def __init__(self, work_dir: str):
-        self.work_dir = work_dir
-        os.makedirs(work_dir, exist_ok=True)
-        self._n = 0
-        self.proc = subprocess.Popen(
-            [sys.executable, "-m", CHILD_MODULE, "--fork-server"],
-            stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True, env=_child_env(), cwd=_ROOT,
-        )
-        ready = self.proc.stdout.readline()
-        if not ready:
-            raise RuntimeError(f"the fork server exited before it was ready (rc {self.proc.wait()})")
-        #: The server's own start, split as a spawned child's is.
-        self.start_seconds = json.loads(ready)["seconds"]
-
-    def launch(self, argv: List[str], timeout_s: float) -> Tuple[int, str, str]:
-        """Run the child ``argv`` (``python -m`` :data:`CHILD_MODULE`
-        ``--child ...``) as a fork: ``(returncode, stdout, stderr)``."""
-        if argv[1:3] != ["-m", CHILD_MODULE]:
-            raise ValueError(f"the fork server runs {CHILD_MODULE} children only, got {argv[:3]}")
-        self._n += 1
-        out = os.path.join(self.work_dir, f"child-{self._n}.out")
-        err = os.path.join(self.work_dir, f"child-{self._n}.err")
-        request = {"args": argv[3:], "spawned": time.time(), "timeout_s": timeout_s, "out": out, "err": err}
-        self.proc.stdin.write(json.dumps(request) + "\n")
-        self.proc.stdin.flush()
-        line = self.proc.stdout.readline()
-        if not line:
-            raise RuntimeError(f"the fork server died (rc {self.proc.wait()})")
-        reply = json.loads(line)
-        texts = []
-        for path in (out, err):
-            with open(path, encoding="utf-8", errors="replace") as f:
-                texts.append(f.read())
-            os.remove(path)
-        if reply["timeout"]:
-            raise subprocess.TimeoutExpired(argv, timeout_s, texts[0], texts[1])
-        return reply["rc"], texts[0], texts[1]
-
-    def close(self) -> None:
-        if self.proc.poll() is None:
-            self.proc.stdin.close()
-            try:
-                self.proc.wait(timeout=30)
-            except subprocess.TimeoutExpired:
-                self.proc.kill()
-                self.proc.wait()
-        self.proc.stdout.close()
+def fork_child(argv: List[str], timeout_s: float) -> Tuple[int, str, str]:
+    """A child forked from the fork server (:mod:`svoc_torch.durability.forked`,
+    torch and the child's modules imported, CUDA never initialised), stamped
+    with its fork time (:data:`SPAWNED_ENV`): ``(returncode, stdout,
+    stderr)``.  ``argv`` is a :data:`CHILD_MODULE` child's, as
+    :func:`spawn_child` takes it."""
+    if argv[1:3] != ["-m", CHILD_MODULE]:
+        raise ValueError(f"the fork server runs {CHILD_MODULE} children only, got {argv[:3]}")
+    return forked.run(CHILD_MODULE, argv[3:], timeout_s, env={SPAWNED_ENV: repr(time.time())})
 
 
 def run_plan(
@@ -796,8 +749,8 @@ def run_plan(
     ``launcher(argv, timeout_s) -> (returncode, stdout, stderr)`` runs it
     (raising ``subprocess.TimeoutExpired``); the default,
     :func:`spawn_child`, starts a fresh interpreter from the package's
-    parent directory, and :meth:`ForkServer.launch` forks one from an
-    interpreter that has imported everything already.  The timeout
+    parent directory, and :func:`fork_child` forks one from a fork server
+    that has imported everything already.  The timeout
     covers the child's start."""
     if child_argv is None:
         def child_argv(plan_path, workdir, phase):

@@ -185,7 +185,9 @@ def init_params(
     packed twin, which shares it), drawn on ``device`` from a
     ``torch.Generator``.  The scales are those of the flax initialisers
     (Dense: normal with variance 1/fan_in, zero bias; Embed: normal with
-    variance 1/rows; LayerNorm: 1 and 0); the numbers are not flax's."""
+    variance 1/features, flax's ``variance_scaling(1, "fan_in",
+    "normal", out_axis=0)`` on a ``[rows, features]`` table; LayerNorm: 1
+    and 0); the numbers are not flax's."""
     device = resolve_device(device)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
@@ -198,7 +200,7 @@ def init_params(
             params[prefix + "weight"] = _normal(module.weight.shape, std, gen, device)
             params[prefix + "bias"] = torch.zeros(module.out_features, device=device)
         elif isinstance(module, nn.Embedding):
-            std = 1.0 / math.sqrt(module.num_embeddings)
+            std = 1.0 / math.sqrt(module.embedding_dim)
             params[prefix + "weight"] = _normal(module.weight.shape, std, gen, device)
         elif isinstance(module, nn.LayerNorm):
             params[prefix + "weight"] = torch.ones(cfg.hidden, device=device)

@@ -159,7 +159,7 @@ def choice(keys: torch.Tensor, n: int, k: int) -> torch.Tensor:
     """``jax.random.choice(key, n, (k,), replace=False)``: the first ``k``
     of :func:`permutation`, int64 ``[..., k]``."""
     if not 0 <= k <= n:
-        raise ValueError(f"cannot take {k} of {n} without replacement")
+        raise ValueError(f"Cannot take a larger sample (size {k}) than population (size {n}) when 'replace=False'")
     return permutation(keys, n)[..., :k]
 
 

@@ -1,10 +1,13 @@
-"""BASELINE configs 1-4 on the port: the step bodies of ``bench.py``'s
-``bench_config1`` to ``bench_config4``.
+"""BASELINE configs 1-4, 7 and 11 on the port: the step bodies of
+``bench.py``'s ``bench_config1`` to ``bench_config4``, ``bench_config7``
+and ``bench_config11``.
 
 This module mirrors the step bodies of ``bench.py::bench_config1``-
-``bench_config4`` (``bench.py:891, 968, 1054, 1149``), not bench.py's
-timer, replay or decision machinery.  The four configurations are the
-first four of ``BASELINE.json``:
+``bench_config4`` (``bench.py:891, 968, 1054, 1149``), ``bench_config7``
+(``bench.py:1580``) and ``bench_config11`` (``bench.py:2159``, the body
+of ``_bench_packed_dp_serving(quant="int8")`` at ``bench.py:2168``), not
+bench.py's timer, replay or decision machinery.  The first four
+configurations are the first four of ``BASELINE.json``:
 
 1. ``classify_and_predict`` (``bench.py:923``): DistilBERT-SST2 (6
    layers, vocab 30522, ``pad_id`` 0, ``ln_eps`` 1e-12, a softmax head,
@@ -26,6 +29,35 @@ first four of ``BASELINE.json``:
    6)) / 6`` (``bench.py:1185``), 64 updates a chunk; the chunk's fleets
    are drawn in one call and stacked ``[64, 1024, 6]``.
 
+7. ``serve`` (``bench.py:1618-1621``): data-parallel serving,
+   :func:`svoc_torch.parallel.serving.dp_serving_step_fn` on
+   :func:`~svoc_torch.parallel.serving.serving_mesh` (one slot a visible
+   card; on one card the mesh has size 1, as bench.py's docstring says):
+   RoBERTa go_emotions with bf16-resident weights over 256 rows of 128
+   tokens a slot, the window of the first 50 vectors, 1024 oracles (128
+   failing, subsets of 10), the fleet and the consensus oracle-parallel
+   over the slots (``small``: TINY_TEST, 32 rows of 32 tokens a slot, 16
+   oracles a slot).
+11. ``serve``/``pserve``/``drain_fleet`` (``bench.py:2213-2227``): INT8
+   (W8A8) sequence-packed data-parallel serving, the float32 weights
+   folded by :func:`svoc_torch.models.quant.quantize_params`, 256 packed
+   rows of 128 tokens a slot with up to 8 comments each (``small``:
+   TINY_TEST, 16 rows of 32 tokens with up to 4).  The plain step
+   (:func:`~svoc_torch.parallel.serving.packed_serving_step_fn`) runs the
+   warm-up and the isolated latency; the timed loop runs the pipelined
+   twin (:func:`~svoc_torch.parallel.serving.packed_serving_pipelined_step_fn`),
+   primed as ``bench.py:2275-2297`` primes it (a zero window whose
+   output is discarded, the consensus key riding the pipeline), and
+   :func:`~svoc_torch.parallel.serving.fleet_step_fn` drains the last
+   batch.
+
+Configs 7 and 11 take ``SyntheticSource``'s comments through the native
+tokenizer (and packer) with seeded weights: bench.py's full size names
+the ``SamLowe/roberta-base-go_emotions`` tokenizer, which would be a
+download.  No TPU kernel is on their paths: the dense and the int8
+forwards bypass flash attention (B1), and the consensus tail is the
+mesh's psum body, not B2; threefry draws the fleets.
+
 Configs 2 and 4 put each chunk's consensus through one launch of the
 gated claim-cube kernel (B3, :func:`svoc_torch.ops.fused_consensus.
 consensus_blocks`), where the reference scans ``consensus_step`` over
@@ -39,7 +71,7 @@ and raise without a card; pass ``device="cpu"`` for the plain versions.
 
 Usage::
 
-    python -m svoc_torch.tools.baseline_configs --config {1,2,3,4}
+    python -m svoc_torch.tools.baseline_configs --config {1,2,3,4,7,11}
         [--small] [--device cpu] [--seconds S]
 
 prints bench.py's metric and unit for that config with the measured
@@ -57,10 +89,22 @@ import torch
 
 from svoc_torch.consensus.kernel import ConsensusConfig, ConsensusOutput
 from svoc_torch.device import resolve_device
+from svoc_torch.flagship import pack_stream, token_lists
 from svoc_torch.io.scraper import SyntheticSource
-from svoc_torch.models.configs import DISTILBERT_SST2, ROBERTA_GO_EMOTIONS, TINY_TEST
-from svoc_torch.models.sentiment import SentimentPipeline
+from svoc_torch.models.configs import DISTILBERT_SST2, ROBERTA_GO_EMOTIONS, TINY_TEST, EncoderConfig
+from svoc_torch.models.encoder import init_params
+from svoc_torch.models.quant import quantize_params
+from svoc_torch.models.sentiment import TRACKED_INDICES, SentimentPipeline
+from svoc_torch.models.tokenizer import load_tokenizer
 from svoc_torch.ops.fused_consensus import consensus_blocks, fused_consensus
+from svoc_torch.parallel.mesh import Mesh
+from svoc_torch.parallel.serving import (
+    dp_serving_step_fn,
+    fleet_step_fn,
+    packed_serving_pipelined_step_fn,
+    packed_serving_step_fn,
+    serving_mesh,
+)
 from svoc_torch.sim import prng
 from svoc_torch.sim.generators import generate_beta_oracles
 from svoc_torch.sim.oracle import gen_oracle_predictions
@@ -78,6 +122,13 @@ CONFIG3_WINDOW, CONFIG3_DIMS = 50, 2
 #: Config 4: the fleet (``small``: 128), a quarter failing, updates a chunk (``small``: 16).
 CONFIG4_ORACLES, CONFIG4_SMALL_ORACLES, CONFIG4_DIM, CONFIG4_SUBSET = 1024, 128, 6, 10
 CONFIG4_CHUNK, CONFIG4_SMALL_CHUNK, CONFIG4_WINDOW = 64, 16, 50
+#: Configs 7 and 11: rows and tokens a slot (``small``: TINY_TEST at 32 tokens), the packed
+#: segments a row (config 11), the fleet (``small``: 16 oracles a slot), the window and subsets.
+CONFIG7_ROWS, CONFIG7_SMALL_ROWS, CONFIG11_ROWS, CONFIG11_SMALL_ROWS = 256, 32, 256, 16
+DP_SEQ, DP_SMALL_SEQ, CONFIG11_SEGMENTS, CONFIG11_SMALL_SEGMENTS = 128, 32, 8, 4
+DP_ORACLES, DP_SMALL_ORACLES_PER_SLOT, DP_WINDOW, DP_SUBSET = 1024, 16, 50, 10
+#: Distinct batches made before the clock of configs 7 and 11, taken in turn by the timed steps.
+DP_BATCHES = 4
 
 METRICS = {
     1: ("config 1: single-oracle DistilBERT-SST2 sentiment, 100 cached comments", "comments/sec"),
@@ -85,6 +136,10 @@ METRICS = {
     3: ("config 3: 64 vmapped bootstrap oracles over batched sentiment, 2D", "comments/sec"),
     4: ("config 4: {n}-oracle adversarial pod sim ({f} failing), fused fleet+consensus",
         "consensus-updates/sec"),
+    7: ("config 7: data-parallel serving over {n_dev} device(s) — sharded sentiment batch -> {n}-oracle fleet "
+        "-> consensus", "comments/sec"),
+    11: ("config 11: INT8 (W8A8) sequence-packed data-parallel serving over {n_dev} device(s) — {s}-seg packed "
+         "rows -> {n}-oracle fleet -> consensus", "comments/sec"),
 }
 
 
@@ -186,6 +241,178 @@ def config4_chunk(key: torch.Tensor, window: torch.Tensor, chunk: int = CONFIG4_
     return Chunk(values, honest, out, _detected(out, honest))
 
 
+# -- configs 7 and 11 ---------------------------------------------------------
+
+
+class DPServing(NamedTuple):
+    """Configs 7 and 11's serving steps on one mesh, at one size."""
+
+    config: int
+    mesh: Mesh
+    cfg: EncoderConfig
+    ccfg: ConsensusConfig
+    n_oracles: int
+    rows: int  #: the whole batch: rows a slot × slots
+    seq: int
+    max_seg: int  #: packed segments a row (config 11; 1 for config 7)
+    window: int
+    params: dict  #: bf16-resident (config 7, full size), float32, or the folded int8 tree (config 11)
+    tokenizer: object
+    serve: object  #: the plain step
+    pipelined: object  #: config 11's pipelined twin (None for config 7)
+    drain: object  #: config 11's drain (None for config 7)
+    fold_s: float  #: seconds of the int8 fold (0.0 for config 7)
+
+
+def dp_serving(config: int, small: bool = False, device=None, params=None, mesh: Mesh = None) -> DPServing:
+    """Config 7's or 11's step functions at ``bench.py``'s sizes
+    (``bench.py:1601-1621, 2196-2227``) on ``mesh`` (default: one slot
+    a visible card, or ``device`` itself).  ``params``: the float
+    encoder weights (None: seeded, seed 0, on ``device``)."""
+    if config not in (7, 11):
+        raise ValueError(f"config {config} is not a data-parallel serving config (7, 11)")
+    dev = resolve_device(device)
+    mesh = serving_mesh(device=dev) if mesh is None else mesh
+    n_dev = mesh.size
+    cfg = TINY_TEST if small else ROBERTA_GO_EMOTIONS
+    if config == 7:
+        per_slot, max_seg = (CONFIG7_SMALL_ROWS if small else CONFIG7_ROWS), 1
+    else:
+        per_slot = CONFIG11_SMALL_ROWS if small else CONFIG11_ROWS
+        max_seg = CONFIG11_SMALL_SEGMENTS if small else CONFIG11_SEGMENTS
+    seq = DP_SMALL_SEQ if small else DP_SEQ
+    n_oracles = DP_SMALL_ORACLES_PER_SLOT * n_dev if small else DP_ORACLES
+    if n_oracles % n_dev:
+        n_oracles += n_dev - n_oracles % n_dev
+    rows = per_slot * n_dev
+    window = min(DP_WINDOW, rows)
+    ccfg = ConsensusConfig(n_failing=max(2, n_oracles // 8), constrained=True)
+    if params is None:
+        params = init_params(cfg, 0, dev)
+    quant, fold_s = ("int8" if config == 11 else None), 0.0
+    if quant:  # the fold takes the float32 weights (bench.py:2205-2208)
+        t0 = time.perf_counter()
+        params = quantize_params(params, cfg)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        fold_s = time.perf_counter() - t0
+    elif not small:  # bf16-resident weights (bench.py:1610)
+        params = {k: v.to(torch.bfloat16) if v.is_floating_point() else v for k, v in params.items()}
+    kw = dict(window_size=window, subset_size=DP_SUBSET)
+    if config == 7:
+        serve, pipelined, drain = dp_serving_step_fn(mesh, cfg, ccfg, n_oracles, **kw), None, None
+    else:
+        serve = packed_serving_step_fn(mesh, cfg, ccfg, n_oracles, quant=quant, **kw)
+        pipelined = packed_serving_pipelined_step_fn(mesh, cfg, ccfg, n_oracles, quant=quant, **kw)
+        drain = fleet_step_fn(mesh, ccfg, n_oracles, subset_size=DP_SUBSET)
+    tokenizer = load_tokenizer(cfg.vocab_size, pad_id=cfg.pad_id, max_len=seq)
+    return DPServing(config, mesh, cfg, ccfg, n_oracles, rows, seq, max_seg, window, params, tokenizer, serve,
+                     pipelined, drain, fold_s)
+
+
+def dp_batches(s: DPServing, source, n: int) -> list:
+    """``n`` batches of ``source``'s comments on the mesh's first slot:
+    config 7's ``(ids, mask)`` and a comment count, config 11's ``(ids,
+    pos, seg, cls_pos, valid)`` packed rows (the packed feed's,
+    ``bench.py:1725-1791``) and the comments packed."""
+    dev = s.mesh.devices.flat[0]
+    out = []
+    if s.config == 7:
+        for _ in range(n):
+            ids, mask = s.tokenizer(source(), s.seq)
+            out.append(((torch.from_numpy(ids).to(dev), torch.from_numpy(mask).to(dev)), s.rows))
+        return out
+    feed = pack_stream(token_lists(s.tokenizer, source, s.seq), s.rows, s.seq, s.max_seg, s.tokenizer.pad_id)
+    for _, (batch, n_comments) in zip(range(n), feed):
+        arrays = (batch.ids, batch.pos, batch.seg, batch.cls_pos, batch.seg_valid > 0)
+        out.append((tuple(torch.from_numpy(a).to(dev) for a in arrays), n_comments))
+    return out
+
+
+def dp_step(s: DPServing, key: torch.Tensor, batch: tuple):
+    """The plain serving step on one batch: ``(ConsensusOutput, honest)``."""
+    with torch.inference_mode():
+        return s.serve(s.params, key, *batch)
+
+
+def dp_pipelined(s: DPServing, key: torch.Tensor, batch: tuple, prev_window: torch.Tensor):
+    """Config 11's pipelined step: this batch's window, and the fleet and
+    consensus of ``prev_window`` under ``key`` (the previous batch's):
+    ``(window, ConsensusOutput, honest)``."""
+    with torch.inference_mode():
+        return s.pipelined(s.params, key, *batch, prev_window)
+
+
+def dp_drain(s: DPServing, key: torch.Tensor, window: torch.Tensor):
+    """Config 11's drain: the last window's ``(ConsensusOutput, honest)``."""
+    with torch.inference_mode():
+        return s.drain(key, window)
+
+
+def zero_window(s: DPServing) -> torch.Tensor:
+    """The dummy window that primes the pipelined loop (``bench.py:2285``)."""
+    return torch.zeros(s.window, len(TRACKED_INDICES), device=s.mesh.devices.flat[0])
+
+
+def _dp_run(s: DPServing, dev: torch.device, seconds: float, reps: int, counted, detail: dict):
+    """The warm-up, the isolated step's latency and the timed loop of
+    config 7 or 11: ``(comments, elapsed)``, every step's essence
+    fetched."""
+    key = prng.PRNGKey(0, dev)
+    step = counted(lambda k, b: dp_step(s, k, b)[0].essence.cpu())
+    # bench.py:1643-1644 (config 7: the timed source) and :2249-2253 (config 11: its own source, seed 1)
+    warm_source = SyntheticSource(batch=s.rows, seed=1 if s.config == 11 else 0)
+    warm = dp_batches(s, warm_source, 2)
+    if torch.equal(step(key, warm[0][0]), step(key, warm[1][0])):  # bench.py:1647-1650, 2257-2260
+        raise AssertionError(f"distinct {'packed' if s.config == 11 else 'warmup'} batches produced identical "
+                             "serving checksums")
+    detail["step_latency_ms"] = _latency_ms(lambda: step(key, warm[0][0]), reps)
+    if s.config == 7:  # the timed source goes on from the warm-up batches
+        timed = warm + dp_batches(s, warm_source, DP_BATCHES - 2)
+    else:
+        timed = dp_batches(s, SyntheticSource(batch=s.rows, seed=0), DP_BATCHES)
+    essences = set()
+    comments = steps = 0
+    if s.config == 7:
+        t0 = time.perf_counter()
+        while steps == 0 or time.perf_counter() - t0 < seconds:
+            key = prng.fold_in(key, steps)
+            batch, n = timed[steps % len(timed)]
+            essences.add(tuple(step(key, batch).tolist()))
+            comments += n
+            steps += 1
+    else:
+        pipelined = counted(lambda k, b, w: dp_pipelined(s, k, b, w))
+        drain = counted(lambda k, w: dp_drain(s, k, w))
+        # Primed with the warm-up batch's window; the zero window's output is discarded.
+        prev_window, _, _ = pipelined(key, warm[0][0], zero_window(s))
+        prev_key = key
+        t0 = time.perf_counter()
+        while steps == 0 or time.perf_counter() - t0 < seconds:
+            key = prng.fold_in(key, steps)
+            batch, n = timed[steps % len(timed)]
+            prev_window, out, _ = pipelined(prev_key, batch, prev_window)
+            prev_key = key
+            essence = out.essence.cpu()
+            if steps > 0:  # step 0's output is the warm-up batch's
+                essences.add(tuple(essence.tolist()))
+            comments += n
+            steps += 1
+        out, _ = drain(prev_key, prev_window)
+        essences.add(tuple(out.essence.cpu().tolist()))
+    elapsed = time.perf_counter() - t0
+    if steps >= 2 and len(essences) < max(2, steps // 2):  # bench.py's assert_checksums_distinct
+        raise AssertionError(f"per-step outputs are not distinct ({len(essences)} of {steps}) — the timed "
+                             "loop is replaying identical work; measurement invalid")
+    detail.update(n_mesh_devices=s.mesh.size, rows=s.rows, seq_len=s.seq, steps=steps,
+                  consensus_n_oracles=s.n_oracles, n_failing=s.ccfg.n_failing, window=s.window,
+                  distinct_essences=len(essences), tokens_per_sec=steps * s.rows * s.seq / elapsed)
+    if s.config == 11:
+        detail.update(max_segments=s.max_seg, packing_factor=comments / (steps * s.rows), pipelined=True,
+                      quant="int8", fold_s=s.fold_s)
+    return comments, elapsed
+
+
 # -- the timed runs -----------------------------------------------------------
 
 
@@ -217,7 +444,8 @@ def _chunks(make, key, chunk: int, seconds: float):
 def run(config: int, small: bool = False, device=None, seconds: float = 2.0, params=None) -> dict:
     """One config's metric, value and unit, timed for about ``seconds``
     after a warm-up (at least one step), every step's result fetched.
-    ``params``: the encoder's weights (configs 1 and 3; None: seeded).
+    ``params``: the encoder's weights (configs 1, 3, 7 and 11; None:
+    seeded; config 11 folds them to int8).
     ``detail["calls"]`` counts the steps (chunks) run, the warm-up and
     the latency's included: a kernel of the step launches that often."""
     dev = resolve_device(device)
@@ -258,6 +486,10 @@ def run(config: int, small: bool = False, device=None, seconds: float = 2.0, par
         elapsed = time.perf_counter() - t0
         detail.update(batch=pipe.batch_size, seq_len=pipe.seq_len, steps=steps,
                       tokens_per_sec=n * pipe.seq_len / elapsed)
+    elif config in (7, 11):
+        s = dp_serving(config, small, dev, params)
+        metric = metric.format(n_dev=s.mesh.size, n=s.n_oracles, s=s.max_seg)
+        n, elapsed = _dp_run(s, dev, seconds, reps, counted, detail)
     else:
         key = prng.PRNGKey(0, dev)
         if config == 2:
@@ -283,7 +515,7 @@ def run(config: int, small: bool = False, device=None, seconds: float = 2.0, par
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--config", type=int, choices=(1, 2, 3, 4), required=True)
+    p.add_argument("--config", type=int, choices=sorted(METRICS), required=True)
     p.add_argument("--small", action="store_true", help="bench.py's small sizes")
     p.add_argument("--device", default=None, help="default: cuda (raises without a card)")
     p.add_argument("--seconds", type=float, default=2.0, help="the timed window")

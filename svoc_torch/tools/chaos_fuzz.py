@@ -32,10 +32,11 @@ The gate FAILS when:
 
 Every child is ``python -m svoc_torch.tools.chaos_fuzz --child ...`` on
 ``--device`` (default CUDA, raising without a card), its own process,
-SIGKILLed at its fault point, forked from a fork server, one a job, that
-imported torch and the child's modules once and never initialised CUDA
-(:class:`svoc_torch.durability.fuzz.ForkServer`), so a child initialises
-CUDA itself after the fork.  Each child records its seconds
+SIGKILLed at its fault point, forked from the fork server that imported
+torch and the child's modules once and never initialised CUDA
+(:func:`svoc_torch.durability.fuzz.fork_child`,
+:mod:`svoc_torch.durability.forked`), so a child initialises CUDA itself
+after the fork.  Each child records its seconds
 (``child_seconds`` in each run's summary): the interpreter's start, torch's
 import, the port's imports (all three 0 in a forked child, whose
 ``start_s`` is the fork's; a child spawned by ``fuzz.spawn_child``, as the
@@ -47,7 +48,6 @@ Usage::
     python -m svoc_torch.tools.chaos_fuzz [--seeds 32] [--jobs 3] [--device cpu] [--out FILE]
     python -m svoc_torch.tools.chaos_fuzz --seeds 512 --base-dir DIR   # deep
     python -m svoc_torch.tools.chaos_fuzz --child DIR --plan PLAN.json --phase N [--device cpu]  # internal
-    python -m svoc_torch.tools.chaos_fuzz --fork-server  # internal
 """
 
 import time
@@ -61,23 +61,19 @@ import concurrent.futures  # noqa: E402
 import importlib  # noqa: E402
 import json  # noqa: E402
 import os  # noqa: E402
-import signal  # noqa: E402
-import sys  # noqa: E402
 import tempfile  # noqa: E402
-import threading  # noqa: E402
-import traceback  # noqa: E402
 from typing import Any, Dict  # noqa: E402
 
 import torch  # noqa: E402, F401  (timed apart from the port's imports)
 
 _T_TORCH = time.time()
 
-from svoc_torch.durability import faultspace, fuzz  # noqa: E402
+from svoc_torch.durability import faultspace, forked, fuzz  # noqa: E402
 from svoc_torch.utils.artifacts import atomic_write_json  # noqa: E402
 
 #: The modules a child's workload imports beyond this one's: a spawned
-#: child imports them before its clock for CUDA starts, a fork server
-#: before it serves.
+#: child imports them before its clock for CUDA starts, the fork server
+#: before it serves (``forked.PRELOAD`` holds them).
 CHILD_MODULES = (
     "numpy.random",
     "sqlite3",
@@ -165,10 +161,6 @@ def reference_mismatches(runs, felt: Dict[str, Any]) -> Dict[str, Any]:
     return out
 
 
-#: Set in a forked child (``--fork-server``): its imports were the server's.
-_FORKED = False
-
-
 def child_main(args) -> int:
     """One phase of a plan.  The result also records the child's seconds:
     ``start_s`` from its spawn (or fork) stamp to its CUDA initialisation
@@ -179,10 +171,11 @@ def child_main(args) -> int:
     (``workload_s``)."""
     from svoc_torch.device import resolve_device
 
-    port_s = 0.0 if _FORKED else _import_child_modules() + (time.time() - _T_TORCH)
+    is_forked = forked.IN_CHILD
+    port_s = 0.0 if is_forked else _import_child_modules() + (time.time() - _T_TORCH)
     spawned = os.environ.get(fuzz.SPAWNED_ENV)
     start_s = time.time() - float(spawned) if spawned else None
-    split = ({"interpreter_s": 0.0, "torch_import_s": 0.0, "port_import_s": 0.0} if _FORKED else {
+    split = ({"interpreter_s": 0.0, "torch_import_s": 0.0, "port_import_s": 0.0} if is_forked else {
         "interpreter_s": _T_ENTER - float(spawned) if spawned else None,
         "torch_import_s": _T_TORCH - _T_ENTER, "port_import_s": port_s})
     t0 = time.perf_counter()
@@ -196,87 +189,9 @@ def child_main(args) -> int:
     result = fuzz.run_fuzz_child(args.child, plan, args.phase, device=device)
     result["device"] = str(device)
     result["child_seconds"] = {"start_s": start_s, **split, "cuda_init_s": t1 - t0,
-                               "workload_s": time.perf_counter() - t1, "forked": _FORKED}
+                               "workload_s": time.perf_counter() - t1, "forked": is_forked}
     atomic_write_json(os.path.join(args.child, fuzz.RESULT_NAME), result)
     return 0
-
-
-def fork_server_main() -> int:
-    """``--fork-server``: import the child's modules, report ready with the
-    start's split on stdout, then for each JSON request on stdin fork a
-    child that runs :func:`main` on the request's arguments with its
-    output in the request's files, reap it (SIGKILLing it past its
-    timeout), and answer ``{"rc", "timeout"}``.  CUDA is never initialised
-    here, so each child initialises its own."""
-    global _FORKED
-    spawned = os.environ.get(fuzz.SPAWNED_ENV)
-    port_s = _import_child_modules() + (time.time() - _T_TORCH)
-    print(json.dumps({"ready": True, "seconds": {
-        "interpreter_s": _T_ENTER - float(spawned) if spawned else None,
-        "torch_import_s": _T_TORCH - _T_ENTER, "port_import_s": port_s}}), flush=True)
-    for line in sys.stdin:
-        req = json.loads(line)
-        pid = os.fork()
-        if pid == 0:  # the child
-            rc = 1
-            try:
-                for fd, path in ((1, req["out"]), (2, req["err"])):
-                    f = os.open(path, os.O_WRONLY | os.O_CREAT | os.O_TRUNC, 0o644)
-                    os.dup2(f, fd)
-                    os.close(f)
-                os.environ[fuzz.SPAWNED_ENV] = repr(req["spawned"])
-                _FORKED = True
-                rc = main(req["args"])
-            except SystemExit as e:
-                rc = e.code if isinstance(e.code, int) else 1
-            except BaseException:
-                traceback.print_exc()
-            finally:
-                sys.stdout.flush()
-                sys.stderr.flush()
-                os._exit(rc)
-        deadline = time.monotonic() + float(req["timeout_s"])
-        timed_out = False
-        while True:
-            done, status = os.waitpid(pid, os.WNOHANG)
-            if done:
-                break
-            if time.monotonic() > deadline:
-                os.kill(pid, signal.SIGKILL)
-                _, status = os.waitpid(pid, 0)
-                timed_out = True
-                break
-            time.sleep(0.002)
-        print(json.dumps({"rc": os.waitstatus_to_exitcode(status), "timeout": timed_out}), flush=True)
-    return 0
-
-
-class ForkServers:
-    """``launch(argv, timeout_s)`` for :func:`svoc_torch.durability.fuzz.run_plan`:
-    one fork server a calling thread (started at its first child, all
-    ended by :meth:`close`)."""
-
-    def __init__(self, work_dir: str):
-        self.work_dir = work_dir
-        self._local = threading.local()
-        self._servers = []
-        self._lock = threading.Lock()
-
-    def launch(self, argv, timeout_s):
-        server = getattr(self._local, "server", None)
-        if server is None:
-            with self._lock:
-                server = fuzz.ForkServer(os.path.join(self.work_dir, f"fork-server-{len(self._servers)}"))
-                self._servers.append(server)
-            self._local.server = server
-        return server.launch(argv, timeout_s)
-
-    def start_seconds(self):
-        return [s.start_seconds for s in self._servers]
-
-    def close(self) -> None:
-        for server in self._servers:
-            server.close()
 
 
 def _seed_summary(seed: int, checked: dict) -> dict:
@@ -402,10 +317,7 @@ def main(argv=None) -> int:
     p.add_argument("--phase", type=int, default=0)
     p.add_argument("--device", default=None,
                    help="the children's device (default: cuda, raising without a card)")
-    p.add_argument("--fork-server", action="store_true", help="(internal) serve forked children")
     args = p.parse_args(argv)
-    if args.fork_server:
-        return fork_server_main()
     if args.child is not None:
         return child_main(args)
 
@@ -419,25 +331,24 @@ def main(argv=None) -> int:
     plans = {seed: fuzz.draw_plan(seed, surface) for seed in
              range(args.seeds)}
     summaries = {}
-    servers = ForkServers(os.path.join(base, "launch"))
     try:
         with concurrent.futures.ThreadPoolExecutor(args.jobs) as pool:
             futures = {
                 seed: pool.submit(
                     fuzz.run_and_check, plan, os.path.join(base, f"seed-{seed}"),
-                    device=args.device, launcher=servers.launch,
+                    device=args.device, launcher=fuzz.fork_child,
                 )
                 for seed, plan in plans.items()
             }
             for seed, future in futures.items():
                 summaries[seed] = _seed_summary(seed, future.result())
-        felt = felt_segment(base, args.device, servers.launch)
-        return _finish(args, surface, fuzz_surface, base, corpus_dir, summaries, felt, servers, t0)
+        felt = felt_segment(base, args.device, fuzz.fork_child)
+        return _finish(args, surface, fuzz_surface, base, corpus_dir, summaries, felt, t0)
     finally:
-        servers.close()
+        forked.stop()
 
 
-def _finish(args, surface, fuzz_surface, base, corpus_dir, summaries, felt, servers, t0) -> int:
+def _finish(args, surface, fuzz_surface, base, corpus_dir, summaries, felt, t0) -> int:
 
     # Coverage: every "fuzz"-smoke point must have fired somewhere.
     coverage = {
@@ -456,7 +367,7 @@ def _finish(args, surface, fuzz_surface, base, corpus_dir, summaries, felt, serv
         shrunk_entries.append(
             shrink_and_record(
                 seed, s, base, corpus_dir, args.shrink_budget,
-                args.device, servers.launch,
+                args.device, fuzz.fork_child,
             )
         )
 
@@ -481,7 +392,6 @@ def _finish(args, surface, fuzz_surface, base, corpus_dir, summaries, felt, serv
         "seeds": args.seeds,
         "device": str(args.device or "cuda"),
         "jobs": args.jobs,
-        "fork_server_start_seconds": servers.start_seconds(),
         "wall_seconds": time.perf_counter() - t0,
         "surface": {
             name: {

@@ -33,7 +33,13 @@ one leg against the live reference).
 
 Every child runs the scenario on ``--device`` (default CUDA, raising
 without a card).  On CUDA the parent builds every kernel source first,
-so the children of a wave never race one build.
+so the children of a wave never race one build.  Where the reference
+spawns a fresh interpreter a child, each child here is forked from a
+fork server that has imported torch and the scenario and never
+initialised CUDA (:mod:`svoc_torch.durability.forked`): still its own
+process, SIGKILLed at its fault point and initialising CUDA itself,
+without a fresh interpreter's imports (6-10 s of torch's on the card's
+host).
 
 Usage::
 
@@ -49,10 +55,11 @@ import concurrent.futures
 import json
 import os
 import signal
-import subprocess
-import sys
 import tempfile
 from typing import Any, Dict, Optional
+
+from svoc_torch.durability import forked
+from svoc_torch.durability.forked import ForkedChild
 
 TOTAL_STEPS = 8
 
@@ -103,10 +110,6 @@ REFERENCE_FINGERPRINTS: Dict[str, Dict[str, str]] = {
     },
 }
 
-#: The directory that holds the ``svoc_torch`` package: children import
-#: it from there whatever their working directory.
-_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-
 
 def reference_mismatches(fingerprints: Dict[str, Dict[str, Any]]) -> Dict[str, Any]:
     """The legs whose recovered per-claim fingerprints (``{leg: {claim:
@@ -136,25 +139,17 @@ def child_main(args) -> int:
     return 0
 
 
-def spawn_child(
-    workdir: str, seed: int, crash_point=None, commit_mode=None, device=None
-) -> subprocess.Popen:
-    cmd = [
-        sys.executable, "-m", "svoc_torch.tools.crash_smoke",
-        "--child", workdir, "--seed", str(seed),
-    ]
+def fork_child(workdir: str, seed: int, crash_point=None, commit_mode=None, device=None) -> ForkedChild:
+    """One child of a leg (``--child workdir ...``), forked from the fork
+    server (:mod:`svoc_torch.durability.forked`)."""
+    argv = ["--child", workdir, "--seed", str(seed)]
     if crash_point is not None:
-        cmd += ["--crash-point", crash_point]
+        argv += ["--crash-point", crash_point]
     if commit_mode is not None:
-        cmd += ["--commit-mode", commit_mode]
+        argv += ["--commit-mode", commit_mode]
     if device is not None:
-        cmd += ["--device", device]
-    path = os.environ.get("PYTHONPATH")
-    env = dict(os.environ, PYTHONPATH=_ROOT + (os.pathsep + path if path else ""))
-    return subprocess.Popen(
-        cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
-        env=env, cwd=_ROOT,
-    )
+        argv += ["--device", device]
+    return ForkedChild("svoc_torch.tools.crash_smoke", argv)
 
 
 def run_matrix(seed: int, legs, base_dir: str, device: Optional[str] = None) -> dict:
@@ -177,7 +172,7 @@ def run_matrix(seed: int, legs, base_dir: str, device: Optional[str] = None) -> 
             if phase >= len(chain):
                 continue
             procs[leg] = (
-                spawn_child(
+                fork_child(
                     os.path.join(base_dir, leg), seed,
                     crash_point=chain[phase], commit_mode=commit_mode,
                     device=device,
@@ -282,8 +277,7 @@ def run(seed: int = 0, device: Optional[str] = None, base: Optional[str] = None)
     build_kernels(device)
     legs = list(LEGS)
     base = base or tempfile.mkdtemp(prefix="crash-smoke-")
-    # The two runs share nothing but the built kernels, so they run side
-    # by side: each child's start is mostly a fresh interpreter's imports.
+    # The two runs share nothing but the built kernels, so they run side by side.
     with concurrent.futures.ThreadPoolExecutor(2) as pool:
         first, second = pool.map(lambda run: run_matrix(seed, legs, os.path.join(base, run), device),
                                  ("run1", "run2"))
@@ -349,7 +343,10 @@ def main(argv=None) -> int:
     if args.child is not None:
         return child_main(args)
 
-    artifact = run(args.seed, args.device)
+    try:
+        artifact = run(args.seed, args.device)
+    finally:
+        forked.stop()
     if args.out:
         from svoc_torch.utils.artifacts import atomic_write_json
 

@@ -44,8 +44,8 @@ def test_batch_mid_fleet_leg_matches_reference(tmp_path):
     for phase, point in enumerate(chain):
         procs = {
             "ref": ref_tool.spawn_child(str(dirs["ref"]), 0, crash_point=point, commit_mode=mode),
-            "port": crash_smoke.spawn_child(str(dirs["port"]), 0, crash_point=point,
-                                            commit_mode=mode, device="cpu"),
+            "port": crash_smoke.fork_child(str(dirs["port"]), 0, crash_point=point,
+                                           commit_mode=mode, device="cpu"),
         }
         for name, proc in procs.items():
             _out, err = proc.communicate(timeout=120)
@@ -84,3 +84,17 @@ def test_check_matrix_flags_a_leg_that_was_not_killed():
     assert {k for k, v in checks.items() if v is False} == {
         "killed_by_sigkill", "zero_duplicate_txs", "named_point_fired",
         "batch_prefix_landed", "batch_suffix_resent", "ok"}
+
+
+@pytest.mark.parametrize("leg", ["recovery_storm", "pre_snapshot"])
+def test_a_forked_leg_recovers_to_the_reference_fingerprints(tmp_path, leg):
+    """``run_matrix``'s children, forked from the fork server: each is
+    SIGKILLed where its chain says, the last recovers, and the recovered
+    per-claim fingerprints are the JAX package's literals."""
+    matrix = crash_smoke.run_matrix(0, [leg], str(tmp_path), device="cpu")
+    chain, _mode = crash_smoke.LEGS[leg]
+    assert matrix[leg]["killed"] == [True] * (len(chain) - 1) + [False], matrix[leg]["notes"]
+    assert crash_smoke.check_matrix(matrix)[leg]["ok"], matrix[leg]["notes"]
+    fingerprints = {c: v["fingerprint"] for c, v in matrix[leg]["result"]["claims"].items()}
+    assert fingerprints == crash_smoke.REFERENCE_FINGERPRINTS[leg]
+    assert not any(name.startswith("forked-") for name in os.listdir(tmp_path / leg))

@@ -34,6 +34,7 @@ import svoc_tpu.durability.fuzz as ref_fuzz
 import svoc_tpu.ops.fixedpoint as ref_fixedpoint
 
 import svoc_torch.durability.faultspace as faultspace
+import svoc_torch.durability.forked as forked
 import svoc_torch.durability.fuzz as fuzz
 from svoc_torch.tools import chaos_fuzz
 
@@ -196,24 +197,19 @@ def test_corpus_entry_recovers_the_reference_fingerprint(corpus_runs, name):
 
 def test_fork_server_children_recover_the_reference_fingerprint(tmp_path):
     """A plan whose first child is SIGKILLed at its fault point, its
-    children forked from one fork server (torch and the child's modules
+    children forked from the fork server (torch and the child's modules
     imported once, CUDA never initialised there): the kill comes back as
-    -9 through the server, the recovered fingerprint is the spawned
-    children's and the reference's, and the rerun is identical."""
+    -9, the recovered fingerprint is the spawned children's and the
+    reference's, and the rerun is identical."""
     seed = 6  # a recovery-stage restart storm: three children
     plan = fuzz.draw_plan(seed, faultspace.load_surface())
-    server = fuzz.ForkServer(str(tmp_path / "server"))
-    try:
-        checked = fuzz.run_and_check(plan, str(tmp_path / "fork"), device="cpu", launcher=server.launch)
-        assert server.start_seconds["torch_import_s"] > 0
-    finally:
-        server.close()
-    assert server.proc.returncode == 0
+    checked = fuzz.run_and_check(plan, str(tmp_path / "fork"), device="cpu", launcher=fuzz.fork_child)
     run = checked["run"]
     assert checked["violations"] == [] and checked["replay_identical"] is True
     assert [p["returncode"] for p in run["phases"]][:1] == [-9] and run["phases"][-1]["returncode"] == 0
     assert run["result"]["fingerprint"] == chaos_fuzz.REFERENCE_FINGERPRINTS["seeds"][seed]
     seconds = run["result"]["child_seconds"]
     assert seconds["forked"] is True and seconds["torch_import_s"] == seconds["port_import_s"] == 0.0
+    assert set(chaos_fuzz.CHILD_MODULES) <= set(forked.PRELOAD)  # the server imported them
     with pytest.raises(ValueError, match="children only"):
-        fuzz.ForkServer.launch(server, ["python", "-m", "elsewhere"], 1.0)
+        fuzz.fork_child(["python", "-m", "elsewhere"], 1.0)
