@@ -6,7 +6,8 @@ Run from the root of the repository, with no arguments::
     python3 chip_smoke.py
 
 or with ``--parent DIR``, a checkout of another commit, to time its B6,
-its wrappers' host cost and its B3 in the same run (phases 1b and 3b).
+its wrappers' host cost, its B3 and its threefry in the same run (phases
+1b, 3b and 3c).
 
 Phases:
 
@@ -83,13 +84,24 @@ Phases:
    one-claim launches against one batched launch (claims/s).
 3c. The threefry kernel against its plain version, bit for bit: one key
    over 2**20 counters (bits and pairs), 1024 and 57344 keys (phase 6's
-   largest launch), counters that cross into the high word, a base per
-   key; the draws (``PRNGKey``, ``split``, ``fold_in``, ``uniform``,
-   ``permutation`` in one and two rounds, ``choice``) against known
-   answers of ``jax.random`` under jax 0.9.0 kept as literals; the
-   flagship's fleet draws on the card against the CPU. Times: the
-   flagship's ``draw_fleet`` and the kernel at [57344 keys, 64 counters]
-   by CUDA events, beside the plain version and the bound.
+   largest launch before the fleet-draws kernel), counters that cross
+   into the high word, a base per key; the draws (``PRNGKey``, ``split``,
+   ``fold_in``, ``uniform``, ``permutation`` in one and two rounds,
+   ``choice``) against known answers of ``jax.random`` under jax 0.9.0
+   kept as literals. The fleet-draws kernel against its plain version
+   (the composed draws, on the card and on the CPU), bit for bit: the
+   flagship's fleet, phase 6's 64 claims, N = 2048 (two shuffle rounds),
+   no failing oracle, subsets as large as the window; ``draw_fleet`` on
+   the card is one fleet-draws launch and no threefry launch. Times by
+   CUDA events and by the profiler's device time of one launch, beside
+   the plain versions and the bounds: threefry at [57344 keys, 64
+   counters] (with ``--parent DIR``, the tree in DIR's between two
+   readings of this tree's), the fleet draws at the flagship's fleet
+   and at 64 claims (the plain version there is the composed path it
+   replaces); threefry also at the shapes the paths launch it with (a
+   ``fold_in``, a split of 64 claim keys, 2**20 bits of a generator's
+   draw), each with the parent's when ``--parent`` is given; the built
+   threefry kernel's SHFs and LOP3s held to ``THREEFRY_INT_OPS``.
 4. The serving step: first a small float32 step on the card against the
    same step on the CPU (the plain versions the CPU tests hold against the
    JAX package), for each of the three flagship variants; then the main
@@ -109,7 +121,8 @@ Phases:
    the serial readings' mean plus their spread (the gap between their
    halves, at least 5 % of their mean).
    Every kernel's launch count is set to 0 just before the main path
-   and read just after it (8 threefry launches a step); the backward
+   and read just after it (1 threefry launch, the step's ``fold_in``, and
+   1 fleet-draws launch a step); the backward
    kernels must launch 0 times there. One more step then runs under
    ``torch.profiler`` for a breakdown of device time
    (informational: it cannot fail the run). Then (4c) the other two
@@ -131,8 +144,8 @@ Phases:
    fleet and consensus of batch k-1 on the step's second stream, then
    the drain. Its essences and second-pass reliabilities equal 4b's
    overlapped run, step for step, one step later, bit for bit; 12 flash,
-   1 B2 and 8 threefry launches a step, 1 B2 and 7 threefry for the
-   drain; the side stream's path makes no host sync
+   1 B2, 1 threefry and 1 fleet-draws launch a step, 1 B2 and 1 fleet
+   draws for the drain; the side stream's path makes no host sync
    (``torch.cuda.set_sync_debug_mode``). It prints the step and
    comments/s on the wall clock beside 4b's, the forward's CUDA-event
    time with the side stream busy, and one profiled step's idle share
@@ -169,8 +182,8 @@ Phases:
    (a NaN component, an inf row, a 7.5 row; the first step clean).
    Eight steps, the last five timed, with every kernel's launch count
    set to 0 before and read after: 12 flash and 1 claim-cube launch a
-   step and 8 threefry launches (the fed claims' keys split at once,
-   then one batched fleet build), no other. The offender's slot is
+   step, 1 threefry launch (the fed claims' keys split at once) and 1
+   fleet-draws launch (one batched fleet build), no other. The offender's slot is
    quarantined (the host gate agrees, with its
    reason) and it still reports a finite consensus over 1023 oracles;
    a second run without the tamper gives the 63 other claims' outputs
@@ -206,8 +219,8 @@ Phases:
    prefixes fall inside each guard band. The on-chain state must equal
    ``two_pass_consensus`` on the committed ints (or both raise the same
    panic at the failed tx), the essence be within 2e-6 of B2's and the
-   reliable flags equal B2's mask; flash 12, B2 1 and threefry 8
-   launches a step, counted from 0 over the two steps. (b) The 64-oracle
+   reliable flags equal B2's mask; flash 12, B2 1, threefry 1 and
+   fleet draws 1 a step, counted from 0 over the two steps. (b) The 64-oracle
    twins of ``tests/test_batch_commit.py`` (seed 5, two cycles), batched
    with the sweep on the card against the per-tx loop: identical state,
    the certified path taken (one sweep of K = 64 on CUDA, no fallback);
@@ -230,7 +243,8 @@ Phases:
    and journal fingerprints equal to the JAX package's (the constants
    of ``svoc_torch.tools.fabric_smoke``) and across the two runs, the
    offender voted out, the siblings clean, 7 injections, 4 claims served
-   every cycle, B3 launched once a cycle and threefry 8 times a fetch,
+   every cycle, B3 launched once a cycle, threefry and the fleet draws
+   once a fetch,
    counted from 0 for each run. (b) One ``MultiSession`` of 64 claims x
    7 oracles (2 failing), each with its own store of 120 synthetic
    comments, sharing the ``Session``'s default vectorizer
@@ -240,7 +254,8 @@ Phases:
    and registries: per-claim fingerprints equal across the runs, the
    offender's injections refused and charged and 0x16 voted out, no
    refusing verdict or quarantine charge on any sibling, B3 once a cycle
-   at [64, 7, 6] and threefry 8 times a fetch; a cycle's time split
+   at [64, 7, 6], threefry and the fleet draws once a fetch; a cycle's
+   time split
    (fetch: vectorize, fleet, host sync; the fabric consensus; the commit
    plane), comments vectorized a second, the commit routes and peak
    device memory, and the group's consensus by CUDA events. (c) One
@@ -248,7 +263,8 @@ Phases:
    scale report each block's smallest honest variance and whether the
    golden recompute panics; then, calibrated, 10 cycles of ``fetch``,
    ``commit_resilient`` and ``supervisor_step``, the chain state equal
-   to the golden engine's after each, threefry 8 launches a fetch.
+   to the golden engine's after each, threefry and the fleet draws once
+   a fetch.
    (d) 9b's fabric three more times: with resident staging
    (``device_resident=True``) serial, unstaged pipelined and staged
    pipelined: the staged runs' per-claim fingerprints equal the unstaged
@@ -264,7 +280,8 @@ Phases:
    the journal and per-claim fingerprints equal the same run's on the
    CPU in this process and the JAX package's (the constants of
    ``svoc_torch.tools.serving_smoke``); B3 once a serving step that
-   served a claim, threefry 8 times a claim served. (b) One
+   served a claim, threefry and the fleet draws once a claim served.
+   (b) One
    ``ServingTier`` over 64 claims x 7 oracles (2 failing), sanitised
    dispatch and batched commits, the vectorizer one shared packed
    ROBERTA_GO_EMOTIONS ``SentimentPipeline`` with flash attention and
@@ -297,8 +314,8 @@ Phases:
    runs, and every leg's recovered per-claim fingerprints equal to the
    JAX package's (the constants of the tool); then one uninterrupted
    ``run_durable_scenario(0)`` in this process on the card, against the
-   same run on the CPU, with B3 once a step that served a claim and
-   threefry 6-8 a claim served. (c) 10b's tier made durable, at the
+   same run on the CPU, with B3 once a step that served a claim,
+   threefry and the fleet draws once a claim served. (c) 10b's tier made durable, at the
    fleet phases' 30 s latency target: a
    ``CommitIntentWAL``, a ``DurableLocalBackend`` chain log for each of
    the 64 claims, ``RecoveryManager`` snapshots every 2 steps and the
@@ -311,8 +328,8 @@ Phases:
    to step 6 (cut: steps only). Checks: the kill where it was scheduled;
    the invariants of (b) over all 64 chain logs; one open cycle whose
    durable prefix is landed and whose suffix alone is resent; 12 flash
-   launches a forward, B3 once a step, threefry 6-8 a claim served, in
-   both children. It prints the step with durability on beside 10b's,
+   launches a forward, B3 once a step, threefry and the fleet draws
+   once a claim served, in both children. It prints the step with durability on beside 10b's,
    the fsyncs a step and their time, the WAL records a step, each
    snapshot's ms and bytes, and the recovery's seconds split into the
    chain-log replay, the snapshot restore, the journal roll-forward and
@@ -341,7 +358,8 @@ Phases:
    forward and B3 once a step, and its per-claim consensus equals an
    uninterrupted 6-step run's in this process. (c) ``ProfileCapture``
    around one more step of that run: the Chrome trace exists and its
-   device operations name the flash, B3 and threefry kernels (the top
+   device operations name the flash, B3, threefry and fleet-draws
+   kernels (the top
    five by device time printed); ``sample_runtime_gauges`` reads a
    nonzero ``device_live_bytes`` for ``cuda:0``; ``set_mfu_gauge`` on
    4b's forward (``bench.py``'s FLOP model against 989 TFLOP/s).
@@ -352,7 +370,7 @@ Phases:
    injected forwarding fault): the reference's 13 checks, the per-claim
    and fleet fingerprints equal the JAX package's (the tool's
    constants), no ``forward_error`` shed, and B3 once a replica step
-   that served and threefry 8 a claim served. (b)
+   that served, threefry and the fleet draws once a claim served. (b)
    ``svoc_torch.tools.fleet_obs_smoke`` on CUDA at seed 0: the
    reference's 10 checks and its fingerprint, and the sustained
    anomaly's ``torch.profiler`` trace holds the card's kernels. (c) A
@@ -381,8 +399,8 @@ Phases:
    claim on r1, the epoch advanced, every shed typed, counted and
    journaled, no ``forward_error`` shed, hop chains fully classified,
    the merged exposition equal to the scrapes' sum (before the kill),
-   12 flash launches a forward, B3 once a dispatched group, threefry 8 a
-   claim served. (d) The same 64 claims and 512 arrivals for 2 steps (cut from 4)
+   12 flash launches a forward, B3 once a dispatched group, threefry and
+   the fleet draws once a claim served. (d) The same 64 claims and 512 arrivals for 2 steps (cut from 4)
    with no kill, on 1 and on 3 replicas: requests/s over the whole
    window (submits and steps; over the steps alone beside it) and step
    ms of each (the ratio is read, not demanded), with (c)'s invariants.
@@ -394,8 +412,8 @@ Phases:
    ``reconfig.*`` point against its baseline): the reference's 18 checks,
    the committed run's and the abort baselines' fingerprints equal the JAX
    package's (the tool's constants), no probe shed, all five points fired,
-   B3 once a dispatched group plus one a group PREPARE primed, threefry 8
-   a claim served; the seconds of each run. (b)
+   B3 once a dispatched group plus one a group PREPARE primed, threefry
+   and the fleet draws once a claim served; the seconds of each run. (b)
    ``svoc_torch.tools.chaos_fuzz`` at its default 32 seeds, each rerun,
    ``FUZZ_JOBS`` jobs, its children on CUDA forked from the fork server, and
    the felt soak, and beside them every tier-1 corpus entry twice with
@@ -439,12 +457,13 @@ Phases:
    1024, 6] cubes and ``benchmark_multimodal`` at its defaults, each on
    the card, under the profiler and as its plain version on the host's
    CPU; B3 against its plain version on the sweep's cube at the
-   consensus bars; B3's and threefry's launches counted.
+   consensus bars; B3's, threefry's and the fleet draws' launches
+   counted.
 16. The operator console (``apps/{commands,cli,web}.py``). (a) A
    ``CommandConsole`` over a CUDA ``Session`` at its defaults with 9b's
    fabric, a 10b-shaped tier (flash) and the profiler attached: a script
    through every command family, no ``error:`` line, each command's wall
-   ms; threefry, B1 and B3 counted. (b) ``python -m svoc_torch.apps.cli
+   ms; threefry, the fleet draws, B1 and B3 counted. (b) ``python -m svoc_torch.apps.cli
    --int8`` in a child, a script on its standard input: exit 0, no
    ``error:`` line, its start split (torch's import, the port's imports,
    the session and resume, the first fetch, the fold's span). (c)
@@ -522,7 +541,8 @@ Phases:
    keys. (d) Config 4, 1024 oracles (256 failing) over ``uniform(PRNGKey(1),
    (50, 6)) / 6``, a chunk of 64 through one B3 launch against the plain
    cube, the mean failing detected. Launch counts are read around each
-   config (threefry as drawn, B2 once a config-3 step, B3 once a chunk,
+   config (threefry as drawn, the fleet draws once a config-3 step and
+   once a config-4 chunk, B2 once a config-3 step, B3 once a chunk,
    B1, B4, B5 and B6 never); each prints its rate on the wall clock
    (comments/s or consensus-updates/s, every result fetched), its
    forward's and consensus's CUDA-event times, and config 4 the latency
@@ -558,12 +578,14 @@ It then prints one JSON line of per-kernel numbers, the card's
 ``{"ok": true, "device": {...}}``. It exits non-zero, and prints no
 result, if any check fails, if there is no CUDA device, or if the
 ``svoc_torch`` package is not beside it. Bounds use the H100 SXM data
-sheet: 3.35 TB/s, 989 TFLOP/s bf16 and 67 TFLOP/s fp32.
+sheet: 3.35 TB/s, 989 TFLOP/s bf16 and 67 TFLOP/s fp32; integer work at
+64 INT32 lanes an SM on 132 SMs at the SM clock nvidia-smi reads.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -578,8 +600,20 @@ from pathlib import Path
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
 FP32_FLOPS = 67e12
+#: Hopper's INT32 lanes: 64 an SM (16 in each of its four partitions), 132
+#: SMs; the integer rate is that times the SM clock (``int32_rate``). FP32_FLOPS
+#: counts 128 lanes an SM and a fused multiply-add as two operations.
+INT32_LANES = 64 * 132
+#: threefry2x32's work on the INT32 pipe a hash, from the function itself:
+#: 20 rotates (one SHF each) and 20 xors (one LOP3 each); bits add one LOP3
+#: a word (y1 ^ y2). Only that pipe takes SHF and LOP3. The hash's adds (20
+#: rounds, 10 key injections) are not counted: the compiler issues them to
+#: the FMA pipe as IMAD, where they take fewer slots than these take here,
+#: so the count is a lower bound whichever pipe takes them. Phase 3c checks
+#: that the built kernel issues at least these SHFs and LOP3s a counter.
+THREEFRY_INT_OPS = 40
 KERNELS = ("flash_attention", "flash_attention_bwd", "fused_consensus",
-           "gated_claims_consensus", "grid_copy", "threefry")  # sources
+           "gated_claims_consensus", "grid_copy", "threefry", "fleet_draws")  # sources
 MAIN_STEPS = 5  # timed steps after one warm-up step
 #: Timed steps of the serving path with the overlapped feed (8 before): the
 #: forward is launch-bound, so its CUDA-event time is the host's launch time,
@@ -621,6 +655,8 @@ KERNEL_ROWS = {
                                "svoc_tpu/ops/pallas_consensus.py:411"),
     "grid_copy": ("svoc_torch/csrc/grid_copy.cu", "tools/tpu_probe.py:99"),
     "threefry": ("svoc_torch/csrc/threefry.cu", "jax/_src/prng.py threefry2x32 (XLA, no Pallas)"),
+    "fleet_draws": ("svoc_torch/csrc/fleet_draws.cu",
+                    "svoc_tpu/sim/oracle.py:23 gen_oracle_predictions' draws (XLA, no Pallas)"),
 }
 #: jax.random under jax 0.9.0 (partitionable threefry), generated with
 #: it and kept as literals: the card's machine has no JAX.
@@ -770,9 +806,45 @@ def device_ops(torch, fn) -> int:
         return -1
 
 
-def bound(bytes_moved: float, ops: float, peak_ops: float):
-    t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S, ops / peak_ops
+def bound(bytes_moved: float, ops: float, peak_ops: float, int_ops: float = 0):
+    """The least time in ms and what sets it: the bytes at the memory rate,
+    or the operations, ``ops`` at ``peak_ops`` and ``int_ops`` (integer
+    work) at ``int32_rate()``, the larger of the two pipes' times."""
+    t_bytes = bytes_moved / HBM_BYTES_PER_S
+    t_ops = max(ops / peak_ops, int_ops / int32_rate() if int_ops else 0.0)
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+@functools.cache
+def int32_rate() -> float:
+    """Integer operations a second: ``INT32_LANES`` at the card's maximum
+    SM clock (``nvidia-smi --query-gpu=clocks.max.sm``), read once."""
+    res = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60)
+    mhz = float(res.stdout.split()[0])
+    print(f"  INT32 rate: {INT32_LANES} lanes x {mhz:.0f} MHz = {INT32_LANES * mhz / 1e6:.3f} T/s", flush=True)
+    return INT32_LANES * mhz * 1e6
+
+
+def sass_counts(name: str, function: str) -> dict:
+    """Opcodes of the kernel whose mangled name holds ``function`` in the
+    built ``csrc/<name>.cu`` (``cuobjdump -sass``), by count."""
+    import collections
+
+    from svoc_torch.ops import _build
+
+    tool = Path(_build._nvcc()).with_name("cuobjdump")
+    res = subprocess.run([str(tool), "-sass", str(_build.library_path(name))], capture_output=True, text=True,
+                         timeout=120, check=True)
+    counts, inside = collections.Counter(), False
+    for line in res.stdout.splitlines():
+        if "Function :" in line:
+            inside = function in line
+        elif inside:
+            m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_]*)", line)
+            if m:
+                counts[m.group(1)] += 1
+    return dict(counts)
 
 
 @phase("1. environment and build")
@@ -918,7 +990,8 @@ def on_parent(*names: str) -> None:
         return
     code = ("import runpy, sys, torch; sys.path.insert(0, '.'); "
             "from svoc_torch.ops import _build; "
-            f"ns = runpy.run_path({str(Path(__file__).resolve())!r}); _build.build(ns['KERNELS']); "
+            f"ns = runpy.run_path({str(Path(__file__).resolve())!r}); "
+            "_build.build([n for n in ns['KERNELS'] if (_build.CSRC / (n + '.cu')).exists()]); "
             + "; ".join(f"ns[{name!r}](torch)" for name in names))
     res = subprocess.run([sys.executable, "-c", code], cwd=PARENT, capture_output=True, text=True,
                          timeout=900)
@@ -1459,8 +1532,10 @@ def consensus_phase(torch, results):
     dev_ms = profiled_ms(torch, lambda: fused_consensus_cuda(uniform, flagship), "fused_consensus_kernel")
     n, m = uniform.shape
     bytes_moved = 4 * (n * m + 2 * m + 2 + n + n + 2 * m)
-    ops = (4 * m + 1) * n + 12 * n * m  # each of the 4M + 1 ranks reads every key once; moments
-    bound_ms, bound_by = bound(bytes_moved, ops, FP32_FLOPS)
+    # Each of the 4M + 1 ranks reads every key once (the radix select's integer
+    # work, at the INT32 rate); the moments are float32 work.
+    ranks, ops = (4 * m + 1) * n, 12 * n * m
+    bound_ms, bound_by = bound(bytes_moved, ops, FP32_FLOPS, ranks)
     print(f"  [{nvidia_smi()}] N=1024 times: kernel {ms:.4f} ms (CUDA events, 200 launches), "
           f"{dev_ms if dev_ms is None else f'{dev_ms:.4f}'} ms (profiler device time, informational), "
           f"plain {plain_ms:.4f} ms, bound {bound_ms:.6f} ms ({bound_by})")
@@ -1627,8 +1702,9 @@ def gated_claims_phase(torch, results):
     out = fused_consensus_gated_claims_cuda(values, ok, mask, bench_cfg)
     bytes_moved = sum(t.numel() * t.element_size() for t in (values, ok, mask, *out))
     sorts = 2 * m + 1  # constrained: the first pass, the ranking, the second pass
-    ops = c * (sorts * n * math.ceil(math.log2(n)) + 12 * n * m)
-    bound_ms, bound_by = bound(bytes_moved, ops, FP32_FLOPS)
+    # The ranks are integer work (the radix select), the moments float32 work.
+    ranks, ops = c * sorts * n * math.ceil(math.log2(n)), c * 12 * n * m
+    bound_ms, bound_by = bound(bytes_moved, ops, FP32_FLOPS, ranks)
 
     # bench_claims's batched-against-sequential comparison (bench.py:2666-2700):
     # one launch over the cube, or one launch per claim, each ending in
@@ -1643,7 +1719,8 @@ def gated_claims_phase(torch, results):
     print(f"  [{nvidia_smi()}] [64, 1024, 6] times: kernel {ms:.4f} ms (CUDA events), "
           f"{dev_ms if dev_ms is None else f'{dev_ms:.4f}'} ms (profiler device time), "
           f"plain {plain_ms:.4f} ms, "
-          f"bound {bound_ms:.6f} ms ({bound_by}; {bytes_moved} bytes, {ops} operations); "
+          f"bound {bound_ms:.6f} ms ({bound_by}; {bytes_moved} bytes, {ranks} integer and {ops} float32 "
+          f"operations); "
           f"64 one-claim launches {seq_ms:.4f} ms (CUDA events)")
     print(f"  claims/s with a host fetch: batched {c / batched_s:.1f} ({batched_s * 1e3:.4f} ms), "
           f"sequential {c / sequential_s:.1f} ({sequential_s * 1e3:.4f} ms), "
@@ -1654,20 +1731,78 @@ def gated_claims_phase(torch, results):
     )
 
 
-@phase("3c. threefry draws: kernel vs plain")
+#: threefry's timed shapes (what, keys, counters, bits, base): the three
+#: the paths launch it with since the fleet draws took the fleets, then
+#: the kernels table's [57344 keys, 64 counters] (phase 6's choice words
+#: before the fleet draws), whose times go on the kernels line.
+THREEFRY_TIMED = (
+    ("a fold_in (1 key, 1 counter from a base, a pair)", 1, 1, False, 7),
+    ("a split of 64 claim keys (1 key, 64 pairs)", 1, 64, False, 0),
+    ("a generator's 2**20 bits (1 key)", 1, 2**20, True, 0),
+    ("[57344 keys, 64 counters], bits", 57344, 64, True, 0),
+)
+
+
+def threefry_times(torch):
+    """threefry at each of ``THREEFRY_TIMED``: CUDA events over 100
+    launches (back to back, so at least the wrapper's host cost) and the
+    profiler's device time of one launch; returns the last shape's.
+    Imports ``svoc_torch`` from ``sys.path``, so it measures whichever
+    tree comes first there."""
+    from svoc_torch.ops.threefry import threefry_cuda
+    from svoc_torch.sim import prng
+
+    card = nvidia_smi()
+    for what, b, n, xor, base in THREEFRY_TIMED:
+        keys = prng.split(prng.PRNGKey(1, "cuda"), b)
+        launch = functools.partial(threefry_cuda, keys, n, base, xor)
+        ms = cuda_ms(torch, launch, iters=100)
+        dev_ms = profiled_ms(torch, launch, "threefry_kernel")
+        print(f"  [{card}] threefry, {what}: {ms:.4f} ms (CUDA events, 100 launches), "
+              f"{dev_ms if dev_ms is None else f'{dev_ms:.4f}'} ms (profiler device time)", flush=True)
+    return ms, dev_ms
+
+
+#: Phase 3c's fleets: (what, claims, window W, values M, oracles N, failing, subset S).
+FLEET_CASES = (
+    ("the flagship's fleet", 1, 50, 6, 1024, 128, 10),
+    ("phase 6's 64 claims (window bucket 64)", 64, 64, 6, 1024, 128, 10),
+    ("N = 2048, two shuffle rounds", 3, 50, 6, 2048, 128, 10),
+    ("no failing oracle", 4, 50, 6, 1024, 0, 10),
+    ("the fabric's 7 oracles, subsets as large as the window", 64, 10, 6, 7, 2, 10),
+)
+
+
+def fleet_bound(c: int, w: int, m: int, n: int, n_failing: int, s: int):
+    """The fleet draws' least time: every hash of the key schedule, the
+    words and the failing values at ``THREEFRY_INT_OPS`` a hash on the
+    INT32 pipe and one more a word taken as bits (the sorts' compare-exchanges not counted), against the keys
+    read once and the outputs written once."""
+    from svoc_torch.sim.prng import shuffle_rounds
+
+    h, rounds, w_rounds = n - n_failing, shuffle_rounds(n), shuffle_rounds(w)
+    hashes = c * (3 + n_failing * m + h * (1 + w_rounds * (1 + w)) + rounds * (n + 1) + max(rounds - 1, 0))
+    bits = c * (n_failing * m + h * w_rounds * w + rounds * n)  # the hashes taken as y1 ^ y2
+    bytes_moved = c * (16 + 4 * n_failing * m + 8 * h * s + 8 * n)
+    return bound(bytes_moved, 0, FP32_FLOPS, hashes * THREEFRY_INT_OPS + bits)
+
+
+@phase("3c. threefry and the fleet draws: kernels vs plain")
 def threefry_phase(torch, results):
-    from svoc_torch.ops.threefry import threefry_cuda, threefry_plain
+    from svoc_torch.ops.fleet_draws import fleet_draws_cuda, fleet_draws_plain
+    from svoc_torch.ops.threefry import PER_THREAD, threefry_cuda, threefry_plain
     from svoc_torch.sim import prng
     from svoc_torch.sim.oracle import draw_fleet
 
     dev = torch.device("cuda")
+    card = nvidia_smi()
     gen = torch.Generator().manual_seed(0)
     worst = 0
     for what, b, n, xor, base in (
         ("one key, 2**20 counters, bits", 1, 1 << 20, True, 0),
         ("one key, 2**20 counters, pairs", 1, 1 << 20, False, 0),
         ("1024 keys x 50 counters, bits", 1024, 50, True, 0),
-        ("57344 keys x 64 counters, bits (phase 6's largest launch)", 57344, 64, True, 0),
+        ("57344 keys x 64 counters, bits (the kernels table's shape)", 57344, 64, True, 0),
         ("4096 keys x 3 counters from 2**32 - 2 (the high word)", 4096, 3, False, 2**32 - 2),
         ("64 keys x 9 counters, a base per key", 64, 9, False, None),
     ):
@@ -1684,29 +1819,66 @@ def threefry_phase(torch, results):
         if got.is_floating_point():
             got = got.view(torch.int32)
         check(got.tolist() == want, f"{what} == jax.random's {want}")
-    key = prng.fold_in(key_of(0), 0)
-    card = draw_fleet(key, 50, 6, 1024, 128, 10)
-    plain = draw_fleet(key.cpu(), 50, 6, 1024, 128, 10)
-    check(all(torch.equal(a.cpu(), b) for a, b in zip(card, plain)),
-          "the flagship's fleet draws (N = 1024, W = 50, subsets of 10): card == CPU, bit for bit")
 
+    # The fleet draws: the kernel against the composed draws on the card and on the CPU.
+    worst_fleet = 0
+    for what, c, w, m, n, f, s in FLEET_CASES:
+        keys = torch.randint(0, 2**32, (c, 2), generator=gen, dtype=torch.int64)
+        got = fleet_draws_cuda(keys.to(dev), w, m, n, f, s)
+        on_card = fleet_draws_plain(keys.to(dev), w, m, n, f, s)
+        on_cpu = fleet_draws_plain(keys, w, m, n, f, s)
+        worst_fleet = max([worst_fleet] + [(g.cpu().double() - x.double()).abs().max().item()
+                                           for g, x in zip(got, on_cpu) if x.numel()])
+        check(all(g.dtype == x.dtype and torch.equal(g, y) and torch.equal(g.cpu(), x)
+                  for g, y, x in zip(got, on_card, on_cpu)),
+              f"fleet draws, {what} ([{c}] keys, W {w}, M {m}, N {n}, {f} failing, subsets of {s}): kernel == "
+              f"plain on the card == plain on the CPU, bit for bit")
+    key = prng.fold_in(key_of(0), 0)
     torch.cuda.synchronize()
-    before = threefry_cuda.launches
-    draw_fleet(key, 50, 6, 1024, 128, 10)
-    per_call = threefry_cuda.launches - before
-    draws_ms = cuda_ms(torch, lambda: draw_fleet(key, 50, 6, 1024, 128, 10), iters=50)
+    before = (fleet_draws_cuda.launches, threefry_cuda.launches)
+    card_draws = draw_fleet(key, 50, 6, 1024, 128, 10)
+    torch.cuda.synchronize()
+    per_call = (fleet_draws_cuda.launches - before[0], threefry_cuda.launches - before[1])
+    plain = draw_fleet(key.cpu(), 50, 6, 1024, 128, 10)
+    check(all(torch.equal(a.cpu(), b) for a, b in zip(card_draws, plain)) and per_call == (1, 0),
+          f"the flagship's draw_fleet (N = 1024, W = 50, subsets of 10): card == CPU, bit for bit, "
+          f"(fleet draws, threefry) launches {per_call} == (1, 0)")
+
+    # Times, each beside its plain version and its bound; threefry's with the
+    # parent's (--parent) between two readings of this tree's.
+    ms, _ = threefry_times(torch)
+    on_parent("threefry_times")
+    threefry_times(torch)
     keys = prng.split(key_of(1), 57344)
-    ms = cuda_ms(torch, lambda: threefry_cuda(keys, 64, xor=True), iters=100)
     plain_ms = cuda_ms(torch, lambda: threefry_plain(keys, 64, xor=True), iters=5)
     counters = 57344 * 64
     bytes_moved = 16 * 57344 + 8 * counters  # keys read once, 32-bit words written as int64
-    ops = 117 * counters  # 20 rounds of add, rotate (2 shifts, or), xor; 17 key adds
-    bound_ms, bound_by = bound(bytes_moved, ops, FP32_FLOPS)
-    print(f"  [{nvidia_smi()}] the flagship's draw_fleet: {draws_ms:.4f} ms (CUDA events, 50 calls), "
-          f"{per_call} threefry launches a call; the kernel at [57344 keys, 64 counters]: {ms:.4f} ms "
-          f"(100 launches), plain {plain_ms:.4f} ms, bound {bound_ms:.6f} ms ({bound_by})")
+    int_ops = counters * (THREEFRY_INT_OPS + 1)  # bits: each counter's two words xored
+    bound_ms, bound_by = bound(bytes_moved, 0, FP32_FLOPS, int_ops)
+    built = sass_counts("threefry", "threefry_kernel")
+    print(f"  [{card}] threefry at [57344 keys, 64 counters]: plain {plain_ms:.4f} ms, bound {bound_ms:.6f} ms "
+          f"({bound_by}; {bytes_moved} bytes, {int_ops} INT32 operations); the built kernel's SASS ({PER_THREAD} "
+          f"counters a thread): {dict(sorted(built.items(), key=lambda kv: -kv[1]))}", flush=True)
+    rotates, xors = ((built.get("SHF", 0) + built.get("PRMT", 0)) / PER_THREAD, built.get("LOP3", 0) / PER_THREAD)
+    check(rotates >= THREEFRY_INT_OPS // 2 and xors >= THREEFRY_INT_OPS // 2 + 1,
+          f"the built threefry kernel issues at least the hash's {THREEFRY_INT_OPS // 2} rotates and "
+          f"{THREEFRY_INT_OPS // 2} + 1 xors a counter that the bound counts: SHF and PRMT {rotates}, LOP3 {xors}")
     results["threefry"] = dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                                bound_by=bound_by, library_ms=None)
+    for what, c, w, m, n, f, s in FLEET_CASES[:2]:
+        keys = prng.split(key_of(2), c)
+        k_ms = cuda_ms(torch, lambda: fleet_draws_cuda(keys, w, m, n, f, s), iters=200)
+        k_dev = profiled_ms(torch, lambda: fleet_draws_cuda(keys, w, m, n, f, s), "fleet_draws_kernel")
+        p_ms = cuda_ms(torch, lambda: fleet_draws_plain(keys, w, m, n, f, s), iters=50)
+        p_ops = device_ops(torch, lambda: fleet_draws_plain(keys, w, m, n, f, s))
+        b_ms, b_by = fleet_bound(c, w, m, n, f, s)
+        print(f"  [{card}] fleet draws, {what}: kernel {k_ms:.4f} ms (CUDA events, 200 launches), "
+              f"{k_dev if k_dev is None else f'{k_dev:.4f}'} ms (profiler device time); the composed path it "
+              f"replaces {p_ms:.4f} ms ({p_ops} device operations a call); bound {b_ms:.6f} ms ({b_by})",
+              flush=True)
+        if c == 1:
+            results["fleet_draws"] = dict(max_abs_err=worst_fleet, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+                                          bound_by=b_by, library_ms=None)
 
 
 @phase("4a. small serving step: card vs CPU")
@@ -1753,6 +1925,7 @@ def main_path_phase(torch, launches):
     from svoc_torch.models.packing import pack_tokens, pack_tokens_auto
     from svoc_torch.models.tokenizer import HashingTokenizer
     from svoc_torch.ops.flash_attention import flash_attention_cuda, flash_dkv_cuda, flash_dq_cuda
+    from svoc_torch.ops.fleet_draws import fleet_draws_cuda
     from svoc_torch.ops.fused_consensus import fused_consensus_cuda, fused_consensus_plain
     from svoc_torch.ops.threefry import threefry_cuda
     from svoc_torch.sim import prng
@@ -1816,7 +1989,8 @@ def main_path_phase(torch, launches):
                                         consensus_ms=ev[1].elapsed_time(ev[2]), comments=n_comments))
         return runs, (window, out, honest)
 
-    counted = (flash_attention_cuda, fused_consensus_cuda, threefry_cuda, flash_dq_cuda, flash_dkv_cuda)
+    counted = (flash_attention_cuda, fused_consensus_cuda, threefry_cuda, fleet_draws_cuda, flash_dq_cuda,
+               flash_dkv_cuda)
     torch.cuda.synchronize()
     for wrapper in counted:
         wrapper.launches = 0
@@ -1832,6 +2006,7 @@ def main_path_phase(torch, launches):
     launches["flash_attention"] = flash_attention_cuda.launches
     launches["fused_consensus"] = fused_consensus_cuda.launches
     launches["threefry"] = threefry_cuda.launches
+    launches["fleet_draws"] = fleet_draws_cuda.launches
     backward = (flash_dq_cuda.launches, flash_dkv_cuda.launches)
 
     steps = 2 * (1 + OVERLAP_STEPS)
@@ -1839,8 +2014,9 @@ def main_path_phase(torch, launches):
           f"flash kernel launches {launches['flash_attention']} == {n_layers} x {steps} steps")
     check(launches["fused_consensus"] == steps,
           f"consensus kernel launches {launches['fused_consensus']} == {steps} steps")
-    check(launches["threefry"] == 8 * steps,
-          f"threefry launches {launches['threefry']} == 8 x {steps} steps (fold_in, 7 for the fleet)")
+    check(launches["threefry"] == steps and launches["fleet_draws"] == steps,
+          f"threefry launches {launches['threefry']} == {steps} steps (the fold_in), fleet-draws launches "
+          f"{launches['fleet_draws']} == {steps} (the fleet)")
     check(backward == (0, 0), f"backward kernel launches while serving (dq, dk/dv) {backward} == (0, 0)")
     check(len(set(essences)) == 1 + OVERLAP_STEPS, f"{1 + OVERLAP_STEPS} distinct essences on distinct batches")
     check(essences == serial_essences,
@@ -2037,6 +2213,7 @@ def pipelined_phase(torch, launches, serving):
 
     from svoc_torch.io.scraper import SyntheticSource
     from svoc_torch.ops.flash_attention import flash_attention_cuda
+    from svoc_torch.ops.fleet_draws import fleet_draws_cuda
     from svoc_torch.ops.fused_consensus import fused_consensus_cuda
     from svoc_torch.ops.threefry import threefry_cuda
     from svoc_torch.sim import prng
@@ -2045,7 +2222,7 @@ def pipelined_phase(torch, launches, serving):
         return
     step = serving["step"]
     n_layers = step.pipe.cfg.n_layers
-    counted = (flash_attention_cuda, fused_consensus_cuda, threefry_cuda)
+    counted = (flash_attention_cuda, fused_consensus_cuda, threefry_cuda, fleet_draws_cuda)
     # CUDA events around the forward inside the pipelined step, on the
     # caller's stream while the side stream runs the fleet and consensus.
     forward_ev = []
@@ -2091,12 +2268,12 @@ def pipelined_phase(torch, launches, serving):
         rel2s.append(out.reliability_second_pass.item())
         drained = [w.launches - b for w, b in zip(counted, before)]
         counts = [w.launches for w in counted]
-        for name, n in zip(("flash_attention", "fused_consensus", "threefry"), counts):
+        for name, n in zip(("flash_attention", "fused_consensus", "threefry", "fleet_draws"), counts):
             launches[name] = launches.get(name, 0) + n
 
-        check(all(c == [n_layers, 1, 8] for c in per_step) and drained == [0, 1, 7],
-              f"launches a pipelined step (flash, B2, threefry) {per_step[0]} == [{n_layers}, 1, 8] in "
-              f"all {OVERLAP_STEPS} steps, the drain {drained} == [0, 1, 7]; in all {counts}")
+        check(all(c == [n_layers, 1, 1, 1] for c in per_step) and drained == [0, 1, 0, 1],
+              f"launches a pipelined step (flash, B2, threefry, fleet draws) {per_step[0]} == [{n_layers}, 1, 1, 1] "
+              f"in all {OVERLAP_STEPS} steps, the drain {drained} == [0, 1, 0, 1]; in all {counts}")
         check(essences == serving["essences"] and rel2s == serving["rel2"],
               f"{len(essences)} essences and second-pass reliabilities == 4b's overlapped run, "
               f"step for step, one step later, bit for bit")
@@ -2388,6 +2565,7 @@ def claims_path_phase(torch, launches):
         fused_consensus_cuda, fused_consensus_gated_claims_cuda, fused_consensus_gated_claims_plain,
     )
     from svoc_torch.apps.session import fleet_block
+    from svoc_torch.ops.fleet_draws import fleet_draws_cuda
     from svoc_torch.ops.threefry import threefry_cuda
     from svoc_torch.robustness.sanitize import QuarantineGate, SanitizeConfig, quarantine_mask_claims
     from svoc_torch.serving.batcher import ClaimQueues
@@ -2422,7 +2600,8 @@ def claims_path_phase(torch, launches):
 
     counted = {"flash_attention": flash_attention_cuda, "gated_claims_consensus":
                fused_consensus_gated_claims_cuda, "fused_consensus": fused_consensus_cuda,
-               "flash_dq": flash_dq_cuda, "flash_dkv": flash_dkv_cuda, "threefry": threefry_cuda}
+               "flash_dq": flash_dq_cuda, "flash_dkv": flash_dkv_cuda, "threefry": threefry_cuda,
+               "fleet_draws": fleet_draws_cuda}
 
     def run(step, timed):
         """CLAIM_STEPS steps on fresh per-claim comment sources; the
@@ -2466,12 +2645,13 @@ def claims_path_phase(torch, launches):
     for wrapper in counted.values():
         wrapper.launches = 0
     results, rows, per_step = run(step, timed=True)
-    for name in ("flash_attention", "gated_claims_consensus", "threefry"):
+    for name in ("flash_attention", "gated_claims_consensus", "threefry", "fleet_draws"):
         launches[name] = launches.get(name, 0) + counted[name].launches
-    # threefry: one split of the fed claims' keys, 7 for the one batch of fleets
-    # (every claim is fed 8 requests a step, so all share a window bucket).
+    # threefry: one split of the fed claims' keys; the fleet draws once for the
+    # one batch of fleets (every claim is fed 8 requests a step, so all share
+    # a window bucket).
     want = dict(flash_attention=n_layers, gated_claims_consensus=1, fused_consensus=0,
-                flash_dq=0, flash_dkv=0, threefry=8)
+                flash_dq=0, flash_dkv=0, threefry=1, fleet_draws=1)
     check(all(c == want for c in per_step),
           f"every step launched {want} ({CLAIM_STEPS} steps; totals "
           f"{ {k: w.launches for k, w in counted.items()} })")
@@ -2649,6 +2829,7 @@ def commit_path_phase(torch, launches):
     from svoc_torch.io.scraper import SyntheticSource
     from svoc_torch.ops.fixedpoint import WSAD, to_wsad_rows
     from svoc_torch.ops.flash_attention import flash_attention_cuda
+    from svoc_torch.ops.fleet_draws import fleet_draws_cuda
     from svoc_torch.ops.fused_consensus import fused_consensus, fused_consensus_cuda
     from svoc_torch.ops.threefry import threefry_cuda
     from svoc_torch.sim import prng
@@ -2702,7 +2883,7 @@ def commit_path_phase(torch, launches):
                 raise
 
         backend.invoke_update_predictions_batch = recorded_batch
-        counted = (flash_attention_cuda, fused_consensus_cuda, threefry_cuda)
+        counted = (flash_attention_cuda, fused_consensus_cuda, threefry_cuda, fleet_draws_cuda)
         torch.cuda.synchronize()
         for wrapper in counted:
             wrapper.launches = 0
@@ -2765,11 +2946,13 @@ def commit_path_phase(torch, launches):
                 check(type(raised) is type(err.cause),
                       f"cycle {cycle}: two_pass_consensus raises the chain's panic at tx {err.committed} "
                       f"({type(raised).__name__})")
-        counts = dict(zip(("flash_attention", "fused_consensus", "threefry"), (w.launches for w in counted)))
+        counts = dict(zip(("flash_attention", "fused_consensus", "threefry", "fleet_draws"),
+                          (w.launches for w in counted)))
         for name, count in counts.items():
             launches[name] = launches.get(name, 0) + count
-        check(tuple(counts.values()) == (n_layers * 2, 2, 16),
-              f"(a) launches {counts} == flash {n_layers}, B2 1, threefry 8 a step, 2 steps (as in phase 4b)")
+        check(tuple(counts.values()) == (n_layers * 2, 2, 2, 2),
+              f"(a) launches {counts} == flash {n_layers}, B2 1, threefry 1, fleet draws 1 a step, 2 steps "
+              f"(as in phase 4b)")
 
         # (b) The certified route on the card: tests/test_batch_commit.py's 64-oracle twins.
         callers = [f"o{i}" for i in range(64)]
@@ -2996,6 +3179,7 @@ def fabric_scenario_phase(torch, launches):
     from svoc_torch.ops.fused_consensus import (
         fused_consensus_gated_claims_cuda, fused_consensus_gated_claims_plain,
     )
+    from svoc_torch.ops.fleet_draws import fleet_draws_cuda
     from svoc_torch.ops.threefry import threefry_cuda
     from svoc_torch.tools.fabric_smoke import REFERENCE_FINGERPRINTS, reference_mismatches
 
@@ -3022,20 +3206,20 @@ def fabric_scenario_phase(torch, launches):
         plain_ms = cuda_ms(torch, lambda: fused_consensus_gated_claims_plain(values, ok_t, mask, cfg), iters=20)
         c, n, m = values.shape  # counted as phase 3b counts them
         bytes_moved = sum(x.numel() * x.element_size() for x in (values, ok_t, mask, *kernel))
-        ops = c * ((2 * m + 1) * n * math.ceil(math.log2(n)) + 12 * n * m)
-        bound_ms, bound_by = bound(bytes_moved, ops, FP32_FLOPS)
+        ranks, ops = c * (2 * m + 1) * n * math.ceil(math.log2(n)), c * 12 * n * m
+        bound_ms, bound_by = bound(bytes_moved, ops, FP32_FLOPS, ranks)
         print(f"  [{card}] B3 at [{c}, {n}, {m}]: {ms:.4f} ms (CUDA events, 50 launches), plain "
               f"{plain_ms:.4f} ms, bound {bound_ms:.7f} ms ({bound_by})")
 
     runs = []
     for pipelined in (False, False, True):
         torch.cuda.synchronize()
-        fused_consensus_gated_claims_cuda.launches = threefry_cuda.launches = 0
+        fused_consensus_gated_claims_cuda.launches = threefry_cuda.launches = fleet_draws_cuda.launches = 0
         t0 = time.perf_counter()
         result = run_fabric_scenario(0, cycles=12, pipelined=pipelined)  # device=None: CUDA
         secs = time.perf_counter() - t0
         counts = dict(gated_claims_consensus=fused_consensus_gated_claims_cuda.launches,
-                      threefry=threefry_cuda.launches)
+                      threefry=threefry_cuda.launches, fleet_draws=fleet_draws_cuda.launches)
         for k, v in counts.items():
             launches[k] = launches.get(k, 0) + v
         runs.append(result)
@@ -3043,8 +3227,9 @@ def fabric_scenario_phase(torch, launches):
         print(f"  [{card}] scenario ({label}): {secs:.3f} s, launches {counts}, "
               f"{result['journal_events']} events", flush=True)
         fetches = sum(result["served_per_step"])
-        check(counts == dict(gated_claims_consensus=12, threefry=8 * fetches),
-              f"{label}: B3 launched once a cycle (12), threefry 8 a fetch ({fetches} fetches): {counts}")
+        check(counts == dict(gated_claims_consensus=12, threefry=fetches, fleet_draws=fetches),
+              f"{label}: B3 launched once a cycle (12), threefry and the fleet draws once a fetch ({fetches} "
+              f"fetches): {counts}")
         check(result["offender_replaced"] and result["siblings_clean"]
               and result["injection_count"] == 7 and result["served_per_step"] == [4] * 12,
               f"{label}: offender replaced, siblings clean, 7 injections, 4 claims served every step")
@@ -3068,6 +3253,7 @@ def fabric_width_phase(torch, launches):
     from svoc_torch.io.scraper import SyntheticSource
     from svoc_torch.ops.flash_attention import flash_attention_cuda
     from svoc_torch.ops.fused_consensus import fused_consensus_cuda, fused_consensus_gated_claims_cuda
+    from svoc_torch.ops.fleet_draws import fleet_draws_cuda
     from svoc_torch.ops.threefry import threefry_cuda
     from svoc_torch.sim.generators import claim_seed
     from svoc_torch.utils.events import EventJournal
@@ -3086,7 +3272,8 @@ def fabric_width_phase(torch, launches):
           f"attention {vectorizer.cfg.attention}, packed {vectorizer.packed}, head calibrated "
           f"(scale {scale:.3f}); injections {kinds}")
     counted = {"gated_claims_consensus": fused_consensus_gated_claims_cuda, "threefry": threefry_cuda,
-               "flash_attention": flash_attention_cuda, "fused_consensus": fused_consensus_cuda}
+               "fleet_draws": fleet_draws_cuda, "flash_attention": flash_attention_cuda,
+               "fused_consensus": fused_consensus_cuda}
 
     def store_factory(claim_id):
         store = CommentStore()
@@ -3127,13 +3314,13 @@ def fabric_width_phase(torch, launches):
                     fingerprints={c: multi.claim_fingerprint(c) for c in names})
 
     first, second = run(), run()
-    for name in ("gated_claims_consensus", "threefry"):
+    for name in ("gated_claims_consensus", "threefry", "fleet_draws"):
         launches[name] = launches.get(name, 0) + first["counts"][name] + second["counts"][name]
     fps = [{c: r["multi"].claim_fingerprint(c) for c in names} for r in (first, second)]
     check(fps[0] == fps[1] and first["journal"].fingerprint() == second["journal"].fingerprint(),
           f"two runs: {FABRIC_CLAIMS} per-claim fingerprints and the journal's equal")
-    want = {"gated_claims_consensus": 1, "threefry": 8 * FABRIC_CLAIMS, "flash_attention": 0,
-            "fused_consensus": 0}
+    want = {"gated_claims_consensus": 1, "threefry": FABRIC_CLAIMS, "fleet_draws": FABRIC_CLAIMS,
+            "flash_attention": 0, "fused_consensus": 0}
     check(all(c == (want, FABRIC_CLAIMS) for r in (first, second) for c in r["per_cycle"]),
           f"every cycle served {FABRIC_CLAIMS} claims and launched {want}: {first['per_cycle'][0]}")
     session = first["multi"].get(offender).session
@@ -3205,14 +3392,14 @@ def staging_phase(torch, launches, fabric):
         runs[("on" if staged else "off", "pipelined" if pipelined else "serial")] = run(
             device_resident=staged, pipelined=pipelined)
     for key in (("on", "serial"), ("off", "pipelined"), ("on", "pipelined")):
-        for name in ("gated_claims_consensus", "threefry"):
+        for name in ("gated_claims_consensus", "threefry", "fleet_draws"):
             launches[name] = launches.get(name, 0) + runs[key]["counts"][name]
     check(runs[("on", "serial")]["fingerprints"] == runs[("off", "serial")]["fingerprints"],
           f"staged, serial: all {FABRIC_CLAIMS} per-claim fingerprints equal 9b's unstaged run")
     check(runs[("on", "pipelined")]["fingerprints"] == runs[("off", "pipelined")]["fingerprints"],
           f"staged, pipelined: all {FABRIC_CLAIMS} per-claim fingerprints equal the unstaged pipelined run's")
-    want = {"gated_claims_consensus": 1, "threefry": 8 * FABRIC_CLAIMS, "flash_attention": 0,
-            "fused_consensus": 0}
+    want = {"gated_claims_consensus": 1, "threefry": FABRIC_CLAIMS, "fleet_draws": FABRIC_CLAIMS,
+            "flash_attention": 0, "fused_consensus": 0}
     for key, r in runs.items():
         check(all(c == (want, FABRIC_CLAIMS) for c in r["per_cycle"]),
               f"staging {key[0]}, {key[1]}: every cycle served {FABRIC_CLAIMS} claims and launched {want}")
@@ -3247,7 +3434,7 @@ def staging_phase(torch, launches, fabric):
               f"{st.get('fabric_sync', 0) / FABRIC_CYCLES * 1e3:.3f}); caching-allocator allocations "
               f"{r['allocations'] / FABRIC_CYCLES:.1f} a cycle; cycle {sum(r['cycle_s']) / FABRIC_CYCLES * 1e3:.1f} "
               f"ms; launches B3 {r['counts']['gated_claims_consensus']}, B1 {r['counts']['flash_attention']}, "
-              f"threefry {r['counts']['threefry']}", flush=True)
+              f"threefry {r['counts']['threefry']}, fleet draws {r['counts']['fleet_draws']}", flush=True)
 
 
 @phase("9e. the hot-path gate on the card: the hotpath_smoke twin")
@@ -3266,8 +3453,10 @@ def hotpath_phase(torch, launches):
           f"hotpath smoke: the journal fingerprint {art['journal_fingerprint'][:16]} and the "
           f"{len(art['per_claim_fingerprints'])} per-claim fingerprints equal the JAX package's at seed 0 "
           f"({art['reference_mismatches']})")
-    check(counts["gated_claims_consensus"] > 0 and counts["threefry"] > 0 and counts["flash_attention"] == 0,
-          f"hotpath smoke: every dispatch a B3 launch from the staging tensor, every fleet threefry's ({counts})")
+    check(counts["gated_claims_consensus"] > 0 and counts["fleet_draws"] > 0
+          and counts["threefry"] == counts["fleet_draws"] and counts["flash_attention"] == 0,
+          f"hotpath smoke: every dispatch a B3 launch from the staging tensor, every fetch a threefry split and "
+          f"one fleet-draws launch ({counts})")
     add_launches(launches, counts)
     print(f"  [{card}] hotpath smoke (3 scenario runs x {art['cycles']} cycles and the clean leg) {seconds:.3f} s, "
           f"launches {counts}; clean leg {art['clean_leg']['rpcs']}, skip-slot fallbacks "
@@ -3282,6 +3471,7 @@ def session_loop_phase(torch, launches):
     from svoc_torch.io.comment_store import CommentStore
     from svoc_torch.io.scraper import SyntheticSource
     from svoc_torch.ops.fused_consensus import fused_consensus_gated_claims_cuda
+    from svoc_torch.ops.fleet_draws import fleet_draws_cuda
     from svoc_torch.ops.threefry import threefry_cuda
 
     card = nvidia_smi()
@@ -3298,7 +3488,7 @@ def session_loop_phase(torch, launches):
     scale = calibrate_head(torch, session.vectorizer)
     print(f"  head calibrated (scale {scale:.3f})")
     torch.cuda.synchronize()
-    threefry_cuda.launches = fused_consensus_gated_claims_cuda.launches = 0
+    threefry_cuda.launches = fleet_draws_cuda.launches = fused_consensus_gated_claims_cuda.launches = 0
     stages = stage_seconds()
     outcomes, cycle_s = [], []
     for cycle in range(SESSION_CYCLES):
@@ -3312,10 +3502,12 @@ def session_loop_phase(torch, launches):
               and outcome.complete and "scores" in report,
               f"cycle {cycle}: a finite [7, 6] block, {outcome.sent} txs landed, a supervisor fold")
         golden_check(session, f"cycle {cycle}")
-    counts = dict(threefry=threefry_cuda.launches, gated_claims_consensus=fused_consensus_gated_claims_cuda.launches)
-    launches["threefry"] = launches.get("threefry", 0) + counts["threefry"]
-    check(counts == dict(threefry=8 * SESSION_CYCLES, gated_claims_consensus=0),
-          f"launches {counts}: threefry 8 a fetch, no claim cube")
+    counts = dict(threefry=threefry_cuda.launches, fleet_draws=fleet_draws_cuda.launches,
+                  gated_claims_consensus=fused_consensus_gated_claims_cuda.launches)
+    for name in ("threefry", "fleet_draws"):
+        launches[name] = launches.get(name, 0) + counts[name]
+    check(counts == dict(threefry=SESSION_CYCLES, fleet_draws=SESSION_CYCLES, gated_claims_consensus=0),
+          f"launches {counts}: threefry and the fleet draws once a fetch, no claim cube")
     st = diff(stage_seconds(), stages)
     n = SESSION_CYCLES
     print(f"  [{card}] {n} cycles: {sum(cycle_s):.3f} s ({', '.join(f'{s * 1e3:.1f}' for s in cycle_s)} ms); "
@@ -3330,6 +3522,7 @@ def session_loop_phase(torch, launches):
 def serving_scenario_phase(torch, launches):
     from svoc_torch.ops.flash_attention import flash_attention_cuda
     from svoc_torch.ops.fused_consensus import fused_consensus_cuda, fused_consensus_gated_claims_cuda
+    from svoc_torch.ops.fleet_draws import fleet_draws_cuda
     from svoc_torch.ops.threefry import threefry_cuda
     from svoc_torch.serving.scenario import run_serving_scenario
     from svoc_torch.tools.serving_smoke import checks, reference_mismatches
@@ -3337,7 +3530,8 @@ def serving_scenario_phase(torch, launches):
 
     card = nvidia_smi()
     counted = {"gated_claims_consensus": fused_consensus_gated_claims_cuda, "threefry": threefry_cuda,
-               "flash_attention": flash_attention_cuda, "fused_consensus": fused_consensus_cuda}
+               "fleet_draws": fleet_draws_cuda, "flash_attention": flash_attention_cuda,
+               "fused_consensus": fused_consensus_cuda}
     keys = ("journal_fingerprint", "journal_events", "per_claim_fingerprints")
     for plane in ("on", "off"):
         cpu = run_serving_scenario(0, cost_plane=plane, device="cpu")
@@ -3351,20 +3545,18 @@ def serving_scenario_phase(torch, launches):
             result = run_serving_scenario(0, cost_plane=plane, journal=journal)  # device=None: CUDA
             secs = time.perf_counter() - t0
             counts = {k: w.launches for k, w in counted.items()}
-            for k in ("gated_claims_consensus", "threefry"):
+            for k in ("gated_claims_consensus", "threefry", "fleet_draws"):
                 launches[k] = launches.get(k, 0) + counts[k]
             served = [e.data["served"] for e in journal.recent(100_000) if e.type == "serving.step"]
             want = dict(gated_claims_consensus=sum(n > 0 for n in served), flash_attention=0,
-                        fused_consensus=0)
+                        fused_consensus=0, threefry=sum(served), fleet_draws=sum(served))
             print(f"  [{card}] scenario (plane {plane}): {secs:.3f} s, {result['steps']} steps, "
                   f"launches {counts}, {result['journal_events']} events, shed "
                   f"{result['shed_by_reason']}, cache {result['cache']['hit_rate']:.3f}", flush=True)
-            # 8 threefry launches a claim's fetch, 6 when its window holds one
-            # request (a permutation of one row draws nothing, as JAX's).
-            check({k: counts[k] for k in want} == want
-                  and 6 * sum(served) <= counts["threefry"] <= 8 * sum(served),
-                  f"plane {plane}: B3 once a step that served a claim, threefry 6-8 a claim served "
-                  f"({sum(served)}): {counts}")
+            # A claim's fetch: its key split (threefry) and its fleet (the fleet draws).
+            check({k: counts[k] for k in want} == want,
+                  f"plane {plane}: B3 once a step that served a claim, threefry and the fleet draws once a "
+                  f"claim served ({sum(served)}): {counts}")
             runs.append(result)
         gates = checks(*runs)
         check(all(gates.values()), f"plane {plane}: the serving smoke's gates {gates}")
@@ -3413,6 +3605,7 @@ def serving_width_phase(torch, launches, fabric):
     from svoc_torch.io.scraper import SyntheticSource
     from svoc_torch.ops.flash_attention import flash_attention_cuda
     from svoc_torch.ops.fused_consensus import fused_consensus_cuda, fused_consensus_gated_claims_cuda
+    from svoc_torch.ops.fleet_draws import fleet_draws_cuda
     from svoc_torch.ops.threefry import threefry_cuda
     from svoc_torch.utils.events import EventJournal
     from svoc_torch.utils.metrics import MetricsRegistry
@@ -3466,7 +3659,7 @@ def serving_width_phase(torch, launches, fabric):
     pool = SyntheticSource(batch=10, seed=777)()
     fresh = iter(SyntheticSource(batch=SERVING_CLAIMS * SERVING_ARRIVALS * (1 + SERVING_STEPS), seed=778)())
     counted = {"flash_attention": flash_attention_cuda, "gated_claims_consensus": fused_consensus_gated_claims_cuda,
-               "fused_consensus": fused_consensus_cuda, "threefry": threefry_cuda}
+               "fused_consensus": fused_consensus_cuda, "threefry": threefry_cuda, "fleet_draws": fleet_draws_cuda}
     stages = ("fetch", "fleet", "consensus", "fabric_consensus")
     rows, latencies, finite, statuses = [], [], True, collections.Counter()
     torch.cuda.synchronize()
@@ -3514,15 +3707,15 @@ def serving_width_phase(torch, launches, fabric):
     peak = torch.cuda.max_memory_allocated()
     pipe.packed_forward = packed_forward
     total = {k: w.launches for k, w in counted.items()}
-    for k in ("flash_attention", "gated_claims_consensus", "threefry"):
+    for k in ("flash_attention", "gated_claims_consensus", "threefry", "fleet_draws"):
         launches[k] = launches.get(k, 0) + total[k]
     n_layers = pipe.cfg.n_layers
     timed_rows = rows[1:]
     check(all(r["forwards"] >= 1 and r["launches"] == dict(
         flash_attention=n_layers * r["forwards"], gated_claims_consensus=1, fused_consensus=0,
-        threefry=8 * r["served"]) for r in rows),
-        f"every step: {n_layers} flash launches a 256-row chunk, 1 claim-cube, 0 B2, threefry 8 a "
-        f"claim served (step 1: {rows[1]['forwards']} chunk(s), {rows[1]['launches']})")
+        threefry=r["served"], fleet_draws=r["served"]) for r in rows),
+        f"every step: {n_layers} flash launches a 256-row chunk, 1 claim-cube, 0 B2, threefry and the fleet "
+        f"draws once a claim served (step 1: {rows[1]['forwards']} chunk(s), {rows[1]['launches']})")
     check(all(r["served"] == SERVING_CLAIMS for r in rows) and finite,
           f"every step served {SERVING_CLAIMS} claims, every served claim's essence finite")
     shed, dropped = metrics.family_total("serving_shed"), metrics.family_total("serving_dropped")
@@ -3601,6 +3794,7 @@ def crash_matrix_phase(torch, launches):
     from svoc_torch.durability.scenario import run_durable_scenario
     from svoc_torch.ops.flash_attention import flash_attention_cuda
     from svoc_torch.ops.fused_consensus import fused_consensus_cuda, fused_consensus_gated_claims_cuda
+    from svoc_torch.ops.fleet_draws import fleet_draws_cuda
     from svoc_torch.ops.threefry import threefry_cuda
     from svoc_torch.tools import crash_smoke
 
@@ -3627,7 +3821,8 @@ def crash_matrix_phase(torch, launches):
 
     # One uninterrupted run in this process, counted from 0.
     counted = {"gated_claims_consensus": fused_consensus_gated_claims_cuda, "threefry": threefry_cuda,
-               "flash_attention": flash_attention_cuda, "fused_consensus": fused_consensus_cuda}
+               "fleet_draws": fleet_draws_cuda, "flash_attention": flash_attention_cuda,
+               "fused_consensus": fused_consensus_cuda}
     cpu = run_durable_scenario(tempfile.mkdtemp(prefix="durable-cpu-"), 0, device="cpu")
     workdir = tempfile.mkdtemp(prefix="durable-cuda-")
     torch.cuda.synchronize()
@@ -3637,15 +3832,15 @@ def crash_matrix_phase(torch, launches):
     result = run_durable_scenario(workdir, 0)  # device None: CUDA
     secs = time.perf_counter() - t0
     counts = {k: w.launches for k, w in counted.items()}
-    for k in ("gated_claims_consensus", "threefry"):
+    for k in ("gated_claims_consensus", "threefry", "fleet_draws"):
         launches[k] = launches.get(k, 0) + counts[k]
     served = served_steps(f"{workdir}/trace.jsonl")
     check(counts["gated_claims_consensus"] == sum(n > 0 for n in served)
           and counts["flash_attention"] == counts["fused_consensus"] == 0
-          and 6 * sum(served) <= counts["threefry"] <= 8 * sum(served),
+          and counts["threefry"] == counts["fleet_draws"] == sum(served),
           f"uninterrupted run_durable_scenario(0) on the card: B3 once a step that served a claim "
-          f"({sum(n > 0 for n in served)} of {len(served)} steps), threefry 6-8 a claim served "
-          f"({sum(served)}): {counts}")
+          f"({sum(n > 0 for n in served)} of {len(served)} steps), threefry and the fleet draws once a claim "
+          f"served ({sum(served)}): {counts}")
     same = {c: result["claims"][c]["fingerprint"] == cpu["claims"][c]["fingerprint"] for c in result["claims"]}
     check(all(same.values()) and result["journal_events"] == cpu["journal_events"]
           and result["duplicate_txs"] == 0 and not result["wal_open_cycles"]
@@ -3713,6 +3908,7 @@ def durable_width_run(torch, workdir: str, role: str, device=None, cfg=None, cla
     from svoc_torch.io.scraper import SyntheticSource
     from svoc_torch.ops.flash_attention import flash_attention_cuda
     from svoc_torch.ops.fused_consensus import fused_consensus_cuda, fused_consensus_gated_claims_cuda
+    from svoc_torch.ops.fleet_draws import fleet_draws_cuda
     from svoc_torch.ops.threefry import threefry_cuda
     from svoc_torch.sim.generators import claim_seed
     from svoc_torch.utils import events
@@ -3808,7 +4004,7 @@ def durable_width_run(torch, workdir: str, role: str, device=None, cfg=None, cla
     manager.install_cadence(DURABLE_SNAPSHOT_EVERY)
 
     counted = {"flash_attention": flash_attention_cuda, "gated_claims_consensus": fused_consensus_gated_claims_cuda,
-               "fused_consensus": fused_consensus_cuda, "threefry": threefry_cuda}
+               "fused_consensus": fused_consensus_cuda, "threefry": threefry_cuda, "fleet_draws": fleet_draws_cuda}
     pool = SyntheticSource(batch=10, seed=777)()
     rows_path = os.path.join(workdir, f"rows-{role}.jsonl")
     while tier.steps < steps:
@@ -3918,12 +4114,12 @@ def durable_width_phase(torch, launches, serving):
     bad = [r for r in crash_rows + rec_rows
            if not (r["forwards"] >= 1 and r["launches"]["flash_attention"] == n_layers * r["forwards"]
                    and r["launches"]["gated_claims_consensus"] == 1 and r["launches"]["fused_consensus"] == 0
-                   and 6 * r["served"] <= r["launches"]["threefry"] <= 8 * r["served"])]
+                   and r["launches"]["threefry"] == r["launches"]["fleet_draws"] == r["served"])]
     check(not bad and crash_rows and rec_rows,
           f"every step of both children: {n_layers} flash launches a forward, 1 claim-cube, 0 B2, threefry "
-          f"6-8 a claim served ({len(crash_rows)} + {len(rec_rows)} steps; failing {bad[:2]})")
+          f"and the fleet draws once a claim served ({len(crash_rows)} + {len(rec_rows)} steps; failing {bad[:2]})")
     for r in crash_rows + rec_rows:
-        for k in ("flash_attention", "gated_claims_consensus", "threefry"):
+        for k in ("flash_attention", "gated_claims_consensus", "threefry", "fleet_draws"):
             launches[k] = launches.get(k, 0) + r["launches"][k]
 
     timed_rows = crash_rows[1:] + rec_rows[1:]  # each child's first step warms its process
@@ -4142,6 +4338,7 @@ def coldstart_width_run(torch, workdir: str, role: str, t_launch=None, device=No
     from svoc_torch.io.scraper import SyntheticSource
     from svoc_torch.ops.flash_attention import flash_attention_cuda
     from svoc_torch.ops.fused_consensus import fused_consensus_gated_claims_cuda
+    from svoc_torch.ops.fleet_draws import fleet_draws_cuda
     from svoc_torch.ops.threefry import threefry_cuda
     from svoc_torch.utils.events import EventJournal
     from svoc_torch.utils.metrics import MetricsRegistry
@@ -4206,7 +4403,7 @@ def coldstart_width_run(torch, workdir: str, role: str, t_launch=None, device=No
     calibrate_head(torch, pipe, comments=comments)  # the first forward: B1's build or load when cold
     t_calibrated = time.time()
     counted = {"flash_attention": flash_attention_cuda, "gated_claims_consensus": fused_consensus_gated_claims_cuda,
-               "threefry": threefry_cuda}
+               "threefry": threefry_cuda, "fleet_draws": fleet_draws_cuda}
 
     def serve(step_no: int) -> dict:
         texts = iter(SyntheticSource(batch=claims * arrivals, seed=2000 + step_no)())
@@ -4291,7 +4488,7 @@ def coldstart_width_phase(torch, launches, serving_main):
           f"steps 1-{COLDSTART_STEPS} cold and {COLDSTART_STEPS + 1}-{2 * COLDSTART_STEPS} after the restart: "
           f"{SERVING_CLAIMS} claims served, {n_layers} B1 launches a forward, B3 once a step (failing {bad[:2]})")
     for r in rows:
-        for k in ("flash_attention", "gated_claims_consensus", "threefry"):
+        for k in ("flash_attention", "gated_claims_consensus", "threefry", "fleet_draws"):
             launches[k] = launches.get(k, 0) + r["launches"][k]
     prewarm = warm["prewarm"] or {}
     outcomes = (prewarm.get("report") or {}).get("outcomes", {})
@@ -4364,11 +4561,12 @@ def profiler_phase(torch, launches, uninterrupted, serving_main):
     row = uninterrupted["serve"](uninterrupted["tier"].steps)
     torch.cuda.synchronize()
     stopped = capture.stop()
-    for k in ("flash_attention", "gated_claims_consensus", "threefry"):
+    for k in ("flash_attention", "gated_claims_consensus", "threefry", "fleet_draws"):
         launches[k] = launches.get(k, 0) + row["launches"][k]
     trace = os.path.join(stopped.get("path", ""), "trace.json")
     device = [e for e in capture.last.key_averages() if e.device_type == DeviceType.CUDA] if capture.last else []
-    names = {"flash": "flash_fwd", "B3": "gated_claims_kernel", "threefry": "threefry_kernel"}
+    names = {"flash": "flash_fwd", "B3": "gated_claims_kernel", "threefry": "threefry_kernel",
+             "fleet draws": "fleet_draws_kernel"}
     named = {k: any(v in e.key for e in device) for k, v in names.items()}
     check(started["status"] == "started" and stopped["status"] == "captured" and os.path.exists(trace)
           and all(named.values()) and len(journal.recent(type="profile.captured")) == 1,
@@ -4414,7 +4612,7 @@ class TierSteps:
     graceful drains alike): the claims it served and the claim-cube
     groups they make (``batch`` claims a fabric cycle, one group per
     (oracles, dimension, config) shape among them), from which the run's
-    B3 and threefry launches are predicted."""
+    B3, threefry and fleet-draws launches are predicted."""
 
     def __init__(self, batch: int):
         self.batch, self.steps, self.served, self.groups = batch, 0, 0, 0
@@ -4442,19 +4640,19 @@ class TierSteps:
         self._tier.step = self._step
 
     def predicted(self) -> dict:
-        """B3 once a dispatched group, threefry 8 a claim served (the
-        fleet's keyed draws: one split, three of ``draw_fleet``'s, the
-        failing draw, the bootstrap's choice and the shuffle)."""
-        return {"gated_claims_consensus": self.groups, "threefry": 8 * self.served}
+        """B3 once a dispatched group; threefry (the fetch's key split) and
+        the fleet draws (``draw_fleet``'s one launch) once a claim served."""
+        return {"gated_claims_consensus": self.groups, "threefry": self.served, "fleet_draws": self.served}
 
 
 def counted_wrappers():
     from svoc_torch.ops.flash_attention import flash_attention_cuda
     from svoc_torch.ops.fused_consensus import fused_consensus_cuda, fused_consensus_gated_claims_cuda
+    from svoc_torch.ops.fleet_draws import fleet_draws_cuda
     from svoc_torch.ops.threefry import threefry_cuda
 
     return {"flash_attention": flash_attention_cuda, "gated_claims_consensus": fused_consensus_gated_claims_cuda,
-            "fused_consensus": fused_consensus_cuda, "threefry": threefry_cuda}
+            "fused_consensus": fused_consensus_cuda, "threefry": threefry_cuda, "fleet_draws": fleet_draws_cuda}
 
 
 def shed_reasons(trace_path: str) -> dict:
@@ -4498,7 +4696,7 @@ def cluster_smoke_phase(torch, launches):
           and counts["fused_consensus"] == 0,
           f"launches {counts} == predicted {predicted} ({steps.steps} tier steps served "
           f"{steps.served} claims in {steps.groups} groups; no encoder, no B2)")
-    for k in ("gated_claims_consensus", "threefry"):
+    for k in ("gated_claims_consensus", "threefry", "fleet_draws"):
         launches[k] = launches.get(k, 0) + counts[k]
     print(f"  [{nvidia_smi()}] two runs {seconds:.3f} s; requests {artifact['requests']}; "
           f"cluster counters {artifact['cluster_counters']}; epoch {artifact['epoch']}")
@@ -4537,14 +4735,15 @@ def fleet_obs_smoke_phase(torch, launches):
         with open(path) as f:
             events = json.load(f).get("traceEvents", [])
         kernels |= {e.get("name", "") for e in events if e.get("cat") == "kernel"}
-    named = {k: any(k in n for n in kernels) for k in ("gated_claims_kernel", "threefry_kernel")}
+    named = {k: any(k in n for n in kernels) for k in ("gated_claims_kernel", "threefry_kernel",
+                                                       "fleet_draws_kernel")}
     check(len(traces) == 1 and (artifact["profiler"] or {}).get("active") is None and all(named.values()),
           f"the sustained anomaly's capture stopped and wrote {len(traces)} trace(s) whose CUDA kernels "
           f"name {named} ({len(kernels)} distinct kernels)")
     predicted = steps.predicted()
     check({k: counts[k] for k in predicted} == predicted and counts["flash_attention"] == 0,
           f"launches {counts} == predicted {predicted}")
-    for k in ("gated_claims_consensus", "threefry"):
+    for k in ("gated_claims_consensus", "threefry", "fleet_draws"):
         launches[k] = launches.get(k, 0) + counts[k]
     stats = artifact["hop_coverage"]["stats"]
     print(f"  [{nvidia_smi()}] six runs {seconds:.3f} s; {stats['chains']} hop chains "
@@ -5089,7 +5288,7 @@ def fleet_launches(run: dict, what: str) -> None:
     check(counts["flash_attention"] == run["n_layers"] * run["forwards"] and run["forwards"] > 0
           and {k: counts[k] for k in predicted} == predicted and counts["fused_consensus"] == 0,
           f"{what}: launches {counts}: {run['n_layers']} flash a forward ({run['forwards']} forwards), B3 once a "
-          f"dispatched group and threefry 8 a claim served ({predicted}), no B2")
+          f"dispatched group, threefry and the fleet draws once a claim served ({predicted}), no B2")
 
 
 def failover_checks(run: dict, what: str) -> None:
@@ -5144,7 +5343,7 @@ def fleet_width_phase(torch, launches):
     scale = calibrate_head(torch, pipe)
     run = fleet_width_run(torch, pipe, FLEET_REPLICAS, FLEET_STEPS, kill_step=FLEET_KILL_STEP,
                           failover_step=FLEET_FAILOVER_STEP, migrate_step=FLEET_MIGRATE_STEP)
-    for k in ("flash_attention", "gated_claims_consensus", "threefry"):
+    for k in ("flash_attention", "gated_claims_consensus", "threefry", "fleet_draws"):
         launches[k] = launches.get(k, 0) + run["counts"][k]
     fleet_invariants(run, "13c")
     fleet_launches(run, "13c")
@@ -5222,7 +5421,7 @@ def replicas_phase(torch, launches, fleet):
     figures = {}
     for n in (1, 3):
         run = fleet_width_run(torch, pipe, n, FLEET_BENCH_STEPS)
-        for k in ("flash_attention", "gated_claims_consensus", "threefry"):
+        for k in ("flash_attention", "gated_claims_consensus", "threefry", "fleet_draws"):
             launches[k] = launches.get(k, 0) + run["counts"][k]
         fleet_invariants(run, f"13d, {n} replica(s)")
         fleet_launches(run, f"13d, {n} replica(s)")
@@ -5306,7 +5505,7 @@ def reconfig_smoke_phase(torch, launches):
           and counts["fused_consensus"] == 0,
           f"launches {counts} == predicted {predicted} ({steps.steps} tier steps served {steps.served} claims in "
           f"{steps.groups} groups, {primes[0]} groups primed in PREPARE; no encoder, no B2)")
-    for k in ("gated_claims_consensus", "threefry"):
+    for k in ("gated_claims_consensus", "threefry", "fleet_draws"):
         launches[k] = launches.get(k, 0) + counts[k]
     print(f"  [{nvidia_smi()}] {len(runs)} runs {seconds:.3f} s: committed "
           f"{[round(x, 3) for x in artifact['seconds']['committed']]} s, abort pairs (baseline, aborted) "
@@ -5518,7 +5717,7 @@ def reconfig_width_phase(torch, launches, fleet):
         pipe = width_pipeline(torch)
         calibrate_head(torch, pipe)
     run = reconfig_width_run(torch, pipe)
-    for k in ("flash_attention", "gated_claims_consensus", "threefry"):
+    for k in ("flash_attention", "gated_claims_consensus", "threefry", "fleet_draws"):
         launches[k] = launches.get(k, 0) + run["counts"][k]
     fleet_invariants(run, "14c")
     fleet_launches(run, "14c")
@@ -5597,7 +5796,7 @@ def obs_gates_phase(torch, launches):
     check(obs["journal_fingerprint"] == obs_smoke.REFERENCE_JOURNAL_FINGERPRINTS[0],
           f"obs smoke: the journal fingerprint {obs['journal_fingerprint'][:16]} equals the JAX package's "
           f"{obs_smoke.REFERENCE_JOURNAL_FINGERPRINTS[0][:16]} at seed 0")
-    check(obs["session"]["device"].startswith("cuda") and counts["threefry"] > 0,
+    check(obs["session"]["device"].startswith("cuda") and counts["fleet_draws"] > 0,
           f"obs smoke: the session leg drew its fleet on {obs['session']['device']} ({counts})")
     add_launches(launches, counts)
     over = obs["overhead"]
@@ -5614,8 +5813,10 @@ def obs_gates_phase(torch, launches):
     check(cost["journal_fingerprint"] == obs_cost_smoke.REFERENCE_JOURNAL_FINGERPRINTS[0],
           f"obs cost smoke: all four journal fingerprints {cost['journal_fingerprint'][:16]} equal the JAX "
           f"package's {obs_cost_smoke.REFERENCE_JOURNAL_FINGERPRINTS[0][:16]} at seed 0")
-    check(counts["gated_claims_consensus"] > 0 and counts["threefry"] > 0 and counts["flash_attention"] == 0,
-          f"obs cost smoke: every dispatch a B3 launch and every fleet threefry's ({counts})")
+    check(counts["gated_claims_consensus"] > 0 and counts["fleet_draws"] > 0
+          and counts["threefry"] == counts["fleet_draws"] and counts["flash_attention"] == 0,
+          f"obs cost smoke: every dispatch a B3 launch, every fetch a threefry split and one fleet-draws launch "
+          f"({counts})")
     add_launches(launches, counts)
     print(f"  [{card}] obs cost smoke (4 serving scenarios and the JSONL rebuild in its own interpreter) "
           f"{cost_s:.3f} s, launches {counts}; {cost['timelines_checked']} timelines, {cost['ledger']['samples']} "
@@ -5756,11 +5957,11 @@ def sweeps_phase(torch, launches):
         c, n, m = cube.shape
         out = fused_consensus_gated_claims_cuda(cube, okc, maskc, cfg)
         bytes_moved = sum(t.numel() * t.element_size() for t in (cube, okc, maskc, *out))
-        ops = c * ((2 * m + 1) * n * math.ceil(math.log2(n)) + 12 * n * m)  # as phase 3b counts them
+        ranks, ops = c * (2 * m + 1) * n * math.ceil(math.log2(n)), c * 12 * n * m  # as phase 3b counts them
         cube_times[c] = dict(
             ms=cuda_ms(torch, lambda: fused_consensus_gated_claims_cuda(cube, okc, maskc, cfg), iters=20),
             plain_ms=cuda_ms(torch, lambda: fused_consensus_gated_claims_plain(cube, okc, maskc, cfg), iters=5),
-            bound=bound(bytes_moved, ops, FP32_FLOPS))
+            bound=bound(bytes_moved, ops, FP32_FLOPS, ranks))
     for name, t in times.items():
         print(f"  [{card}] {name}: {t['wall_s']:.3f} s wall on the card, device time "
               f"{t['device_ms'] if t['device_ms'] is None else round(t['device_ms'], 3)} ms (profiler, a second "
@@ -5961,8 +6162,10 @@ def console_phase(torch, launches, fabric):
     claims = console.query("claims")
     check(claims[0].startswith(f"fabric: {FABRIC_CLAIMS} claims") and "impl=cuda" in claims[0],
           f"16a: claims reads 9b's fabric on the card ({claims[0]})")
-    check(counts_a["threefry"] > 0 and counts_a["gated_claims_consensus"] > 0 and counts_a["flash_attention"] > 0,
-          f"16a: the session's fetches drew on threefry, the tier's step launched B1 and B3 ({counts_a})")
+    check(counts_a["threefry"] > 0 and counts_a["fleet_draws"] > 0 and counts_a["gated_claims_consensus"] > 0
+          and counts_a["flash_attention"] > 0,
+          f"16a: the session's fetches drew on threefry and the fleet draws, the tier's step launched B1 and B3 "
+          f"({counts_a})")
     add_launches(launches, counts_a)
     print(f"  [{card}] 16a command wall ms: " + json.dumps(walls))
     print(f"  [{card}] 16a live mode: {len(cycles)} whole auto cycle(s), the first ended "
@@ -6645,7 +6848,7 @@ CONFIG1_NARROW = dict(n_layers=1, hidden=64, n_heads=4, intermediate=64, vocab_s
 
 
 def baseline_wrappers():
-    """Every counted wrapper of phase 20: B1-B6 and threefry."""
+    """Every counted wrapper of phase 20: B1-B6, threefry and the fleet draws."""
     from svoc_torch.ops.grid_copy import grid_copy_cuda
 
     return dict(mesh_wrappers(), grid_copy=grid_copy_cuda)
@@ -6798,10 +7001,11 @@ def config3_phase(torch, launches, serving_main):
         out, honest, window = bc.config3_step(pipe, key, ids, mask)
         essences.add(tuple(out.essence.tolist()))
     counts = read_counts(wrappers)
-    per_step = {"fused_consensus": 1, "threefry": one["threefry"]}
+    per_step = {"fused_consensus": 1, "threefry": one["threefry"], "fleet_draws": 1}
     check(one["threefry"] > 0 and launches_are(one, per_step)
           and launches_are(counts, {k: v * BASELINE_STEPS for k, v in per_step.items()}),
-          f"B2 once a step, threefry {one['threefry']} a step, nothing else, over {BASELINE_STEPS} steps: {counts}")
+          f"B2 and the fleet draws once a step, threefry {one['threefry']} a step (the key's fold_in), nothing "
+          f"else, over {BASELINE_STEPS} steps: {counts}")
     add_launches(launches, counts)
     values, honest_again = gen_oracle_predictions(key, window, bc.CONFIG3_ORACLES, bc.CONFIG3_FAILING,
                                                   subset_size=bc.CONFIG3_SUBSET)
@@ -6824,9 +7028,9 @@ def config3_phase(torch, launches, serving_main):
     d = report["detail"]
     counts = read_counts(wrappers)
     b2 = BASELINE_EVENTS + d["calls"]
-    check(launches_are(counts, {"fused_consensus": b2, "threefry": counts["threefry"]}),
-          f"the timed steps: B2 once a step ({d['calls']} in baseline_configs.run, {BASELINE_EVENTS} timed alone): "
-          f"{counts}")
+    check(launches_are(counts, {"fused_consensus": b2, "fleet_draws": b2, "threefry": counts["threefry"]}),
+          f"the timed steps: B2 and the fleet draws once a step ({d['calls']} in baseline_configs.run, "
+          f"{BASELINE_EVENTS} timed alone): {counts}")
     add_launches(launches, counts)
     print(f"  [{card}] config 3: {report['value']:.1f} comments/s on the wall clock ({d['steps']} steps of 128 in "
           f"{d['elapsed_s']:.3f} s, the essence fetched; a step's latency {d['step_latency_ms']:.3f} ms); forward "
@@ -6849,8 +7053,10 @@ def config4_phase(torch, launches):
     wrappers = zero_counts(baseline_wrappers())
     chunk = bc.config4_chunk(key, window)
     one = read_counts(wrappers)
-    check(one["threefry"] > 0 and launches_are(one, {"gated_claims_consensus": 1, "threefry": one["threefry"]}),
-          f"one chunk of 64: B3 once, threefry {one['threefry']} (as drawn), nothing else: {one}")
+    check(one["threefry"] > 0 and launches_are(one, {"gated_claims_consensus": 1, "fleet_draws": 1,
+                                                     "threefry": one["threefry"]}),
+          f"one chunk of 64: B3 once, the fleet draws once, threefry {one['threefry']} (the chunk's keys), nothing "
+          f"else: {one}")
     add_launches(launches, one)
     ok, errs, _ = gated_errors(torch, chunk.out, consensus_step_batched(chunk.values, ccfg))
     check(ok and chunk.values.shape == (64, n, 6),
@@ -6869,9 +7075,9 @@ def config4_phase(torch, launches):
     d = report["detail"]
     counts = read_counts(wrappers)
     b3 = BASELINE_EVENTS + d["calls"]
-    check(launches_are(counts, {"gated_claims_consensus": b3, "threefry": counts["threefry"]}),
-          f"the timed chunks: B3 once a chunk ({d['calls']} in baseline_configs.run, the single updates of the "
-          f"latency included; {BASELINE_EVENTS} timed alone), threefry as drawn: {counts}")
+    check(launches_are(counts, {"gated_claims_consensus": b3, "fleet_draws": b3, "threefry": counts["threefry"]}),
+          f"the timed chunks: B3 and the fleet draws once a chunk ({d['calls']} in baseline_configs.run, the single "
+          f"updates of the latency included; {BASELINE_EVENTS} timed alone), threefry as drawn: {counts}")
     add_launches(launches, counts)
     print(f"  [{card}] config 4: {report['value']:.1f} consensus-updates/s on the wall clock ({d['steps']} updates "
           f"in chunks of 64 in {d['elapsed_s']:.3f} s, each chunk's result fetched); a chunk's fleets "
@@ -7036,12 +7242,13 @@ CELL_BAR = 1e-4
 INT8_LOGIT_BAR, INT8_VECTOR_BAR = 0.15, 0.05
 #: Phase 21c: the kernels each demo's main is expected to launch, the others 0; None: at least once,
 #: as drawn. B3 once a grid cell of 3b (8), a noise scale (3), a table row (4) and a fleet_benchmark
-#: (2); B1 once a layer of a packed forward (TINY_TEST: 2 layers) and threefry as drawn.
+#: (2); B1 once a layer of a packed forward (TINY_TEST: 2 layers), threefry as drawn, and the
+#: fleet draws once a fetch of the fleet demo's ``Session``.
 EXAMPLE_LAUNCHES = {
     "beta_kumaraswamy_demo": {"gated_claims_consensus": 8, "threefry": None},
     "gaussian_demo": {"gated_claims_consensus": 3, "threefry": None},
     "multimodal_demo": {"gated_claims_consensus": 4, "threefry": None},
-    "fleet_demo": {"gated_claims_consensus": 2, "flash_attention": None, "threefry": None},
+    "fleet_demo": {"gated_claims_consensus": 2, "flash_attention": None, "threefry": None, "fleet_draws": None},
     "serving_demo": {"threefry": None},
 }
 

@@ -25,7 +25,7 @@ Where the port departs from the reference:
 
 - ``Session(device=None)`` resolves through :mod:`svoc_torch.device`:
   it means CUDA and raises without a card.  The fleet is drawn on that
-  device (the threefry kernel on CUDA), fetched to the host as float64
+  device (the fleet-draws kernel on CUDA), fetched to the host as float64
   in one copy (with its honest mask), and the gate, the tamper hook and
   the preview statistics read that host block: a ``[N, M]`` fleet is
   too small to pay device launches, and a tampered block needs no

@@ -25,9 +25,9 @@ Where the port departs:
   (:func:`svoc_torch.compile.universe.pending_universe` with the route
   as the impl, the pending mesh, and the fleet's donate flag) through
   :func:`svoc_torch.compile.prewarm.warm_keys`: on CUDA that builds or
-  loads the serving libraries (B3, flash, threefry), then primes one
-  all-padding B3 launch for each dispatch group the plan brings that the
-  fleet does not serve yet (a re-spec to 9 oracles adds ``(9, 6)``).
+  loads the serving libraries (B3, flash, threefry, the fleet draws),
+  then primes one all-padding B3 launch for each dispatch group the plan
+  brings that the fleet does not serve yet (a re-spec to 9 oracles adds ``(9, 6)``).
   Every stack the transition builds gets those keys marked warm, so its
   first dispatch of them counts ``prewarmed``.  On the CPU there is
   nothing to build, nothing is primed, and the first dispatches count

@@ -5,7 +5,7 @@ Mirrors :mod:`svoc_tpu.cluster.replica` (``replica.py:1-463``):
 Where the port departs:
 
 - ``device=`` (``None``: CUDA, raising without a card) goes to the
-  replica's ``MultiSession`` (its fleets' threefry draws and its claim
+  replica's ``MultiSession`` (its fleets' draws, one fleet-draws launch a fetch, and its claim
   cube, B3) and to every claim's contract (the batched commit's sweep);
 - :meth:`Replica.ship_claim`'s PRNG burn (``:309-330``) runs
   :func:`svoc_torch.sim.prng.split` on the serialised uint32 key, bit

@@ -13,7 +13,8 @@ warm-up is:
 1. on CUDA (a key whose impl is ``"cuda"``), **build or load** every
    library the serving path launches (:data:`SERVING_KERNELS`: B3 for
    the claim cubes, the flash forward B1 for the encoder, threefry for
-   the fetch) through :func:`svoc_torch.ops._build.load_all`, one
+   the fetch's key split, the fleet draws for its fleet) through
+   :func:`svoc_torch.ops._build.load_all`, one
    ``nvcc`` a missing source and all at once, timed into the
    ``prewarm_compile_seconds`` histogram (the builds the first time, a
    dictionary hit after it, as the reference's later keys are cache
@@ -60,8 +61,9 @@ PREWARM_HISTOGRAM = "prewarm_compile_seconds"
 #: The kernel source every claim-cube key dispatches on CUDA (B3).
 CLAIM_KERNEL = "gated_claims_consensus"
 #: Every kernel source the serving path launches on CUDA: B3, the flash
-#: forward (B1) of the encoder, and threefry for the fetch.
-SERVING_KERNELS = (CLAIM_KERNEL, "flash_attention", "threefry")
+#: forward (B1) of the encoder, threefry for the fetch's key split and the
+#: fleet draws for its fleet.
+SERVING_KERNELS = (CLAIM_KERNEL, "flash_attention", "threefry", "fleet_draws")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -5,7 +5,7 @@ Mirrors :mod:`svoc_tpu.durability.scenario` (``scenario.py:1-401``):
 ``DEFAULT_CRASH_AT``, ``CRASH_COMMIT_MODE`` and :func:`_spec_contract`.
 It takes ``device=`` as the port's ``run_serving_scenario`` does: ``None`` means CUDA and raises without a
 card, ``"cpu"`` runs the plain claim-cube forms.  The ``MultiSession``
-draws its fleets (threefry) and runs its gated claim cube on that
+draws its fleets (the fleet-draws kernel) and runs its gated claim cube on that
 device, and each claim's contract sweeps its batched commit there.
 Every journal event, WAL line and chain-log line is the reference's, so
 the recovered per-claim fingerprints equal the reference's for the same

@@ -6,8 +6,12 @@ its unrolled lowering ``_threefry2x32_lowering``
 (``jax/_src/prng.py:863-938``), 20 rounds of add, rotate and xor with a
 key injection after every four.  It has no Pallas counterpart: XLA fuses
 the hash into the draw that uses it.  The kernel is
-``svoc_torch/csrc/threefry.cu``; the draws built on it are
-:mod:`svoc_torch.sim.prng`.
+``svoc_torch/csrc/threefry.cu`` (4 counters of one key a thread, its key
+found by a multiply-high, its words stored 16 bytes at a time; the rounds
+are ``csrc/threefry.cuh``, which the fleet-draws kernel shares); the
+draws built on it are :mod:`svoc_torch.sim.prng`.  A fleet's draws on
+CUDA do not launch it: :mod:`svoc_torch.ops.fleet_draws` hashes its whole
+key schedule in one launch of its own.
 
 Words are uint32 values held in int64 tensors (``[0, 2**32)``), so that
 they sort, compare and index as unsigned numbers.
@@ -30,8 +34,12 @@ from svoc_torch.ops import _build
 MASK = 0xFFFFFFFF
 #: jax/_src/prng.py:895-896; the groups of four rounds alternate.
 ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
-_THREADS = 256
-_MAX_BLOCKS = 2**31 - 1
+#: The kernel's grid: 4 counters of one key a thread, and every thread's
+#: index (keys x counter groups) below 2**31 - 256, so that its index
+#: arithmetic fits 32 bits.
+PER_THREAD = 4
+_MAX_THREADS = 2**31 - 256
+_MAX_COUNTERS = 2**31
 
 
 def threefry2x32_plain(k1, k2, x1, x2):
@@ -88,15 +96,18 @@ def _kernel():
 def threefry_cuda(keys: torch.Tensor, n: int, base: Union[int, torch.Tensor] = 0,
                   xor: bool = False) -> torch.Tensor:
     """Launch ``csrc/threefry.cu`` on the keys' device and its current
-    stream: one thread per counter.  Raises ``ValueError`` on what the
-    kernel does not take, before any launch."""
+    stream: 4 counters of one key a thread.  Raises ``ValueError`` on
+    what the kernel does not take, before any launch."""
     _check(keys, n, base)
+    b = keys.shape[0]
+    if n >= _MAX_COUNTERS or b * -(-n // PER_THREAD) > _MAX_THREADS:
+        raise ValueError(f"{b} x {n} counters exceed one launch's grid (fewer than 2**31 counters a key "
+                         f"and 2**31 - 256 groups of {PER_THREAD} in all)")
     dev = keys.device
     if dev.type != "cuda":
         raise ValueError("the CUDA kernel needs keys on a CUDA device")
     if not keys.is_contiguous():
         raise ValueError("keys must be contiguous")
-    b = keys.shape[0]
     if isinstance(base, torch.Tensor):
         if not base.is_contiguous():
             raise ValueError("base must be contiguous")
@@ -106,8 +117,6 @@ def threefry_cuda(keys: torch.Tensor, n: int, base: Union[int, torch.Tensor] = 0
     out = torch.empty((b, n) if xor else (b, n, 2), dtype=torch.int64, device=dev)
     if b * n == 0:
         return out
-    if (b * n + _THREADS - 1) // _THREADS > _MAX_BLOCKS:
-        raise ValueError(f"{b} x {n} counters exceed one launch's grid")
     _build.launch("threefry", _kernel(), dev, keys.data_ptr(), base_ptr, base0, b, n, int(xor),
                   out.data_ptr())
     threefry_cuda.launches += 1

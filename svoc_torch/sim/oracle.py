@@ -8,33 +8,29 @@ sample of the window drawn without replacement, and the fleet is then
 shuffled.
 
 :func:`gen_oracle_predictions` is the reference's one call; it is split
-in two: :func:`draw_fleet` makes the random numbers from a
-key with JAX's threefry draws (:mod:`svoc_torch.sim.prng`), the same
-bits ``gen_oracle_predictions`` draws from that key, and
-:func:`assemble_fleet` builds the fleet from them deterministically.
-Both take a leading batch axis (one key and one window per claim), so
-the fleets of many claims are one pass.  The honest means add the
-``subset_size`` rows in index order and multiply by the float32
-``1 / subset_size``, elementwise, as XLA compiles ``jnp.mean`` on the
-CPU (its reduce adds in index order, its ``div`` by a constant becomes
-that product); so a fleet has the same bits whatever it is batched
-with, and the bits ``gen_oracle_predictions`` gives there.
+in two: :func:`draw_fleet` makes the random numbers from a key with JAX's
+threefry draws, the same bits ``gen_oracle_predictions`` draws from that
+key, and :func:`assemble_fleet` builds the fleet from them
+deterministically.  On CUDA the draws of every claim are one launch of
+the fleet-draws kernel (:mod:`svoc_torch.ops.fleet_draws`); on the CPU
+they are the plain composition of :mod:`svoc_torch.sim.prng`.  Both take
+a leading batch axis (one key and one window per claim), so the fleets of
+many claims are one pass.  The honest means add the ``subset_size`` rows
+in index order and multiply by the float32 ``1 / subset_size``,
+elementwise, as XLA compiles ``jnp.mean`` on the CPU (its reduce adds in
+index order, its ``div`` by a constant becomes that product); so a fleet
+has the same bits whatever it is batched with, and the bits
+``gen_oracle_predictions`` gives there.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import Tuple
 
 import numpy as np
 import torch
 
-from svoc_torch.sim import prng
-
-
-class FleetDraws(NamedTuple):
-    failing_vals: torch.Tensor  #: [..., n_failing, M] uniform(0, 1)
-    boot_idx: torch.Tensor  #: [..., n_oracles - n_failing, subset] window rows, no repeats per row
-    perm: torch.Tensor  #: [..., n_oracles] the shuffle
+from svoc_torch.ops.fleet_draws import FleetDraws, fleet_draws_cuda, fleet_draws_plain
 
 
 def draw_fleet(
@@ -48,14 +44,13 @@ def draw_fleet(
     """The fleet's random numbers from ``key [..., 2]``, on its device:
     ``k_fail, k_boot, k_perm = split(key, 3)``; ``uniform(k_fail,
     (n_failing, M))``; ``choice(k, W, (subset,), replace=False)`` for
-    each of ``split(k_boot, n_honest)``; ``permutation(k_perm, N)``."""
-    if not 0 < subset_size <= window_rows:
-        raise ValueError(f"subset_size {subset_size} must be in [1, {window_rows}]")
-    k_fail, k_boot, k_perm = prng.split(key, 3).unbind(-2)
-    failing_vals = prng.uniform(k_fail, (n_failing, dim))
-    boot_idx = prng.choice(prng.split(k_boot, n_oracles - n_failing), window_rows, subset_size)
-    perm = prng.permutation(k_perm, n_oracles)
-    return FleetDraws(failing_vals, boot_idx, perm)
+    each of ``split(k_boot, n_honest)``; ``permutation(k_perm, N)``.  On
+    CUDA one launch of the fleet-draws kernel for every key, which raises
+    on a shape it does not take (a window above 1625 rows, more than 16384
+    oracles); on the CPU the plain draws."""
+    if key.device.type == "cpu":
+        return fleet_draws_plain(key, window_rows, dim, n_oracles, n_failing, subset_size)
+    return fleet_draws_cuda(key, window_rows, dim, n_oracles, n_failing, subset_size)
 
 
 def assemble_fleet(

@@ -50,6 +50,7 @@ on CUDA).
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Sequence
 
@@ -130,6 +131,7 @@ def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     return (a.double() * torch.as_tensor(b).double() + torch.as_tensor(c).double()).float()
 
 
+@functools.cache
 def shuffle_rounds(n: int) -> int:
     """``_shuffle``'s rounds (``random.py:717``): 1 up to n = 1625, 2 from
     n = 1626, computed as JAX computes it."""

@@ -6,7 +6,7 @@ The twin of ``tools/obs_cost_smoke.py`` (``obs_cost_smoke.py:1-222``;
 ``make obs-cost-smoke``).  The seeded serving scenario
 (:func:`svoc_torch.serving.scenario.run_serving_scenario`) runs four
 times on ``--device`` (default CUDA, raising without a card: every
-dispatch is the gated claim-cube kernel and every fleet the threefry
+dispatch is the gated claim-cube kernel and every fleet the fleet-draws
 kernel there) — the plane on twice, off twice, fresh journals and
 metrics, a virtual clock — and the gate holds the reference's 8 checks:
 

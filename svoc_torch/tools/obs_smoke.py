@@ -13,7 +13,7 @@ The twin of ``tools/obs_smoke.py`` (``obs_smoke.py:1-237``;
    ``supervisor.replacement``.
 3. **Bundle completeness and session lineage**: a seeded mini-session
    (synthetic store, a fake vectorizer) on ``--device`` (default CUDA,
-   raising without a card: its fleet is the threefry kernel's draw and
+   raising without a card: its fleet is the fleet-draws kernel's draw and
    its commit's certification sweep runs there) fetches and commits; its
    journal carries ``block.fetched``, ``quarantine.verdict``,
    ``consensus.result`` and ``commit.sent`` on the block's lineage, the

@@ -33,7 +33,9 @@ from svoc_torch.ops.fused_consensus import (
     fused_consensus_gated_claims,
     fused_consensus_gated_claims_cuda,
 )
+from svoc_torch.ops.fleet_draws import fleet_draws_cuda
 from svoc_torch.ops.threefry import threefry_cuda
+from svoc_torch.sim.oracle import draw_fleet
 from svoc_torch.sim.prng import PRNGKey
 
 REPO = Path(__file__).resolve().parent.parent
@@ -95,7 +97,8 @@ def test_every_module_imports_without_jax_or_svoc_tpu():
                  "svoc_torch.analysis.rules", "svoc_torch.analysis.taint", "svoc_torch.analysis.statecov",
                  "svoc_torch.analysis.emissions", "svoc_torch.analysis.shardspec",
                  "svoc_torch.analysis.interrules", "svoc_torch.analysis.engine", "svoc_torch.analysis.sarif",
-                 "svoc_torch.tools.svoclint", "svoc_torch.tools.baseline_configs"):
+                 "svoc_torch.tools.svoclint", "svoc_torch.tools.baseline_configs",
+                 "svoc_torch.ops.fleet_draws"):
         assert name in names
     code = (
         "import importlib, sys\n"
@@ -367,6 +370,8 @@ def test_only_cpu_tensors_take_the_plain_versions():
         claims_consensus(values, mask, ConsensusConfig())
     with pytest.raises(ValueError, match="CUDA"):
         claims_consensus_sanitized(values, mask, ConsensusConfig(), 0.0, 1.0)
+    with pytest.raises(ValueError, match="CUDA"):
+        draw_fleet(torch.zeros(2, 2, dtype=torch.int64, device="meta"), 50, 6, 1024, 128, 10)
 
 
 def test_flash_encoder_on_cpu_never_counts_a_launch():
@@ -377,7 +382,7 @@ def test_flash_encoder_on_cpu_never_counts_a_launch():
                         n_oracles=16, window_size=4, subset_size=2, params_dtype=None,
                         device="cpu")
     batch, _ = pack_tokens([[2, 5, 6, 3], [2, 7, 3], [2, 9, 9, 3]], 16, 2, 1, rows=2)
-    counts = (flash_attention_cuda, fused_consensus_cuda, threefry_cuda)
+    counts = (flash_attention_cuda, fused_consensus_cuda, threefry_cuda, fleet_draws_cuda)
     before = [c.launches for c in counts]
     out, honest = step(batch, PRNGKey(0, "cpu"))
     assert out.essence.shape == (6,) and honest.shape == (16,)
@@ -450,7 +455,7 @@ def test_cpu_claim_step_never_counts_a_launch():
     step = ClaimServingStep(specs, TINY_TEST, rows=8, seq=32, max_seg=4, params_dtype=None,
                             device="cpu")
     counts = (flash_attention_cuda, fused_consensus_cuda, fused_consensus_gated_claims_cuda,
-              threefry_cuda)
+              threefry_cuda, fleet_draws_cuda)
     before = [c.launches for c in counts]
     requests = [Request(cid, f"{cid} comment number {i}") for i in range(2) for cid in ("alpha", "gamma")]
     (result,) = step(requests)
@@ -463,7 +468,7 @@ def test_cpu_claim_step_never_counts_a_launch():
 def test_build_paths_stay_in_the_package():
     assert _build.BUILD_DIR == REPO / "svoc_torch" / "_build"
     for name in ("flash_attention", "flash_attention_bwd", "fused_consensus",
-                 "gated_claims_consensus", "grid_copy", "threefry"):
+                 "gated_claims_consensus", "grid_copy", "threefry", "fleet_draws"):
         assert (_build.CSRC / f"{name}.cu").exists()
         assert _build.library_path(name).parent == _build.BUILD_DIR
 

@@ -631,6 +631,60 @@ def test_threefry_draws_on_the_card_equal_the_cpu(cuda):
     assert torch.equal(prng.fold_in(keys.to(cuda), 7).cpu(), prng.fold_in(keys, 7))
 
 
+@pytest.mark.parametrize("b,n,xor,base", [(3, 4097, True, 0), (7, 5, True, 2**32 - 3), (2, 6, False, 2**32 - 5)])
+def test_threefry_kernel_ragged_groups_and_carries(cuda, b, n, xor, base):
+    """Counter groups that end part full (odd rows take the scalar
+    stores), and carries into the high word inside a thread's group."""
+    from svoc_torch.ops.threefry import threefry_cuda, threefry_plain
+
+    keys = torch.randint(0, 2**32, (b, 2), generator=torch.Generator().manual_seed(n), dtype=torch.int64)
+    assert torch.equal(threefry_cuda(keys.to(cuda), n, base, xor).cpu(), threefry_plain(keys, n, base, xor))
+
+
+# ---------------------------------------------------------------------------
+# a fleet's draws (svoc_torch/csrc/fleet_draws.cu), bit for bit
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("c,w,m,n,f,s", [
+    (1, 50, 6, 1024, 128, 10),  # the flagship
+    (64, 64, 6, 1024, 128, 10),  # the multi-claim step's batch
+    (3, 64, 6, 2048, 128, 64),  # two shuffle rounds, S = W
+    (5, 10, 6, 7, 0, 10),  # the fabric's fleets, no failing oracle
+    (2, 1, 3, 64, 0, 1),  # W = 1: no round for the subsets
+    (1, 1625, 6, 16384, 1000, 3),  # the kernel's limits
+])
+def test_fleet_draws_kernel_equals_plain(cuda, c, w, m, n, f, s):
+    from svoc_torch.ops.fleet_draws import fleet_draws_cuda, fleet_draws_plain
+    from svoc_torch.ops.threefry import threefry_cuda
+
+    keys = torch.randint(0, 2**32, (c, 2), generator=torch.Generator().manual_seed(c + n), dtype=torch.int64)
+    want = fleet_draws_plain(keys, w, m, n, f, s)
+    before = (fleet_draws_cuda.launches, threefry_cuda.launches)
+    got = fleet_draws_cuda(keys.to(cuda), w, m, n, f, s)
+    assert (fleet_draws_cuda.launches, threefry_cuda.launches) == (before[0] + 1, before[1])
+    torch.cuda.synchronize()
+    for g, x in zip(got, want):
+        assert g.dtype == x.dtype and g.shape == x.shape and torch.equal(g.cpu(), x)
+
+
+def test_draw_fleet_on_the_card_is_one_fleet_draws_launch(cuda):
+    from svoc_torch.ops.fleet_draws import fleet_draws_cuda
+    from svoc_torch.ops.threefry import threefry_cuda
+    from svoc_torch.sim import prng
+    from svoc_torch.sim.oracle import draw_fleet
+
+    keys = prng.split(prng.PRNGKey(3, "cpu"), 6).reshape(2, 3, 2)  # two leading axes
+    want = draw_fleet(keys, 50, 6, 1024, 128, 10)
+    before = (fleet_draws_cuda.launches, threefry_cuda.launches)
+    got = draw_fleet(keys.to(cuda), 50, 6, 1024, 128, 10)
+    assert (fleet_draws_cuda.launches, threefry_cuda.launches) == (before[0] + 1, before[1])
+    assert all(torch.equal(g.cpu(), x) for g, x in zip(got, want))
+    with pytest.raises(ValueError, match="two shuffle rounds"):
+        draw_fleet(keys.to(cuda), 1626, 6, 1024, 128, 10)
+    assert fleet_draws_cuda.launches == before[0] + 1
+
+
 @pytest.mark.parametrize("n", [64, 1024])
 def test_prefix_sweep_on_the_card_equals_the_cpu(cuda, n):
     """The batched commit's certification sweep (plain PyTorch, no kernel
